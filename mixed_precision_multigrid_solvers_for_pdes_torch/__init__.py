@@ -1,0 +1,27 @@
+"""PyTorch/CUDA port of the mixed-precision geometric multigrid solvers.
+
+A second package beside the JAX reference
+``mixed_precision_multigrid_solvers_for_pdes_tpu``, which it is tested
+against. Plain tensor code is PyTorch; the hot operations of the 2D
+constant-coefficient Dirichlet path run in hand-written CUDA kernels for
+Hopper (``csrc/``, built with nvcc at first use, see
+``ops/cuda_kernels/_build.py``). Fields are stored at their logical shape
+(nx, ny), and every function takes its dtype and device explicitly. This
+package never imports JAX.
+"""
+
+__version__ = "0.1.0"
+
+from . import core, models, ops, solvers  # noqa: F401
+from .core.grid import Grid  # noqa: F401
+from .core.precision import Precision, as_dtype  # noqa: F401
+from .models.problems import Problem, poisson_mms_sinsin  # noqa: F401
+from .solvers.multigrid import (  # noqa: F401
+    Level,
+    MultigridConfig,
+    build_hierarchy,
+    fmg,
+    mg_cycle,
+    mg_solve,
+)
+from .solvers.refinement import ir_solve  # noqa: F401

@@ -1,0 +1,81 @@
+// Kernels B and C: the fused transfer pair of a multigrid cycle level.
+//
+// B, residual_restrict, replaces the Pallas residual_restrict of
+// mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/transfer.py
+// (:262, constant-coefficient all-Dirichlet branch): fc = R_fw(f - A u) with
+// full weighting [1 2 1]^2/16. One thread per coarse node. An interior coarse
+// node computes the nine fine residuals of its window in registers, so the
+// fine residual is never stored; ring nodes are written as zero.
+//
+// C, prolong_correct, replaces the Pallas prolong_correct of the same file
+// (:488): u <- u + P_bilinear(ec) on fine interior nodes, in place. One
+// thread per fine interior node; boundary nodes stay fixed.
+//
+// Bound: device memory bandwidth. B reads u and f once (8 bytes per fine
+// node; the 3x3 windows of neighbouring threads overlap in L1/L2) and writes
+// 4 bytes per coarse node. C reads and writes u (8 bytes per fine node) and
+// reads ec from cache. The TPU needed strips, halos and transpose tricks for
+// the stride-2 lane access; here each thread computes its own addresses and
+// the stride-2 reads coalesce well enough to leave the kernels
+// bandwidth-bound. Neither stores any intermediate field.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+
+__global__ void residual_restrict_kernel(const float* __restrict__ u,
+                                         const float* __restrict__ f,
+                                         float* __restrict__ fc, int nyf,
+                                         int ncx, int ncy, Stencil5 st) {
+  const int J = blockIdx.x * kBlockX + threadIdx.x;
+  const int I = blockIdx.y * kBlockY + threadIdx.y;
+  if (I >= ncx || J >= ncy) return;
+  float out = 0.0f;
+  if (I > 0 && I < ncx - 1 && J > 0 && J < ncy - 1)
+    out = restrict_residual_at(u, f, I, J, nyf, st);
+  fc[(long)I * ncy + J] = out;
+}
+
+__global__ void prolong_correct_kernel(const float* __restrict__ ec,
+                                       float* __restrict__ u, int ncy,
+                                       int nxf, int nyf) {
+  const int j = blockIdx.x * kBlockX + threadIdx.x + 1;
+  const int i = blockIdx.y * kBlockY + threadIdx.y + 1;
+  if (i >= nxf - 1 || j >= nyf - 1) return;
+  u[(long)i * nyf + j] += prolong_at(ec, i, j, ncy);
+}
+
+}  // namespace
+
+extern "C" {
+
+// fc (ncx, ncy) = R_fw(f - A u) from fine fields of row length nyf.
+int mg_residual_restrict(const float* u, const float* f, float* fc, int nyf,
+                         int ncx, int ncy, float c, float w, float e, float s,
+                         float n, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Stencil5 st{c, w, e, s, n};
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((ncy + kBlockX - 1) / kBlockX, (ncx + kBlockY - 1) / kBlockY);
+  residual_restrict_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      u, f, fc, nyf, ncx, ncy, st);
+  return (int)cudaGetLastError();
+}
+
+// u (nxf, nyf) += P_bilinear(ec) on interior nodes; ec has row length ncy.
+int mg_prolong_correct(const float* ec, float* u, int ncy, int nxf, int nyf,
+                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((nyf - 2 + kBlockX - 1) / kBlockX,
+                  (nxf - 2 + kBlockY - 1) / kBlockY);
+  prolong_correct_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      ec, u, ncy, nxf, nyf);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

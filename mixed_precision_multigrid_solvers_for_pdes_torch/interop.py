@@ -1,0 +1,90 @@
+"""Carry state between the JAX package and this port as numpy arrays.
+
+The JAX package stores every field padded to (16, 128) tiles with the logical
+(nx, ny) region at the origin; this port stores the logical region only.
+These helpers read JAX objects through their attributes and ``numpy`` (JAX
+arrays convert with ``np.asarray``), so this module never imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.bc import BoundarySpec
+from .core.grid import Grid
+from .core.precision import as_dtype
+from .models.problems import Problem
+from .ops.stencil import Stencil
+from .solvers.multigrid import Level
+
+JAX_TILE = (16, 128)  # the JAX package's storage tile (sublane, lane)
+
+
+def jax_padded_shape(nx: int, ny: int):
+    """The JAX package's storage shape for a logical (nx, ny) grid."""
+    return tuple(-(-n // t) * t for n, t in zip((nx, ny), JAX_TILE))
+
+
+def grid_from_jax(g) -> Grid:
+    return Grid(int(g.nx), int(g.ny), tuple(float(x) for x in g.domain))
+
+
+def stencil_from_jax(st) -> Stencil:
+    """Port Stencil from a JAX Stencil with 0-d leaves."""
+    vals = [np.asarray(getattr(st, k)) for k in ("c", "w", "e", "s", "n")]
+    if any(v.ndim for v in vals):
+        raise NotImplementedError("variable-coefficient stencils are not "
+                                  "ported yet (ROADMAP item 7)")
+    return Stencil(*(float(v) for v in vals))
+
+
+def levels_from_jax(levels, *, device="cpu"):
+    """Port hierarchy from a tuple of JAX Levels (all-Dirichlet only)."""
+    out = []
+    for lev in levels:
+        if not lev.spec.all_dirichlet or getattr(lev, "domain", None):
+            raise NotImplementedError("only all-Dirichlet rectangles are "
+                                      "ported yet (ROADMAP item 7)")
+        out.append(Level(stencil=stencil_from_jax(lev.stencil),
+                         grid=grid_from_jax(lev.grid), spec=BoundarySpec(),
+                         dtype=as_dtype(np.dtype(lev.dtype)),
+                         device=torch.device(device)))
+    return tuple(out)
+
+
+def field_from_jax(arr, grid, *, dtype=None, device="cpu") -> torch.Tensor:
+    """(nx, ny) tensor from a padded JAX field (or any array whose logical
+    region sits at the origin)."""
+    a = np.asarray(arr)[: grid.nx, : grid.ny]
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
+
+
+def field_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
+    """Zero-padded numpy array in the JAX package's storage shape."""
+    a = t.detach().cpu().numpy()
+    if a.shape != (grid.nx, grid.ny):
+        raise ValueError(f"field shape {a.shape} != grid shape "
+                         f"{(grid.nx, grid.ny)}")
+    out = np.zeros(jax_padded_shape(grid.nx, grid.ny), dtype=a.dtype)
+    out[: grid.nx, : grid.ny] = a
+    return out
+
+
+def problem_from_jax(prob) -> Problem:
+    """Port Problem (f, Dirichlet values, exact solution) from a JAX one."""
+    if not prob.spec.all_dirichlet or prob.a is not None \
+            or np.ndim(prob.lam) or prob.lam != 0.0 or prob.bc_values \
+            or prob.domain is not None:
+        raise NotImplementedError("only constant-coefficient all-Dirichlet "
+                                  "Poisson problems are ported yet")
+    g = grid_from_jax(prob.grid)
+
+    def host(a):
+        return None if a is None else np.asarray(a, np.float64)[: g.nx,
+                                                                : g.ny].copy()
+
+    return Problem(name=prob.name, grid=g, spec=BoundarySpec(),
+                   f=host(prob.f), dirichlet_values=host(prob.dirichlet_values),
+                   exact=host(prob.exact))

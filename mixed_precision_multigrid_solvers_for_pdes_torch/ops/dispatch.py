@@ -1,0 +1,109 @@
+"""Routing between the hand-written CUDA kernels and the plain PyTorch path.
+
+Counterpart of ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/dispatch.py``
+(``smooth``, ``transfer_fused_ok``, ``residual_restrict``,
+``prolong_correct``, ``tail_ok``, ``tail_vcycle``), with the TPU byte gates
+dropped. ``backend`` is 'auto' or 'torch':
+
+- 'auto' routes every configuration the kernels take (fp32, constant
+  5-point stencil, all-Dirichlet, default transfers, Jacobi or RB-GS
+  smoothing) to the kernel wrappers in ``ops/cuda_kernels``. A wrapper
+  launches its kernel on a CUDA tensor and runs its plain twin on a CPU
+  tensor, so 'auto' means kernels on the GPU and plain code on the CPU.
+- 'torch' forces the plain PyTorch path on any device.
+
+Every level above the tail takes kernels A (smoothing), B and C (fused
+transfers). The tail kernel D starts at the first level whose logical size
+is at most ``TAIL_MAX_ENTRY`` x ``TAIL_MAX_ENTRY``; that is where the TPU
+started its tail, and H100 gates await H100 measurements.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import smooth as smooth_mod
+from .cuda_kernels import smooth as k_smooth, tail as k_tail, \
+    transfer as k_transfer
+
+BACKENDS = ("auto", "torch")
+TAIL_MAX_ENTRY = 129
+_SMOOTHERS = ("jacobi",) + smooth_mod.RBGS_METHODS
+
+
+def _kernels(backend: str) -> bool:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    return backend == "auto"
+
+
+def kernel_smooth_ok(u, lev, backend: str, method: str) -> bool:
+    return (_kernels(backend)
+            and (method in _SMOOTHERS or method == "rbgs_rev")
+            and lev.spec.all_dirichlet
+            and u.dtype == torch.float32)
+
+
+def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
+           backend: str = "auto"):
+    """``sweeps`` smoothing sweeps in place on ``u``; returns ``u``."""
+    if kernel_smooth_ok(u, lev, backend, method):
+        return k_smooth.multisweep(stencil, u, f, method=method,
+                                   sweeps=sweeps, omega=omega)
+    return smooth_mod.smooth(stencil, u, f, lev.unknown, method=method,
+                             sweeps=sweeps, omega=omega)
+
+
+def transfer_fused_ok(lev, nxt, cfg) -> bool:
+    """True when kernels B/C replace the plain residual -> restrict and
+    prolong -> correct chain between ``lev`` and ``nxt``."""
+    return (_kernels(cfg.backend)
+            and cfg.restriction == "full_weighting"
+            and cfg.prolongation == "bilinear"
+            and lev.spec.all_dirichlet
+            and lev.dtype == torch.float32 and nxt.dtype == torch.float32)
+
+
+def residual_restrict(lev, nxt, u, f):
+    """Fused fc = R(f - A u) (gate with transfer_fused_ok first)."""
+    return k_transfer.residual_restrict(lev.stencil, u, f,
+                                        out_dtype=nxt.dtype)
+
+
+def prolong_correct(lev, nxt, ec, u):
+    """Fused u += P ec on fine unknowns, in place (gate with
+    transfer_fused_ok first)."""
+    return k_transfer.prolong_correct(ec, u)
+
+
+def tail_ok(levels, lvl, cfg, cycle_type) -> bool:
+    """True when the whole V-recursion from ``lvl`` down may run as one
+    tail-kernel launch."""
+    if cycle_type != "V" or not _kernels(cfg.backend):
+        return False
+    if cfg.smoother not in _SMOOTHERS:
+        return False
+    if cfg.restriction != "full_weighting" or cfg.prolongation != "bilinear":
+        return False
+    tail = levels[lvl:]
+    entry = tail[0].grid
+    if entry.nx > TAIL_MAX_ENTRY or entry.ny > TAIL_MAX_ENTRY:
+        return False
+    if len(tail) > k_tail.MAX_LEVELS:
+        return False
+    return all(lev.dtype == torch.float32 and lev.spec.all_dirichlet
+               for lev in tail)
+
+
+def tail_vcycle(levels, lvl, u, f, cfg):
+    """One V-cycle over ``levels[lvl:]`` through the tail kernel, in place
+    on ``u`` (gate with tail_ok first)."""
+    tail = levels[lvl:]
+    return k_tail.tail_vcycle(
+        [lev.stencil for lev in tail], u, f,
+        shapes=[lev.grid.shape for lev in tail],
+        pre=cfg.pre_sweeps, post=cfg.post_sweeps, omega=cfg.omega,
+        method=cfg.smoother, coarse_sweeps=cfg.coarse_sweeps,
+        symmetric=cfg.symmetric,
+    )

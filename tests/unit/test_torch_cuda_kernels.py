@@ -1,0 +1,150 @@
+"""The hand-written CUDA kernels against their plain PyTorch twins, on a card.
+
+Imports no JAX, so it runs on a machine with a GPU and no JAX:
+
+    python -m pytest tests/unit/test_torch_cuda_kernels.py -m cuda
+
+Every test needs a CUDA device and skips without one. Tolerance: 1e-5
+relative to the largest twin value. Both sides compute in fp32, but the
+kernels multiply by 1/c where the twins divide, nvcc contracts multiply-adds
+into FMAs, and the tail chains about a hundred dependent phases. The
+non-power-of-two domain below makes those roundings differ for real: on the
+unit square the coefficients are powers of two and the two agree bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import mixed_precision_multigrid_solvers_for_pdes_torch as T
+from mixed_precision_multigrid_solvers_for_pdes_torch.ops import stencil
+from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
+    smooth as ksmooth,
+    tail as ktail,
+    transfer as ktransfer,
+)
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-5
+DOMAINS = {"unit": (0.0, 1.0, 0.0, 1.0), "skew": (0.0, 1.3, 0.0, 0.7)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _field(shape, seed, dev, scale=1.0, ring=False):
+    rng = np.random.default_rng(seed)
+    a = np.zeros(shape, np.float32)
+    if ring:
+        a[:] = scale * rng.standard_normal(shape)
+    else:
+        a[1:-1, 1:-1] = scale * rng.standard_normal(
+            (shape[0] - 2, shape[1] - 2))
+    return torch.from_numpy(a).to(dev)
+
+
+def _close(got, ref):
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    scale = max(ref.abs().max().item(), 1e-30)
+    err = (got - ref).abs().max().item()
+    assert err <= TOL * scale, (err, scale)
+
+
+def _stencil(n, domain):
+    g = T.Grid(n, n, DOMAINS[domain])
+    return g, stencil.make_stencil(g)
+
+
+@pytest.mark.parametrize("domain", list(DOMAINS))
+@pytest.mark.parametrize("method", ["rbgs", "rbgs_rev", "sor", "jacobi"])
+@pytest.mark.parametrize("n,sweeps", [(257, 2), (129, 3)])
+def test_multisweep_matches_twin(dev, n, sweeps, method, domain):
+    g, st = _stencil(n, domain)
+    u, f = _field(g.shape, 1, dev), _field(g.shape, 2, dev, st.c)
+    omega = {"jacobi": 0.8, "sor": 1.3}.get(method, 1.0)
+    before = ksmooth.multisweep.launches
+    got = ksmooth.multisweep(st, u.clone(), f, method=method, sweeps=sweeps,
+                             omega=omega)
+    per_sweep = 1 if method == "jacobi" else 2
+    assert ksmooth.multisweep.launches - before == per_sweep * sweeps
+    ref = ksmooth.multisweep_plain(st, u.clone(), f, method=method,
+                                   sweeps=sweeps, omega=omega)
+    _close(got, ref)
+    assert torch.equal(got[0], u[0]) and torch.equal(got[:, -1], u[:, -1])
+
+
+@pytest.mark.parametrize("domain", list(DOMAINS))
+@pytest.mark.parametrize("n", [1025, 65, 5])
+def test_residual_restrict_matches_twin(dev, n, domain):
+    g, st = _stencil(n, domain)
+    u, f = _field(g.shape, 3, dev), _field(g.shape, 4, dev, st.c)
+    got = ktransfer.residual_restrict(st, u, f)
+    _close(got, ktransfer.residual_restrict_plain(st, u, f))
+    assert not got[0].any() and not got[:, -1].any()
+
+
+@pytest.mark.parametrize("n", [1025, 65, 5])
+def test_prolong_correct_matches_twin(dev, n):
+    nc = (n - 1) // 2 + 1
+    u = _field((n, n), 5, dev, ring=True)
+    ec = _field((nc, nc), 6, dev, ring=True)
+    got = ktransfer.prolong_correct(ec, u.clone())
+    _close(got, ktransfer.prolong_correct_plain(ec, u.clone()))
+    assert torch.equal(got[-1], u[-1])
+
+
+@pytest.mark.parametrize("domain", list(DOMAINS))
+@pytest.mark.parametrize("entry,method,symmetric", [
+    (129, "rbgs", False), (129, "rbgs", True), (65, "jacobi", False),
+    (3, "rbgs", False)])
+def test_tail_vcycle_matches_twin(dev, entry, method, symmetric, domain):
+    sizes = [entry]
+    while sizes[-1] > 3:
+        sizes.append((sizes[-1] - 1) // 2 + 1)
+    grids = [T.Grid(n, n, DOMAINS[domain]) for n in sizes]
+    sts = [stencil.make_stencil(g) for g in grids]
+    u, f = _field(grids[0].shape, 7, dev), _field(grids[0].shape, 8, dev,
+                                                  sts[0].c)
+    kw = dict(shapes=[g.shape for g in grids], pre=2, post=2,
+              omega=0.8 if method == "jacobi" else 1.0, method=method,
+              coarse_sweeps=32, symmetric=symmetric)
+    before = ktail.tail_vcycle.launches
+    got = ktail.tail_vcycle(sts, u.clone(), f, **kw)
+    assert ktail.tail_vcycle.launches == before + 1
+    _close(got, ktail.tail_vcycle_plain(sts, u.clone(), f, **kw))
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    g, st = _stencil(33, "unit")
+    u = torch.zeros(g.shape, device=dev)
+    with pytest.raises(TypeError):
+        ksmooth.multisweep(st, u.double(), u.double())
+    with pytest.raises(ValueError):
+        ksmooth.multisweep(st, u.t(), u)  # a transposed view is not contiguous
+    with pytest.raises(ValueError):
+        ktransfer.prolong_correct(torch.zeros(5, 5, device=dev), u)
+    with pytest.raises(TypeError):
+        ktransfer.residual_restrict(st, u, u, out_dtype=torch.float64)
+
+
+def test_ir_solve_kernel_path_matches_plain_path(dev):
+    prob = T.poisson_mms_sinsin(257)
+    cfg = T.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                            max_iterations=40)
+    levels = T.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                               device=dev, cfg=cfg)
+    f = prob.rhs(torch.float64, dev)
+    u0 = prob.initial_guess(torch.float64, dev)
+    out = {}
+    for backend in ("auto", "torch"):
+        out[backend] = T.ir_solve(levels, f, u0, cfg.replace(backend=backend),
+                                  inner_cycles=2, use_fmg=True)
+    (u_k, info_k), (u_p, info_p) = out["auto"], out["torch"]
+    assert info_k["converged"] and info_k["iterations"] == info_p["iterations"]
+    assert (u_k - u_p).abs().max().item() <= 1e-8
