@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's two paths once on one GPU and check them.
 
-The main path is the solve bench.py times for the JAX package: the 2D
-Poisson problem u = sin(pi x) sin(pi y) on a 1025^2 grid, an fp32 level
-hierarchy smoothed by red-black Gauss-Seidel V(2,2) cycles, and
-mixed-precision iterative refinement (fp64 outer residual, two fp32 cycles
-per outer step) from a full-multigrid start, to 1e-9 relative residual.
+The 2D path is the solve bench.py times for the JAX package: the 2D Poisson
+problem u = sin(pi x) sin(pi y) on a 1025^2 grid, an fp32 level hierarchy
+smoothed by red-black Gauss-Seidel V(2,2) cycles, and mixed-precision
+iterative refinement (fp64 outer residual, two fp32 cycles per outer step)
+from a full-multigrid start, to 1e-9 relative residual. The 3D path is
+solve_poisson3d(precision='fp32') on u = sin(pi x) sin(pi y) sin(pi z) at
+513^3: the same refinement around fp32 RB-GS V(2,2) cycles on nine levels,
+from a zero start, to 1e-9 relative residual.
 
 Phases, each of which must pass:
   1. print the card (nvidia-smi name and power limit) and the host's tools;
   2. build the CUDA kernels from csrc/ with nvcc and print the build time;
-  3. hold each kernel against its plain PyTorch twin on the card at the main
-     path's shapes, and time both with CUDA events;
-  4. solve the main path with backend='auto' (the kernels), from launch
+  3. hold each 2D kernel (A-D) against its plain PyTorch twin on the card at
+     the 2D path's shapes, and time both with CUDA events;
+  4. solve the 2D path with backend='auto' (the kernels), from launch
      counts reset to zero, and check the iteration count, the error against
      the exact solution and that every kernel launched;
   5. solve it again with backend='torch' (the plain path on the card) and
      check that both paths agree;
-  6. time both paths over 16 frequency-swept right-hand sides as bench.py
-     does, and print per-solve ms and DoF/s.
+  6. time both 2D paths over 16 frequency-swept right-hand sides as bench.py
+     does, and print per-solve ms and DoF/s;
+  7. hold each 3D kernel (E-G) against its twin at 513^3, 257^3, 129^3 and
+     5^3 (E also reversed and with omega != 1), and time both;
+  8. solve the 3D path at 257^3 and at 513^3 with backend='auto', the
+     513^3 run from launch counts reset to zero, and check convergence, the
+     outer-step count of the JAX reference, the l2 error against the closed
+     form and that E, F and G launched; print the peak device memory;
+  9. solve it at 513^3 with backend='torch' and check that both paths agree;
+ 10. time both 3D paths over frequency-swept right-hand sides, print ms and
+     DoF/s, and profile one kernel-path solve with torch.profiler.
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failure exits non-zero.
 
@@ -48,6 +60,22 @@ PATH_ATOL = 1e-8          # max|u_kernels - u_plain| after the solve
 # multiply-adds into FMAs, and the tail chains ~100 dependent phases.
 KERNEL_RTOL = 1e-5
 FREQS = [(1, 1), (2, 1), (1, 3), (3, 2), (2, 5), (5, 1), (4, 3), (1, 7)]
+N3 = 513
+# Outer steps of the JAX reference's solve_poisson3d(fp32, tol 1e-9) on the
+# CPU: 5 at 129^3 and at 257^3 (histories agree to 1%); the card is held to
+# it at 257^3 and at 513^3.
+ITERS3D_EXPECTED = 5
+# l2 error of the 7-point solution: |3 pi^2 / lambda_h - 1| / sqrt(8) with
+# lambda_h = (12/h^2) sin^2(pi h / 2)
+L2_3D_EXPECTED = {257: 4.4371e-6, 513: 1.1093e-6}
+# max|u_kernels - u_plain| after the 3D solve: both paths stop at 1e-9
+# relative residual, which bounds their distance to the discrete solution
+# far below this
+PATH3D_ATOL = 1e-8
+N3_REF = 257             # the largest size the JAX reference ran
+SIZES3 = (N3, N3_REF, 129, 5)   # where E, F and G meet their twins
+K3, K3_PLAIN, REPEATS3 = 4, 2, 3   # 3D right-hand sides and repeats
+FREQS3 = [(1, 1, 1), (2, 1, 1), (1, 3, 2), (3, 2, 1)]
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
 
@@ -233,6 +261,165 @@ def timed_solves(mg, levels, prob, cfg, dev) -> float:
     return best
 
 
+def kernel_phase3d(dev):
+    """Phase 7: kernels E, F, G against their twins at 513^3, 257^3, 129^3
+    and 5^3; inputs from a seeded generator on the card."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch import Grid3D
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import stencil3d
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth3d as ks3, transfer3d as kx3
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def field(shape, scale=1.0, shell=False):
+        a = scale * torch.randn(shape, generator=gen, device=dev)
+        if not shell:
+            inner = a[1:-1, 1:-1, 1:-1].clone()
+            a.zero_()
+            a[1:-1, 1:-1, 1:-1] = inner
+        return a
+
+    errs, times = {}, {}
+    for n in SIZES3:
+        st = stencil3d.make_stencil3d(Grid3D(n, n, n))
+        u, f = field((n,) * 3), field((n,) * 3, st.c)
+        for sweeps, omega, reverse in ((2, 1.0, False), (1, 1.3, False),
+                                       (2, 1.0, True)):
+            kw = dict(sweeps=sweeps, omega=omega, reverse=reverse)
+            compare("rbgs3d", f"{n}^3 {kw}",
+                    lambda a, b: ks3.rbgs3d(st, a, b, **kw),
+                    lambda a, b: ks3.rbgs3d_plain(st, a, b, **kw),
+                    lambda: (u.clone(), f), errs)
+        times[("rbgs3d", n)] = (
+            time_ms(lambda: ks3.rbgs3d(st, u, f, sweeps=2), reps=10),
+            time_ms(lambda: ks3.rbgs3d_plain(st, u, f, sweeps=2), reps=10))
+        nc = (n - 1) // 2 + 1
+        compare("residual_restrict3d", f"{n}->{nc}",
+                lambda a, b: kx3.residual_restrict3d(st, a, b),
+                lambda a, b: kx3.residual_restrict3d_plain(st, a, b),
+                lambda: (u, f), errs)
+        times[("residual_restrict3d", n)] = (
+            time_ms(lambda: kx3.residual_restrict3d(st, u, f), reps=10),
+            time_ms(lambda: kx3.residual_restrict3d_plain(st, u, f),
+                    reps=10))
+        ec = field((nc,) * 3, shell=True)  # a non-zero coarse shell too
+        compare("prolong_correct3d", f"{nc}->{n}", kx3.prolong_correct3d,
+                kx3.prolong_correct3d_plain, lambda: (ec, u.clone()), errs)
+        times[("prolong_correct3d", n)] = (
+            time_ms(lambda: kx3.prolong_correct3d(ec, u), reps=10),
+            time_ms(lambda: kx3.prolong_correct3d_plain(ec, u), reps=10))
+        del u, f, ec
+        torch.cuda.empty_cache()
+    for (name, n), (k_ms, p_ms) in times.items():
+        print(f"time {name} {n}^3: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    return errs, times
+
+
+def solve3d(mg, n, backend, dev):
+    """solve_poisson3d(precision='fp32', tol 1e-9) at n^3; returns the
+    result and the peak device memory of the solve in bytes."""
+    import torch
+
+    prob = mg.poisson3d_mms_sinsinsin(n)
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                             backend=backend)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = mg.solve_poisson3d(prob, precision="fp32", cfg=cfg, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"solve3d {n}^3 {backend}: iterations {res.iterations} converged "
+          f"{res.converged} history {res.info['history'].tolist()} "
+          f"errors {res.errors} solve {res.solve_time * 1e3:.3f} ms "
+          f"(first call, set-up included) peak memory {peak / 2**30:.3f} GiB")
+    if tuple(res.u.shape) != (n,) * 3 or not torch.isfinite(res.u).all():
+        fail(f"3D solution at {n}^3 is misshapen or not finite")
+    if not res.converged or res.iterations != ITERS3D_EXPECTED:
+        fail(f"3D {n}^3 {backend}: expected convergence in "
+             f"{ITERS3D_EXPECTED} outer steps")
+    if abs(res.errors["l2"] / L2_3D_EXPECTED[n] - 1) > L2_RTOL:
+        fail(f"3D {n}^3 l2 error {res.errors['l2']:.4e} not within "
+             f"{L2_RTOL:.0%} of {L2_3D_EXPECTED[n]:.4e}")
+    return res, peak
+
+
+def rhs3d(levels, i, r, k, dev):
+    """Frequency-swept right-hand side number i of repeat r, on the card."""
+    import torch
+
+    g = levels[0].grid
+    x = torch.arange(g.nx, dtype=torch.float64, device=dev) * g.hx
+    kx, ky, kz = FREQS3[i % len(FREQS3)]
+    amp = 1.0 + (i + r * k) / (k * 8.0)
+    sx, sy, sz = (torch.sin(m * np.pi * x) for m in (kx, ky, kz))
+    return (amp * (kx**2 + ky**2 + kz**2) * np.pi**2
+            * sx[:, None, None] * sy[None, :, None] * sz[None, None, :])
+
+
+def timed_solves3d(mg, levels, cfg, k, dev) -> float:
+    """k frequency-swept right-hand sides, each solved by ir_solve3d from a
+    zero guess; min over REPEATS3 of the mean per-solve wall time."""
+    import torch
+
+    u0 = torch.zeros(levels[0].grid.shape, dtype=torch.float64, device=dev)
+    best = float("inf")
+    for r in range(REPEATS3 + 1):  # r = 0 is the warm-up
+        total = 0.0
+        for i in range(k):
+            f = rhs3d(levels, i, r, k, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = mg.ir_solve3d(levels, f, u0, cfg, inner_cycles=2)
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+            if not info["converged"]:
+                fail(f"timed 3D solve (backend={cfg.backend}) did not "
+                     "converge")
+        if r > 0:
+            best = min(best, total / k)
+    return best
+
+
+def profile3d(mg, levels, cfg, wrappers, dev) -> None:
+    """Profile one kernel-path 3D solve: device-busy share against the same
+    solve unprofiled, top kernels, launches per solve."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    f = rhs3d(levels, 0, 0, 1, dev)
+    u0 = torch.zeros_like(f)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mg.ir_solve3d(levels, f, u0, cfg, inner_cycles=2)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()
+    wall = run()
+    for w in wrappers.values():
+        w.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof = run()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    n_ops = sum(e.count for e in kernels)
+    print(f"profile3d {N3}^3 kernel path: device time {dev_us / 1e3:.3f} ms "
+          f"in {wall_prof * 1e3:.3f} ms profiled wall; unprofiled solve "
+          f"{wall * 1e3:.3f} ms; device busy {dev_us / 1e6 / wall:.1%} of "
+          f"the unprofiled solve; {n_ops} device ops per solve; custom "
+          f"launches {launches}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  top kernel {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.self_device_time_total / max(dev_us, 1e-9):6.1%} "
+              f"x{e.count:5d} {e.key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -242,7 +429,8 @@ def main() -> int:
         return 1
     import mixed_precision_multigrid_solvers_for_pdes_torch as mg
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
-        import _build, smooth as ks, tail as kt, transfer as kx
+        import _build, smooth as ks, smooth3d as ks3, tail as kt, \
+        transfer as kx, transfer3d as kx3
 
     card = host_report()
     print(card)
@@ -306,12 +494,63 @@ def main() -> int:
         print(f"solve time {label}: {t * 1e3:.3f} ms per solve, "
               f"{dofs / t:.6e} DoF/s [{card}]")
 
+    del u_k, u_p, f, levels
+    torch.cuda.empty_cache()
+
+    # ---- 3D path ----------------------------------------------------------
+    errs3, times3 = kernel_phase3d(dev)
+    errs.update(errs3)
+    times.update(times3)
+    wrappers3 = {"rbgs3d": ks3.rbgs3d,
+                 "residual_restrict3d": kx3.residual_restrict3d,
+                 "prolong_correct3d": kx3.prolong_correct3d}
+    solve3d(mg, N3_REF, "auto", dev)
+    for w in wrappers3.values():
+        w.launches = 0
+    res_k, peak_k = solve3d(mg, N3, "auto", dev)
+    launches3 = {name: w.launches for name, w in wrappers3.items()}
+    print(f"solve3d {N3}^3 auto launches {launches3}")
+    missing = [name for name, c in launches3.items() if c <= 0]
+    if missing:
+        fail(f"kernels never launched on the 3D path: {missing}")
+    launches.update(launches3)
+    res_p, peak_p = solve3d(mg, N3, "torch", dev)
+    du = (res_k.u - res_p.u).abs().max().item()
+    print(f"solve3d {N3}^3: max|u_auto - u_torch| {du:.3e}; peak memory "
+          f"kernel path {peak_k / 2**30:.3f} GiB, plain path "
+          f"{peak_p / 2**30:.3f} GiB")
+    if res_p.iterations != res_k.iterations or du > PATH3D_ATOL:
+        fail(f"3D kernel and plain paths disagree (iterations "
+             f"{res_k.iterations} vs {res_p.iterations}, max diff "
+             f"{du:.3e} > {PATH3D_ATOL})")
+    del res_k, res_p
+    torch.cuda.empty_cache()
+
+    cfg3 = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                              backend="auto")
+    levels3 = mg.build_hierarchy3d(mg.Grid3D(N3, N3, N3), dtype="float32",
+                                   device=dev, cfg=cfg3)
+    dofs3 = (N3 - 2) ** 3
+    t3_k = timed_solves3d(mg, levels3, cfg3, K3, dev)
+    t3_p = timed_solves3d(mg, levels3, cfg3.replace(backend="torch"),
+                          K3_PLAIN, dev)
+    for label, t in (("kernels (auto)", t3_k), ("plain (torch)", t3_p)):
+        print(f"solve3d time {N3}^3 {label}: {t * 1e3:.3f} ms per solve, "
+              f"{dofs3 / t:.6e} DoF/s [{card}]")
+    profile3d(mg, levels3, cfg3, wrappers3, dev)
+
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),
                "prolong_correct": ("csrc/transfer.cu", "transfer.py:488"),
-               "tail_vcycle": ("csrc/tail.cu", "tail.py:170")}
+               "tail_vcycle": ("csrc/tail.cu", "tail.py:170"),
+               "rbgs3d": ("csrc/smooth3d.cu", "smooth3d.py:178"),
+               "residual_restrict3d": ("csrc/transfer3d.cu",
+                                       "transfer3d.py:194"),
+               "prolong_correct3d": ("csrc/transfer3d.cu",
+                                     "transfer3d.py:342")}
     main_n = {"smooth_multisweep": 1025, "residual_restrict": 1025,
-              "prolong_correct": 1025, "tail_vcycle": 129}
+              "prolong_correct": 1025, "tail_vcycle": 129, "rbgs3d": N3,
+              "residual_restrict3d": N3, "prolong_correct3d": N3}
     record = [{"name": name, "route": "cuda",
                "source": f"{PKG}/{src}", "replaces": f"{TPU_PKG}/{rep}",
                "launches": launches[name], "max_abs_err": errs[name],

@@ -1,3 +1,3 @@
 """Grid metadata, boundary conditions and precision tiers."""
 
-from . import bc, grid, precision  # noqa: F401
+from . import bc, bc3d, grid, grid3d, precision  # noqa: F401

@@ -1,8 +1,9 @@
 // Shared pieces of the hand-written Hopper multigrid kernels.
 //
-// Fields are fp32, row-major (nx, ny) arrays with the boundary ring included:
-// node (i, j) lives at i * ny + j. Only interior nodes 1..nx-2 x 1..ny-2 are
-// ever updated, so no access wraps around.
+// 2D fields are fp32, row-major (nx, ny) arrays with the boundary ring
+// included: node (i, j) lives at i * ny + j. Only interior nodes
+// 1..nx-2 x 1..ny-2 are ever updated, so no access wraps around. The 3D
+// layout is given with the 3D helpers below.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,4 +60,41 @@ __device__ __forceinline__ float prolong_at(const float* ec, int i, int j,
   if (!oi) return 0.5f * (c[0] + c[1]);
   if (!oj) return 0.5f * (c[0] + c[ncy]);
   return 0.25f * (c[0] + c[ncy] + c[1] + c[ncy + 1]);
+}
+
+// ---------------------------------------------------------------------------
+// 3D: fields are row-major (nx, ny, nz) arrays, shell included: node
+// (i, j, k) lives at (i * ny + j) * nz + k, z contiguous. Offsets are 64-bit
+// (a 513^3 field holds 1.35e8 nodes). The 3D helpers round every product and
+// sum explicitly (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never
+// contracts into FMAs, in the order the plain PyTorch twins use.
+
+struct Stencil7 {
+  float c, w, e, s, n, b, t;
+};
+
+// w*u[i-1] + e*u[i+1] + s*u[j-1] + n*u[j+1] + b*u[k-1] + t*u[k+1], left to
+// right; sx = ny * nz is the stride of i.
+__device__ __forceinline__ float neighbor_sum7(const float* u, long idx,
+                                               long sx, int nz,
+                                               const Stencil7& st) {
+  float acc = __fmul_rn(st.w, u[idx - sx]);
+  acc = __fadd_rn(acc, __fmul_rn(st.e, u[idx + sx]));
+  acc = __fadd_rn(acc, __fmul_rn(st.s, u[idx - nz]));
+  acc = __fadd_rn(acc, __fmul_rn(st.n, u[idx + nz]));
+  acc = __fadd_rn(acc, __fmul_rn(st.b, u[idx - 1]));
+  return __fadd_rn(acc, __fmul_rn(st.t, u[idx + 1]));
+}
+
+// f - (c*u - neighbour sum) at an interior node.
+__device__ __forceinline__ float residual7(const float* u, const float* f,
+                                           long idx, long sx, int nz,
+                                           const Stencil7& st) {
+  return __fsub_rn(f[idx], __fsub_rn(__fmul_rn(st.c, u[idx]),
+                                     neighbor_sum7(u, idx, sx, nz, st)));
+}
+
+// 0.5 * (a + b): one linear-interpolation step of the trilinear prolongation.
+__device__ __forceinline__ float half_sum(float a, float b) {
+  return __fmul_rn(0.5f, __fadd_rn(a, b));
 }

@@ -1,7 +1,9 @@
 """Carry state between the JAX package and this port as numpy arrays.
 
-The JAX package stores every field padded to (16, 128) tiles with the logical
-(nx, ny) region at the origin; this port stores the logical region only.
+The JAX package stores every 2D field padded to (16, 128) tiles, and every 3D
+field padded to an even x, y to a multiple of 16 and z to a multiple of 128,
+with the logical region at the origin; this port stores the logical region
+only.
 These helpers read JAX objects through their attributes and ``numpy`` (JAX
 arrays convert with ``np.asarray``), so this module never imports JAX.
 """
@@ -12,13 +14,19 @@ import numpy as np
 import torch
 
 from .core.bc import BoundarySpec
+from .core.bc3d import BoundarySpec3D
 from .core.grid import Grid
+from .core.grid3d import Grid3D
 from .core.precision import as_dtype
 from .models.problems import Problem
+from .models.problems3d import Problem3D
 from .ops.stencil import Stencil
+from .ops.stencil3d import Stencil3D
 from .solvers.multigrid import Level
+from .solvers.multigrid3d import Level3D
 
 JAX_TILE = (16, 128)  # the JAX package's storage tile (sublane, lane)
+JAX_TILE3D = (2, 16, 128)  # its 3D rounding of (x, y, z)
 
 
 def jax_padded_shape(nx: int, ny: int):
@@ -88,3 +96,81 @@ def problem_from_jax(prob) -> Problem:
     return Problem(name=prob.name, grid=g, spec=BoundarySpec(),
                    f=host(prob.f), dirichlet_values=host(prob.dirichlet_values),
                    exact=host(prob.exact))
+
+
+# ---------------------------------------------------------------------------
+# 3D
+
+
+def jax_padded_shape3d(nx: int, ny: int, nz: int):
+    """The JAX package's storage shape for a logical (nx, ny, nz) grid."""
+    return tuple(-(-n // t) * t for n, t in zip((nx, ny, nz), JAX_TILE3D))
+
+
+def grid3d_from_jax(g) -> Grid3D:
+    return Grid3D(int(g.nx), int(g.ny), int(g.nz),
+                  tuple(float(x) for x in g.domain))
+
+
+def stencil3d_from_jax(st) -> Stencil3D:
+    """Port Stencil3D from a JAX Stencil3D with 0-d leaves."""
+    vals = [np.asarray(getattr(st, k, None)) for k in "cwesnbt"]
+    if any(v.ndim for v in vals):
+        raise NotImplementedError("variable-coefficient and 27-point 3D "
+                                  "stencils are not ported yet (ROADMAP "
+                                  "items 10 and 13)")
+    return Stencil3D(*(float(v) for v in vals))
+
+
+def levels3d_from_jax(levels, *, device="cpu"):
+    """Port 3D hierarchy from a tuple of JAX Level3Ds (all-Dirichlet
+    only)."""
+    out = []
+    for lev in levels:
+        if not lev.spec.all_dirichlet:
+            raise NotImplementedError("only all-Dirichlet boxes are ported "
+                                      "yet (ROADMAP item 13)")
+        out.append(Level3D(stencil=stencil3d_from_jax(lev.stencil),
+                           grid=grid3d_from_jax(lev.grid),
+                           spec=BoundarySpec3D(),
+                           dtype=as_dtype(np.dtype(lev.dtype)),
+                           device=torch.device(device)))
+    return tuple(out)
+
+
+def field3d_from_jax(arr, grid, *, dtype=None, device="cpu") -> torch.Tensor:
+    """(nx, ny, nz) tensor from a padded JAX field (or any array whose
+    logical region sits at the origin)."""
+    a = np.asarray(arr)[: grid.nx, : grid.ny, : grid.nz]
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
+
+
+def field3d_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
+    """Zero-padded numpy array in the JAX package's 3D storage shape."""
+    a = t.detach().cpu().numpy()
+    if a.shape != tuple(grid.shape):
+        raise ValueError(f"field shape {a.shape} != grid shape "
+                         f"{tuple(grid.shape)}")
+    out = np.zeros(jax_padded_shape3d(*a.shape), dtype=a.dtype)
+    out[: grid.nx, : grid.ny, : grid.nz] = a
+    return out
+
+
+def problem3d_from_jax(prob) -> Problem3D:
+    """Port Problem3D (f, lam, Dirichlet values, exact solution) from a JAX
+    one."""
+    if not prob.spec.all_dirichlet or prob.a is not None \
+            or np.ndim(prob.lam) or prob.bc_values:
+        raise NotImplementedError("only constant-coefficient all-Dirichlet "
+                                  "3D problems are ported yet (ROADMAP item "
+                                  "13)")
+    g = grid3d_from_jax(prob.grid)
+
+    def host(a):
+        return None if a is None else np.asarray(
+            a, np.float64)[: g.nx, : g.ny, : g.nz].copy()
+
+    return Problem3D(name=prob.name, grid=g, f=host(prob.f),
+                     lam=float(prob.lam), exact=host(prob.exact),
+                     dirichlet_values=host(prob.dirichlet_values))

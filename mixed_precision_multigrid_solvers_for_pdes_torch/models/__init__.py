@@ -1,3 +1,3 @@
 """Problem definitions."""
 
-from . import problems  # noqa: F401
+from . import problems, problems3d  # noqa: F401

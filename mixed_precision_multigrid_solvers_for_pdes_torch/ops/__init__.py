@@ -1,3 +1,6 @@
 """Stencil, norms, smoothers, transfers, and the kernel dispatch."""
 
-from . import dispatch, norms, smooth, stencil, transfer  # noqa: F401
+from . import (  # noqa: F401
+    dispatch, norms, smooth, smooth3d, stencil, stencil3d, transfer,
+    transfer3d,
+)

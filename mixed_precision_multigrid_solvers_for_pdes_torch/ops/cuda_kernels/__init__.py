@@ -4,4 +4,4 @@ Importing these modules compiles nothing: the library is built with nvcc
 on first launch (``_build.library``).
 """
 
-from . import smooth, tail, transfer  # noqa: F401
+from . import smooth, smooth3d, tail, transfer, transfer3d  # noqa: F401

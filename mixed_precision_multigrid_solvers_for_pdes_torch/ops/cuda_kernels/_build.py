@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a`` into one
+``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a``, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, which is loaded with ``ctypes``. The
 build runs at first use, into ``build/kernels-<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and the flags, so a changed source
@@ -29,8 +30,10 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build"
 LIB_NAME = "libmg_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v", "-c")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
@@ -44,6 +47,10 @@ _SIGNATURES = {
     "mg_tail_workspace_floats": ([_I, _IP, _IP], ctypes.c_long),
     "mg_tail_vcycle": ([_P, _P, _P, _I, _IP, _IP, _FP, _I, _I, _F, _I, _I,
                         _I, _I, _P], _I),
+    "mg_rbgs3d_color": ([_P, _P, _I, _I, _I] + [_F] * 8 + [_I, _I, _P], _I),
+    "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
+                               + [_I, _P], _I),
+    "mg_prolong_correct3d": ([_P, _P] + [_I] * 5 + [_I, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -64,7 +71,7 @@ def _sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -80,6 +87,39 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def _compile_and_link(nvcc: str, out_dir: Path, path: Path) -> str:
+    """One nvcc per source, all running at once, then one link into
+    ``path``; returns nvcc's output. Every process is waited for before an
+    error is raised."""
+    tag = f"tmp{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"  # nvcc goes by the suffix
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in jobs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    for _, obj, _ in jobs:
+        obj.unlink()
+    os.replace(tmp, path)  # atomic: concurrent builders never see halves
+    return log
+
+
 @functools.cache
 def library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; cached per process."""
@@ -89,17 +129,10 @@ def library() -> KernelLibrary:
     built, seconds = False, 0.0
     if not path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.tmp{os.getpid()}"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in sorted(CSRC_DIR.glob("*.cu")))]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile_and_link(find_nvcc(), out_dir, path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         log_path.write_text(log)
-        os.replace(tmp, path)  # atomic: concurrent builders never see halves
         built = True
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
@@ -125,9 +158,10 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_cuda_fp32(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous 2-D float32 CUDA tensor on
-    one device."""
+def check_cuda_fp32(name: str, *tensors: torch.Tensor,
+                    ndim: int = 2) -> None:
+    """Raise unless every tensor is a contiguous ``ndim``-D float32 CUDA
+    tensor on one device, at least 3 nodes along each axis."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -135,10 +169,10 @@ def check_cuda_fp32(name: str, *tensors: torch.Tensor) -> None:
                              f"device, got {t.device} and {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous 2-D "
+        if t.dim() != ndim or not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous {ndim}-D "
                              f"tensors, got shape {tuple(t.shape)} "
                              f"contiguous={t.is_contiguous()}")
         if min(t.shape) < 3:
-            raise ValueError(f"{name}: grids must be at least 3x3, got "
-                             f"{tuple(t.shape)}")
+            raise ValueError(f"{name}: grids must have at least 3 nodes "
+                             f"per axis, got {tuple(t.shape)}")

@@ -1,0 +1,89 @@
+"""Kernels F and G: fused 3D residual+restriction and prolongation+correction
+(``csrc/transfer3d.cu``) and their plain twins.
+
+F replaces the Pallas ``residual_restrict3d`` and G the Pallas
+``prolong_correct3d`` of
+``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/transfer3d.py``
+(:194, :342) for constant-coefficient 7-point stencils on all-Dirichlet boxes
+in fp32. The source note in ``csrc/transfer3d.cu`` gives the design and what
+bounds it.
+
+On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
+launches its kernel or raises. ``residual_restrict3d.launches`` and
+``prolong_correct3d.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core import bc3d
+from .. import stencil3d as st3, transfer3d as transfer3d_mod
+from ..stencil3d import Stencil3D
+from . import _build
+
+
+def coarse_shape3d(nxf: int, nyf: int, nzf: int):
+    """(ncx, ncy, ncz) of the 2:1 coarsening of a fine (nxf, nyf, nzf)
+    grid."""
+    if any((n - 1) % 2 or n < 5 for n in (nxf, nyf, nzf)):
+        raise ValueError(f"fine shape ({nxf}, {nyf}, {nzf}) does not coarsen "
+                         "2:1")
+    return tuple((n - 1) // 2 + 1 for n in (nxf, nyf, nzf))
+
+
+def residual_restrict3d_plain(st: Stencil3D, u, f, *, out_dtype=None):
+    """Plain twin: ``restrict3d(residual(st, u, f), boundary='zero')``."""
+    unknown = bc3d.unknown_mask3d(*u.shape, device=u.device)
+    r = st3.residual(st, u, f, unknown)
+    return transfer3d_mod.restrict3d(r, *coarse_shape3d(*u.shape),
+                                     dtype=out_dtype or u.dtype)
+
+
+def residual_restrict3d(st: Stencil3D, u, f, *, out_dtype=None):
+    """fc = R_fw(f - A u) on the coarse grid; coarse shell zero."""
+    if u.device.type == "cpu":
+        return residual_restrict3d_plain(st, u, f, out_dtype=out_dtype)
+    _build.check_cuda_fp32("residual_restrict3d", u, f, ndim=3)
+    if f.shape != u.shape:
+        raise ValueError(f"residual_restrict3d: f {tuple(f.shape)} != u "
+                         f"{tuple(u.shape)}")
+    if out_dtype not in (None, torch.float32):
+        raise TypeError(f"residual_restrict3d: the kernel writes float32, "
+                        f"asked for {out_dtype}")
+    nc = coarse_shape3d(*u.shape)
+    fc = torch.empty(nc, dtype=torch.float32, device=u.device)
+    _build.launch("mg_residual_restrict3d", u.data_ptr(), f.data_ptr(),
+                  fc.data_ptr(), u.shape[1], u.shape[2], *nc, *st.coefs,
+                  u.device.index, _build.stream_of(u))
+    residual_restrict3d.launches += 1
+    return fc
+
+
+residual_restrict3d.launches = 0
+
+
+def prolong_correct3d_plain(ec, u):
+    """Plain twin: u += prolong3d(ec) on the interior, in place."""
+    e = transfer3d_mod.prolong3d(ec, *u.shape, dtype=u.dtype)
+    u[1:-1, 1:-1, 1:-1] += e[1:-1, 1:-1, 1:-1]
+    return u
+
+
+def prolong_correct3d(ec, u):
+    """u <- u + P_trilinear(ec) on fine interior nodes, in place; returns
+    u."""
+    if u.device.type == "cpu":
+        return prolong_correct3d_plain(ec, u)
+    _build.check_cuda_fp32("prolong_correct3d", ec, u, ndim=3)
+    if tuple(ec.shape) != coarse_shape3d(*u.shape):
+        raise ValueError(f"prolong_correct3d: ec {tuple(ec.shape)} is not the "
+                         f"coarse grid of u {tuple(u.shape)}")
+    _build.launch("mg_prolong_correct3d", ec.data_ptr(), u.data_ptr(),
+                  ec.shape[1], ec.shape[2], *u.shape, u.device.index,
+                  _build.stream_of(u))
+    prolong_correct3d.launches += 1
+    return u
+
+
+prolong_correct3d.launches = 0

@@ -16,15 +16,23 @@ Every level above the tail takes kernels A (smoothing), B and C (fused
 transfers). The tail kernel D starts at the first level whose logical size
 is at most ``TAIL_MAX_ENTRY`` x ``TAIL_MAX_ENTRY``; that is where the TPU
 started its tail, and H100 gates await H100 measurements.
+
+3D (``smooth3d``, ``transfer_fused3d_ok``, ``residual_restrict3d``,
+``prolong_correct3d``; counterparts of ``pallas_smooth3d_ok`` and
+``transfer_fused3d_ok``): fp32 levels of an all-Dirichlet box take kernel E
+for RB-GS smoothing and kernels F and G for the transfers on every level,
+down to the coarsest; the TPU's byte, plane-budget and ``px >= 4`` gates are
+dropped. Weighted Jacobi stays on the plain path in 3D, as it did on the
+TPU. There is no 3D tail kernel: the JAX package never built one.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import smooth as smooth_mod
-from .cuda_kernels import smooth as k_smooth, tail as k_tail, \
-    transfer as k_transfer
+from . import smooth as smooth_mod, smooth3d as smooth3d_mod
+from .cuda_kernels import smooth as k_smooth, smooth3d as k_smooth3d, \
+    tail as k_tail, transfer as k_transfer, transfer3d as k_transfer3d
 
 BACKENDS = ("auto", "torch")
 TAIL_MAX_ENTRY = 129
@@ -107,3 +115,45 @@ def tail_vcycle(levels, lvl, u, f, cfg):
         method=cfg.smoother, coarse_sweeps=cfg.coarse_sweeps,
         symmetric=cfg.symmetric,
     )
+
+
+def kernel_smooth3d_ok(u, lev, backend: str, method: str) -> bool:
+    """True when kernel E runs the 3D smoothing: an RB-GS-family method
+    (Jacobi stays plain), an all-Dirichlet box, fp32 data."""
+    return (_kernels(backend)
+            and (method in smooth_mod.RBGS_METHODS or method == "rbgs_rev")
+            and lev.spec.all_dirichlet
+            and u.dtype == torch.float32)
+
+
+def smooth3d(lev, u, f, *, method: str, sweeps: int, omega: float,
+             reverse: bool = False, backend: str = "auto"):
+    """``sweeps`` 3D smoothing sweeps in place on ``u``; returns ``u``."""
+    if kernel_smooth3d_ok(u, lev, backend, method):
+        return k_smooth3d.rbgs3d(lev.stencil, u, f, sweeps=sweeps,
+                                 omega=omega,
+                                 reverse=reverse or method == "rbgs_rev")
+    return smooth3d_mod.smooth3d(lev.stencil, u, f, lev.unknown,
+                                 method=method, sweeps=sweeps, omega=omega,
+                                 reverse=reverse)
+
+
+def transfer_fused3d_ok(lev, nxt, cfg) -> bool:
+    """True when kernels F/G replace the plain 3D residual -> restrict and
+    prolong -> correct chain between ``lev`` and ``nxt``."""
+    return (_kernels(cfg.backend)
+            and cfg.restriction == "full_weighting"
+            and lev.spec.all_dirichlet
+            and lev.dtype == torch.float32 and nxt.dtype == torch.float32)
+
+
+def residual_restrict3d(lev, nxt, u, f):
+    """Fused fc = R(f - A u) (gate with transfer_fused3d_ok first)."""
+    return k_transfer3d.residual_restrict3d(lev.stencil, u, f,
+                                            out_dtype=nxt.dtype)
+
+
+def prolong_correct3d(lev, nxt, ec, u):
+    """Fused u += P ec on fine unknowns, in place (gate with
+    transfer_fused3d_ok first)."""
+    return k_transfer3d.prolong_correct3d(ec, u)

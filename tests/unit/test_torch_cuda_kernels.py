@@ -10,6 +10,8 @@ kernels multiply by 1/c where the twins divide, nvcc contracts multiply-adds
 into FMAs, and the tail chains about a hundred dependent phases. The
 non-power-of-two domain below makes those roundings differ for real: on the
 unit square the coefficients are powers of two and the two agree bit for bit.
+The 3D kernels E, F and G round every product and sum explicitly in their
+twins' order; E still multiplies by 1/c where the twin divides.
 """
 
 import numpy as np
@@ -17,17 +19,23 @@ import pytest
 import torch
 
 import mixed_precision_multigrid_solvers_for_pdes_torch as T
-from mixed_precision_multigrid_solvers_for_pdes_torch.ops import stencil
+from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
+    stencil,
+    stencil3d,
+)
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
     smooth as ksmooth,
+    smooth3d as ksmooth3d,
     tail as ktail,
     transfer as ktransfer,
+    transfer3d as ktransfer3d,
 )
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
 DOMAINS = {"unit": (0.0, 1.0, 0.0, 1.0), "skew": (0.0, 1.3, 0.0, 0.7)}
+DOMAINS3D = {"unit": (0.0, 1.0) * 3, "skew": (0.0, 1.3, 0.0, 0.7, 0.0, 1.1)}
 
 
 @pytest.fixture
@@ -38,13 +46,14 @@ def dev():
 
 
 def _field(shape, seed, dev, scale=1.0, ring=False):
+    """Random field of any rank; zero on the boundary unless ``ring``."""
     rng = np.random.default_rng(seed)
     a = np.zeros(shape, np.float32)
     if ring:
         a[:] = scale * rng.standard_normal(shape)
     else:
-        a[1:-1, 1:-1] = scale * rng.standard_normal(
-            (shape[0] - 2, shape[1] - 2))
+        a[(slice(1, -1),) * len(shape)] = scale * rng.standard_normal(
+            tuple(n - 2 for n in shape))
     return torch.from_numpy(a).to(dev)
 
 
@@ -131,6 +140,84 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ktransfer.prolong_correct(torch.zeros(5, 5, device=dev), u)
     with pytest.raises(TypeError):
         ktransfer.residual_restrict(st, u, u, out_dtype=torch.float64)
+
+
+def _stencil3d(shape, domain):
+    g = T.Grid3D(*shape, DOMAINS3D[domain])
+    return g, stencil3d.make_stencil3d(g)
+
+
+@pytest.mark.parametrize("domain", list(DOMAINS3D))
+@pytest.mark.parametrize("sweeps,omega,reverse", [(2, 1.0, False),
+                                                  (1, 1.3, False),
+                                                  (2, 1.0, True)])
+@pytest.mark.parametrize("shape", [(65, 65, 65), (9, 33, 17), (5, 5, 5)])
+def test_rbgs3d_matches_twin(dev, shape, sweeps, omega, reverse, domain):
+    g, st = _stencil3d(shape, domain)
+    u, f = _field(shape, 21, dev), _field(shape, 22, dev, st.c)
+    before = ksmooth3d.rbgs3d.launches
+    got = ksmooth3d.rbgs3d(st, u.clone(), f, sweeps=sweeps, omega=omega,
+                           reverse=reverse)
+    assert ksmooth3d.rbgs3d.launches - before == 2 * sweeps
+    ref = ksmooth3d.rbgs3d_plain(st, u.clone(), f, sweeps=sweeps,
+                                 omega=omega, reverse=reverse)
+    _close(got, ref)
+    assert torch.equal(got[0], u[0]) and torch.equal(got[:, :, -1],
+                                                     u[:, :, -1])
+
+
+@pytest.mark.parametrize("domain", list(DOMAINS3D))
+@pytest.mark.parametrize("shape", [(65, 65, 65), (9, 33, 17), (5, 5, 5)])
+def test_residual_restrict3d_matches_twin(dev, shape, domain):
+    g, st = _stencil3d(shape, domain)
+    u, f = _field(shape, 23, dev), _field(shape, 24, dev, st.c)
+    before = ktransfer3d.residual_restrict3d.launches
+    got = ktransfer3d.residual_restrict3d(st, u, f)
+    assert ktransfer3d.residual_restrict3d.launches == before + 1
+    _close(got, ktransfer3d.residual_restrict3d_plain(st, u, f))
+    assert not got[0].any() and not got[:, -1].any() and not got[..., 0].any()
+
+
+@pytest.mark.parametrize("shape", [(65, 65, 65), (9, 33, 17), (5, 5, 5)])
+def test_prolong_correct3d_matches_twin(dev, shape):
+    nc = tuple((n - 1) // 2 + 1 for n in shape)
+    u = _field(shape, 25, dev, ring=True)
+    ec = _field(nc, 26, dev, ring=True)  # the coarse shell interpolates too
+    got = ktransfer3d.prolong_correct3d(ec, u.clone())
+    _close(got, ktransfer3d.prolong_correct3d_plain(ec, u.clone()))
+    assert torch.equal(got[-1], u[-1]) and torch.equal(got[:, 0], u[:, 0])
+
+
+def test_3d_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    g, st = _stencil3d((9, 9, 9), "unit")
+    u = torch.zeros(g.shape, device=dev)
+    with pytest.raises(TypeError):
+        ksmooth3d.rbgs3d(st, u.double(), u.double())
+    with pytest.raises(ValueError, match="3-D"):
+        ksmooth3d.rbgs3d(st, u[0], u[0])
+    with pytest.raises(ValueError):
+        ksmooth3d.rbgs3d(st, u.transpose(0, 2), u)  # not contiguous
+    with pytest.raises(ValueError):
+        ktransfer3d.prolong_correct3d(torch.zeros(4, 5, 5, device=dev), u)
+    with pytest.raises(TypeError):
+        ktransfer3d.residual_restrict3d(st, u, u, out_dtype=torch.float64)
+
+
+def test_solve_poisson3d_kernel_path_matches_plain_path(dev):
+    prob = T.poisson3d_mms_sinsinsin(65)
+    out = {}
+    for backend in ("auto", "torch"):
+        cfg = T.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                                backend=backend)
+        before = ksmooth3d.rbgs3d.launches
+        out[backend] = T.solve_poisson3d(prob, precision="fp32", cfg=cfg,
+                                         device=dev)
+        launched = ksmooth3d.rbgs3d.launches - before
+        assert (launched > 0) == (backend == "auto")
+    k, p = out["auto"], out["torch"]
+    assert k.converged and k.iterations == p.iterations == 5
+    assert (k.u - p.u).abs().max().item() <= 1e-8
+    np.testing.assert_allclose(k.errors["l2"], p.errors["l2"], rtol=1e-6)
 
 
 def test_ir_solve_kernel_path_matches_plain_path(dev):
