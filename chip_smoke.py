@@ -8,7 +8,10 @@ iterative refinement (fp64 outer residual, two fp32 cycles per outer step)
 from a full-multigrid start, to 1e-9 relative residual. The 3D path is
 solve_poisson3d(precision='fp32') on u = sin(pi x) sin(pi y) sin(pi z) at
 513^3: the same refinement around fp32 RB-GS V(2,2) cycles on nine levels,
-from a zero start, to 1e-9 relative residual.
+from a zero start, to 1e-9 relative residual. The variable-coefficient and
+Robin path is solve_poisson(precision='fp32') at 1025^2 on three problems:
+-div(a grad u) = f with a = 1 + x + y, a 1000:1 coefficient jump at x = 0.5,
+and Poisson with a Robin east side; the same refinement, from a zero start.
 
 Phases, each of which must pass:
   1. print the card (nvidia-smi name and power limit) and the host's tools;
@@ -30,7 +33,16 @@ Phases, each of which must pass:
      form and that E, F and G launched; print the peak device memory;
   9. solve it at 513^3 with backend='torch' and check that both paths agree;
  10. time both 3D paths over frequency-swept right-hand sides, print ms and
-     DoF/s, and profile one kernel-path solve with torch.profiler.
+     DoF/s, and profile one kernel-path solve with torch.profiler;
+ 11. hold each coefficient-plane kernel against its twin at the path's
+     shapes (H at 1025^2, 513^2, 257^2 on both coefficient fields; I from
+     1025^2, 513^2, 257^2 on three side sets; C with the Robin sides; J
+     from 129^2 on both fields), and time both;
+ 12. solve the three problems with backend='auto', each from launch counts
+     reset to zero, and check the outer-step count and the l2 error of the
+     JAX reference and which kernels launched;
+ 13. solve them with backend='torch' and check that both paths agree;
+ 14. time both paths per solve, and profile the jump solve.
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failure exits non-zero.
 
@@ -76,6 +88,17 @@ N3_REF = 257             # the largest size the JAX reference ran
 SIZES3 = (N3, N3_REF, 129, 5)   # where E, F and G meet their twins
 K3, K3_PLAIN, REPEATS3 = 4, 2, 3   # 3D right-hand sides and repeats
 FREQS3 = [(1, 1, 1), (2, 1, 1), (1, 3, 2), (3, 2, 1)]
+# The variable-coefficient and Robin path at 1025^2. The references are the
+# JAX package's solve_poisson(precision='fp32', cfg=MultigridConfig(
+# smoother='rbgs', omega=1.0, tol=1e-9)) on the CPU at 1025^2: varcoef 4
+# outer steps, l2 4.2673e-6; jump 15 steps; Robin 3 steps, l2 1.2164e-8.
+N_VAR = 1025
+VAR_STEPS = {"varcoef": 4, "jump": 15, "robin": 3}
+VAR_STEPS_SLACK = {"varcoef": 0, "jump": 1, "robin": 1}
+VAR_L2 = {"varcoef": 4.2673e-6, "robin": 1.2164e-8}
+ROBIN_L2_FACTOR = 1.5     # Robin: l2 <= this * the reference (the
+                          # tolerance, not the grid, sets that l2)
+VAR_PATH_RTOL = 1e-8      # max|u_auto - u_torch| <= this * max|u|
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
 
@@ -420,6 +443,244 @@ def profile3d(mg, levels, cfg, wrappers, dev) -> None:
               f"x{e.count:5d} {e.key[:90]}")
 
 
+def var_problems(mg):
+    """The three problems of the variable-coefficient and Robin path."""
+    return {"varcoef": mg.variable_coefficient_mms(N_VAR),
+            "jump": mg.jump_coefficient_problem(N_VAR, 1e3),
+            "robin": mg.robin_test_problem(N_VAR)}
+
+
+def kernel_phase_var(mg, cfg, dev):
+    """Phase 11: H, I, C with sides and J against their twins at the
+    path's shapes; inputs from a seeded generator on the card."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.core import bc
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_var as ksv, tail as kt, transfer as kx
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+
+    def field(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    robin = bc.BCSide(bc.BCKind.ROBIN, alpha=1.0, beta=1.0)
+    side_sets = {"dirichlet": bc.dirichlet(),
+                 "east_robin": bc.BoundarySpec(east=robin),
+                 "west_north_neumann": bc.mixed(west="neumann",
+                                                north="neumann")}
+    probs = var_problems(mg)
+    grid = probs["varcoef"].grid
+    hier = {name: mg.build_hierarchy(grid, spec, a=probs[coef].a,
+                                     device=dev, cfg=cfg)
+            for name, spec, coef in (
+                ("varcoef", bc.dirichlet(), "varcoef"),
+                ("jump", bc.dirichlet(), "jump"),
+                ("east_robin", side_sets["east_robin"], "varcoef"),
+                ("west_north_neumann", side_sets["west_north_neumann"],
+                 "jump"))}
+    errs, times = {}, {}
+    smooth_cases = (("rbgs", 2, 1.0), ("rbgs_rev", 2, 1.0), ("sor", 1, 1.3),
+                    ("jacobi", 2, 0.8))
+    for coef in ("varcoef", "jump"):
+        for lev in hier[coef][:3]:
+            n, st = lev.grid.nx, lev.stencil
+            u, f = field((n, n)), field((n, n), 1e3)
+            for method, sweeps, omega in smooth_cases:
+                kw = dict(method=method, sweeps=sweeps, omega=omega)
+                compare("smooth_var", f"{coef} {n}^2 {kw}",
+                        lambda a, b: ksv.multisweep_var(st, a, b, **kw),
+                        lambda a, b: ks.multisweep_plain(st, a, b, **kw),
+                        lambda: (u.clone(), f), errs)
+            if coef == "varcoef":
+                kw = dict(method="rbgs", sweeps=cfg.pre_sweeps, omega=1.0)
+                times[("smooth_var", n)] = (
+                    time_ms(lambda: ksv.multisweep_var(st, u, f, **kw)),
+                    time_ms(lambda: ks.multisweep_plain(st, u, f, **kw)))
+    for name in ("varcoef", "east_robin", "west_north_neumann"):
+        levels = hier[name]
+        sides = levels[0].spec.dirichlet_sides
+        for lev in levels[:3]:
+            n, st, nc = lev.grid.nx, lev.stencil, (lev.grid.nx - 1) // 2 + 1
+            u, f = field((n, n)), field((n, n), 1e3)
+            compare("residual_restrict_var", f"{name} {n}->{nc}",
+                    lambda a, b: kx.residual_restrict_var(st, a, b,
+                                                          sides=sides),
+                    lambda a, b: kx.residual_restrict_plain(st, a, b,
+                                                            sides=sides),
+                    lambda: (u, f), errs)
+            if name == "varcoef":
+                times[("residual_restrict_var", n)] = (
+                    time_ms(lambda: kx.residual_restrict_var(st, u, f)),
+                    time_ms(lambda: kx.residual_restrict_plain(st, u, f)))
+            if name == "east_robin":
+                ec = field((nc, nc))
+                compare("prolong_correct", f"east_robin sides {nc}->{n}",
+                        lambda a, b: kx.prolong_correct(a, b, sides=sides),
+                        lambda a, b: kx.prolong_correct_plain(a, b,
+                                                              sides=sides),
+                        lambda: (ec, u.clone()), errs)
+                times[("prolong_correct_sides", n)] = (
+                    time_ms(lambda: kx.prolong_correct(ec, u, sides=sides)),
+                    time_ms(lambda: kx.prolong_correct_plain(ec, u,
+                                                             sides=sides)))
+    tail_kw = dict(pre=cfg.pre_sweeps, post=cfg.post_sweeps, omega=cfg.omega,
+                   method=cfg.smoother, coarse_sweeps=cfg.coarse_sweeps,
+                   symmetric=cfg.symmetric)
+    for coef in ("varcoef", "jump"):
+        tail = [lev for lev in hier[coef] if lev.grid.nx <= 129]
+        sts = [lev.stencil for lev in tail]
+        shapes = [lev.grid.shape for lev in tail]
+        f = field(shapes[0], 1e3)
+        u0 = torch.zeros(shapes[0], device=dev)
+        compare("tail_vcycle_var", f"{coef} 129^2 L={len(tail)}",
+                lambda a, b: kt.tail_vcycle_var(sts, a, b, shapes=shapes,
+                                                **tail_kw),
+                lambda a, b: kt.tail_vcycle_plain(sts, a, b, shapes=shapes,
+                                                  **tail_kw),
+                lambda: (u0.clone(), f), errs)
+        if coef == "varcoef":
+            times[("tail_vcycle_var", 129)] = (
+                time_ms(lambda: kt.tail_vcycle_var(
+                    sts, u0.clone(), f, shapes=shapes, **tail_kw)),
+                time_ms(lambda: kt.tail_vcycle_plain(
+                    sts, u0.clone(), f, shapes=shapes, **tail_kw)))
+    for (name, n), (k_ms, p_ms) in times.items():
+        print(f"time {name} {n}^2: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    return errs, times
+
+
+def solve_var(mg, name, prob, backend, dev):
+    """solve_poisson(precision='fp32', tol 1e-9) on one problem; checks
+    the JAX reference's outer-step count and l2 error."""
+    import torch
+
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                             backend=backend)
+    res = mg.solve_poisson(prob, precision="fp32", cfg=cfg, device=dev)
+    print(f"solve_var {name} {N_VAR}^2 {backend}: iterations "
+          f"{res.iterations} converged {res.converged} history "
+          f"{res.info['history'].tolist()} errors {res.errors} solve "
+          f"{res.solve_time * 1e3:.3f} ms (first call)")
+    if tuple(res.u.shape) != (N_VAR, N_VAR) or \
+            not torch.isfinite(res.u).all():
+        fail(f"{name} solution is misshapen or not finite")
+    if not res.converged or abs(res.iterations - VAR_STEPS[name]) > \
+            VAR_STEPS_SLACK[name]:
+        fail(f"{name} {backend}: expected convergence in {VAR_STEPS[name]} "
+             f"+- {VAR_STEPS_SLACK[name]} outer steps")
+    if name == "varcoef" and abs(res.errors["l2"] / VAR_L2[name] - 1) > \
+            L2_RTOL:
+        fail(f"varcoef l2 error {res.errors['l2']:.4e} not within "
+             f"{L2_RTOL:.0%} of {VAR_L2[name]:.4e}")
+    if name == "robin" and res.errors["l2"] > ROBIN_L2_FACTOR * VAR_L2[name]:
+        fail(f"robin l2 error {res.errors['l2']:.4e} above "
+             f"{ROBIN_L2_FACTOR} x {VAR_L2[name]:.4e}")
+    return res
+
+
+def timed_solves_var(mg, prob, backend, dev) -> float:
+    """Min over REPEATS of one solve_poisson call's wall time (the
+    hierarchy set-up included), after a warm-up."""
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                             backend=backend)
+    best = float("inf")
+    for r in range(REPEATS + 1):  # r = 0 is the warm-up
+        res = mg.solve_poisson(prob, precision="fp32", cfg=cfg, device=dev)
+        if not res.converged:
+            fail(f"timed {prob.name} solve (backend={backend}) did not "
+                 "converge")
+        if r > 0:
+            best = min(best, res.solve_time)
+    return best
+
+
+def profile_var(mg, prob, wrappers, dev) -> None:
+    """Profile one kernel-path jump solve: device-busy share against the
+    same solve unprofiled, top kernels, launches per solve."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    wall = mg.solve_poisson(prob, precision="fp32", cfg=cfg,
+                            device=dev).solve_time
+    for w in wrappers.values():
+        w.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = mg.solve_poisson(prob, precision="fp32", cfg=cfg, device=dev)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    n_ops = sum(e.count for e in kernels)
+    print(f"profile_var {prob.name} {N_VAR}^2 kernel path: device time "
+          f"{dev_us / 1e3:.3f} ms in {res.solve_time * 1e3:.3f} ms profiled "
+          f"wall; unprofiled solve {wall * 1e3:.3f} ms; device busy "
+          f"{dev_us / 1e6 / wall:.1%} of the unprofiled solve; {n_ops} "
+          f"device ops per solve; custom launches {launches}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  top kernel {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.self_device_time_total / max(dev_us, 1e-9):6.1%} "
+              f"x{e.count:5d} {e.key[:90]}")
+
+
+def var_path(mg, card, dev):
+    """Phases 11-14; returns the kernels' errors, times and launch counts
+    (H, I, J summed over the three kernel-path solves)."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth_var as ksv, tail as kt, transfer as kx
+
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    errs, times = kernel_phase_var(mg, cfg, dev)
+    wrappers = {"smooth_var": ksv.multisweep_var,
+                "residual_restrict_var": kx.residual_restrict_var,
+                "prolong_correct": kx.prolong_correct,
+                "tail_vcycle_var": kt.tail_vcycle_var}
+    expected = {"varcoef": set(wrappers), "jump": set(wrappers),
+                "robin": {"residual_restrict_var", "prolong_correct"}}
+    launches = dict.fromkeys(("smooth_var", "residual_restrict_var",
+                              "tail_vcycle_var"), 0)
+    results = {}
+    for name, prob in var_problems(mg).items():
+        for w in wrappers.values():
+            w.launches = 0
+        results[name] = solve_var(mg, name, prob, "auto", dev)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        print(f"solve_var {name} auto launches {counts}")
+        missing = [k for k in expected[name] if counts[k] <= 0]
+        if missing:
+            fail(f"kernels never launched on the {name} solve: {missing}")
+        for k in launches:
+            launches[k] += counts[k]
+    for name, prob in var_problems(mg).items():
+        res_p = solve_var(mg, name, prob, "torch", dev)
+        u_k = results[name].u
+        du = (u_k - res_p.u).abs().max().item()
+        scale = res_p.u.abs().max().item()
+        print(f"solve_var {name}: max|u_auto - u_torch| {du:.3e} "
+              f"(max|u| {scale:.3e})")
+        if res_p.iterations != results[name].iterations or \
+                du > VAR_PATH_RTOL * scale:
+            fail(f"{name}: kernel and plain paths disagree (iterations "
+                 f"{results[name].iterations} vs {res_p.iterations}, max "
+                 f"diff {du:.3e} > {VAR_PATH_RTOL} * {scale:.3e})")
+    del results
+    torch.cuda.empty_cache()
+    dofs = (N_VAR - 2) ** 2
+    for name, prob in var_problems(mg).items():
+        t_k = timed_solves_var(mg, prob, "auto", dev)
+        t_p = timed_solves_var(mg, prob, "torch", dev)
+        for label, t in (("kernels (auto)", t_k), ("plain (torch)", t_p)):
+            print(f"solve_var time {name} {N_VAR}^2 {label}: "
+                  f"{t * 1e3:.3f} ms per solve, {dofs / t:.6e} DoF/s "
+                  f"[{card}]")
+    profile_var(mg, var_problems(mg)["jump"], wrappers, dev)
+    return errs, times, launches
+
+
 def main() -> int:
     import torch
 
@@ -497,6 +758,14 @@ def main() -> int:
     del u_k, u_p, f, levels
     torch.cuda.empty_cache()
 
+    # ---- variable-coefficient and Robin path -----------------------------
+    errs_var, times_var, launches_var = var_path(mg, card, dev)
+    for name, err in errs_var.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    times.update(times_var)
+    launches.update(launches_var)
+    torch.cuda.empty_cache()
+
     # ---- 3D path ----------------------------------------------------------
     errs3, times3 = kernel_phase3d(dev)
     errs.update(errs3)
@@ -543,13 +812,19 @@ def main() -> int:
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),
                "prolong_correct": ("csrc/transfer.cu", "transfer.py:488"),
                "tail_vcycle": ("csrc/tail.cu", "tail.py:170"),
+               "smooth_var": ("csrc/smooth_var.cu", "smooth.py:290"),
+               "residual_restrict_var": ("csrc/transfer_var.cu",
+                                         "transfer.py:262"),
+               "tail_vcycle_var": ("csrc/tail_var.cu", "tail.py:122"),
                "rbgs3d": ("csrc/smooth3d.cu", "smooth3d.py:178"),
                "residual_restrict3d": ("csrc/transfer3d.cu",
                                        "transfer3d.py:194"),
                "prolong_correct3d": ("csrc/transfer3d.cu",
                                      "transfer3d.py:342")}
     main_n = {"smooth_multisweep": 1025, "residual_restrict": 1025,
-              "prolong_correct": 1025, "tail_vcycle": 129, "rbgs3d": N3,
+              "prolong_correct": 1025, "tail_vcycle": 129,
+              "smooth_var": N_VAR, "residual_restrict_var": N_VAR,
+              "tail_vcycle_var": 129, "rbgs3d": N3,
               "residual_restrict3d": N3, "prolong_correct3d": N3}
     record = [{"name": name, "route": "cuda",
                "source": f"{PKG}/{src}", "replaces": f"{TPU_PKG}/{rep}",

@@ -21,7 +21,7 @@ from ..core.precision import Precision
 from ..models.problems3d import Problem3D
 from ..solvers import multigrid3d as mg3
 from ..solvers.multigrid import MultigridConfig
-from .poisson import PoissonResult
+from .poisson import PoissonResult, uniform_precision
 
 
 def solve_poisson3d(problem: Problem3D, *, precision: Any = "fp32",
@@ -33,14 +33,7 @@ def solve_poisson3d(problem: Problem3D, *, precision: Any = "fp32",
     precision: 'fp32' or 'fp64', a uniform hierarchy at that dtype (fp32
     below tol 1e-6 under float64 iterative refinement). ``solve_time`` is
     the wall time of the solve, synchronized with the device."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded 3D solves) is not ported "
-                                  "yet (ROADMAP item 14)")
-    mode = Precision(precision) if isinstance(precision, str) else precision
-    if mode not in (Precision.FP32, Precision.FP64):
-        raise NotImplementedError(
-            f"precision {mode.value!r} (per-level dtype policies and staged "
-            "promotion) is not ported yet (ROADMAP item 9)")
+    mode = uniform_precision(precision, mesh)
     device = torch.device(device)
 
     t0 = time.perf_counter()

@@ -8,8 +8,13 @@
 // fine residual is never stored; ring nodes are written as zero.
 //
 // C, prolong_correct, replaces the Pallas prolong_correct of the same file
-// (:488): u <- u + P_bilinear(ec) on fine interior nodes, in place. One
-// thread per fine interior node; boundary nodes stay fixed.
+// (:488, window body _pc_window :361): u <- u + P_bilinear(ec) on fine
+// unknowns, in place. One thread per fine unknown; fixed nodes stay as they
+// are. A 4-bit side mask (bit k set: side k of west, east, south, north is
+// Dirichlet) says which rings are unknowns, as the Pallas kernel's `sides`
+// flags do: a Neumann/Robin ring is corrected too, and every interpolation
+// read stays in the domain. With all four sides Dirichlet (0xF) the
+// unknowns are the interior.
 //
 // Bound: device memory bandwidth. B reads u and f once (8 bytes per fine
 // node; the 3x3 windows of neighbouring threads overlap in L1/L2) and writes
@@ -40,10 +45,10 @@ __global__ void residual_restrict_kernel(const float* __restrict__ u,
 
 __global__ void prolong_correct_kernel(const float* __restrict__ ec,
                                        float* __restrict__ u, int ncy,
-                                       int nxf, int nyf) {
-  const int j = blockIdx.x * kBlockX + threadIdx.x + 1;
-  const int i = blockIdx.y * kBlockY + threadIdx.y + 1;
-  if (i >= nxf - 1 || j >= nyf - 1) return;
+                                       int nyf, Rect unk) {
+  const int j = blockIdx.x * kBlockX + threadIdx.x + unk.j0;
+  const int i = blockIdx.y * kBlockY + threadIdx.y + unk.i0;
+  if (i >= unk.i1 || j >= unk.j1) return;
   u[(long)i * nyf + j] += prolong_at(ec, i, j, ncy);
 }
 
@@ -65,16 +70,18 @@ int mg_residual_restrict(const float* u, const float* f, float* fc, int nyf,
   return (int)cudaGetLastError();
 }
 
-// u (nxf, nyf) += P_bilinear(ec) on interior nodes; ec has row length ncy.
+// u (nxf, nyf) += P_bilinear(ec) on the unknowns that `sides` leaves (bit k
+// set: side k is Dirichlet); ec has row length ncy.
 int mg_prolong_correct(const float* ec, float* u, int ncy, int nxf, int nyf,
-                       int device, void* stream) {
+                       int sides, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const Rect unk = unknown_rect(nxf, nyf, sides);
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((nyf - 2 + kBlockX - 1) / kBlockX,
-                  (nxf - 2 + kBlockY - 1) / kBlockY);
+  const dim3 grid((unk.j1 - unk.j0 + kBlockX - 1) / kBlockX,
+                  (unk.i1 - unk.i0 + kBlockY - 1) / kBlockY);
   prolong_correct_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      ec, u, ncy, nxf, nyf);
+      ec, u, ncy, nyf, unk);
   return (int)cudaGetLastError();
 }
 

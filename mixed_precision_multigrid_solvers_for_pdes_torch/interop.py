@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.bc import BoundarySpec
+from .core.bc import SIDES, BCKind, BCSide, BoundarySpec
 from .core.bc3d import BoundarySpec3D
 from .core.grid import Grid
 from .core.grid3d import Grid3D
@@ -38,24 +38,41 @@ def grid_from_jax(g) -> Grid:
     return Grid(int(g.nx), int(g.ny), tuple(float(x) for x in g.domain))
 
 
-def stencil_from_jax(st) -> Stencil:
-    """Port Stencil from a JAX Stencil with 0-d leaves."""
+def stencil_from_jax(st, grid=None, *, device="cpu") -> Stencil:
+    """Port Stencil from a JAX Stencil: 0-d leaves become floats; padded
+    2-d leaves (coefficient planes) become (nx, ny) tensors of their dtype
+    on ``device``, which needs the ``grid``."""
+    if type(st).__name__ != "Stencil":
+        raise NotImplementedError("the 9-point Galerkin stencil is not "
+                                  "ported yet (ROADMAP item 10)")
     vals = [np.asarray(getattr(st, k)) for k in ("c", "w", "e", "s", "n")]
-    if any(v.ndim for v in vals):
-        raise NotImplementedError("variable-coefficient stencils are not "
-                                  "ported yet (ROADMAP item 7)")
-    return Stencil(*(float(v) for v in vals))
+    if not any(v.ndim for v in vals):
+        return Stencil(*(float(v) for v in vals))
+    return Stencil(*(field_from_jax(np.broadcast_to(v, grid.shape_padded),
+                                    grid, device=device) for v in vals))
+
+
+def spec_from_jax(spec) -> BoundarySpec:
+    """Port BoundarySpec from a JAX one with whole-side conditions."""
+    sides = {}
+    for name in SIDES:
+        s = spec.side(name)
+        sides[name] = BCSide(kind=BCKind(s.kind.value), alpha=s.alpha,
+                             beta=s.beta, segments=tuple(s.segments))
+    return BoundarySpec(**sides)
 
 
 def levels_from_jax(levels, *, device="cpu"):
-    """Port hierarchy from a tuple of JAX Levels (all-Dirichlet only)."""
+    """Port hierarchy from a tuple of JAX Levels on rectangles."""
     out = []
     for lev in levels:
-        if not lev.spec.all_dirichlet or getattr(lev, "domain", None):
-            raise NotImplementedError("only all-Dirichlet rectangles are "
-                                      "ported yet (ROADMAP item 7)")
-        out.append(Level(stencil=stencil_from_jax(lev.stencil),
-                         grid=grid_from_jax(lev.grid), spec=BoundarySpec(),
+        if getattr(lev, "domain", None):
+            raise NotImplementedError("irregular domains are not ported yet "
+                                      "(ROADMAP item 8)")
+        out.append(Level(stencil=stencil_from_jax(lev.stencil, lev.grid,
+                                                  device=device),
+                         grid=grid_from_jax(lev.grid),
+                         spec=spec_from_jax(lev.spec),
                          dtype=as_dtype(np.dtype(lev.dtype)),
                          device=torch.device(device)))
     return tuple(out)
@@ -81,21 +98,25 @@ def field_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
 
 
 def problem_from_jax(prob) -> Problem:
-    """Port Problem (f, Dirichlet values, exact solution) from a JAX one."""
-    if not prob.spec.all_dirichlet or prob.a is not None \
-            or np.ndim(prob.lam) or prob.lam != 0.0 or prob.bc_values \
-            or prob.domain is not None:
-        raise NotImplementedError("only constant-coefficient all-Dirichlet "
-                                  "Poisson problems are ported yet")
+    """Port Problem (f, a, lam, Dirichlet values, Neumann/Robin data g,
+    exact solution) from a JAX one on a rectangle. Array data are sliced to
+    the logical region; scalars stay scalars."""
+    if prob.domain is not None:
+        raise NotImplementedError("irregular domains are not ported yet "
+                                  "(ROADMAP item 8)")
     g = grid_from_jax(prob.grid)
 
     def host(a):
-        return None if a is None else np.asarray(a, np.float64)[: g.nx,
-                                                                : g.ny].copy()
+        if a is None or np.ndim(a) == 0:
+            return a if a is None else float(a)
+        return np.asarray(a, np.float64)[: g.nx, : g.ny].copy()
 
-    return Problem(name=prob.name, grid=g, spec=BoundarySpec(),
-                   f=host(prob.f), dirichlet_values=host(prob.dirichlet_values),
-                   exact=host(prob.exact))
+    bc_values = (None if prob.bc_values is None
+                 else {k: host(v) for k, v in prob.bc_values.items()})
+    return Problem(name=prob.name, grid=g, spec=spec_from_jax(prob.spec),
+                   f=host(prob.f), a=host(prob.a), lam=host(prob.lam),
+                   dirichlet_values=host(prob.dirichlet_values),
+                   bc_values=bc_values, exact=host(prob.exact))
 
 
 # ---------------------------------------------------------------------------

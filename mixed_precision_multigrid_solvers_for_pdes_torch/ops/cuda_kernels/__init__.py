@@ -4,4 +4,5 @@ Importing these modules compiles nothing: the library is built with nvcc
 on first launch (``_build.library``).
 """
 
-from . import smooth, smooth3d, tail, transfer, transfer3d  # noqa: F401
+from . import (  # noqa: F401
+    smooth, smooth3d, smooth_var, tail, transfer, transfer3d)

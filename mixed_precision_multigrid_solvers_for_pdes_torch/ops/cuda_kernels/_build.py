@@ -37,16 +37,22 @@ LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     # name: (argtypes, restype)
     "mg_rbgs_color": ([_P, _P, _I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_jacobi": ([_P, _P, _P, _I, _I] + [_F] * 6 + [_I, _P], _I),
+    "mg_rbgs_var_color": ([_P] * 7 + [_I, _I, _F, _I, _I, _P], _I),
+    "mg_jacobi_var": ([_P] * 8 + [_I, _I, _F, _I, _P], _I),
     "mg_residual_restrict": ([_P, _P, _P, _I, _I, _I] + [_F] * 5 + [_I, _P],
                              _I),
-    "mg_prolong_correct": ([_P, _P, _I, _I, _I, _I, _P], _I),
+    "mg_residual_restrict_var": ([_P] * 8 + [_I] * 5 + [_I, _P], _I),
+    "mg_prolong_correct": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
     "mg_tail_workspace_floats": ([_I, _IP, _IP], ctypes.c_long),
     "mg_tail_vcycle": ([_P, _P, _P, _I, _IP, _IP, _FP, _I, _I, _F, _I, _I,
                         _I, _I, _P], _I),
+    "mg_tail_var_vcycle": ([_P, _P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
+                            _I, _I, _I, _P], _I),
     "mg_rbgs3d_color": ([_P, _P, _I, _I, _I] + [_F] * 8 + [_I, _I, _P], _I),
     "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
                                + [_I, _P], _I),

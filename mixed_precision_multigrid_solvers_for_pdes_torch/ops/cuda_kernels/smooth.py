@@ -20,12 +20,13 @@ from .. import smooth as smooth_mod
 from ..stencil import Stencil
 from . import _build
 
-_RBGS = smooth_mod.RBGS_METHODS + ("rbgs_rev",)
+RBGS = smooth_mod.RBGS_METHODS + ("rbgs_rev",)
 
 
 def multisweep_plain(st: Stencil, u, f, *, method: str = "rbgs",
                      sweeps: int = 2, omega: float = 1.0):
-    """Plain twin: ``ops.smooth.smooth`` on the interior, in place on u."""
+    """Plain twin of A and H: ``ops.smooth.smooth`` on the interior of an
+    all-Dirichlet level, in place on u."""
     unknown = bc.unknown_mask(*u.shape, device=u.device)
     return smooth_mod.smooth(st, u, f, unknown, method=method, sweeps=sweeps,
                              omega=omega)
@@ -37,7 +38,7 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
 
     ``method``: 'jacobi', an RB-GS name ('rbgs', 'gauss_seidel', 'red_black',
     'sor'), or 'rbgs_rev' (black before red)."""
-    if method != "jacobi" and method not in _RBGS:
+    if method != "jacobi" and method not in RBGS:
         raise ValueError(f"multisweep: unsupported method {method!r}")
     if u.device.type == "cpu":
         return multisweep_plain(st, u, f, method=method, sweeps=sweeps,

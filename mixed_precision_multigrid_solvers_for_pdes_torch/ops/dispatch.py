@@ -5,17 +5,25 @@ Counterpart of ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/dispatch.py`
 ``prolong_correct``, ``tail_ok``, ``tail_vcycle``), with the TPU byte gates
 dropped. ``backend`` is 'auto' or 'torch':
 
-- 'auto' routes every configuration the kernels take (fp32, constant
-  5-point stencil, all-Dirichlet, default transfers, Jacobi or RB-GS
-  smoothing) to the kernel wrappers in ``ops/cuda_kernels``. A wrapper
-  launches its kernel on a CUDA tensor and runs its plain twin on a CPU
-  tensor, so 'auto' means kernels on the GPU and plain code on the CPU.
+- 'auto' routes every configuration the kernels take (fp32, 5-point
+  stencil, default transfers, Jacobi or RB-GS smoothing) to the kernel
+  wrappers in ``ops/cuda_kernels``. A wrapper launches its kernel on a CUDA
+  tensor and runs its plain twin on a CPU tensor, so 'auto' means kernels on
+  the GPU and plain code on the CPU.
 - 'torch' forces the plain PyTorch path on any device.
 
-Every level above the tail takes kernels A (smoothing), B and C (fused
-transfers). The tail kernel D starts at the first level whose logical size
-is at most ``TAIL_MAX_ENTRY`` x ``TAIL_MAX_ENTRY``; that is where the TPU
-started its tail, and H100 gates await H100 measurements.
+Constant-coefficient stencils (float leaves, all-Dirichlet) take kernels A
+(smoothing), B and C (fused transfers) on every level above the tail, and
+the tail kernel D. Stencils with (nx, ny) coefficient planes (a coefficient
+field, an array lam, or Neumann/Robin sides) follow the JAX package's
+varcoef routes (``_pallas_smooth_ok``, ``transfer_fused_ok`` with
+``_dirichlet_sides``, ``tail_ok``/``tail_vcycle``): all-Dirichlet levels
+smooth with kernel H and take the tail kernel J; every level restricts with
+kernel I and prolongs with C, both given the per-side Dirichlet flags; a
+level with a Neumann/Robin side smooths on the plain path and has no tail
+kernel, as in the JAX package. A tail starts at the first level whose
+logical size is at most ``TAIL_MAX_ENTRY`` x ``TAIL_MAX_ENTRY``; that is
+where the TPU started its tail, and H100 gates await H100 measurements.
 
 3D (``smooth3d``, ``transfer_fused3d_ok``, ``residual_restrict3d``,
 ``prolong_correct3d``; counterparts of ``pallas_smooth3d_ok`` and
@@ -32,7 +40,8 @@ import torch
 
 from . import smooth as smooth_mod, smooth3d as smooth3d_mod
 from .cuda_kernels import smooth as k_smooth, smooth3d as k_smooth3d, \
-    tail as k_tail, transfer as k_transfer, transfer3d as k_transfer3d
+    smooth_var as k_smooth_var, tail as k_tail, transfer as k_transfer, \
+    transfer3d as k_transfer3d
 
 BACKENDS = ("auto", "torch")
 TAIL_MAX_ENTRY = 129
@@ -57,32 +66,40 @@ def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
            backend: str = "auto"):
     """``sweeps`` smoothing sweeps in place on ``u``; returns ``u``."""
     if kernel_smooth_ok(u, lev, backend, method):
-        return k_smooth.multisweep(stencil, u, f, method=method,
-                                   sweeps=sweeps, omega=omega)
+        kernel = (k_smooth.multisweep if stencil.scalar
+                  else k_smooth_var.multisweep_var)
+        return kernel(stencil, u, f, method=method, sweeps=sweeps,
+                      omega=omega)
     return smooth_mod.smooth(stencil, u, f, lev.unknown, method=method,
                              sweeps=sweeps, omega=omega)
 
 
 def transfer_fused_ok(lev, nxt, cfg) -> bool:
-    """True when kernels B/C replace the plain residual -> restrict and
-    prolong -> correct chain between ``lev`` and ``nxt``."""
+    """True when kernels B or I and C replace the plain residual -> restrict
+    and prolong -> correct chain between ``lev`` and ``nxt``: any spec
+    without periodic sides or segments (Dirichlet, Neumann, Robin)."""
     return (_kernels(cfg.backend)
+            and not (lev.spec.any_periodic or lev.spec.any_segments)
             and cfg.restriction == "full_weighting"
             and cfg.prolongation == "bilinear"
-            and lev.spec.all_dirichlet
             and lev.dtype == torch.float32 and nxt.dtype == torch.float32)
 
 
 def residual_restrict(lev, nxt, u, f):
-    """Fused fc = R(f - A u) (gate with transfer_fused_ok first)."""
-    return k_transfer.residual_restrict(lev.stencil, u, f,
-                                        out_dtype=nxt.dtype)
+    """Fused fc = R(f - A u), zero off the coarse unknowns (gate with
+    transfer_fused_ok first)."""
+    if lev.stencil.scalar:
+        return k_transfer.residual_restrict(lev.stencil, u, f,
+                                            out_dtype=nxt.dtype)
+    return k_transfer.residual_restrict_var(
+        lev.stencil, u, f, sides=lev.spec.dirichlet_sides,
+        out_dtype=nxt.dtype)
 
 
 def prolong_correct(lev, nxt, ec, u):
     """Fused u += P ec on fine unknowns, in place (gate with
     transfer_fused_ok first)."""
-    return k_transfer.prolong_correct(ec, u)
+    return k_transfer.prolong_correct(ec, u, sides=lev.spec.dirichlet_sides)
 
 
 def tail_ok(levels, lvl, cfg, cycle_type) -> bool:
@@ -105,10 +122,13 @@ def tail_ok(levels, lvl, cfg, cycle_type) -> bool:
 
 
 def tail_vcycle(levels, lvl, u, f, cfg):
-    """One V-cycle over ``levels[lvl:]`` through the tail kernel, in place
-    on ``u`` (gate with tail_ok first)."""
+    """One V-cycle over ``levels[lvl:]`` through tail kernel D (constant
+    stencils) or J (coefficient planes), in place on ``u`` (gate with
+    tail_ok first)."""
     tail = levels[lvl:]
-    return k_tail.tail_vcycle(
+    kernel = (k_tail.tail_vcycle if tail[0].stencil.scalar
+              else k_tail.tail_vcycle_var)
+    return kernel(
         [lev.stencil for lev in tail], u, f,
         shapes=[lev.grid.shape for lev in tail],
         pre=cfg.pre_sweeps, post=cfg.post_sweeps, omega=cfg.omega,

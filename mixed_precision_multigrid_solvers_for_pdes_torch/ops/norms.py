@@ -1,6 +1,7 @@
 """Grid norms with float64 accumulation.
 
-Counterpart of ``scaled_l2``, ``masked_scaled_l2`` and ``h1_seminorm3d`` in
+Counterpart of ``scaled_l2``, ``masked_scaled_l2``, ``h1_seminorm`` and
+``h1_seminorm3d`` in
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/norms.py`` and of the
 3D solvers' ``_norm3``: the sum is always taken in float64 whatever the
 field's dtype. The l2 norms take one spacing per axis (hx, hy in 2D; hx, hy,
@@ -30,16 +31,20 @@ def masked_scaled_l2(r: torch.Tensor, mask: torch.Tensor,
     return torch.sqrt(math.prod(h) * torch.sum(r64 * r64))
 
 
-def h1_seminorm3d(e: torch.Tensor, mask: torch.Tensor, hx: float, hy: float,
-                  hz: float) -> torch.Tensor:
-    """sqrt(hx*hy*hz * sum |grad_h e|^2) by forward differences, counting
-    only edges whose both endpoints are in ``mask``; float64."""
+def h1_seminorm(e: torch.Tensor, mask: torch.Tensor,
+                *h: float) -> torch.Tensor:
+    """sqrt(prod(h) * sum |grad_h e|^2) by forward differences along each
+    axis (one spacing per axis), counting only edges whose both endpoints
+    are in ``mask``; float64."""
     e64 = torch.where(mask, e, torch.zeros((), dtype=e.dtype,
                                            device=e.device)).to(torch.float64)
     s = torch.zeros((), dtype=torch.float64, device=e.device)
-    for ax, h in enumerate((hx, hy, hz)):
+    for ax, hk in enumerate(h):
         n = e64.shape[ax]
-        d = (e64.narrow(ax, 1, n - 1) - e64.narrow(ax, 0, n - 1)) / h
+        d = (e64.narrow(ax, 1, n - 1) - e64.narrow(ax, 0, n - 1)) / hk
         m = mask.narrow(ax, 1, n - 1) & mask.narrow(ax, 0, n - 1)
         s = s + torch.sum(torch.where(m, d * d, 0.0))
-    return torch.sqrt(hx * hy * hz * s)
+    return torch.sqrt(math.prod(h) * s)
+
+
+h1_seminorm3d = h1_seminorm  # the 3D name of the JAX package

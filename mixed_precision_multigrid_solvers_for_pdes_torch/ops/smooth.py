@@ -2,14 +2,17 @@
 
 Counterpart of ``jacobi_sweep``, ``rb_color_update``, ``rbgs_sweep`` and
 ``smooth`` in ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/smooth.py``.
-These are the plain twins that the smoothing kernel
-(``ops/cuda_kernels/smooth.py``) is held against, and the path every
-configuration the kernel does not take runs on.
+These are the plain twins that the smoothing kernels
+(``ops/cuda_kernels/smooth.py`` and ``smooth_var.py``) are held against, and
+the path every configuration the kernels do not take runs on.
 
-Every smoother updates ``u`` IN PLACE on its unknown interior nodes (it saves
-one full-size copy per colour update) and returns it. The colour of node
-(i, j) is that of its global index: red where (i + j) is even.
-Line/ADI and Chebyshev smoothers are ROADMAP item 7.
+Every smoother updates ``u`` IN PLACE on its unknown nodes (it saves one
+full-size copy per colour update) and returns it. A scalar stencil acts on
+the interior; a tensor stencil acts on every node, so Neumann/Robin ring
+unknowns are smoothed too (``ops/stencil.region``). Updates divide by ``c``
+as the JAX package's XLA smoothers do. The colour of node (i, j) is that of
+its global index: red where (i + j) is even. Line/ADI and Chebyshev
+smoothers are ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -17,43 +20,43 @@ from __future__ import annotations
 import torch
 
 from . import stencil as st_mod
-from .stencil import Stencil
+from .stencil import Stencil, region
 
 RBGS_METHODS = ("rbgs", "gauss_seidel", "red_black", "sor")
 
 
-def _red_interior(u: torch.Tensor) -> torch.Tensor:
-    """Red (i + j even) mask over the interior nodes of ``u``."""
+def _red(st: Stencil, u: torch.Tensor) -> torch.Tensor:
+    """Red (i + j even) mask over ``region(st, u)``."""
     nx, ny = u.shape
-    i = torch.arange(1, nx - 1, device=u.device)
-    j = torch.arange(1, ny - 1, device=u.device)
-    return (i[:, None] + j[None, :]) % 2 == 0
+    i = region(st, torch.arange(nx, device=u.device)[:, None].expand(nx, ny))
+    j = region(st, torch.arange(ny, device=u.device)[None, :].expand(nx, ny))
+    return (i + j) % 2 == 0
 
 
 def jacobi_sweep(st: Stencil, u, f, unknown, omega):
     """One weighted-Jacobi sweep, u += omega * (f - A u) / c on unknowns."""
-    ui = u[1:-1, 1:-1]
-    r = f[1:-1, 1:-1] - (st.c * ui - st_mod.neighbor_sum(st, u))
+    ui = region(st, u)
+    r = region(st, f) - (st.c * ui - st_mod.neighbor_sum(st, u))
     new = ui + omega * r / st.c
-    u[1:-1, 1:-1] = torch.where(unknown[1:-1, 1:-1], new, ui)
+    ui[...] = torch.where(region(st, unknown), new, ui)
     return u
 
 
 def rb_color_update(st: Stencil, u, f, unknown, color_mask, omega):
     """Gauss-Seidel update of one colour, u = u + omega*((f + nbsum)/c - u).
 
-    ``color_mask`` covers the interior nodes, shape (nx-2, ny-2)."""
-    ui = u[1:-1, 1:-1]
-    u_gs = (f[1:-1, 1:-1] + st_mod.neighbor_sum(st, u)) / st.c
+    ``color_mask`` covers ``region(st, u)``."""
+    ui = region(st, u)
+    u_gs = (region(st, f) + st_mod.neighbor_sum(st, u)) / st.c
     new = ui + omega * (u_gs - ui)
-    u[1:-1, 1:-1] = torch.where(color_mask & unknown[1:-1, 1:-1], new, ui)
+    ui[...] = torch.where(color_mask & region(st, unknown), new, ui)
     return u
 
 
 def rbgs_sweep(st: Stencil, u, f, unknown, omega=1.0, reverse: bool = False):
     """One red-black Gauss-Seidel sweep: red then black, or black then red
     with ``reverse`` (the adjoint order that makes a cycle symmetric)."""
-    red = _red_interior(u)
+    red = _red(st, u)
     first, second = (~red, red) if reverse else (red, ~red)
     rb_color_update(st, u, f, unknown, first, omega)
     rb_color_update(st, u, f, unknown, second, omega)

@@ -1,24 +1,36 @@
-"""The constant-coefficient 5-point operator ``A u = -lap(u) + lam*u``.
+"""The 5-point operator ``A u = -div(a grad u) + lam*u``.
 
-Counterpart of ``Stencil``, ``make_stencil`` (constant-coefficient branch),
+Counterpart of ``Stencil``, ``make_stencil``, ``bc_rhs_correction``,
 ``neighbor_sum``, ``apply`` and ``residual`` in
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/stencil.py``:
 
     A u[i,j] = c*u - w*u[i-1,j] - e*u[i+1,j] - s*u[i,j-1] - n*u[i,j+1]
 
-with 1/h^2 folded into the coefficients. Fields have the logical shape
-(nx, ny); neighbour reads are slices of the interior, so nothing wraps.
-Variable coefficients, array ``lam``, Neumann/Robin ghost elimination and the
-9-point stencil are ROADMAP item 7.
+with 1/h^2 folded into the coefficients. A stencil's leaves are either
+Python floats (constant coefficients on an all-Dirichlet rectangle) or
+(nx, ny) tensors, the coefficient planes of a coefficient field ``a``, an
+array ``lam`` or Neumann/Robin ghost elimination.
+
+Scalar stencils act on the interior nodes only: neighbour reads are slices
+of the interior, so nothing wraps. Tensor stencils act on every node,
+because a Neumann/Robin ring holds unknowns: the neighbour outside the
+domain reads an explicit zero halo, as the JAX package reads its zero
+padding, and its coupling is zero there anyway. Sums run in the JAX
+package's order (w, e, s, n), so fp32 planes and residuals agree bit for
+bit. The 9-point stencil is ROADMAP item 10.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..core.bc import BoundarySpec
+from ..core import bc as bc_mod
+from ..core.bc import BCKind, BoundarySpec
 from ..core.grid import Grid
 from ..core.precision import as_dtype
 
@@ -29,36 +41,51 @@ def _round(x: float, dtype: torch.dtype) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class Stencil:
-    """5-point stencil with scalar leaves (Python floats holding values
-    already rounded to the level's dtype)."""
+    """5-point stencil. Leaves are all Python floats (values already rounded
+    to the level's dtype) or all (nx, ny) tensors of the level's dtype and
+    device."""
 
-    c: float  # centre (diagonal)
-    w: float  # coupling to u[i-1, j]
-    e: float  # coupling to u[i+1, j]
-    s: float  # coupling to u[i, j-1]
-    n: float  # coupling to u[i, j+1]
+    c: Any  # centre (diagonal)
+    w: Any  # coupling to u[i-1, j]
+    e: Any  # coupling to u[i+1, j]
+    s: Any  # coupling to u[i, j-1]
+    n: Any  # coupling to u[i, j+1]
+
+    @property
+    def scalar(self) -> bool:
+        return not isinstance(self.c, torch.Tensor)
 
     def astype(self, dtype) -> "Stencil":
         """Round every coefficient to ``dtype`` (exact when widening)."""
         dtype = as_dtype(dtype)
-        return Stencil(*(_round(x, dtype) for x in self.coefs))
+        if self.scalar:
+            return Stencil(*(_round(x, dtype) for x in self.coefs))
+        return Stencil(*(x.to(dtype) for x in self.coefs))
 
     @property
     def coefs(self):
         return (self.c, self.w, self.e, self.s, self.n)
 
 
+def region(st: Stencil, x: torch.Tensor) -> torch.Tensor:
+    """The nodes ``st`` acts on, as a view of ``x``: the interior for a
+    scalar stencil, every node for a tensor stencil."""
+    return x[1:-1, 1:-1] if st.scalar else x
+
+
 def neighbor_sum(st: Stencil, u: torch.Tensor) -> torch.Tensor:
-    """w*u[i-1,j] + e*u[i+1,j] + s*u[i,j-1] + n*u[i,j+1] on the interior
-    nodes; shape (nx-2, ny-2)."""
-    return (st.w * u[:-2, 1:-1] + st.e * u[2:, 1:-1]
-            + st.s * u[1:-1, :-2] + st.n * u[1:-1, 2:])
+    """w*u[i-1,j] + e*u[i+1,j] + s*u[i,j-1] + n*u[i,j+1] over
+    ``region(st, u)``; a tensor stencil reads zero outside the array."""
+    p = u if st.scalar else F.pad(u, (1, 1, 1, 1))
+    return (st.w * p[:-2, 1:-1] + st.e * p[2:, 1:-1]
+            + st.s * p[1:-1, :-2] + st.n * p[1:-1, 2:])
 
 
 def apply(st: Stencil, u: torch.Tensor) -> torch.Tensor:
-    """A u, shape (nx, ny). Valid on interior nodes; the ring holds zero."""
+    """A u, shape (nx, ny). Valid on unknown nodes; a scalar stencil leaves
+    the ring at zero."""
     out = torch.zeros_like(u)
-    out[1:-1, 1:-1] = st.c * u[1:-1, 1:-1] - neighbor_sum(st, u)
+    region(st, out)[...] = st.c * region(st, u) - neighbor_sum(st, u)
     return out
 
 
@@ -66,25 +93,97 @@ def residual(st: Stencil, u: torch.Tensor, f: torch.Tensor,
              unknown: torch.Tensor) -> torch.Tensor:
     """r = f - A u on unknown nodes, zero on fixed nodes; shape (nx, ny)."""
     r = torch.zeros_like(f)
-    r[1:-1, 1:-1] = f[1:-1, 1:-1] - (st.c * u[1:-1, 1:-1]
-                                     - neighbor_sum(st, u))
+    region(st, r)[...] = region(st, f) - (st.c * region(st, u)
+                                          - neighbor_sum(st, u))
     return torch.where(unknown, r, torch.zeros((), dtype=r.dtype,
                                                device=r.device))
 
 
-def make_stencil(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
-                 lam: float = 0.0, dtype=torch.float32) -> Stencil:
-    """Stencil of ``-lap(u) + lam*u`` on ``grid``, coefficients in ``dtype``.
+def _side_terms(grid: Grid, spec: BoundarySpec, device):
+    """(side, BCSide, mask, h, normal coefficient, opposite coefficient) for
+    every Neumann/Robin region of a side, in the JAX package's order."""
+    for name, h, normal, opposite in (("west", grid.hx, "w", "e"),
+                                      ("east", grid.hx, "e", "w"),
+                                      ("south", grid.hy, "s", "n"),
+                                      ("north", grid.hy, "n", "s")):
+        for side, m in bc_mod.side_regions(name, *grid.shape, spec.side(name),
+                                           device=device):
+            if side.kind in (BCKind.NEUMANN, BCKind.ROBIN):
+                yield name, side, m, h, normal, opposite
 
-    The centre is summed in ``dtype`` as the JAX package sums it
-    (``c = w + e + s + n + lam``), so both packages hold the same values.
+
+def make_stencil(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
+                 a=None, lam: Any = 0.0, dtype=torch.float32,
+                 device="cpu") -> Stencil:
+    """Stencil of ``-div(a grad u) + lam*u`` on ``grid``, in ``dtype``.
+
+    ``a``: (nx, ny) node field or None for a = 1. ``lam``: a scalar or an
+    (nx, ny) array. Without ``a``, an array ``lam`` or a Neumann/Robin side
+    the leaves are floats; otherwise they are (nx, ny) tensors on
+    ``device``. Every value is computed in ``dtype`` in the JAX package's
+    order: ``a`` is cast first, faces take the harmonic mean
+    2*a*a_nb/(a + a_nb) (0 where a + a_nb <= 0, and outside the domain),
+    Neumann/Robin sides drop the outward coupling and double the inward one,
+    Robin adds 2*alpha/(beta*h) to the diagonal, and the centre is
+    ``w + e + s + n + lam (+ Robin)``.
     """
-    if not spec.all_dirichlet:
-        raise NotImplementedError(
-            "only all-Dirichlet stencils are ported (ROADMAP item 7)")
     dtype = as_dtype(dtype)
-    w = e = torch.tensor(1.0 / (grid.hx * grid.hx), dtype=dtype)
-    s = n = torch.tensor(1.0 / (grid.hy * grid.hy), dtype=dtype)
-    c = w + e + s + n + torch.tensor(lam, dtype=dtype)
-    return Stencil(c=c.item(), w=w.item(), e=e.item(), s=s.item(),
-                   n=n.item())
+    ihx2 = 1.0 / (grid.hx * grid.hx)
+    ihy2 = 1.0 / (grid.hy * grid.hy)
+    if a is None and spec.plain and np.ndim(lam) == 0:
+        w = e = torch.tensor(ihx2, dtype=dtype)
+        s = n = torch.tensor(ihy2, dtype=dtype)
+        c = w + e + s + n + torch.tensor(lam, dtype=dtype)
+        return Stencil(c=c.item(), w=w.item(), e=e.item(), s=s.item(),
+                       n=n.item())
+
+    shape = grid.shape
+    if a is None:
+        faces = (torch.tensor(1.0, dtype=dtype, device=device),) * 4
+    else:
+        a = torch.as_tensor(a, dtype=dtype, device=device)
+        ap = F.pad(a, (1, 1, 1, 1))
+        zero = torch.zeros((), dtype=dtype, device=device)
+
+        def face(nb):
+            s_ = a + nb
+            return torch.where(s_ > 0, 2.0 * a * nb / torch.where(s_ > 0, s_,
+                                                                  1.0), zero)
+
+        faces = (face(ap[:-2, 1:-1]), face(ap[2:, 1:-1]),
+                 face(ap[1:-1, :-2]), face(ap[1:-1, 2:]))
+    ones = torch.ones(shape, dtype=dtype, device=device)
+    coefs = dict(zip("wesn", (ones * (f_ * h) for f_, h in
+                              zip(faces, (ihx2, ihx2, ihy2, ihy2)))))
+
+    robin = torch.zeros(shape, dtype=dtype, device=device)
+    for _, side, m, h, normal, opposite in _side_terms(grid, spec, device):
+        coefs[opposite] = torch.where(m, 2.0 * coefs[opposite],
+                                      coefs[opposite])
+        coefs[normal] = torch.where(m, 0.0, coefs[normal])
+        if side.kind == BCKind.ROBIN:
+            diag = torch.tensor(2.0 * side.alpha / (side.beta * h),
+                                dtype=dtype)
+            robin = robin + torch.where(m, diag.to(device), 0.0)
+
+    w, e, s, n = (coefs[k] for k in "wesn")
+    lam_t = torch.as_tensor(lam, dtype=dtype).to(device)
+    c = w + e + s + n + lam_t + robin
+    return Stencil(c=c, w=w, e=e, s=s, n=n)
+
+
+def bc_rhs_correction(grid: Grid, spec: BoundarySpec,
+                      bc_values: Dict[str, Any], dtype=torch.float32,
+                      device="cpu") -> torch.Tensor:
+    """Additive right-hand-side term of the Neumann/Robin data g: 2*g/(beta*h)
+    on each such side's nodes, computed in ``dtype``.
+
+    ``bc_values[side]`` is a scalar or an (nx, ny) array holding g on that
+    side. Dirichlet sides contribute nothing (their values live in the
+    solution array)."""
+    dtype = as_dtype(dtype)
+    out = torch.zeros(grid.shape, dtype=dtype, device=device)
+    for name, side, m, h, _, _ in _side_terms(grid, spec, device):
+        g = torch.as_tensor(bc_values.get(name, 0.0), dtype=dtype).to(device)
+        out = out + torch.where(m, 2.0 * g / (side.beta * h), 0.0)
+    return out

@@ -5,13 +5,14 @@ Counterpart of ``restrict`` (full weighting; ``boundary='zero'`` and
 ``'inject'``) and ``prolong`` (bilinear) in
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/transfer.py``, written
 with strided slices of the logical arrays. The fine grid relates to the
-coarse one as nf = 2*(nc - 1) + 1. Half weighting, injection restriction and
-the 'reflect' boundary (Neumann/Robin rings) are ROADMAP item 7.
+coarse one as nf = 2*(nc - 1) + 1. Half weighting and injection restriction
+are ROADMAP item 7.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def restrict(rf: torch.Tensor, ncx: int, ncy: int, *,
@@ -24,12 +25,15 @@ def restrict(rf: torch.Tensor, ncx: int, ncy: int, *,
     then the four edge neighbours, then the four corners). ``boundary``:
     'zero' leaves the coarse ring at zero (residual transfers with Dirichlet
     rings); 'inject' copies the coincident fine nodes onto the ring (the FMG
-    right-hand side).
+    right-hand side); 'reflect' restricts onto the ring too, folding the
+    out-of-domain window rows back onto the interior (row -1 takes row 1,
+    row nfx takes row nfx-2; x first, then y, which gives the 2x2-mean
+    corner rule): the residual transfer of Neumann/Robin rings.
     """
     if method != "full_weighting":
         raise NotImplementedError(
             f"restriction {method!r} is not ported yet (ROADMAP item 7)")
-    if boundary not in ("zero", "inject"):
+    if boundary not in ("zero", "inject", "reflect"):
         raise NotImplementedError(
             f"boundary {boundary!r} is not ported yet (ROADMAP item 7)")
     dtype = dtype or rf.dtype
@@ -39,11 +43,21 @@ def restrict(rf: torch.Tensor, ncx: int, ncy: int, *,
         raise ValueError(f"fine shape {tuple(r.shape)} does not coarsen to "
                          f"({ncx}, {ncy})")
 
-    def win(di, dj):  # fine[2I+di, 2J+dj] for coarse interior I, J
-        return r[2 + di: nfx - 2 + di: 2, 2 + dj: nfy - 2 + dj: 2]
-
     out = torch.zeros((ncx, ncy), dtype=dtype, device=r.device)
-    out[1:-1, 1:-1] = (
+    if boundary == "reflect":
+        p = F.pad(r, (1, 1, 1, 1))
+        p[0, 1:-1], p[-1, 1:-1] = r[1], r[-2]
+        p[:, 0], p[:, -1] = p[:, 2], p[:, -3]
+        r, inner, lo = p, out, 1  # every coarse node; p[k + 1] is fine k
+    else:
+        inner, lo = out[1:-1, 1:-1], 2  # coarse interior only
+
+    def win(di, dj):  # fine[2I+di, 2J+dj] for the coarse nodes in `inner`
+        i0, j0 = lo + di, lo + dj
+        return r[i0: i0 + 2 * inner.shape[0] - 1: 2,
+                 j0: j0 + 2 * inner.shape[1] - 1: 2]
+
+    inner[...] = (
         4.0 * win(0, 0)
         + 2.0 * (win(1, 0) + win(-1, 0) + win(0, 1) + win(0, -1))
         + (win(1, 1) + win(-1, 1) + win(1, -1) + win(-1, -1))

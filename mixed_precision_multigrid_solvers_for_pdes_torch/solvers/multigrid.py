@@ -2,7 +2,7 @@
 
 Counterpart of ``Level``, ``MultigridConfig``, ``build_hierarchy``
 (rediscretization), ``_cycle`` (V), ``mg_cycle``, ``fmg``, ``mg_solve``,
-``_unpack_info`` and ``convergence_factor`` in
+``_unpack_info``, ``_sample_coarse`` and ``convergence_factor`` in
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/solvers/multigrid.py``.
 
 PyTorch runs eagerly, so the cycle recursion runs in Python and each level
@@ -78,12 +78,22 @@ class MultigridConfig:
         return dataclasses.replace(self, **kw)
 
 
+def _sample_coarse(field):
+    """Injection-sample an (nx, ny) node field onto the 2:1 coarse grid;
+    scalars pass through."""
+    if field is None or np.ndim(field) == 0:
+        return field
+    return field[::2, ::2]
+
+
 def build_hierarchy(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
-                    dtype=torch.float32, device="cpu",
+                    a=None, lam=0.0, dtype=torch.float32, device="cpu",
                     cfg: MultigridConfig = MultigridConfig()
                     ) -> Tuple[Level, ...]:
     """Levels by repeated 2:1 coarsening and rediscretization, finest
-    first."""
+    first. The coefficient field ``a`` and an array ``lam`` ((nx, ny), any
+    array type) are injection-sampled onto each coarse grid and the operator
+    is rebuilt there."""
     if cfg.coarsening != "rediscretize":
         raise NotImplementedError(
             f"coarsening {cfg.coarsening!r} is not ported yet (ROADMAP item "
@@ -93,10 +103,14 @@ def build_hierarchy(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
     grids = [grid]
     while grids[-1].can_coarsen() and len(grids) < cfg.max_levels:
         grids.append(grids[-1].coarsen())
-    return tuple(
-        Level(stencil=st_mod.make_stencil(g, spec, dtype=dtype), grid=g,
-              spec=spec, dtype=dtype, device=device)
-        for g in grids)
+    levels = []
+    for g in grids:
+        levels.append(Level(
+            stencil=st_mod.make_stencil(g, spec, a=a, lam=lam, dtype=dtype,
+                                        device=device),
+            grid=g, spec=spec, dtype=dtype, device=device))
+        a, lam = _sample_coarse(a), _sample_coarse(lam)
+    return tuple(levels)
 
 
 def _smooth(lev: Level, u, f, cfg: MultigridConfig, sweeps: int,
@@ -133,9 +147,14 @@ def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
         fc = dispatch.residual_restrict(lev, nxt, u, f)
     else:
         r = st_mod.residual(lev.stencil, u, f, lev.unknown)
+        # 'reflect' restricts onto every ring; Dirichlet rings are zeroed
+        boundary = "zero" if lev.spec.plain else "reflect"
         fc = transfer.restrict(r, nxt.grid.nx, nxt.grid.ny,
-                               method=cfg.restriction, boundary="zero",
+                               method=cfg.restriction, boundary=boundary,
                                dtype=nxt.dtype)
+        if boundary == "reflect":
+            fc = torch.where(nxt.unknown, fc, torch.zeros(
+                (), dtype=fc.dtype, device=fc.device))
     ec = _cycle(levels, nxt.zeros(), fc, lvl + 1, cfg, "V")
     if fused:
         u = dispatch.prolong_correct(lev, nxt, ec, u)

@@ -12,6 +12,10 @@ non-power-of-two domain below makes those roundings differ for real: on the
 unit square the coefficients are powers of two and the two agree bit for bit.
 The 3D kernels E, F and G round every product and sum explicitly in their
 twins' order; E still multiplies by 1/c where the twin divides.
+
+The coefficient-plane kernels H, I and J and kernel C round every operation
+in their twins' order and divide as the twins do, so they are held to their
+twins bit for bit.
 """
 
 import numpy as np
@@ -23,9 +27,11 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
     stencil,
     stencil3d,
 )
+from mixed_precision_multigrid_solvers_for_pdes_torch.core import bc
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
     smooth as ksmooth,
     smooth3d as ksmooth3d,
+    smooth_var as ksmooth_var,
     tail as ktail,
     transfer as ktransfer,
     transfer3d as ktransfer3d,
@@ -235,3 +241,134 @@ def test_ir_solve_kernel_path_matches_plain_path(dev):
     (u_k, info_k), (u_p, info_p) = out["auto"], out["torch"]
     assert info_k["converged"] and info_k["iterations"] == info_p["iterations"]
     assert (u_k - u_p).abs().max().item() <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# coefficient planes: H, I, C with sides, J
+
+ROBIN = bc.BCSide(bc.BCKind.ROBIN, alpha=1.0, beta=1.0)
+SIDE_SETS = {"dirichlet": bc.dirichlet(),
+             "east_robin": bc.BoundarySpec(east=ROBIN),
+             "south_robin": bc.BoundarySpec(south=ROBIN),
+             "west_north_neumann": bc.mixed(west="neumann", north="neumann")}
+
+
+def _exact(got, ref):
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+
+
+def _coef(g, coef):
+    X, Y = g.coordinates()
+    return np.where(X < 0.5, 1.0, 1e3) if coef == "jump" else 1.0 + X + Y
+
+
+def _var_stencil(n, coef, dev, spec=bc.dirichlet()):
+    g = T.Grid(n, n)
+    return g, stencil.make_stencil(g, spec, a=_coef(g, coef), device=dev)
+
+
+@pytest.mark.parametrize("coef", ["smooth", "jump"])
+@pytest.mark.parametrize("method,omega", [("rbgs", 1.0), ("rbgs_rev", 1.0),
+                                          ("sor", 1.3), ("jacobi", 0.8)])
+@pytest.mark.parametrize("n,sweeps", [(257, 2), (129, 3), (5, 1)])
+def test_multisweep_var_matches_twin(dev, n, sweeps, method, omega, coef):
+    g, st = _var_stencil(n, coef, dev)
+    u, f = _field(g.shape, 31, dev), _field(g.shape, 32, dev, 1e3)
+    before = ksmooth_var.multisweep_var.launches
+    got = ksmooth_var.multisweep_var(st, u.clone(), f, method=method,
+                                     sweeps=sweeps, omega=omega)
+    per_sweep = 1 if method == "jacobi" else 2
+    assert ksmooth_var.multisweep_var.launches - before == per_sweep * sweeps
+    _exact(got, ksmooth.multisweep_plain(st, u.clone(), f, method=method,
+                                         sweeps=sweeps, omega=omega))
+    assert torch.equal(got[0], u[0]) and torch.equal(got[:, -1], u[:, -1])
+
+
+@pytest.mark.parametrize("side_set", list(SIDE_SETS))
+@pytest.mark.parametrize("n", [1025, 65, 5])
+def test_residual_restrict_var_and_prolong_sides_match_twins(dev, n,
+                                                             side_set):
+    spec = SIDE_SETS[side_set]
+    g, st = _var_stencil(n, "smooth", dev, spec)
+    sides = spec.dirichlet_sides
+    u = _field(g.shape, 33, dev, ring=True)
+    f = _field(g.shape, 34, dev, 50.0, ring=True)
+    before = ktransfer.residual_restrict_var.launches
+    got = ktransfer.residual_restrict_var(st, u, f, sides=sides)
+    assert ktransfer.residual_restrict_var.launches == before + 1
+    _exact(got, ktransfer.residual_restrict_plain(st, u, f, sides=sides))
+    nc = got.shape[0]
+    assert not got[~bc.unknown_mask(nc, nc, spec, device=dev)].any()
+    ec = _field((nc, nc), 35, dev, ring=True)
+    got_u = ktransfer.prolong_correct(ec, u.clone(), sides=sides)
+    _exact(got_u, ktransfer.prolong_correct_plain(ec, u.clone(), sides=sides))
+    fixed = ~bc.unknown_mask(n, n, spec, device=dev)
+    assert torch.equal(got_u[fixed], u[fixed])
+
+
+@pytest.mark.parametrize("coef", ["smooth", "jump"])
+@pytest.mark.parametrize("entry,method,symmetric", [
+    (129, "rbgs", False), (129, "rbgs", True), (65, "jacobi", False),
+    (3, "rbgs", False)])
+def test_tail_vcycle_var_matches_twin(dev, entry, method, symmetric, coef):
+    g = T.Grid(entry, entry)
+    levels = T.build_hierarchy(g, a=_coef(g, coef), device=dev)
+    sts = [lev.stencil for lev in levels]
+    u, f = _field((entry, entry), 36, dev), _field((entry, entry), 37, dev,
+                                                   1e3)
+    kw = dict(shapes=[lev.grid.shape for lev in levels], pre=2, post=2,
+              omega=0.8 if method == "jacobi" else 1.0, method=method,
+              coarse_sweeps=32, symmetric=symmetric)
+    before = ktail.tail_vcycle_var.launches
+    got = ktail.tail_vcycle_var(sts, u.clone(), f, **kw)
+    assert ktail.tail_vcycle_var.launches == before + 1
+    _exact(got, ktail.tail_vcycle_plain(sts, u.clone(), f, **kw))
+
+
+def test_var_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    g, st = _var_stencil(33, "smooth", dev)
+    u = torch.zeros(g.shape, device=dev)
+    with pytest.raises(TypeError):
+        ksmooth_var.multisweep_var(st.astype(torch.float64), u, u)
+    with pytest.raises(ValueError):
+        ksmooth_var.multisweep_var(st, u[:, :17].contiguous(),
+                                   u[:, :17].contiguous())
+    with pytest.raises(ValueError):
+        ktransfer.residual_restrict_var(st, u.t(), u)
+    with pytest.raises(ValueError):
+        ktransfer.prolong_correct(torch.zeros(17, 17, device=dev), u,
+                                  sides=(True, False))
+    with pytest.raises(ValueError):
+        ktail.tail_vcycle_var([st, st], u, u, shapes=[(33, 33), (17, 17)],
+                              pre=1, post=1, omega=1.0)
+
+
+@pytest.mark.parametrize("problem", ["varcoef", "jump", "robin"])
+def test_solve_poisson_varcoef_kernel_path_matches_plain_path(dev, problem):
+    prob = {"varcoef": T.variable_coefficient_mms,
+            "jump": T.jump_coefficient_problem,
+            "robin": T.robin_test_problem}[problem](257)
+    wrappers = {"H": ksmooth_var.multisweep_var,
+                "I": ktransfer.residual_restrict_var,
+                "C": ktransfer.prolong_correct, "J": ktail.tail_vcycle_var}
+    out = {}
+    for backend in ("auto", "torch"):
+        for w in wrappers.values():
+            w.launches = 0
+        cfg = T.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                                backend=backend)
+        out[backend] = T.solve_poisson(prob, precision="fp32", cfg=cfg,
+                                       device=dev)
+        launched = {k: w.launches for k, w in wrappers.items()}
+        if backend == "torch":
+            assert not any(launched.values())
+        elif problem == "robin":
+            assert launched["I"] and launched["C"]
+            assert not launched["H"] and not launched["J"]
+        else:
+            assert all(launched.values()), launched
+    k, p = out["auto"], out["torch"]
+    assert k.converged and k.iterations == p.iterations
+    assert (k.u - p.u).abs().max().item() <= 1e-8 * p.u.abs().max().item()
