@@ -43,6 +43,30 @@ Phases, each of which must pass:
      JAX reference and which kernels launched;
  13. solve them with backend='torch' and check that both paths agree;
  14. time both paths per solve, and profile the jump solve.
+The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
+1025^2 (level 0 held as four parity planes, smoothed by kernel K; levels
+>= 1 on kernels A-D) and the main path with the parity layout of kernel A
+(kernel L) switched on; and the microbenchmark probes (kernel M):
+ 15. hold K (1025^2 and 513^2 planes, 2 sweeps, omega 1 and 1.3), L (1025^2,
+     513^2, 257^2; 1, 2, 3 sweeps and omega 1.3) and the probes, the copy
+     and the c = 4 parity probe (513^2, 1025^2) against their twins, bit for
+     bit, and L against A; time A, K and L per 2-sweep call at 1025^2 in
+     turns, and the copy's bandwidth at 1025^2 and 8192^2;
+ 16. solve the 1025^2 main path (FMG, IR) with PARITY_DEFAULT on, from
+     launch counts reset to zero: L launches, A's RB-GS does not, 3 outer
+     steps, u equal to the direct layout's bit for bit; time it;
+ 17. run the microbenchmark (benchmarking/kernel_microbench.run at 513^2 and
+     1025^2) from launch counts reset to zero: the probe and copy launch;
+ 18. solve plane_ir_solve at 1025^2 with backend='auto', from launch counts
+     reset to zero: the JAX reference's 4 outer steps, l2 within 2% of
+     3.92e-7, K launched and A-D launched on levels >= 1; then with
+     backend='torch' and against the standard ir_solve(use_fmg=False) on the
+     same levels: the same count and u within 1e-8;
+ 19. time the plane solve against the standard no-FMG solve, in turns, and
+     profile one plane solve.
+The kernels' JSON record gives each kernel's bound: its compulsory bytes
+(each input read once, each output written once) over the H100's published
+3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failure exits non-zero.
 
@@ -99,6 +123,16 @@ VAR_L2 = {"varcoef": 4.2673e-6, "robin": 1.2164e-8}
 ROBIN_L2_FACTOR = 1.5     # Robin: l2 <= this * the reference (the
                           # tolerance, not the grid, sets that l2)
 VAR_PATH_RTOL = 1e-8      # max|u_auto - u_torch| <= this * max|u|
+# The parity paths. plane_ir_solve at 1025^2 without FMG: the JAX
+# package's plane A/B reached 4 outer steps on both arms
+# (reports/plane_ab.json); its l2 is the main path's.
+PLANE_ITERS_EXPECTED = 4
+PLANE_PATH_ATOL = 1e-8    # max|du| plane path vs plain path and standard IR
+N_COPY_HBM = 8192         # copy at 2 x 268 MB, far beyond the 50 MB L2
+# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth
+# and fp32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
 
@@ -135,9 +169,10 @@ def host_report() -> str:
     return card
 
 
-def compare(name, shape_label, kernel_fn, plain_fn, make_inputs, errs):
+def compare(name, shape_label, kernel_fn, plain_fn, make_inputs, errs,
+            exact=False):
     """Run kernel and twin on identical inputs; record and check the
-    difference."""
+    difference (zero when ``exact``)."""
     import torch
 
     out_k = kernel_fn(*make_inputs())
@@ -149,9 +184,10 @@ def compare(name, shape_label, kernel_fn, plain_fn, make_inputs, errs):
     scale = out_p.abs().max().item()
     print(f"check {name} {shape_label}: max_abs_err {err:.3e} "
           f"max_rel_err {err / max(scale, 1e-30):.3e}")
-    if err > KERNEL_RTOL * max(scale, 1e-30):
+    if err > KERNEL_RTOL * max(scale, 1e-30) or (exact and err != 0.0):
         fail(f"{name} {shape_label}: kernel disagrees with its plain twin "
-             f"({err:.3e} > {KERNEL_RTOL} * {scale:.3e})")
+             f"({err:.3e}, allowed {0.0 if exact else KERNEL_RTOL} * "
+             f"{scale:.3e})")
     errs[name] = max(errs.get(name, 0.0), err)
 
 
@@ -404,35 +440,32 @@ def timed_solves3d(mg, levels, cfg, k, dev) -> float:
     return best
 
 
-def profile3d(mg, levels, cfg, wrappers, dev) -> None:
-    """Profile one kernel-path 3D solve: device-busy share against the same
-    solve unprofiled, top kernels, launches per solve."""
+def profile_solve(label, run, wrappers) -> None:
+    """Profile one kernel-path solve (``run``): device-busy share against
+    the same solve unprofiled, top kernels, launches per solve."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    f = rhs3d(levels, 0, 0, 1, dev)
-    u0 = torch.zeros_like(f)
-
-    def run():
+    def timed():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mg.ir_solve3d(levels, f, u0, cfg, inner_cycles=2)
+        run()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    run()
-    wall = run()
+    timed()
+    wall = timed()
     for w in wrappers.values():
         w.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_prof = run()
+        wall_prof = timed()
     launches = {name: w.launches for name, w in wrappers.items()}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     n_ops = sum(e.count for e in kernels)
-    print(f"profile3d {N3}^3 kernel path: device time {dev_us / 1e3:.3f} ms "
+    print(f"profile {label} kernel path: device time {dev_us / 1e3:.3f} ms "
           f"in {wall_prof * 1e3:.3f} ms profiled wall; unprofiled solve "
           f"{wall * 1e3:.3f} ms; device busy {dev_us / 1e6 / wall:.1%} of "
           f"the unprofiled solve; {n_ops} device ops per solve; custom "
@@ -595,36 +628,6 @@ def timed_solves_var(mg, prob, backend, dev) -> float:
     return best
 
 
-def profile_var(mg, prob, wrappers, dev) -> None:
-    """Profile one kernel-path jump solve: device-busy share against the
-    same solve unprofiled, top kernels, launches per solve."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
-    wall = mg.solve_poisson(prob, precision="fp32", cfg=cfg,
-                            device=dev).solve_time
-    for w in wrappers.values():
-        w.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = mg.solve_poisson(prob, precision="fp32", cfg=cfg, device=dev)
-    launches = {name: w.launches for name, w in wrappers.items()}
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    n_ops = sum(e.count for e in kernels)
-    print(f"profile_var {prob.name} {N_VAR}^2 kernel path: device time "
-          f"{dev_us / 1e3:.3f} ms in {res.solve_time * 1e3:.3f} ms profiled "
-          f"wall; unprofiled solve {wall * 1e3:.3f} ms; device busy "
-          f"{dev_us / 1e6 / wall:.1%} of the unprofiled solve; {n_ops} "
-          f"device ops per solve; custom launches {launches}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  top kernel {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{e.self_device_time_total / max(dev_us, 1e-9):6.1%} "
-              f"x{e.count:5d} {e.key[:90]}")
-
-
 def var_path(mg, card, dev):
     """Phases 11-14; returns the kernels' errors, times and launch counts
     (H, I, J summed over the three kernel-path solves)."""
@@ -677,8 +680,310 @@ def var_path(mg, card, dev):
             print(f"solve_var time {name} {N_VAR}^2 {label}: "
                   f"{t * 1e3:.3f} ms per solve, {dofs / t:.6e} DoF/s "
                   f"[{card}]")
-    profile_var(mg, var_problems(mg)["jump"], wrappers, dev)
+    jump = var_problems(mg)["jump"]
+    profile_solve(f"{jump.name} {N_VAR}^2", lambda: mg.solve_poisson(
+        jump, precision="fp32", cfg=cfg, device=dev), wrappers)
     return errs, times, launches
+
+
+def kernel_phase_parity(levels, card, dev):
+    """Phase 15: K, L and M against their twins; A, K and L in turns at
+    1025^2; the copy's bandwidth. Returns errors, times, library times."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking \
+        import kernel_microbench as kb
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
+        planes as pln
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_planes as kp
+
+    rng = np.random.default_rng(97531)
+
+    def field(n, scale=1.0):
+        a = np.zeros((n, n), np.float32)
+        a[1:-1, 1:-1] = scale * rng.standard_normal((n - 2, n - 2))
+        return torch.from_numpy(a).to(dev)
+
+    by_n = {lev.grid.nx: lev for lev in levels}
+    errs, times, library = {}, {}, {}
+    for n in (1025, 513):
+        st = by_n[n].stencil
+        up, fp = pln.split_field(field(n)), pln.split_field(field(n, st.c))
+        for omega in (1.0, 1.3):
+            kw = dict(nx=n, ny=n, sweeps=2, omega=omega)
+            compare("smooth_planes", f"{n}^2 planes omega {omega}",
+                    lambda a, b: kp.multisweep_planes(st, a, b, **kw),
+                    lambda a, b: kp.multisweep_planes_plain(st, a, b, **kw),
+                    lambda: (up.clone(), fp), errs, exact=True)
+        kw = dict(nx=n, ny=n, sweeps=2)
+        times[("smooth_planes", n)] = (
+            time_ms(lambda: kp.multisweep_planes(st, up, fp, **kw)),
+            time_ms(lambda: kp.multisweep_planes_plain(st, up, fp, **kw)))
+    for n in (1025, 513, 257):
+        st = by_n[n].stencil
+        u, f = field(n), field(n, st.c)
+        for sweeps, omega in ((1, 1.0), (2, 1.0), (3, 1.0), (2, 1.3)):
+            kw = dict(sweeps=sweeps, omega=omega)
+            compare("smooth_parity", f"{n}^2 {kw}",
+                    lambda a, b: ks.multisweep_parity(st, a, b, **kw),
+                    lambda a, b: ks.multisweep_parity_plain(st, a, b, **kw),
+                    lambda: (u.clone(), f), errs, exact=True)
+            compare("smooth_parity_vs_A", f"{n}^2 {kw}",
+                    lambda a, b: ks.multisweep_parity(st, a, b, **kw),
+                    lambda a, b: ks.multisweep(st, a, b, layout="direct",
+                                               **kw),
+                    lambda: (u.clone(), f), errs, exact=True)
+        times[("smooth_parity", n)] = (
+            time_ms(lambda: ks.multisweep_parity(st, u, f)),
+            time_ms(lambda: ks.multisweep_parity_plain(st, u, f)))
+    for n in (513, 1025):
+        u, f = field(n), field(n)
+        for mode in kb.MODES:
+            compare("probe", f"{mode} {n}^2",
+                    lambda a, b: kb.probe(a, b, mode=mode),
+                    lambda a, b: kb.probe_plain(a, b, mode=mode),
+                    lambda: (u, f), errs, exact=True)
+            times[(f"probe_{mode}", n)] = (
+                time_ms(lambda: kb.probe(u, f, mode=mode)),
+                time_ms(lambda: kb.probe_plain(u, f, mode=mode)))
+        compare("copy", f"{n}^2", kb.copy2x, kb.copy2x_plain, lambda: (u,),
+                errs, exact=True)
+        times[("copy", n)] = (time_ms(lambda: kb.copy2x(u)),
+                              time_ms(lambda: kb.copy2x_plain(u)))
+        library[("copy", n)] = time_ms(lambda: torch.mul(u, 2.0))
+        up, fp = pln.split_field(u), pln.split_field(f)
+        compare("smooth_planes", f"parity probe (c = 4) {n}^2",
+                lambda a, b: kb.parity(a, b, nx=n, ny=n),
+                lambda a, b: kp.multisweep_planes_plain(
+                    kb.PROBE_STENCIL, a, b, nx=n, ny=n),
+                lambda: (up.clone(), fp), errs, exact=True)
+        times[("parity_probe", n)] = (
+            time_ms(lambda: kb.parity(up, fp, nx=n, ny=n)),
+            time_ms(lambda: kp.multisweep_planes_plain(
+                kb.PROBE_STENCIL, up, fp, nx=n, ny=n)))
+    # A, K and L per 2-sweep call at 1025^2, in turns (A K L L K A)
+    st = by_n[N].stencil
+    u, f = field(N), field(N, st.c)
+    up, fp = pln.split_field(u), pln.split_field(f)
+    calls = {"A": lambda: ks.multisweep(st, u, f, layout="direct"),
+             "K": lambda: kp.multisweep_planes(st, up, fp, nx=N, ny=N),
+             "L": lambda: ks.multisweep_parity(st, u, f)}
+    turns = {name: [] for name in calls}
+    for name in ("A", "K", "L", "L", "K", "A"):
+        turns[name].append(time_ms(calls[name], reps=50))
+    print("turns at 1025^2, ms per 2-sweep call: " + ", ".join(
+        f"{name} {np.mean(t):.4f} ({t[0]:.4f}, {t[1]:.4f})"
+        for name, t in turns.items()) + f" [{card}]")
+    big = torch.randn(N_COPY_HBM, N_COPY_HBM, device=dev)
+    rates = {}
+    for label, arr in ((f"{N}^2", u), (f"{N_COPY_HBM}^2", big)):
+        t_k = time_ms(lambda: kb.copy2x(arr), reps=50)
+        t_l = time_ms(lambda: torch.mul(arr, 2.0), reps=50)
+        nbytes = 2 * arr.numel() * 4
+        rates[label] = nbytes / (t_k * 1e-3)
+        print(f"copy bandwidth {label} fp32 (read + write {nbytes / 1e6:.1f}"
+              f" MB): kernel M {t_k:.4f} ms, {rates[label] / 1e9:.1f} GB/s; "
+              f"torch.mul {t_l:.4f} ms, {nbytes / t_l / 1e6:.1f} GB/s "
+              f"[{card}]")
+    del big
+    torch.cuda.empty_cache()
+    for (name, n), (k_ms, p_ms) in times.items():
+        print(f"time {name} {n}^2: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+              + (f", library {library[(name, n)]:.4f} ms"
+                 if (name, n) in library else ""))
+    return errs, times, library, rates[f"{N_COPY_HBM}^2"]
+
+
+def parity_main_path(mg, levels, prob, cfg, f, u_direct, card, dev):
+    """Phase 16: the main path with PARITY_DEFAULT on; returns L's
+    launches."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, tail as kt, transfer as kx
+
+    wrappers = {"smooth_multisweep": ks.multisweep,
+                "smooth_parity": ks.multisweep_parity,
+                "residual_restrict": kx.residual_restrict,
+                "prolong_correct": kx.prolong_correct,
+                "tail_vcycle": kt.tail_vcycle}
+    ks.PARITY_DEFAULT = True
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        u, info = solve(mg, levels, prob, cfg, f, dev)
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in wrappers.items()}
+        t = timed_solves(mg, levels, prob, cfg, dev)
+    finally:
+        ks.PARITY_DEFAULT = False
+    du = (u - u_direct).abs().max().item()
+    print(f"solve auto, parity layout: iterations {info['iterations']} "
+          f"history {info['history'].tolist()} launches {launches} "
+          f"max|u_parity - u_direct| {du:.3e}; {t * 1e3:.3f} ms per solve, "
+          f"{(N - 2) ** 2 / t:.6e} DoF/s [{card}]")
+    if launches["smooth_parity"] <= 0 or launches["smooth_multisweep"] != 0:
+        fail("the parity-layout main path must launch L and not A")
+    if not info["converged"] or info["iterations"] != ITERS_EXPECTED:
+        fail(f"parity main path: expected convergence in {ITERS_EXPECTED} "
+             "outer steps")
+    if du != 0.0:
+        fail(f"parity main path differs from the direct layout ({du:.3e}): "
+             "L and A round every operation alike, so they must agree")
+    return launches["smooth_parity"]
+
+
+def microbench_path(card):
+    """Phase 17: the microbenchmark, from launch counts reset to zero;
+    returns the probe's and the copy's launches."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking \
+        import kernel_microbench as kb
+
+    kb.probe.launches = kb.copy2x.launches = 0
+    rows = kb.run(sizes=(513, 1025), sweeps=2, reps=20)
+    launches = {"probe": kb.probe.launches, "copy": kb.copy2x.launches}
+    for n, row in rows.items():
+        print(f"microbench {n}^2 (us per sweep; copy us per call) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in row.items())
+              + f" [{card}]")
+    print(f"microbench launches {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"the microbenchmark did not launch kernel M: {launches}")
+    return launches
+
+
+def plane_path(mg, card, dev):
+    """Phases 18-19: plane_ir_solve at 1025^2; returns K's launches."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_planes as kp, tail as kt, \
+        transfer as kx
+
+    prob = mg.poisson_mms_sinsin(N)
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                             backend="auto")
+    levels = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                                device=dev, cfg=cfg)
+    f = prob.rhs(torch.float64, dev)
+    u0 = prob.initial_guess(torch.float64, dev)
+    wrappers = {"smooth_planes": kp.multisweep_planes,
+                "smooth_multisweep": ks.multisweep,
+                "residual_restrict": kx.residual_restrict,
+                "prolong_correct": kx.prolong_correct,
+                "tail_vcycle": kt.tail_vcycle}
+    for w in wrappers.values():
+        w.launches = 0
+    u, info = mg.plane_ir_solve(levels, f, u0, cfg, inner_cycles=2)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    err = prob.error_norms(u)
+    print(f"plane solve auto: iterations {info['iterations']} converged "
+          f"{info['converged']} history {info['history'].tolist()} l2 "
+          f"{err['l2']:.6e} linf {err['linf']:.6e} launches {launches}")
+    if tuple(u.shape) != (N, N) or not torch.isfinite(u).all():
+        fail("plane solve: solution is misshapen or not finite")
+    if not info["converged"] or info["iterations"] != PLANE_ITERS_EXPECTED:
+        fail(f"plane solve: expected convergence in {PLANE_ITERS_EXPECTED} "
+             "outer steps (the JAX reference's count)")
+    if abs(err["l2"] / L2_EXPECTED - 1) > L2_RTOL:
+        fail(f"plane solve: l2 error {err['l2']:.4e} not within "
+             f"{L2_RTOL:.0%} of {L2_EXPECTED:.3e}")
+    missing = [name for name, c in launches.items() if c <= 0]
+    if missing:
+        fail(f"kernels never launched on the plane solve: {missing}")
+    u_p, info_p = mg.plane_ir_solve(levels, f, u0, cfg.replace(
+        backend="torch"), inner_cycles=2)
+    u_s, info_s = mg.ir_solve(levels, f, u0, cfg, inner_cycles=2,
+                              use_fmg=False)
+    torch.cuda.synchronize()
+    for label, (u_o, info_o) in (("plane torch", (u_p, info_p)),
+                                 ("standard ir_solve no FMG",
+                                  (u_s, info_s))):
+        du = (u - u_o).abs().max().item()
+        print(f"plane solve vs {label}: iterations {info_o['iterations']} "
+              f"history {info_o['history'].tolist()} max|du| {du:.3e}")
+        if info_o["iterations"] != info["iterations"] or \
+                du > PLANE_PATH_ATOL:
+            fail(f"plane solve disagrees with the {label} solve "
+                 f"(iterations {info['iterations']} vs "
+                 f"{info_o['iterations']}, max|du| {du:.3e} > "
+                 f"{PLANE_PATH_ATOL})")
+    del u_p, u_s
+    runs = {"plane": lambda: mg.plane_ir_solve(levels, f, u0, cfg,
+                                               inner_cycles=2),
+            "standard": lambda: mg.ir_solve(levels, f, u0, cfg,
+                                            inner_cycles=2, use_fmg=False)}
+    best = dict.fromkeys(runs, float("inf"))
+    for r in range(REPEATS + 1):  # r = 0 is the warm-up
+        for name in (("plane", "standard") if r % 2 else
+                     ("standard", "plane")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            if r > 0:
+                best[name] = min(best[name], time.perf_counter() - t0)
+    dofs = (N - 2) ** 2
+    for name, t in best.items():
+        print(f"solve time {name} no-FMG IR {N}^2: {t * 1e3:.3f} ms per "
+              f"solve, {dofs / t:.6e} DoF/s [{card}]")
+    k_planes = launches["smooth_planes"]
+    profile_solve(f"plane solve {N}^2", runs["plane"], wrappers)
+    return k_planes
+
+
+def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
+    """fp32 operations of one V(pre, post) cycle over square levels
+    ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
+    restricted node, 3 per prolonged node, ``coarse`` sweeps at the
+    coarsest."""
+    ops = coarse * update * (sizes[-1] - 2) ** 2
+    for n, nc in zip(sizes, sizes[1:]):
+        ops += ((pre + post) * update + 10 + 3) * (n - 2) ** 2 \
+            + 12 * (nc - 2) ** 2
+    return ops
+
+
+def work(name):
+    """(compulsory bytes, fp32 operations) of one call of kernel ``name``
+    at its main-path shapes: each input read once, each output written
+    once; the operations this call's data needs."""
+    n, nc = N, (N - 1) // 2 + 1
+    m, mc = N3, (N3 - 1) // 2 + 1
+    tail = [129]
+    while tail[-1] > 3:
+        tail.append((tail[-1] - 1) // 2 + 1)
+    hx = (N + 1) // 2
+    return {
+        "smooth_multisweep": (12 * n * n, 12 * 2 * (n - 2) ** 2),
+        "residual_restrict": (8 * n * n + 4 * nc * nc,
+                              10 * (n - 2) ** 2 + 12 * (nc - 2) ** 2),
+        "prolong_correct": (4 * nc * nc + 8 * n * n, 3 * (n - 2) ** 2),
+        "tail_vcycle": (12 * 129 ** 2, vcycle_flops(tail)),
+        "smooth_var": (32 * n * n, 12 * 2 * (n - 2) ** 2),
+        "residual_restrict_var": (28 * n * n + 4 * nc * nc,
+                                  10 * (n - 2) ** 2 + 12 * (nc - 2) ** 2),
+        "tail_vcycle_var": (12 * 129 ** 2 + 20 * sum(k * k for k in tail),
+                            vcycle_flops(tail)),
+        "rbgs3d": (12 * m ** 3, 16 * 2 * (m - 2) ** 3),
+        "residual_restrict3d": (8 * m ** 3 + 4 * mc ** 3,
+                                14 * (m - 2) ** 3 + 30 * (mc - 2) ** 3),
+        "prolong_correct3d": (4 * mc ** 3 + 8 * m ** 3, 4 * (m - 2) ** 3),
+        "smooth_planes": (12 * 4 * hx * hx, 12 * 2 * (n - 2) ** 2),
+        "smooth_parity": (12 * n * n, 12 * 2 * (n - 2) ** 2),
+        "probe": (12 * n * n, 5 * 2 * (n - 2) ** 2),
+        "copy": (8 * n * n, n * n),
+    }[name]
+
+
+def bound(name):
+    """(least ms for kernel ``name``'s call at the published peaks, what
+    bounds it)."""
+    nbytes, flops = work(name)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def main() -> int:
@@ -755,7 +1060,17 @@ def main() -> int:
         print(f"solve time {label}: {t * 1e3:.3f} ms per solve, "
               f"{dofs / t:.6e} DoF/s [{card}]")
 
+    # ---- parity paths: kernels K, L and M -------------------------------
+    errs_par, times_par, library, copy_rate = kernel_phase_parity(
+        levels, card, dev)
+    errs.update(errs_par)
+    times.update(times_par)
+    launches["smooth_parity"] = parity_main_path(mg, levels, prob, cfg, f,
+                                                 u_k, card, dev)
     del u_k, u_p, f, levels
+    torch.cuda.empty_cache()
+    launches.update(microbench_path(card))
+    launches["smooth_planes"] = plane_path(mg, card, dev)
     torch.cuda.empty_cache()
 
     # ---- variable-coefficient and Robin path -----------------------------
@@ -806,7 +1121,10 @@ def main() -> int:
     for label, t in (("kernels (auto)", t3_k), ("plain (torch)", t3_p)):
         print(f"solve3d time {N3}^3 {label}: {t * 1e3:.3f} ms per solve, "
               f"{dofs3 / t:.6e} DoF/s [{card}]")
-    profile3d(mg, levels3, cfg3, wrappers3, dev)
+    f3 = rhs3d(levels3, 0, 0, 1, dev)
+    u03 = torch.zeros_like(f3)
+    profile_solve(f"3D {N3}^3", lambda: mg.ir_solve3d(
+        levels3, f3, u03, cfg3, inner_cycles=2), wrappers3)
 
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),
@@ -820,18 +1138,37 @@ def main() -> int:
                "residual_restrict3d": ("csrc/transfer3d.cu",
                                        "transfer3d.py:194"),
                "prolong_correct3d": ("csrc/transfer3d.cu",
-                                     "transfer3d.py:342")}
+                                     "transfer3d.py:342"),
+               "smooth_planes": ("csrc/smooth_planes.cu",
+                                 "smooth_planes.py:225"),
+               "smooth_parity": ("csrc/smooth_parity.cu", "smooth.py:119"),
+               "probe": ("csrc/probes.cu",
+                         "scripts/kernel_microbench.py:108"),
+               "copy": ("csrc/probes.cu", "scripts/kernel_microbench.py:123")}
     main_n = {"smooth_multisweep": 1025, "residual_restrict": 1025,
               "prolong_correct": 1025, "tail_vcycle": 129,
               "smooth_var": N_VAR, "residual_restrict_var": N_VAR,
               "tail_vcycle_var": 129, "rbgs3d": N3,
-              "residual_restrict3d": N3, "prolong_correct3d": N3}
-    record = [{"name": name, "route": "cuda",
-               "source": f"{PKG}/{src}", "replaces": f"{TPU_PKG}/{rep}",
-               "launches": launches[name], "max_abs_err": errs[name],
-               "ms": times[(name, main_n[name])][0],
-               "plain_ms": times[(name, main_n[name])][1]}
-              for name, (src, rep) in sources.items()]
+              "residual_restrict3d": N3, "prolong_correct3d": N3,
+              "smooth_planes": N, "smooth_parity": N, "probe": N, "copy": N}
+    timed = {"probe": "probe_roll"}  # the record times the 5-point probe
+    record = []
+    for name, (src, rep) in sources.items():
+        key = (timed.get(name, name), main_n[name])
+        bound_ms, bound_by = bound(name)
+        ms = times[key][0]
+        record.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/{src}",
+            "replaces": rep if rep.startswith("scripts/")
+            else f"{TPU_PKG}/{rep}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": times[key][1], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library.get(key)})
+        nbytes = work(name)[0]
+        print(f"bound {name}: {nbytes / 1e6:.3f} MB, {bound_ms:.5f} ms at "
+              f"3.35 TB/s ({bound_by}), {nbytes / copy_rate * 1e3:.5f} ms at "
+              f"the measured copy rate; kernel {ms:.4f} ms, the bound is "
+              f"{bound_ms / ms:.1%} of it [{card}]")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

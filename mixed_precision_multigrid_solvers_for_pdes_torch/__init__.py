@@ -47,4 +47,5 @@ from .solvers.multigrid3d import (  # noqa: F401
     mg_cycle3d,
     mg_solve3d,
 )
+from .solvers.plane_solve import plane_ir_solve  # noqa: F401
 from .solvers.refinement import ir_solve  # noqa: F401

@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.precision import Precision
 from ..models.problems import Problem
 from ..solvers import multigrid as mg_mod, refinement
@@ -69,7 +70,7 @@ def solve_poisson(problem: Problem, *, precision: Any = "fp32",
                   cfg: MultigridConfig = MultigridConfig(smoother="rbgs",
                                                          omega=1.0),
                   use_fmg: bool = False, mesh=None,
-                  device="cpu") -> PoissonResult:
+                  device=None) -> PoissonResult:
     """Solve ``A u = f`` for a 2D Problem on ``device`` with one call.
 
     precision: 'fp32' or 'fp64', a uniform hierarchy at that dtype (fp32
@@ -78,7 +79,7 @@ def solve_poisson(problem: Problem, *, precision: Any = "fp32",
     ``solve_time`` is the wall time of the solve, hierarchy set-up
     included, synchronized with the device."""
     mode = uniform_precision(precision, mesh)
-    device = torch.device(device)
+    device = resolve_device(device)
 
     t0 = time.perf_counter()
     levels = mg_mod.build_hierarchy(problem.grid, problem.spec, a=problem.a,
@@ -114,9 +115,10 @@ def convergence_study(problem_factory: Callable[[int], Problem],
                       sizes: List[int], *, precision: Any = "fp64",
                       cfg: MultigridConfig = MultigridConfig(smoother="rbgs",
                                                              omega=1.0),
-                      device="cpu") -> Dict[str, Any]:
+                      device=None) -> Dict[str, Any]:
     """h-refinement study: solve on a ladder of sizes and fit the observed
     orders (see ``fit_study``)."""
+    device = resolve_device(device)
     rows = []
     for n in sizes:
         prob = problem_factory(n)

@@ -17,6 +17,7 @@ from typing import Any
 
 import torch
 
+from ..core.device import resolve_device
 from ..core.precision import Precision
 from ..models.problems3d import Problem3D
 from ..solvers import multigrid3d as mg3
@@ -27,14 +28,14 @@ from .poisson import PoissonResult, uniform_precision
 def solve_poisson3d(problem: Problem3D, *, precision: Any = "fp32",
                     cfg: MultigridConfig = MultigridConfig(smoother="rbgs",
                                                            omega=1.0),
-                    mesh=None, device="cpu") -> PoissonResult:
+                    mesh=None, device=None) -> PoissonResult:
     """Solve the 3D problem on ``device`` with one call.
 
     precision: 'fp32' or 'fp64', a uniform hierarchy at that dtype (fp32
     below tol 1e-6 under float64 iterative refinement). ``solve_time`` is
     the wall time of the solve, synchronized with the device."""
     mode = uniform_precision(precision, mesh)
-    device = torch.device(device)
+    device = resolve_device(device)
 
     t0 = time.perf_counter()
     levels = mg3.build_hierarchy3d(problem.grid, problem.spec,

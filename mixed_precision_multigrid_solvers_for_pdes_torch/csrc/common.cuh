@@ -20,6 +20,23 @@ __device__ __forceinline__ float neighbor_sum(const float* u, long idx, int ny,
          st.n * u[idx + 1];
 }
 
+// Red-black Gauss-Seidel / SOR value of a node from its own value p, its
+// right-hand side f and its neighbours W, E, S, N (the nodes at i-1, i+1,
+// j-1, j+1): p + omega*((f + (w*W + e*E + s*S + n*N))*inv_c - p), every
+// operation rounded explicitly in the Pallas sweep bodies' operand order
+// (kernels A, K and L).
+__device__ __forceinline__ float rbgs_scalar_update(float p, float f, float W,
+                                                    float E, float S, float N,
+                                                    const Stencil5& st,
+                                                    float inv_c, float omega) {
+  float acc = __fmul_rn(st.w, W);
+  acc = __fadd_rn(acc, __fmul_rn(st.e, E));
+  acc = __fadd_rn(acc, __fmul_rn(st.s, S));
+  acc = __fadd_rn(acc, __fmul_rn(st.n, N));
+  const float gs = __fmul_rn(__fadd_rn(f, acc), inv_c);
+  return __fadd_rn(p, __fmul_rn(omega, __fsub_rn(gs, p)));
+}
+
 // f - A u at an interior node.
 __device__ __forceinline__ float residual_at(const float* u, const float* f,
                                              long idx, int ny,

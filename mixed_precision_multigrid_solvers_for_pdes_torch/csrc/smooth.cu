@@ -23,7 +23,9 @@
 //
 // The update multiplies by 1/c (computed once in fp32 on the host), as the
 // Pallas kernel does; the plain twin divides by c. The two differ by one
-// rounding per update.
+// rounding per update. The RB-GS update rounds every operation explicitly in
+// the Pallas body's operand order (rbgs_scalar_update), as kernels K and L
+// do, so the direct and the parity layouts agree bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -38,9 +40,8 @@ __global__ void rbgs_color_kernel(float* u, const float* __restrict__ f,
   const int i = blockIdx.y * kBlockY + threadIdx.y + 1;
   if (i >= nx - 1 || j >= ny - 1 || ((i + j) & 1) != color) return;
   const long idx = (long)i * ny + j;
-  const float uc = u[idx];
-  const float gs = (f[idx] + neighbor_sum(u, idx, ny, st)) * inv_c;
-  u[idx] = uc + omega * (gs - uc);
+  u[idx] = rbgs_scalar_update(u[idx], f[idx], u[idx - ny], u[idx + ny],
+                              u[idx - 1], u[idx + 1], st, inv_c, omega);
 }
 
 __global__ void jacobi_kernel(const float* __restrict__ src,

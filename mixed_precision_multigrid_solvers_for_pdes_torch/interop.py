@@ -2,8 +2,8 @@
 
 The JAX package stores every 2D field padded to (16, 128) tiles, and every 3D
 field padded to an even x, y to a multiple of 16 and z to a multiple of 128,
-with the logical region at the origin; this port stores the logical region
-only.
+with the logical region at the origin, and each 2D parity plane padded to
+(8, 128) tiles; this port stores the logical region only.
 These helpers read JAX objects through their attributes and ``numpy`` (JAX
 arrays convert with ``np.asarray``), so this module never imports JAX.
 """
@@ -20,6 +20,7 @@ from .core.grid3d import Grid3D
 from .core.precision import as_dtype
 from .models.problems import Problem
 from .models.problems3d import Problem3D
+from .ops.planes import plane_shape
 from .ops.stencil import Stencil
 from .ops.stencil3d import Stencil3D
 from .solvers.multigrid import Level
@@ -94,6 +95,34 @@ def field_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
                          f"{(grid.nx, grid.ny)}")
     out = np.zeros(jax_padded_shape(grid.nx, grid.ny), dtype=a.dtype)
     out[: grid.nx, : grid.ny] = a
+    return out
+
+
+def jax_plane_shape(nx: int, ny: int):
+    """The JAX package's (hx, hy) storage shape of one parity plane: half
+    its padded field, rounded up to its (8, 128) plane tile."""
+    px, py = jax_padded_shape(nx, ny)
+    return tuple(-(-(p // 2) // t) * t for p, t in zip((px, py), (8, 128)))
+
+
+def planes_from_jax(arr, grid, *, dtype=None, device="cpu") -> torch.Tensor:
+    """(4, hx, hy) parity planes from JAX (4, hx_pad, hy_pad) planes: the
+    logical region at each plane's origin."""
+    hx, hy = plane_shape(grid.shape)
+    a = np.asarray(arr)[:, :hx, :hy]
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
+
+
+def planes_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
+    """Zero-padded numpy planes in the JAX package's plane storage shape
+    (the inverse of ``planes_from_jax``)."""
+    a = t.detach().cpu().numpy()
+    if a.shape != (4, *plane_shape(grid.shape)):
+        raise ValueError(f"planes shape {a.shape} != (4, hx, hy) of grid "
+                         f"{(grid.nx, grid.ny)}")
+    out = np.zeros((4, *jax_plane_shape(grid.nx, grid.ny)), dtype=a.dtype)
+    out[:, : a.shape[1], : a.shape[2]] = a
     return out
 
 

@@ -5,4 +5,4 @@ on first launch (``_build.library``).
 """
 
 from . import (  # noqa: F401
-    smooth, smooth3d, smooth_var, tail, transfer, transfer3d)
+    smooth, smooth3d, smooth_planes, smooth_var, tail, transfer, transfer3d)

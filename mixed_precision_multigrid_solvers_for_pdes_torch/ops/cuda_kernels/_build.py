@@ -57,6 +57,11 @@ _SIGNATURES = {
     "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
                                + [_I, _P], _I),
     "mg_prolong_correct3d": ([_P, _P] + [_I] * 5 + [_I, _P], _I),
+    "mg_planes_rbgs_color": ([_P, _P] + [_I] * 4 + [_F] * 6 + [_I, _I, _P],
+                             _I),
+    "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
+    "mg_probe_color": ([_P] * 3 + [_I] * 4 + [_I, _P], _I),
+    "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -24,6 +24,13 @@ level with a Neumann/Robin side smooths on the plain path and has no tail
 kernel, as in the JAX package. A tail starts at the first level whose
 logical size is at most ``TAIL_MAX_ENTRY`` x ``TAIL_MAX_ENTRY``; that is
 where the TPU started its tail, and H100 gates await H100 measurements.
+Kernel A's wrapper picks the direct body (A) or the parity body (kernel L)
+by ``layout``, as the Pallas kernels do (``ops/cuda_kernels/smooth.py``).
+
+Parity planes (``smooth_planes``, the route of ``plane_solve``): fp32
+level-0 planes take kernel K, others its plain twin. The JAX package's
+``_smooth_planes`` always called Pallas; the port keeps its own 'auto' /
+'torch' convention here, so that the two can be compared on the card.
 
 3D (``smooth3d``, ``transfer_fused3d_ok``, ``residual_restrict3d``,
 ``prolong_correct3d``; counterparts of ``pallas_smooth3d_ok`` and
@@ -40,8 +47,8 @@ import torch
 
 from . import smooth as smooth_mod, smooth3d as smooth3d_mod
 from .cuda_kernels import smooth as k_smooth, smooth3d as k_smooth3d, \
-    smooth_var as k_smooth_var, tail as k_tail, transfer as k_transfer, \
-    transfer3d as k_transfer3d
+    smooth_planes as k_planes, smooth_var as k_smooth_var, tail as k_tail, \
+    transfer as k_transfer, transfer3d as k_transfer3d
 
 BACKENDS = ("auto", "torch")
 TAIL_MAX_ENTRY = 129
@@ -72,6 +79,24 @@ def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
                       omega=omega)
     return smooth_mod.smooth(stencil, u, f, lev.unknown, method=method,
                              sweeps=sweeps, omega=omega)
+
+
+def kernel_planes_ok(up, backend: str) -> bool:
+    """True when kernel K runs the level-0 plane smoothing: fp32 planes.
+    ``plane_solve.plane_solve_ok`` has already gated the level."""
+    return _kernels(backend) and up.dtype == torch.float32
+
+
+def smooth_planes(lev0, up, fp, cfg, sweeps: int):
+    """``sweeps`` RB-GS/SOR sweeps in place on the (4, hx, hy) parity planes
+    ``up`` of level 0 (kernel K, or its plain twin); returns ``up``."""
+    if sweeps <= 0:
+        return up
+    kernel = (k_planes.multisweep_planes
+              if kernel_planes_ok(up, cfg.backend)
+              else k_planes.multisweep_planes_plain)
+    return kernel(lev0.stencil, up, fp, nx=lev0.grid.nx, ny=lev0.grid.ny,
+                  sweeps=sweeps, omega=cfg.omega)
 
 
 def transfer_fused_ok(lev, nxt, cfg) -> bool:

@@ -24,6 +24,7 @@ import torch
 
 from ..core import bc as bc_mod
 from ..core.bc import BoundarySpec
+from ..core.device import resolve_device
 from ..core.grid import Grid
 from ..core.precision import as_dtype
 from ..ops import dispatch, norms, smooth as smooth_mod, stencil as st_mod, \
@@ -87,7 +88,7 @@ def _sample_coarse(field):
 
 
 def build_hierarchy(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
-                    a=None, lam=0.0, dtype=torch.float32, device="cpu",
+                    a=None, lam=0.0, dtype=torch.float32, device=None,
                     cfg: MultigridConfig = MultigridConfig()
                     ) -> Tuple[Level, ...]:
     """Levels by repeated 2:1 coarsening and rediscretization, finest
@@ -99,7 +100,7 @@ def build_hierarchy(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
             f"coarsening {cfg.coarsening!r} is not ported yet (ROADMAP item "
             "10, ops/galerkin.py)")
     dtype = as_dtype(dtype)
-    device = torch.device(device)
+    device = resolve_device(device)
     grids = [grid]
     while grids[-1].can_coarsen() and len(grids) < cfg.max_levels:
         grids.append(grids[-1].coarsen())

@@ -27,6 +27,7 @@ import torch
 
 from ..core import bc3d
 from ..core.bc3d import BoundarySpec3D
+from ..core.device import resolve_device
 from ..core.grid3d import Grid3D
 from ..core.precision import as_dtype
 from ..ops import dispatch, norms, stencil3d as st3, transfer3d
@@ -69,7 +70,7 @@ def _check_options(constrain) -> None:
 
 def build_hierarchy3d(grid: Grid3D, spec: BoundarySpec3D = BoundarySpec3D(),
                       *, a=None, lam: float = 0.0, dtype=torch.float32,
-                      policy=None, device="cpu",
+                      policy=None, device=None,
                       cfg: MultigridConfig = MultigridConfig()
                       ) -> Tuple[Level3D, ...]:
     """Levels by repeated 2:1 coarsening and rediscretization, finest first,
@@ -80,7 +81,7 @@ def build_hierarchy3d(grid: Grid3D, spec: BoundarySpec3D = BoundarySpec3D(),
         raise _not_ported(f"3D coarsening {cfg.coarsening!r}",
                           "items 10 and 13")
     dtype = as_dtype(dtype)
-    device = torch.device(device)
+    device = resolve_device(device)
     grids = [grid]
     while grids[-1].can_coarsen() and len(grids) < cfg.max_levels:
         grids.append(grids[-1].coarsen())

@@ -146,7 +146,8 @@ def test_grid_problem_and_hierarchy_match_jax():
     ported = interop.problem3d_from_jax(jp)
     assert np.array_equal(ported.f, tp.f) and ported.lam == tp.lam
     jl = jmg3.build_hierarchy3d(jp.grid, jp.spec, dtype="float32")
-    tl = T.build_hierarchy3d(tp.grid, tp.spec, dtype="float32")
+    tl = T.build_hierarchy3d(tp.grid, tp.spec, dtype="float32",
+                             device="cpu")
     assert tl == interop.levels3d_from_jax(jl)
     assert [lev.grid.nx for lev in tl] == [17, 9, 5, 3]
     X, Y, Z = g.coordinates()
@@ -357,7 +358,8 @@ def test_mg_solve3d_matches_jax_33(dtype, tol, hist_rtol, hist_atol, u_atol):
     tp = interop.problem3d_from_jax(jp)
     cfg = T.MultigridConfig(backend="auto", smoother="rbgs", omega=1.0,
                             tol=tol)
-    tl = T.build_hierarchy3d(tp.grid, tp.spec, dtype=dtype, cfg=cfg)
+    tl = T.build_hierarchy3d(tp.grid, tp.spec, dtype=dtype, cfg=cfg,
+                             device="cpu")
     tdt = T.as_dtype(dtype)
     u, info = T.mg_solve3d(tl, tp.rhs(tdt), tp.initial_guess(tdt), cfg)
     assert info["iterations"] == jinfo["iterations"]
@@ -374,7 +376,7 @@ def test_solve_poisson3d_fp32_reaches_the_closed_form_33():
     gives the same."""
     cfg = T.MultigridConfig(backend="auto", **MAIN)
     res = T.solve_poisson3d(T.poisson3d_mms_sinsinsin(33), precision="fp32",
-                            cfg=cfg)
+                            cfg=cfg, device="cpu")
     assert res.converged and res.iterations == 5
     assert res.info["method"] == "iterative_refinement_3d"
     assert res.u.dtype == torch.float64 and res.solve_time > 0
@@ -398,7 +400,8 @@ def test_auto_backend_on_cpu_runs_the_twins():
     out = {}
     for backend in ("auto", "torch"):
         cfg = T.MultigridConfig(backend=backend, **MAIN)
-        out[backend] = T.solve_poisson3d(tp, precision="fp32", cfg=cfg)
+        out[backend] = T.solve_poisson3d(tp, precision="fp32", cfg=cfg,
+                                         device="cpu")
     assert torch.equal(out["auto"].u, out["torch"].u)
     assert out["auto"].info["history"].tolist() == \
         out["torch"].info["history"].tolist()
@@ -408,7 +411,7 @@ def test_auto_backend_on_cpu_runs_the_twins():
 def test_dispatch_gates_3d():
     cfg = T.MultigridConfig(smoother="rbgs", omega=1.0)
     levels = T.build_hierarchy3d(T.Grid3D(17, 17, 17), dtype="float32",
-                                 cfg=cfg)
+                                 cfg=cfg, device="cpu")
     u = levels[0].zeros()
     assert all(dispatch.transfer_fused3d_ok(a, b, cfg)
                for a, b in zip(levels, levels[1:]))
@@ -418,7 +421,8 @@ def test_dispatch_gates_3d():
     assert not dispatch.kernel_smooth3d_ok(u, levels[0], "torch", "rbgs")
     assert not dispatch.transfer_fused3d_ok(levels[0], levels[1],
                                             cfg.replace(backend="torch"))
-    lev64 = T.build_hierarchy3d(T.Grid3D(9, 9, 9), dtype="float64", cfg=cfg)
+    lev64 = T.build_hierarchy3d(T.Grid3D(9, 9, 9), dtype="float64", cfg=cfg,
+                                device="cpu")
     assert not dispatch.transfer_fused3d_ok(lev64[0], lev64[1], cfg)
     assert not dispatch.kernel_smooth3d_ok(lev64[0].zeros(), lev64[0], "auto",
                                            "rbgs")
@@ -462,10 +466,11 @@ def test_unported_3d_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         stencil3d.Stencil27()
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        T.build_hierarchy3d(g, policy="mixed")
+        T.build_hierarchy3d(g, policy="mixed", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP items 10"):
-        T.build_hierarchy3d(g, cfg=T.MultigridConfig(coarsening="galerkin"))
-    levels = T.build_hierarchy3d(g)
+        T.build_hierarchy3d(g, cfg=T.MultigridConfig(coarsening="galerkin"),
+                            device="cpu")
+    levels = T.build_hierarchy3d(g, device="cpu")
     u = levels[0].zeros()
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         T.mg_cycle3d(levels, u, u, T.MultigridConfig(cycle="W"))
@@ -477,9 +482,9 @@ def test_unported_3d_features_raise():
     prob = T.poisson3d_mms_sinsinsin(9)
     for precision in ("mixed", "bf16", "adaptive"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            T.solve_poisson3d(prob, precision=precision)
+            T.solve_poisson3d(prob, precision=precision, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        T.solve_poisson3d(prob, mesh=object())
+        T.solve_poisson3d(prob, mesh=object(), device="cpu")
 
 
 def test_kernel_wrappers_3d_reject_what_the_kernels_do_not_take():

@@ -15,7 +15,9 @@ twins' order; E still multiplies by 1/c where the twin divides.
 
 The coefficient-plane kernels H, I and J and kernel C round every operation
 in their twins' order and divide as the twins do, so they are held to their
-twins bit for bit.
+twins bit for bit. So are the parity-plane kernel K, the parity layout L and
+the microbenchmark's probe and copy kernels M, whose twins multiply by the
+same fp32 1/c; L and A agree bit for bit as well.
 """
 
 import numpy as np
@@ -23,7 +25,11 @@ import pytest
 import torch
 
 import mixed_precision_multigrid_solvers_for_pdes_torch as T
+from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking import (
+    kernel_microbench as kmicro,
+)
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
+    planes,
     stencil,
     stencil3d,
 )
@@ -31,6 +37,7 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.core import bc
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
     smooth as ksmooth,
     smooth3d as ksmooth3d,
+    smooth_planes as ksmooth_planes,
     smooth_var as ksmooth_var,
     tail as ktail,
     transfer as ktransfer,
@@ -372,3 +379,141 @@ def test_solve_poisson_varcoef_kernel_path_matches_plain_path(dev, problem):
     k, p = out["auto"], out["torch"]
     assert k.converged and k.iterations == p.iterations
     assert (k.u - p.u).abs().max().item() <= 1e-8 * p.u.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# parity planes (K), the parity layout of A (L), the microbenchmark probes
+# and copy (M): each rounds every operation explicitly in its twin's order,
+# so each is held to its twin bit for bit; L and A (which now rounds the
+# same way) agree bit for bit too.
+
+
+@pytest.mark.parametrize("domain", list(DOMAINS))
+@pytest.mark.parametrize("sweeps,omega", [(2, 1.0), (1, 1.3), (3, 1.3)])
+@pytest.mark.parametrize("nx,ny", [(257, 257), (129, 65), (5, 5)])
+def test_multisweep_planes_matches_twin(dev, nx, ny, sweeps, omega, domain):
+    g = T.Grid(nx, ny, DOMAINS[domain])
+    st = stencil.make_stencil(g)
+    u, f = _field(g.shape, 41, dev), _field(g.shape, 42, dev, st.c)
+    up, fp = planes.split_field(u), planes.split_field(f)
+    before = ksmooth_planes.multisweep_planes.launches
+    got = ksmooth_planes.multisweep_planes(st, up.clone(), fp, nx=nx, ny=ny,
+                                           sweeps=sweeps, omega=omega)
+    assert ksmooth_planes.multisweep_planes.launches - before == 2 * sweeps
+    _exact(got, ksmooth_planes.multisweep_planes_plain(
+        st, up.clone(), fp, nx=nx, ny=ny, sweeps=sweeps, omega=omega))
+
+
+@pytest.mark.parametrize("domain", list(DOMAINS))
+@pytest.mark.parametrize("sweeps,omega", [(1, 1.0), (2, 1.0), (3, 1.3),
+                                          (30, 1.0)])
+@pytest.mark.parametrize("nx,ny", [(257, 257), (129, 65), (70, 37), (5, 5)])
+def test_multisweep_parity_matches_twin_and_kernel_a(dev, nx, ny, sweeps,
+                                                     omega, domain):
+    g = T.Grid(nx, ny, DOMAINS[domain])
+    st = stencil.make_stencil(g)
+    u, f = _field(g.shape, 43, dev), _field(g.shape, 44, dev, st.c)
+    before = ksmooth.multisweep_parity.launches, ksmooth.multisweep.launches
+    got = ksmooth.multisweep(st, u.clone(), f, sweeps=sweeps, omega=omega,
+                             layout="parity")
+    chunks = -(-sweeps // ksmooth.MAX_PARITY_SWEEPS)
+    assert (ksmooth.multisweep_parity.launches,
+            ksmooth.multisweep.launches) == (before[0] + chunks, before[1])
+    _exact(got, ksmooth.multisweep_parity_plain(st, u.clone(), f,
+                                                sweeps=sweeps, omega=omega))
+    _exact(got, ksmooth.multisweep(st, u.clone(), f, sweeps=sweeps,
+                                   omega=omega, layout="direct"))
+    assert torch.equal(got[0], u[0]) and torch.equal(got[:, -1], u[:, -1])
+
+
+@pytest.mark.parametrize("mode", kmicro.MODES)
+@pytest.mark.parametrize("n", [513, 65, 5])
+def test_probe_matches_twin(dev, n, mode):
+    u, f = _field((n, n), 45, dev, ring=True), _field((n, n), 46, dev)
+    before = kmicro.probe.launches
+    got = kmicro.probe(u, f, mode=mode, sweeps=3)
+    assert kmicro.probe.launches - before == 6
+    _exact(got, kmicro.probe_plain(u, f, mode=mode, sweeps=3))
+
+
+@pytest.mark.parametrize("shape", [(1025, 1025), (5, 7), (3, 3)])
+def test_copy2x_and_parity_probe_match_twins(dev, shape):
+    u = _field(shape, 47, dev, ring=True)
+    before = kmicro.copy2x.launches
+    _exact(kmicro.copy2x(u), kmicro.copy2x_plain(u))
+    assert kmicro.copy2x.launches == before + 1
+    nx, ny = shape
+    if min(shape) >= 5:
+        up = planes.split_field(u)
+        fp = planes.split_field(_field(shape, 48, dev))
+        _exact(kmicro.parity(up.clone(), fp, nx=nx, ny=ny, sweeps=3),
+               ksmooth_planes.multisweep_planes_plain(
+                   kmicro.PROBE_STENCIL, up.clone(), fp, nx=nx, ny=ny,
+                   sweeps=3))
+
+
+def test_plane_and_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    g, st = _stencil(33, "unit")
+    u = torch.zeros(g.shape, device=dev)
+    up = planes.split_field(u)
+    with pytest.raises(TypeError):
+        ksmooth_planes.multisweep_planes(st, up.double(), up.double(),
+                                         nx=33, ny=33)
+    with pytest.raises(ValueError):
+        ksmooth_planes.multisweep_planes(st, up, up[:, :16].contiguous(),
+                                         nx=33, ny=33)
+    with pytest.raises(TypeError):
+        ksmooth.multisweep_parity(st, u.double(), u.double())
+    with pytest.raises(ValueError):
+        ksmooth.multisweep_parity(st, u.t(), u)
+    with pytest.raises(ValueError, match="mode"):
+        kmicro.probe(u, u, mode="diagonal")
+    flat = torch.zeros(1026 * 1026 + 1, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        kmicro.copy2x(flat)
+
+
+def test_plane_ir_solve_kernel_path_matches_plain_and_standard_paths(dev):
+    prob = T.poisson_mms_sinsin(257)
+    cfg = T.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    levels = T.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                               device=dev, cfg=cfg)
+    f = prob.rhs(torch.float64, dev)
+    u0 = prob.initial_guess(torch.float64, dev)
+    out = {}
+    for backend in ("auto", "torch"):
+        before = ksmooth_planes.multisweep_planes.launches
+        out[backend] = T.plane_ir_solve(levels, f, u0,
+                                        cfg.replace(backend=backend))
+        launched = ksmooth_planes.multisweep_planes.launches - before
+        assert (launched > 0) == (backend == "auto")
+    std = T.ir_solve(levels, f, u0, cfg, inner_cycles=2, use_fmg=False)
+    (u_k, info_k), (u_p, info_p) = out["auto"], out["torch"]
+    assert info_k["converged"] and info_k["method"] == "plane_ir"
+    assert info_k["iterations"] == info_p["iterations"] == std[1][
+        "iterations"]
+    assert (u_k - u_p).abs().max().item() <= 1e-8
+    assert (u_k - std[0]).abs().max().item() <= 1e-8
+
+
+def test_parity_default_main_path_takes_kernel_l(dev, monkeypatch):
+    """PARITY_DEFAULT on: every smoothing call above the tail launches L
+    and none A's RB-GS, and the solve equals the direct layout's."""
+    prob = T.poisson_mms_sinsin(257)
+    cfg = T.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                            max_iterations=40)
+    levels = T.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                               device=dev, cfg=cfg)
+    f = prob.rhs(torch.float64, dev)
+    u0 = prob.initial_guess(torch.float64, dev)
+    out = {}
+    for parity in (False, True):
+        monkeypatch.setattr(ksmooth, "PARITY_DEFAULT", parity)
+        ksmooth.multisweep.launches = ksmooth.multisweep_parity.launches = 0
+        out[parity] = T.ir_solve(levels, f, u0, cfg, inner_cycles=2,
+                                 use_fmg=True)
+        counts = (ksmooth.multisweep.launches,
+                  ksmooth.multisweep_parity.launches)
+        assert (counts[0] == 0) == parity and (counts[1] > 0) == parity
+    assert out[True][1]["iterations"] == out[False][1]["iterations"]
+    _exact(out[True][0], out[False][0])

@@ -123,7 +123,8 @@ def test_mg_solve_matches_jax(n, use_fmg):
     tp = interop.problem_from_jax(jp)
     cfg = T.MultigridConfig(backend="torch", smoother="rbgs", omega=1.0,
                             tol=1e-10)
-    tl = T.build_hierarchy(tp.grid, tp.spec, dtype="float64", cfg=cfg)
+    tl = T.build_hierarchy(tp.grid, tp.spec, dtype="float64", cfg=cfg,
+                           device="cpu")
     u, info = T.mg_solve(tl, tp.rhs(torch.float64),
                          tp.initial_guess(torch.float64), cfg,
                          use_fmg=use_fmg)
@@ -142,7 +143,8 @@ def test_fmg_matches_jax():
     ref = jmg.fmg(jl, jp.rhs(jnp.float32), jcfg)
     tp = interop.problem_from_jax(jp)
     cfg = T.MultigridConfig(backend="torch", smoother="rbgs", omega=1.0)
-    tl = T.build_hierarchy(tp.grid, tp.spec, dtype="float32", cfg=cfg)
+    tl = T.build_hierarchy(tp.grid, tp.spec, dtype="float32", cfg=cfg,
+                           device="cpu")
     got = T.fmg(tl, tp.rhs(torch.float32), cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:n, :n],
                                rtol=1e-6, atol=1e-6)
@@ -158,7 +160,7 @@ def test_problem_and_hierarchy_match_jax():
     assert np.array_equal(tp.initial_guess(torch.float64).numpy(),
                           np.asarray(jp.initial_guess(jnp.float64))[:n, :n])
     jl = J.build_hierarchy(jp.grid, jp.spec, dtype="float32")
-    tl = T.build_hierarchy(tp.grid, tp.spec, dtype="float32")
+    tl = T.build_hierarchy(tp.grid, tp.spec, dtype="float32", device="cpu")
     assert tl == interop.levels_from_jax(jl)
     assert [lev.grid.nx for lev in tl] == [33, 17, 9, 5, 3]
 
@@ -174,7 +176,8 @@ def test_interop_field_roundtrip():
 
 def test_dispatch_gates():
     cfg = T.MultigridConfig(smoother="rbgs", omega=1.0)
-    levels = T.build_hierarchy(T.Grid(257, 257), dtype="float32", cfg=cfg)
+    levels = T.build_hierarchy(T.Grid(257, 257), dtype="float32", cfg=cfg,
+                               device="cpu")
     assert [dispatch.tail_ok(levels, lvl, cfg, "V")
             for lvl in range(len(levels))] == [False, True, True, True, True,
                                                True, True, True]
@@ -182,7 +185,8 @@ def test_dispatch_gates():
     assert not dispatch.tail_ok(levels, 1, cfg.replace(backend="torch"), "V")
     assert not dispatch.transfer_fused_ok(levels[0], levels[1],
                                           cfg.replace(backend="torch"))
-    lev64 = T.build_hierarchy(T.Grid(65, 65), dtype="float64", cfg=cfg)
+    lev64 = T.build_hierarchy(T.Grid(65, 65), dtype="float64", cfg=cfg,
+                              device="cpu")
     assert not dispatch.tail_ok(lev64, 0, cfg, "V")
     assert not dispatch.transfer_fused_ok(lev64[0], lev64[1], cfg)
     with pytest.raises(ValueError):
@@ -194,8 +198,9 @@ def test_unported_features_raise():
         bc.BCSide(kind=bc.BCKind.PERIODIC)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.build_hierarchy(T.Grid(9, 9),
-                          cfg=T.MultigridConfig(coarsening="galerkin"))
-    levels = T.build_hierarchy(T.Grid(9, 9))
+                          cfg=T.MultigridConfig(coarsening="galerkin"),
+                          device="cpu")
+    levels = T.build_hierarchy(T.Grid(9, 9), device="cpu")
     u = torch.zeros(9, 9)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.mg_cycle(levels, u, u, T.MultigridConfig(cycle="W",
@@ -209,7 +214,7 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     u = torch.zeros(9, 9)
     with pytest.raises(ValueError, match="CUDA"):
         _build.check_cuda_fp32("k", u)
-    st = T.build_hierarchy(T.Grid(9, 9))[0].stencil
+    st = T.build_hierarchy(T.Grid(9, 9), device="cpu")[0].stencil
     with pytest.raises(ValueError, match="unsupported method"):
         ksmooth.multisweep(st, u, u, method="line_x")
     with pytest.raises(ValueError, match="coarsening"):
@@ -217,9 +222,37 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
                                 pre=1, post=1, omega=1.0)
 
 
+ENTRY_POINTS = {
+    "solve_poisson": lambda: T.solve_poisson(T.poisson_mms_sinsin(9)),
+    "convergence_study": lambda: T.convergence_study(T.poisson_mms_sinsin,
+                                                     [9, 17]),
+    "solve_poisson3d": lambda: T.solve_poisson3d(
+        T.poisson3d_mms_sinsinsin(9)),
+    "build_hierarchy": lambda: T.build_hierarchy(T.Grid(9, 9)),
+    "build_hierarchy3d": lambda: T.build_hierarchy3d(T.Grid3D(9, 9, 9)),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_run_on_the_card_unless_asked(monkeypatch, entry):
+    """Without ``device=`` the entry points resolve to CUDA; on a host
+    without a card they raise and name ``device='cpu'``, never falling back
+    to the plain CPU path."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.core import device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert device.resolve_device() == torch.device("cuda")
+    assert device.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[entry]()
+
+
 def test_port_import_leaves_jax_out():
     code = ("import sys, mixed_precision_multigrid_solvers_for_pdes_torch; "
             "import mixed_precision_multigrid_solvers_for_pdes_torch.interop; "
+            "import mixed_precision_multigrid_solvers_for_pdes_torch"
+            ".benchmarking.kernel_microbench; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'mixed_precision_multigrid_solvers_for_pdes_tpu'))); "

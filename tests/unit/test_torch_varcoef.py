@@ -361,7 +361,7 @@ def _hierarchies(jp, dtype="float32", backend="torch"):
                              dtype=np_dt, cfg=jcfg)
     cfg = T.MultigridConfig(backend=backend, **MAIN)
     tl = T.build_hierarchy(tp.grid, tp.spec, a=tp.a, lam=tp.lam, dtype=t_dt,
-                           cfg=cfg)
+                           cfg=cfg, device="cpu")
     return tp, jl, tl, jcfg, cfg
 
 
@@ -404,7 +404,8 @@ def test_solve_poisson_fp32_matches_jax(problem, n):
     ref = jpoisson.solve_poisson(jfac(n), precision="fp32", cfg=jcfg)
     prob = tfac(n)
     got = T.solve_poisson(prob, precision="fp32",
-                          cfg=T.MultigridConfig(backend="auto", **MAIN))
+                          cfg=T.MultigridConfig(backend="auto", **MAIN),
+                          device="cpu")
     assert got.info["method"] == "iterative_refinement"
     assert got.converged and ref.converged
     assert got.iterations == ref.iterations == EXPECTED_STEPS[n][problem]
@@ -428,7 +429,8 @@ def test_auto_backend_on_cpu_runs_the_twins_varcoef():
     for factory in (T.jump_coefficient_problem, T.robin_test_problem):
         prob = factory(33)
         out = {b: T.solve_poisson(prob, precision="fp32",
-                                  cfg=T.MultigridConfig(backend=b, **MAIN))
+                                  cfg=T.MultigridConfig(backend=b, **MAIN),
+                                  device="cpu")
                for b in ("auto", "torch")}
         assert torch.equal(out["auto"].u, out["torch"].u)
         assert out["auto"].info["history"].tolist() == \
@@ -438,9 +440,10 @@ def test_auto_backend_on_cpu_runs_the_twins_varcoef():
 
 def test_dispatch_routes_varcoef_levels(monkeypatch):
     cfg = T.MultigridConfig(**MAIN)
-    var = T.build_hierarchy(T.Grid(257, 257), a=_coef(257), cfg=cfg)
+    var = T.build_hierarchy(T.Grid(257, 257), a=_coef(257), cfg=cfg,
+                            device="cpu")
     robin = T.build_hierarchy(T.Grid(257, 257), _specs("south_robin")[1],
-                              cfg=cfg)
+                              cfg=cfg, device="cpu")
     u = var[0].zeros()
     assert dispatch.kernel_smooth_ok(u, var[0], "auto", "rbgs")
     assert not dispatch.kernel_smooth_ok(u, robin[0], "auto", "rbgs")
@@ -478,9 +481,11 @@ def test_neumann_problem_and_convergence_study():
     the fp64 ladder of the varcoef problem: second order."""
     res = T.solve_poisson(T.neumann_test_problem(33), precision="fp64",
                           cfg=T.MultigridConfig(smoother="rbgs", omega=1.0,
-                                                tol=1e-12))
+                                                tol=1e-12),
+                          device="cpu")
     assert res.converged and res.errors["l2"] < 1e-9
-    study = T.convergence_study(T.variable_coefficient_mms, [17, 33, 65])
+    study = T.convergence_study(T.variable_coefficient_mms, [17, 33, 65],
+                                device="cpu")
     assert study["converged"] and study["sizes"] == [17, 33, 65]
     assert abs(study["order_l2"] - 2.0) < 0.1
     assert all(abs(p - 2.0) < 0.1 for p in study["pairwise_orders"])
@@ -520,9 +525,9 @@ def test_unported_varcoef_features_raise():
     prob = T.variable_coefficient_mms(9)
     for precision in ("mixed", "bf16", "adaptive", "auto", object()):
         with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            T.solve_poisson(prob, precision=precision)
+            T.solve_poisson(prob, precision=precision, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        T.solve_poisson(prob, mesh=object())
+        T.solve_poisson(prob, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
         bc.mixed(west="periodic")
     seg = jbc.BoundarySpec(east=jbc.BCSide(
@@ -533,7 +538,7 @@ def test_unported_varcoef_features_raise():
         bc.BCSide(segments=seg.east.segments)
     with pytest.raises(ValueError, match="beta"):
         bc.BCSide(bc.BCKind.ROBIN, alpha=1.0, beta=0.0)
-    st = T.build_hierarchy(T.Grid(9, 9))[0].stencil
+    st = T.build_hierarchy(T.Grid(9, 9), device="cpu")[0].stencil
     u = torch.zeros(9, 9)
     with pytest.raises(ValueError, match="coefficient planes"):
         ksmooth_var.multisweep_var(st, u, u)
