@@ -26,11 +26,14 @@ Phases, each of which must pass:
   6. time both 2D paths over 16 frequency-swept right-hand sides as bench.py
      does, and print per-solve ms and DoF/s;
   7. hold each 3D kernel (E-G) against its twin at 513^3, 257^3, 129^3 and
-     5^3 (E also reversed and with omega != 1), and time both;
+     5^3 (E bit for bit, also reversed, with omega != 1, with 3 sweeps at
+     257^3, and with the coarsest solve's 32 sweeps at 5^3 and 3^3), time
+     both, and read E's device time per launch from torch.profiler;
   8. solve the 3D path at 257^3 and at 513^3 with backend='auto', the
      513^3 run from launch counts reset to zero, and check convergence, the
      outer-step count of the JAX reference, the l2 error against the closed
-     form and that E, F and G launched; print the peak device memory;
+     form, that E, F and G launched and that E made at most one launch per
+     smoothing call (E3D_MAX_LAUNCHES); print the peak device memory;
   9. solve it at 513^3 with backend='torch' and check that both paths agree;
  10. time both 3D paths over frequency-swept right-hand sides, print ms and
      DoF/s, and profile one kernel-path solve with torch.profiler;
@@ -51,7 +54,8 @@ The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
      513^2, 257^2; 1, 2, 3 sweeps and omega 1.3) and the probes, the copy
      and the c = 4 parity probe (513^2, 1025^2) against their twins, bit for
      bit, and L against A; time A, K and L per 2-sweep call at 1025^2 in
-     turns, and the copy's bandwidth at 1025^2 and 8192^2;
+     turns; the copy's variants against torch.mul in turns at 1025^2 and
+     8192^2, their bandwidth and device time per launch (torch.profiler);
  16. solve the 1025^2 main path (FMG, IR) with PARITY_DEFAULT on, from
      launch counts reset to zero: L launches, A's RB-GS does not, 3 outer
      steps, u equal to the direct layout's bit for bit; time it;
@@ -129,6 +133,9 @@ VAR_PATH_RTOL = 1e-8      # max|u_auto - u_torch| <= this * max|u|
 PLANE_ITERS_EXPECTED = 4
 PLANE_PATH_ATOL = 1e-8    # max|du| plane path vs plain path and standard IR
 N_COPY_HBM = 8192         # copy at 2 x 268 MB, far beyond the 50 MB L2
+# E's launches per 513^3 solve: one per smoothing call, 17 calls per V(2,2)
+# cycle over nine levels, two cycles per outer step, five steps = 170.
+E3D_MAX_LAUNCHES = 200
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth
 # and fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -205,6 +212,28 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Mean device time per launch of the kernels whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls of ``fn`` after a
+    warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in e.key]
+    launches = sum(e.count for e in kernels)
+    if launches == 0:
+        fail(f"the profiler saw no {kernel} kernel in {reps} calls")
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / launches
 
 
 def kernel_phase(levels, cfg, dev):
@@ -340,20 +369,27 @@ def kernel_phase3d(dev):
             a[1:-1, 1:-1, 1:-1] = inner
         return a
 
-    errs, times = {}, {}
+    errs, times, dev_ms = {}, {}, {}
     for n in SIZES3:
         st = stencil3d.make_stencil3d(Grid3D(n, n, n))
         u, f = field((n,) * 3), field((n,) * 3, st.c)
-        for sweeps, omega, reverse in ((2, 1.0, False), (1, 1.3, False),
-                                       (2, 1.0, True)):
+        cases = [(2, 1.0, False), (1, 1.3, False), (2, 1.0, True)]
+        if n == N3_REF:
+            cases.append((3, 1.3, True))   # two launches: 2 + 1 sweeps
+        if n < 17:
+            cases.append((32, 1.0, False))  # the coarsest solve's sweeps
+        for sweeps, omega, reverse in cases:
             kw = dict(sweeps=sweeps, omega=omega, reverse=reverse)
             compare("rbgs3d", f"{n}^3 {kw}",
                     lambda a, b: ks3.rbgs3d(st, a, b, **kw),
                     lambda a, b: ks3.rbgs3d_plain(st, a, b, **kw),
-                    lambda: (u.clone(), f), errs)
+                    lambda: (u.clone(), f), errs, exact=True)
         times[("rbgs3d", n)] = (
             time_ms(lambda: ks3.rbgs3d(st, u, f, sweeps=2), reps=10),
             time_ms(lambda: ks3.rbgs3d_plain(st, u, f, sweeps=2), reps=10))
+        if n == N3:
+            dev_ms[("rbgs3d", n)] = device_ms(
+                lambda: ks3.rbgs3d(st, u, f, sweeps=2), "rbgs3d")
         nc = (n - 1) // 2 + 1
         compare("residual_restrict3d", f"{n}->{nc}",
                 lambda a, b: kx3.residual_restrict3d(st, a, b),
@@ -371,9 +407,18 @@ def kernel_phase3d(dev):
             time_ms(lambda: kx3.prolong_correct3d_plain(ec, u), reps=10))
         del u, f, ec
         torch.cuda.empty_cache()
+    st = stencil3d.make_stencil3d(Grid3D(3, 3, 3))  # the coarsest level
+    u, f = field((3,) * 3), field((3,) * 3, st.c)
+    compare("rbgs3d", "3^3 32 sweeps",
+            lambda a, b: ks3.rbgs3d(st, a, b, sweeps=32),
+            lambda a, b: ks3.rbgs3d_plain(st, a, b, sweeps=32),
+            lambda: (u.clone(), f), errs, exact=True)
     for (name, n), (k_ms, p_ms) in times.items():
         print(f"time {name} {n}^3: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return errs, times
+    for (name, n), ms in dev_ms.items():
+        print(f"device time {name} {n}^3: {ms:.4f} ms per launch "
+              "(torch.profiler)")
+    return errs, times, dev_ms
 
 
 def solve3d(mg, n, backend, dev):
@@ -747,8 +792,10 @@ def kernel_phase_parity(levels, card, dev):
             times[(f"probe_{mode}", n)] = (
                 time_ms(lambda: kb.probe(u, f, mode=mode)),
                 time_ms(lambda: kb.probe_plain(u, f, mode=mode)))
-        compare("copy", f"{n}^2", kb.copy2x, kb.copy2x_plain, lambda: (u,),
-                errs, exact=True)
+        for variant in [*kb.COPY_VARIANTS, None]:
+            compare("copy", f"{n}^2 {variant or 'default'}",
+                    lambda a: kb.copy2x(a, variant=variant),
+                    kb.copy2x_plain, lambda: (u,), errs, exact=True)
         times[("copy", n)] = (time_ms(lambda: kb.copy2x(u)),
                               time_ms(lambda: kb.copy2x_plain(u)))
         library[("copy", n)] = time_ms(lambda: torch.mul(u, 2.0))
@@ -775,24 +822,39 @@ def kernel_phase_parity(levels, card, dev):
     print("turns at 1025^2, ms per 2-sweep call: " + ", ".join(
         f"{name} {np.mean(t):.4f} ({t[0]:.4f}, {t[1]:.4f})"
         for name, t in turns.items()) + f" [{card}]")
+    # the copy's variants and torch.mul in turns (forward, then back)
     big = torch.randn(N_COPY_HBM, N_COPY_HBM, device=dev)
-    rates = {}
+    rates, dev_ms = {}, {}
+    calls = {v: (lambda a, v=v: kb.copy2x(a, variant=v))
+             for v in kb.COPY_VARIANTS}
+    calls["default"] = kb.copy2x
+    calls["torch.mul"] = lambda a: torch.mul(a, 2.0)
+    kernel_of = dict.fromkeys(calls, "copy2x") | {"torch.mul": "elementwise"}
     for label, arr in ((f"{N}^2", u), (f"{N_COPY_HBM}^2", big)):
-        t_k = time_ms(lambda: kb.copy2x(arr), reps=50)
-        t_l = time_ms(lambda: torch.mul(arr, 2.0), reps=50)
         nbytes = 2 * arr.numel() * 4
-        rates[label] = nbytes / (t_k * 1e-3)
-        print(f"copy bandwidth {label} fp32 (read + write {nbytes / 1e6:.1f}"
-              f" MB): kernel M {t_k:.4f} ms, {rates[label] / 1e9:.1f} GB/s; "
-              f"torch.mul {t_l:.4f} ms, {nbytes / t_l / 1e6:.1f} GB/s "
-              f"[{card}]")
+        turns = {name: [] for name in calls}
+        for name in list(calls) + list(calls)[::-1]:
+            turns[name].append(time_ms(lambda: calls[name](arr), reps=50))
+        for name, fn in calls.items():
+            d_ms = device_ms(lambda: fn(arr), kernel_of[name], reps=20)
+            t = float(np.mean(turns[name]))
+            print(f"copy bandwidth {label} fp32 (read + write "
+                  f"{nbytes / 1e6:.1f} MB) {name}: {t:.4f} ms "
+                  f"({turns[name][0]:.4f}, {turns[name][1]:.4f}), "
+                  f"{nbytes / t / 1e6:.1f} GB/s; device {d_ms:.4f} ms per "
+                  f"launch, {nbytes / d_ms / 1e6:.1f} GB/s [{card}]")
+            if name == "default":
+                rates[label] = nbytes / (t * 1e-3)
+                dev_ms[("copy", arr.shape[0])] = d_ms
+            if name == "torch.mul":
+                dev_ms[("copy_library", arr.shape[0])] = d_ms
     del big
     torch.cuda.empty_cache()
     for (name, n), (k_ms, p_ms) in times.items():
         print(f"time {name} {n}^2: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
               + (f", library {library[(name, n)]:.4f} ms"
                  if (name, n) in library else ""))
-    return errs, times, library, rates[f"{N_COPY_HBM}^2"]
+    return errs, times, library, rates[f"{N_COPY_HBM}^2"], dev_ms
 
 
 def parity_main_path(mg, levels, prob, cfg, f, u_direct, card, dev):
@@ -1061,7 +1123,7 @@ def main() -> int:
               f"{dofs / t:.6e} DoF/s [{card}]")
 
     # ---- parity paths: kernels K, L and M -------------------------------
-    errs_par, times_par, library, copy_rate = kernel_phase_parity(
+    errs_par, times_par, library, copy_rate, dev_ms = kernel_phase_parity(
         levels, card, dev)
     errs.update(errs_par)
     times.update(times_par)
@@ -1082,9 +1144,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3D path ----------------------------------------------------------
-    errs3, times3 = kernel_phase3d(dev)
+    errs3, times3, dev_ms3 = kernel_phase3d(dev)
     errs.update(errs3)
     times.update(times3)
+    dev_ms.update(dev_ms3)
     wrappers3 = {"rbgs3d": ks3.rbgs3d,
                  "residual_restrict3d": kx3.residual_restrict3d,
                  "prolong_correct3d": kx3.prolong_correct3d}
@@ -1097,6 +1160,10 @@ def main() -> int:
     missing = [name for name, c in launches3.items() if c <= 0]
     if missing:
         fail(f"kernels never launched on the 3D path: {missing}")
+    print(f"E launches per {N3}^3 solve: {launches3['rbgs3d']} (one per "
+          f"smoothing call; at most {E3D_MAX_LAUNCHES})")
+    if launches3["rbgs3d"] > E3D_MAX_LAUNCHES:
+        fail(f"E made {launches3['rbgs3d']} launches in the {N3}^3 solve")
     launches.update(launches3)
     res_p, peak_p = solve3d(mg, N3, "torch", dev)
     du = (res_k.u - res_p.u).abs().max().item()
@@ -1163,7 +1230,8 @@ def main() -> int:
             else f"{TPU_PKG}/{rep}",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": times[key][1], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library.get(key)})
+            "bound_by": bound_by, "library_ms": library.get(key),
+            "device_ms": dev_ms.get(key)})
         nbytes = work(name)[0]
         print(f"bound {name}: {nbytes / 1e6:.3f} MB, {bound_ms:.5f} ms at "
               f"3.35 TB/s ({bound_by}), {nbytes / copy_rate * 1e3:.5f} ms at "

@@ -8,6 +8,13 @@
 
 #include <cuda_runtime.h>
 
+// Make `device` current, skipping cudaSetDevice when it already is.
+inline cudaError_t use_device(int device) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) == cudaSuccess && cur == device) return cudaSuccess;
+  return cudaSetDevice(device);
+}
+
 struct Stencil5 {
   float c, w, e, s, n;
 };

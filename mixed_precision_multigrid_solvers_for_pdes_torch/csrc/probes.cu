@@ -27,7 +27,12 @@
 // probe matches its plain twin bit for bit.
 //
 // The copy kernel writes o = 2 u with 16-byte loads and stores: its time
-// gives the card's copy bandwidth, the yardstick for the other kernels.
+// gives the card's copy bandwidth, the yardstick for the other kernels. A
+// grid-stride loop over at most 8 blocks of 256 threads per SM reached 82% of
+// the published rate at 8192^2. What the card needs is a grid that covers the
+// array once in small blocks. Beyond L2, one float4 per thread matches
+// torch.mul; four per thread do better on a copy that L2 holds, and
+// evict-first hints measured no faster (the wrapper picks by size).
 //
 // Bound: device memory bandwidth. A probe call of k sweeps must read u and f
 // and write u (12 bytes per node); it moves ~12 bytes per node per launch.
@@ -38,6 +43,7 @@ namespace {
 
 constexpr int kBlockX = 32;  // along j, the contiguous axis
 constexpr int kBlockY = 8;   // along i
+constexpr int kCopyThreads = 128;  // small blocks spread evenly over the SMs
 
 __device__ __forceinline__ float probe_nbsum(const float* u, int i, int j,
                                              int nx, int ny, int mode) {
@@ -79,21 +85,50 @@ __global__ void probe_color_kernel(const float* __restrict__ src,
   dst[idx] = v;
 }
 
-__global__ void copy2x_kernel(const float* __restrict__ u,
-                              float* __restrict__ o, long n) {
+// o = 2 u: each thread loads kUnroll float4s (one per block-wide stride,
+// so every load of a warp is coalesced) before it stores any, so kUnroll
+// 16-byte loads are in flight per thread; the grid covers the array once.
+// kStream marks the loads and stores evict-first (__ldcs/__stcs), so a stream
+// far beyond L2 does not churn it. Block 0 also doubles the n % 4 tail.
+template <int kUnroll, bool kStream>
+__global__ void __launch_bounds__(kCopyThreads)
+    copy2x_kernel(const float* __restrict__ u, float* __restrict__ o, long n) {
   const long n4 = n / 4;
-  const long stride = (long)gridDim.x * blockDim.x;
   const float4* u4 = reinterpret_cast<const float4*>(u);
   float4* o4 = reinterpret_cast<float4*>(o);
-  for (long k = (long)blockIdx.x * blockDim.x + threadIdx.x; k < n4;
-       k += stride) {
-    const float4 v = u4[k];
-    o4[k] = make_float4(__fmul_rn(2.0f, v.x), __fmul_rn(2.0f, v.y),
-                        __fmul_rn(2.0f, v.z), __fmul_rn(2.0f, v.w));
+  const long k0 = (long)blockIdx.x * kCopyThreads * kUnroll + threadIdx.x;
+  float4 v[kUnroll];
+#pragma unroll
+  for (int r = 0; r < kUnroll; ++r) {
+    const long k = k0 + (long)r * kCopyThreads;
+    if (k < n4) v[r] = kStream ? __ldcs(u4 + k) : u4[k];
   }
-  for (long k = 4 * n4 + (long)blockIdx.x * blockDim.x + threadIdx.x; k < n;
-       k += stride)
+#pragma unroll
+  for (int r = 0; r < kUnroll; ++r) {
+    const long k = k0 + (long)r * kCopyThreads;
+    if (k >= n4) continue;
+    const float4 w = make_float4(__fmul_rn(2.0f, v[r].x), __fmul_rn(2.0f, v[r].y),
+                                 __fmul_rn(2.0f, v[r].z), __fmul_rn(2.0f, v[r].w));
+    if (kStream)
+      __stcs(o4 + k, w);
+    else
+      o4[k] = w;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4) {
+    const long k = 4 * n4 + threadIdx.x;
     o[k] = __fmul_rn(2.0f, u[k]);
+  }
+}
+
+template <int kUnroll, bool kStream>
+cudaError_t launch_copy2x(const float* u, float* o, long n,
+                          cudaStream_t stream) {
+  const long per_block = (long)kCopyThreads * kUnroll;
+  const long blocks = (n / 4 + per_block - 1) / per_block;
+  copy2x_kernel<kUnroll, kStream>
+      <<<(unsigned)(blocks > 0 ? blocks : 1), kCopyThreads, 0, stream>>>(u, o,
+                                                                         n);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -104,7 +139,7 @@ extern "C" {
 int mg_probe_color(const float* src, float* dst, const float* f, int nx,
                    int ny, int mode, int color, int device, void* stream) {
   if (mode < 0 || mode > 4) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((ny + kBlockX - 1) / kBlockX, (nx + kBlockY - 1) / kBlockY);
@@ -113,17 +148,25 @@ int mg_probe_color(const float* src, float* dst, const float* f, int nx,
   return (int)cudaGetLastError();
 }
 
-// o = 2 u over n floats; u and o 16-byte aligned.
-int mg_copy2x(const float* u, float* o, long n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// o = 2 u over n floats; u and o 16-byte aligned. `variant` (COPY_VARIANTS
+// in benchmarking/kernel_microbench.py): float4s in flight per thread, and
+// whether loads and stores are marked evict-first: 0 one, 1 four, 2 eight
+// with hints.
+int mg_copy2x(const float* u, float* o, long n, int variant, int device,
+              void* stream) {
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const long want = (n / 4 + 255) / 256;
-  const int blocks = (int)(want < 8L * sms ? (want > 0 ? want : 1) : 8L * sms);
-  copy2x_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(u, o, n);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {
+    case 0:
+      return (int)launch_copy2x<1, false>(u, o, n, st);
+    case 1:
+      return (int)launch_copy2x<4, false>(u, o, n, st);
+    case 2:
+      return (int)launch_copy2x<8, true>(u, o, n, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,75 +1,414 @@
-// Kernel E: one colour half-sweep of 3D red-black Gauss-Seidel / SOR with a
-// constant-coefficient 7-point stencil on an all-Dirichlet box, in place.
+// Kernel E: 3D red-black Gauss-Seidel / SOR sweeps with a constant-coefficient
+// 7-point stencil on an all-Dirichlet box, out of place: one launch reads u
+// and f and writes every node of a separate output (the shell copied).
 //
 // Replaces the Pallas rbgs_planes of
 // mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth3d.py
 // (:178, kernel _pipeline_kernel :65). The TPU kernel streams x-planes through
-// VMEM and runs both colours in one pass with a two-stage plane pipeline, so
-// that red is computed from old values and black from red-updated ones. Here
-// the same order comes from two launches per sweep, one per colour (the
-// 'reverse' order is black first). In place is safe: a colour update reads
-// only nodes of the other colour and its own node, so the threads of one
-// launch never race.
+// VMEM and runs both colours of a sweep in one pass with a two-stage plane
+// pipeline (red on plane i-1, black on plane i-2), so that red is computed
+// from old values and black from red-updated ones. Here that pipeline is
+// carried to 2S stages: the S sweeps of a pass (S <= kMaxWaveSweeps) and both
+// of their colours are fused into one pass over the data.
 //
-// Design: one thread per interior node of the launch's colour. Threads run
-// along z, the contiguous axis: thread t of row (i, j) takes k = k0 + 2t,
-// with k0 in {1, 2} set by the colour, red where (i + j + k) is even. A block
-// of (32, 8) threads covers 32 such nodes of 8 rows j; grid z runs over i.
+// Bound: device memory bandwidth. A pass must read u and f and write the
+// output once (12 bytes per node), where one launch per colour half-sweep
+// moved ~12 bytes per node per launch, ~48 per 2-sweep call. (What bounds
+// this design in practice is below.)
+//
+// Design of the wave kernel (levels that do not fit one block):
+// - Each block owns a kTileJ x kTileK tile of the (j, k) interior and a chunk
+//   of x-planes [x0, x1). It holds a window of the tile plus a halo of
+//   H = 2S nodes in j and k, for a ring of u planes and a ring of f planes in
+//   shared memory, and marches along x (i).
+// - Step s: plane s has arrived; phase p = 1 .. 2S updates plane s - p with
+//   colour (c0 + p - 1) & 1 (c0 = 0 red first, 1 black first). Then plane
+//   s - 2S is finished. When phase p runs on plane q, plane q - 1 has had
+//   phase p and plane q + 1 phase p - 1, so the other colour around it is in
+//   the state exact RB-GS order requires.
+// - Node (s - p, j, k) has the phase's colour exactly when s + j + k = c0 + 1
+//   (mod 2), whatever p is. So in step s a (j, k) column is updated in all of
+//   its phases or in none, and its in-plane neighbours, of the other parity,
+//   are not written in that step. One thread runs a column's phases in order,
+//   reading everything it needs first and carrying its i-neighbours in
+//   registers. No barrier is needed between phases, only one per step, after
+//   plane s has landed; the tile a step finishes is stored in the next.
+// - A column at distance d from the window's edge takes phases 1 .. min(d, 2S)
+//   only (the window's stale edge moves one node per phase), so the tile,
+//   2S nodes in, is exact.
+// - A chunk's march starts at plane a = max(x0 - 2S, 0) and ends at plane
+//   b = min(x1 - 1 + 2S, nx - 1); planes a and b are held fixed. A fixed
+//   interior plane spoils one more plane per phase, so 2S planes of lead-in
+//   and lead-out keep [x0, x1) exact. Chunks exist only to fill the card on
+//   small levels (ops/cuda_kernels/smooth3d.py picks them).
+// - Out of place because a block's halo overlaps its neighbours' tiles and
+//   blocks run in no order: in place, a block could read planes another block
+//   had already updated.
+// - Loads: the 3D fields are unpadded (a 513-node row is 2052 bytes), so
+//   neither TMA nor 16-byte copies can address their rows. Each plane of u
+//   and f comes in with 4-byte cp.async, kAhead planes ahead of the compute,
+//   in commit groups; coalesced along z, zero-filled outside the field.
+// - Shared-memory layout: each window row keeps its even-k and odd-k nodes in
+//   two halves, so the nodes a step updates in a row, and each of their
+//   neighbour sets, are consecutive words. A warp takes columns 0..31 of one
+//   row's half (the last 2S columns of every row go to separate warps), so
+//   no warp's reads straddle two rows and the compute is free of bank
+//   conflicts.
+// - What bounds it on the H100: shared-memory instructions (a column's step
+//   reads 2S + 2 + 5 * 2S words and writes 2S), more than DRAM. The window's
+//   halo costs 1.41x the tile's loads and 15% more updates at S = 2.
+//
+// Small levels (both fields within kOneBlockMaxBytes, 17^3 and below) run
+// every sweep of a call in one launch of a one-block kernel that holds u and
+// f in shared memory, with a barrier per colour phase: the 32-sweep coarsest
+// solve is one launch.
 //
 // Arithmetic: u + omega*((f + nb) * (1/c) - u), multiplying by 1/c (computed
-// once in fp32) as the Pallas kernel does, with every product and sum
-// rounded explicitly in the plain twin's order (common.cuh).
-//
-// Bound: device memory bandwidth. A colour launch touches every line of u
-// (the neighbours cover the other colour) and of f, and writes half of u:
-// about 12 bytes per node, so ~24 bytes per node per sweep, where the TPU
-// pipeline moved 12. The stride-2 loads and stores along z use half of each
-// sector directly and the rest through L1/L2. Rolling x-planes through
-// shared memory with both colours in one pass is the next step and not done
-// here.
+// once in fp32) as the Pallas kernel does and as PyTorch's CUDA division by a
+// scalar does, with every product and sum rounded explicitly in the plain
+// twin's order (neighbour sum w, e, s, n, b, t), so the kernel equals its
+// twin on the card bit for bit.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;  // colour nodes along k, the contiguous axis
-constexpr int kBlockY = 8;   // rows along j
+// WAVE_TILE, MAX_WAVE_SWEEPS, WAVE_AHEAD and ONE_BLOCK_MAX_BYTES in
+// ops/cuda_kernels/smooth3d.py
+constexpr int kTileJ = 32;
+constexpr int kTileK = 64;
+constexpr int kMaxWaveSweeps = 2;
+constexpr int kAhead = 2;  // planes whose loads are in flight ahead of a step
+constexpr int kWaveThreads = 768;
+constexpr int kOneBlockMaxBytes = 64 * 1024;
+constexpr int kOneBlockThreads = 512;
+constexpr int kMaxDevices = 64;
+static_assert(kMaxWaveSweeps == 2,
+              "mg_rbgs3d instantiates the wave kernel for 1 and 2 sweeps");
 
-__global__ void rbgs3d_color_kernel(float* u, const float* __restrict__ f,
-                                    int ny, int nz, Stencil7 st, float inv_c,
-                                    float omega, int color) {
-  const int j = blockIdx.y * kBlockY + threadIdx.y + 1;
-  const int i = blockIdx.z + 1;
-  const int k = 1 + ((i + j + 1 + color) & 1) +
-                2 * (blockIdx.x * kBlockX + threadIdx.x);
-  if (j >= ny - 1 || k >= nz - 1) return;
+template <int S>
+struct Wave {
+  static constexpr int H = 2 * S;              // halo in j and k
+  static constexpr int RJ = kTileJ + 2 * H;    // window rows
+  static constexpr int RK = kTileK + 2 * H;    // window columns (even)
+  static constexpr int HP = RK / 2;            // one parity half of a row
+  static constexpr int PLANE = RJ * RK;
+  // u ring: planes s-2S-2 .. s+kAhead; f ring: planes s-2S-1 .. s+kAhead.
+  // With one barrier per step, a load issued at step s+1 may land while
+  // slower threads still run step s, so each ring holds one plane more than
+  // a step reads.
+  static constexpr int NU = 2 * S + 3 + kAhead;
+  static constexpr int NF = 2 * S + 2 + kAhead;
+  static constexpr int BYTES = (NU + NF) * PLANE * (int)sizeof(float);
+  static constexpr int LOADS = (PLANE + kWaveThreads - 1) / kWaveThreads;
+  static constexpr int ITEMS = ((RJ - 2) * HP + kWaveThreads - 1) / kWaveThreads;
+  // a tile stores at most (kTileJ + 2) x (kTileK + 2) nodes (shell included)
+  static constexpr int STORES =
+      ((kTileJ + 2) * (kTileK + 2) + kWaveThreads - 1) / kWaveThreads;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// RB-GS/SOR value of a node from its value uc, its right-hand side fv and its
+// neighbours W, E (i -+ 1), S, N (j -+ 1), B, T (k -+ 1). kUnitOmega skips
+// the product by omega = 1, which is exact.
+template <bool kUnitOmega = false>
+__device__ __forceinline__ float rbgs7(float uc, float fv, float W, float E,
+                                       float S, float N, float B, float T,
+                                       const Stencil7& st, float inv_c,
+                                       float omega) {
+  float acc = __fmul_rn(st.w, W);
+  acc = __fadd_rn(acc, __fmul_rn(st.e, E));
+  acc = __fadd_rn(acc, __fmul_rn(st.s, S));
+  acc = __fadd_rn(acc, __fmul_rn(st.n, N));
+  acc = __fadd_rn(acc, __fmul_rn(st.b, B));
+  acc = __fadd_rn(acc, __fmul_rn(st.t, T));
+  const float gs = __fmul_rn(__fadd_rn(fv, acc), inv_c);
+  const float d = __fsub_rn(gs, uc);
+  return __fadd_rn(uc, kUnitOmega ? d : __fmul_rn(omega, d));
+}
+
+// First and one-past-last node a tile stores along an axis of n nodes: its
+// interior nodes, plus the shell node next to it at either end.
+__device__ __forceinline__ void tile_span(int t, int tile, int n, int* lo,
+                                          int* hi) {
+  *lo = t == 0 ? 0 : 1 + t * tile;
+  *hi = min(1 + (t + 1) * tile, n - 1);
+  if (*hi == n - 1) *hi = n;
+}
+
+template <int S, bool kUnitOmega>
+__global__ void __launch_bounds__(kWaveThreads, 1)
+    rbgs3d_wave_kernel(const float* __restrict__ u,
+                       const float* __restrict__ f, float* __restrict__ out,
+                       int nx, int ny, int nz, int chunk, Stencil7 st,
+                       float inv_c, float omega, int c0) {
+  using W = Wave<S>;
+  constexpr int P = 2 * S;  // phases per step
+  extern __shared__ float sm[];
+  float* us = sm;                        // NU u planes
+  float* fs = sm + W::NU * W::PLANE;     // NF f planes
+  const int jw0 = 1 + blockIdx.y * kTileJ - W::H;
+  const int kw0 = 1 + blockIdx.x * kTileK - W::H;
+  const int x0 = blockIdx.z * chunk, x1 = min(x0 + chunk, nx);
+  const int a = max(x0 - P, 0), b = min(x1 - 1 + P, nx - 1);
+  const int last = x1 - 1 + P;  // the step that finishes plane x1 - 1
   const long sx = (long)ny * nz;
-  const long idx = (long)i * sx + (long)j * nz + k;
-  const float uc = u[idx];
-  const float gs =
-      __fmul_rn(__fadd_rn(f[idx], neighbor_sum7(u, idx, sx, nz, st)), inv_c);
-  u[idx] = __fadd_rn(uc, __fmul_rn(omega, __fsub_rn(gs, uc)));
+  int jlo, jhi, klo, khi;
+  tile_span(blockIdx.y, kTileJ, ny, &jlo, &jhi);
+  tile_span(blockIdx.x, kTileK, nz, &klo, &khi);
+
+  // This thread's window nodes to load: ring offset and in-plane offset in
+  // the field (-1 outside it); the same in every plane.
+  int lo_s[W::LOADS], lo_g[W::LOADS];
+#pragma unroll
+  for (int r = 0; r < W::LOADS; ++r) {
+    const int t = threadIdx.x + r * kWaveThreads;
+    const int lj = t / W::RK, lk = t - lj * W::RK;
+    const int j = jw0 + lj, k = kw0 + lk;
+    lo_s[r] = t < W::PLANE ? lj * W::RK + (lk & 1) * W::HP + (lk >> 1) : -1;
+    lo_g[r] = j >= 0 && j < ny && k >= 0 && k < nz ? j * nz + k : -1;
+  }
+  // plane q of u and f -> the rings (one commit group, empty past plane b)
+  auto issue = [&](int q) {
+    if (q <= b) {
+      float* ud = us + (q % W::NU) * W::PLANE;
+      float* fd = fs + (q % W::NF) * W::PLANE;
+      const float* ug = u + (long)q * sx;
+      const float* fg = f + (long)q * sx;
+#pragma unroll
+      for (int r = 0; r < W::LOADS; ++r) {
+        if (lo_s[r] < 0) continue;
+        const int g = max(lo_g[r], 0);
+        cp_async4(ud + lo_s[r], ug + g, lo_g[r] >= 0);
+        cp_async4(fd + lo_s[r], fg + g, lo_g[r] >= 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // This thread's columns: row, parity-half index and, for either parity
+  // of the row's active half, the phases the column takes (0: none) by its
+  // distance to the window's edge and whether it is an unknown.
+  // Columns 0..31 of a row's half go to one warp, so no warp's reads
+  // straddle two rows (which would put two rows' words in one bank); the
+  // last HP - 32 columns of every row follow, kTail to a row.
+  int it_lj[W::ITEMS], it_m[W::ITEMS], it_d0[W::ITEMS], it_d1[W::ITEMS];
+#pragma unroll
+  for (int r = 0; r < W::ITEMS; ++r) {
+    const int t = threadIdx.x + r * kWaveThreads;
+    constexpr int kTail = W::HP - 32, kMain = (W::RJ - 2) * 32;
+    const int tt = t - kMain;
+    const int lj = t < kMain ? 1 + t / 32 : 1 + tt / kTail;
+    const int m = t < kMain ? t % 32 : 32 + tt % kTail;
+    it_lj[r] = lj;
+    it_m[r] = m;
+    const int j = jw0 + lj, dj = min(lj, W::RJ - 1 - lj);
+    const bool row_ok = t < (W::RJ - 2) * W::HP && j >= 1 && j <= ny - 2;
+    int dk[2];
+#pragma unroll
+    for (int hb = 0; hb < 2; ++hb) {
+      const int lk = 2 * m + hb, k = kw0 + lk;
+      const int d = min(dj, min(lk, W::RK - 1 - lk));
+      dk[hb] = row_ok && k >= 1 && k <= nz - 2 ? min(d, P) : 0;
+    }
+    it_d0[r] = dk[0];
+    it_d1[r] = dk[1];
+  }
+
+  // This thread's nodes of the tile to store: window offset and in-plane
+  // offset in the field (-1: none); the same in every plane.
+  int st_s[W::STORES], st_g[W::STORES];
+  {
+    const int cols = khi - klo, n = (jhi - jlo) * cols;
+#pragma unroll
+    for (int r = 0; r < W::STORES; ++r) {
+      const int t = threadIdx.x + r * kWaveThreads;
+      const int jj = t / cols, kk = t - jj * cols;
+      const int lj = jlo + jj - jw0, lk = klo + kk - kw0;
+      st_s[r] = lj * W::RK + (lk & 1) * W::HP + (lk >> 1);
+      st_g[r] = t < n ? (jlo + jj) * nz + klo + kk : -1;
+    }
+  }
+
+  for (int d = 0; d < kAhead; ++d) issue(a + d);
+  for (int s = a; s <= last + 1; ++s) {
+    issue(s + kAhead);
+    cp_async_wait<kAhead>();  // plane s has landed
+    __syncthreads();
+
+    const int q_done = s - P - 1;  // finished in the previous step
+    if (q_done >= x0 && q_done < x1) {
+      const float* pl = us + (q_done % W::NU) * W::PLANE;
+      float* og = out + (long)q_done * sx;
+#pragma unroll
+      for (int r = 0; r < W::STORES; ++r)
+        if (st_g[r] >= 0) __stcs(og + st_g[r], pl[st_s[r]]);
+    }
+
+    // phases p in [plo, phi] touch planes a < s - p < b
+    const int plo = max(1, s - b + 1), phi = min(P, s - a - 1);
+    if (s > last || plo > phi) continue;
+    const int par = (c0 + 1 + s + jw0 + kw0) & 1;
+    int slot[P + 2];  // ring offsets of planes s - P - 1 .. s
+#pragma unroll
+    for (int i = 0; i < P + 2; ++i)
+      slot[i] = (max(s - P - 1 + i, 0) % W::NU) * W::PLANE;
+    int fslot[P];     // f ring offsets of planes s - 1 .. s - P
+#pragma unroll
+    for (int p = 1; p <= P; ++p)
+      fslot[p - 1] = (max(s - p, 0) % W::NF) * W::PLANE;
+#pragma unroll
+    for (int r = 0; r < W::ITEMS; ++r) {
+      const int hb = (par + it_lj[r]) & 1;  // parity of the row's active k
+      const int p1 = min(phi, hb ? it_d1[r] : it_d0[r]);
+      if (plo > p1) continue;
+      const int own = it_lj[r] * W::RK + hb * W::HP + it_m[r];
+      const int kd = hb ? own - W::HP : own + W::HP - 1;  // node k - 1
+      // every read first: no other thread writes them in this step
+      float col[P + 2], fv[P], ys[P], yn[P], zb[P], zt[P];
+#pragma unroll
+      for (int i = 0; i < P + 2; ++i) col[i] = us[slot[i] + own];
+#pragma unroll
+      for (int p = 1; p <= P; ++p) {
+        const float* pl = us + slot[P + 1 - p];
+        fv[p - 1] = fs[fslot[p - 1] + own];
+        ys[p - 1] = pl[own - W::RK];
+        yn[p - 1] = pl[own + W::RK];
+        zb[p - 1] = pl[kd];
+        zt[p - 1] = pl[kd + 1];
+      }
+      // the column's phases in order: plane s - p is col[P + 1 - p]
+#pragma unroll
+      for (int p = 1; p <= P; ++p) {
+        if (p < plo || p > p1) continue;
+        col[P + 1 - p] = rbgs7<kUnitOmega>(col[P + 1 - p], fv[p - 1],
+                                           col[P - p], col[P + 2 - p],
+                                           ys[p - 1], yn[p - 1], zb[p - 1],
+                                           zt[p - 1], st, inv_c, omega);
+      }
+#pragma unroll
+      for (int p = 1; p <= P; ++p)
+        if (p >= plo && p <= p1) us[slot[P + 1 - p] + own] = col[P + 1 - p];
+    }
+  }
+  cp_async_wait<0>();
+}
+
+__global__ void __launch_bounds__(kOneBlockThreads)
+    rbgs3d_block_kernel(const float* __restrict__ u,
+                        const float* __restrict__ f, float* __restrict__ out,
+                        int nx, int ny, int nz, Stencil7 st, float inv_c,
+                        float omega, int c0, int sweeps) {
+  extern __shared__ float sm[];
+  const int n = nx * ny * nz, sx = ny * nz;
+  float* us = sm;
+  float* fs = sm + n;
+  for (int t = threadIdx.x; t < n; t += kOneBlockThreads) {
+    us[t] = u[t];
+    fs[t] = f[t];
+  }
+  const int rows = (nx - 2) * (ny - 2), per_row = (nz - 1) / 2;
+  for (int ph = 0; ph < 2 * sweeps; ++ph) {
+    const int color = (c0 + ph) & 1;  // red where (i + j + k) is even
+    __syncthreads();
+    for (int t = threadIdx.x; t < rows * per_row; t += kOneBlockThreads) {
+      const int r = t / per_row, m = t - r * per_row;
+      const int i = 1 + r / (ny - 2), j = 1 + r % (ny - 2);
+      const int k = 1 + ((i + j + 1 + color) & 1) + 2 * m;
+      if (k > nz - 2) continue;
+      const int x = i * sx + j * nz + k;
+      us[x] = rbgs7(us[x], fs[x], us[x - sx], us[x + sx], us[x - nz],
+                    us[x + nz], us[x - 1], us[x + 1], st, inv_c, omega);
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < n; t += kOneBlockThreads) out[t] = us[t];
+}
+
+// Raise a kernel's dynamic shared-memory limit once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int device, bool* done) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
+}
+
+template <int S>
+cudaError_t launch_wave(const float* u, const float* f, float* out, int nx,
+                        int ny, int nz, int chunk, const Stencil7& st,
+                        float omega, int c0, int device, cudaStream_t stream) {
+  static bool done[2][kMaxDevices] = {};
+  const bool unit = omega == 1.0f;
+  const auto kernel =
+      unit ? rbgs3d_wave_kernel<S, true> : rbgs3d_wave_kernel<S, false>;
+  const cudaError_t err =
+      allow_smem(kernel, Wave<S>::BYTES, device, done[unit]);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nz - 2 + kTileK - 1) / kTileK,
+                  (ny - 2 + kTileJ - 1) / kTileJ, (nx + chunk - 1) / chunk);
+  kernel<<<grid, kWaveThreads, Wave<S>::BYTES, stream>>>(
+      u, f, out, nx, ny, nz, chunk, st, 1.0f / st.c, omega, c0);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// One RB-GS/SOR half-sweep of colour `color` (0 = red) in place on the
-// (nx, ny, nz) field u.
-int mg_rbgs3d_color(float* u, const float* f, int nx, int ny, int nz,
-                    float c, float w, float e, float s, float n, float b,
-                    float t, float omega, int color, int device,
-                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// `sweeps` RB-GS/SOR sweeps (red then black, black then red with
+// `reverse`) of u, written to out (every node of out is written; u and f
+// are only read, and out must not alias them). Fields whose u and f fit in
+// kOneBlockMaxBytes take any sweep count in one block; larger ones take at
+// most kMaxWaveSweeps, in x-chunks of `chunk` planes.
+int mg_rbgs3d(const float* u, const float* f, float* out, int nx, int ny,
+              int nz, float c, float w, float e, float s, float n, float b,
+              float t, float omega, int sweeps, int reverse, int chunk,
+              int device, void* stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const Stencil7 st{c, w, e, s, n, b, t};
-  const int per_row = (nz - 1) / 2;  // colour nodes in a row, at most
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((per_row + kBlockX - 1) / kBlockX,
-                  (ny - 2 + kBlockY - 1) / kBlockY, nx - 2);
-  rbgs3d_color_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      u, f, ny, nz, st, 1.0f / c, omega, color);
-  return (int)cudaGetLastError();
+  const int c0 = reverse ? 1 : 0;
+  const long bytes = 2L * nx * ny * nz * (long)sizeof(float);
+  if (sweeps < 1 || nx < 3 || ny < 3 || nz < 3)
+    return (int)cudaErrorInvalidValue;
+  if (bytes <= kOneBlockMaxBytes) {
+    static bool done[kMaxDevices] = {};
+    err = allow_smem(rbgs3d_block_kernel, kOneBlockMaxBytes, device, done);
+    if (err != cudaSuccess) return (int)err;
+    rbgs3d_block_kernel<<<1, kOneBlockThreads, (int)bytes,
+                          (cudaStream_t)stream>>>(
+        u, f, out, nx, ny, nz, st, 1.0f / c, omega, c0, sweeps);
+    return (int)cudaGetLastError();
+  }
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  switch (sweeps) {
+    case 1:
+      return (int)launch_wave<1>(u, f, out, nx, ny, nz, chunk, st, omega, c0,
+                                 device, (cudaStream_t)stream);
+    case 2:
+      return (int)launch_wave<2>(u, f, out, nx, ny, nz, chunk, st, omega, c0,
+                                 device, (cudaStream_t)stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

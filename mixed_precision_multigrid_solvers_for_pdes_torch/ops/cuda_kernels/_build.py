@@ -53,7 +53,7 @@ _SIGNATURES = {
                         _I, _I, _P], _I),
     "mg_tail_var_vcycle": ([_P, _P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
                             _I, _I, _I, _P], _I),
-    "mg_rbgs3d_color": ([_P, _P, _I, _I, _I] + [_F] * 8 + [_I, _I, _P], _I),
+    "mg_rbgs3d": ([_P] * 3 + [_I] * 3 + [_F] * 8 + [_I] * 4 + [_P], _I),
     "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
                                + [_I, _P], _I),
     "mg_prolong_correct3d": ([_P, _P] + [_I] * 5 + [_I, _P], _I),
@@ -61,7 +61,7 @@ _SIGNATURES = {
                              _I),
     "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_probe_color": ([_P] * 3 + [_I] * 4 + [_I, _P], _I),
-    "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _P], _I),
+    "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _I, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -155,12 +155,19 @@ def library() -> KernelLibrary:
                          build_seconds=seconds, log=log)
 
 
+_ENTRIES: dict = {}   # name -> bound ctypes function of the loaded library
+
+
 def launch(name: str, *args) -> None:
-    """Call C entry ``name`` and raise if it reports a CUDA error."""
-    lib = library().lib
-    err = getattr(lib, name)(*args)
+    """Call C entry ``name`` and raise if it reports a CUDA error. The bound
+    function is looked up once per name, so a launch costs one dict lookup
+    and the ctypes call."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(library().lib, name)
+    err = fn(*args)
     if err != 0:
-        msg = lib.mg_error_string(err).decode()
+        msg = library().lib.mg_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 

@@ -8,17 +8,85 @@ fp32. The source note in ``csrc/smooth3d.cu`` gives the design and what
 bounds it. Like the Pallas kernel it runs the RB-GS family only; weighted
 Jacobi stays on the plain path (``ops/dispatch.py``).
 
-On a CPU tensor ``rbgs3d`` runs the plain twin; on a CUDA tensor it launches
-the kernel or raises. ``rbgs3d.launches`` counts kernel launches (one per
-colour half-sweep).
+The kernel works out of place, as the Pallas kernel does: ``rbgs3d``
+returns a new tensor and leaves ``u`` untouched, on the CPU too, where it
+runs the plain twin on a copy of ``u``. On a CUDA tensor it launches the
+kernel or raises. Levels whose u and f fit one block (``ONE_BLOCK_MAX_BYTES``)
+take every sweep of a call in one launch; larger levels take up to
+``MAX_WAVE_SWEEPS`` sweeps per launch, so the multigrid cycle's 2-sweep calls
+are one launch each, and longer calls run in passes that alternate between
+the output and one scratch field. ``rbgs3d.launches`` counts kernel
+launches.
+
+The geometry the kernel is launched with (passes, tiles, x-chunks) is
+computed here, so the CPU tests can emulate the kernel's schedule with it.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+
+import torch
 
 from ...core import bc3d
 from .. import smooth3d as smooth3d_mod
 from ..stencil3d import Stencil3D
 from . import _build
+
+# Mirrors of csrc/smooth3d.cu: kTileJ x kTileK, kMaxWaveSweeps, kAhead,
+# kOneBlockMaxBytes.
+WAVE_TILE = (32, 64)
+MAX_WAVE_SWEEPS = 2
+WAVE_AHEAD = 2
+ONE_BLOCK_MAX_BYTES = 64 * 1024
+# The fewest x-planes a chunk takes when small levels are cut into chunks
+# to fill the card.
+MIN_CHUNK_PLANES = 8
+
+
+def one_block(shape) -> bool:
+    """True when u and f of ``shape`` fit the one-block kernel."""
+    return 8 * math.prod(shape) <= ONE_BLOCK_MAX_BYTES
+
+
+def plan_passes(shape, sweeps: int) -> list:
+    """Sweeps of each launch of a ``sweeps``-sweep call on ``shape``."""
+    if sweeps <= 0:
+        return []
+    if one_block(shape):
+        return [sweeps]
+    full, rest = divmod(sweeps, MAX_WAVE_SWEEPS)
+    return [MAX_WAVE_SWEEPS] * full + ([rest] if rest else [])
+
+
+def wave_tiles(shape, tile=WAVE_TILE):
+    """(tiles along j, tiles along k) over the interior of ``shape``."""
+    _, ny, nz = shape
+    return -(-(ny - 2) // tile[0]), -(-(nz - 2) // tile[1])
+
+
+def chunk_planes(shape, sms: int, tile=WAVE_TILE) -> int:
+    """x-planes per chunk of the wave kernel: the field is cut into as many
+    chunks as fill ``sms`` multiprocessors with one block each (one chunk
+    when the tiles alone do), no chunk under MIN_CHUNK_PLANES planes."""
+    nx = shape[0]
+    tj, tk = wave_tiles(shape, tile)
+    chunks = max(1, min(sms // (tj * tk), nx // MIN_CHUNK_PLANES))
+    return -(-nx // chunks)
+
+
+def ring_planes(sweeps: int):
+    """(u planes, f planes) of the wave kernel's shared-memory rings: the
+    planes step s reads (s-2S-1 .. s of u, s-2S .. s-1 of f), the WAVE_AHEAD
+    planes in flight, and one more, since the next step's load may land
+    while slower threads still run step s."""
+    return (2 * sweeps + 3 + WAVE_AHEAD, 2 * sweeps + 2 + WAVE_AHEAD)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def rbgs3d_plain(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
@@ -31,21 +99,31 @@ def rbgs3d_plain(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
 
 def rbgs3d(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
            reverse: bool = False):
-    """``sweeps`` RB-GS/SOR sweeps in place on ``u`` (red then black, or
-    black then red with ``reverse``); returns ``u``."""
+    """``sweeps`` RB-GS/SOR sweeps of ``u`` (red then black, or black then
+    red with ``reverse``); returns a new tensor, ``u`` is left untouched."""
     if u.device.type == "cpu":
-        return rbgs3d_plain(st, u, f, sweeps=sweeps, omega=omega,
+        return rbgs3d_plain(st, u.clone(), f, sweeps=sweeps, omega=omega,
                             reverse=reverse)
     _build.check_cuda_fp32("rbgs3d", u, f, ndim=3)
     if f.shape != u.shape:
         raise ValueError(f"rbgs3d: f {tuple(f.shape)} != u {tuple(u.shape)}")
+    passes = plan_passes(u.shape, sweeps)
+    if not passes:
+        return u.clone()
     dev, stream = u.device.index, _build.stream_of(u)
-    for _ in range(sweeps):
-        for color in ((1, 0) if reverse else (0, 1)):
-            _build.launch("mg_rbgs3d_color", u.data_ptr(), f.data_ptr(),
-                          *u.shape, *st.coefs, omega, color, dev, stream)
-            rbgs3d.launches += 1
-    return u
+    chunk = chunk_planes(u.shape, _sm_count(dev))
+    out = torch.empty_like(u)
+    scratch = torch.empty_like(u) if len(passes) > 1 else None
+    src = u
+    for i, n in enumerate(passes):
+        # the last pass writes out: earlier ones alternate before it
+        dst = out if (len(passes) - 1 - i) % 2 == 0 else scratch
+        _build.launch("mg_rbgs3d", src.data_ptr(), f.data_ptr(),
+                      dst.data_ptr(), *u.shape, *st.coefs, omega, n,
+                      int(reverse), chunk, dev, stream)
+        rbgs3d.launches += 1
+        src = dst
+    return out
 
 
 rbgs3d.launches = 0

@@ -173,7 +173,9 @@ def kernel_smooth3d_ok(u, lev, backend: str, method: str) -> bool:
 
 def smooth3d(lev, u, f, *, method: str, sweeps: int, omega: float,
              reverse: bool = False, backend: str = "auto"):
-    """``sweeps`` 3D smoothing sweeps in place on ``u``; returns ``u``."""
+    """``sweeps`` 3D smoothing sweeps of ``u``; returns the smoothed field:
+    a new tensor from kernel E (which works out of place), ``u`` itself,
+    updated in place, from the plain path."""
     if kernel_smooth3d_ok(u, lev, backend, method):
         return k_smooth3d.rbgs3d(lev.stencil, u, f, sweeps=sweeps,
                                  omega=omega,

@@ -11,7 +11,8 @@ into FMAs, and the tail chains about a hundred dependent phases. The
 non-power-of-two domain below makes those roundings differ for real: on the
 unit square the coefficients are powers of two and the two agree bit for bit.
 The 3D kernels E, F and G round every product and sum explicitly in their
-twins' order; E still multiplies by 1/c where the twin divides.
+twins' order; E multiplies by 1/c, as PyTorch's CUDA division by a scalar
+does, so E is held to its twin bit for bit on the card.
 
 The coefficient-plane kernels H, I and J and kernel C round every operation
 in their twins' order and divide as the twins do, so they are held to their
@@ -163,20 +164,51 @@ def _stencil3d(shape, domain):
 @pytest.mark.parametrize("domain", list(DOMAINS3D))
 @pytest.mark.parametrize("sweeps,omega,reverse", [(2, 1.0, False),
                                                   (1, 1.3, False),
-                                                  (2, 1.0, True)])
-@pytest.mark.parametrize("shape", [(65, 65, 65), (9, 33, 17), (5, 5, 5)])
+                                                  (2, 1.0, True),
+                                                  (3, 1.3, True)])
+@pytest.mark.parametrize("shape", [(65, 65, 65), (9, 33, 17), (5, 5, 5),
+                                   (37, 70, 131)])
 def test_rbgs3d_matches_twin(dev, shape, sweeps, omega, reverse, domain):
     g, st = _stencil3d(shape, domain)
-    u, f = _field(shape, 21, dev), _field(shape, 22, dev, st.c)
+    u = _field(shape, 21, dev, ring=True)  # a non-zero shell is copied
+    f = _field(shape, 22, dev, st.c)
+    u0 = u.clone()
     before = ksmooth3d.rbgs3d.launches
-    got = ksmooth3d.rbgs3d(st, u.clone(), f, sweeps=sweeps, omega=omega,
+    got = ksmooth3d.rbgs3d(st, u, f, sweeps=sweeps, omega=omega,
                            reverse=reverse)
-    assert ksmooth3d.rbgs3d.launches - before == 2 * sweeps
+    assert ksmooth3d.rbgs3d.launches - before == len(
+        ksmooth3d.plan_passes(shape, sweeps))
     ref = ksmooth3d.rbgs3d_plain(st, u.clone(), f, sweeps=sweeps,
                                  omega=omega, reverse=reverse)
-    _close(got, ref)
-    assert torch.equal(got[0], u[0]) and torch.equal(got[:, :, -1],
-                                                     u[:, :, -1])
+    _exact(got, ref)
+    assert got is not u and torch.equal(u, u0)  # out of place
+    for shell in ((0,), (-1,), (slice(None), 0), (slice(None), -1),
+                  (Ellipsis, 0), (Ellipsis, -1)):
+        assert torch.equal(got[shell], u[shell])
+
+
+@pytest.mark.parametrize("n", [3, 5, 17])
+def test_rbgs3d_coarse_solve_is_one_launch(dev, n):
+    """The 32-sweep coarsest solve: one launch of the one-block kernel."""
+    g, st = _stencil3d((n,) * 3, "skew")
+    u, f = _field((n,) * 3, 27, dev), _field((n,) * 3, 28, dev, st.c)
+    before = ksmooth3d.rbgs3d.launches
+    got = ksmooth3d.rbgs3d(st, u, f, sweeps=32)
+    assert ksmooth3d.rbgs3d.launches == before + 1
+    _exact(got, ksmooth3d.rbgs3d_plain(st, u.clone(), f, sweeps=32))
+
+
+@pytest.mark.parametrize("sweeps", [4, 5])
+def test_rbgs3d_several_passes(dev, sweeps):
+    """Sweeps above MAX_WAVE_SWEEPS run in passes between two buffers."""
+    shape = (33, 33, 65)
+    g, st = _stencil3d(shape, "skew")
+    u, f = _field(shape, 29, dev), _field(shape, 30, dev, st.c)
+    before = ksmooth3d.rbgs3d.launches
+    got = ksmooth3d.rbgs3d(st, u, f, sweeps=sweeps, omega=1.3)
+    assert ksmooth3d.rbgs3d.launches - before == -(-sweeps // 2)
+    _exact(got, ksmooth3d.rbgs3d_plain(st, u.clone(), f, sweeps=sweeps,
+                                       omega=1.3))
 
 
 @pytest.mark.parametrize("domain", list(DOMAINS3D))
@@ -436,14 +468,16 @@ def test_probe_matches_twin(dev, n, mode):
     _exact(got, kmicro.probe_plain(u, f, mode=mode, sweeps=3))
 
 
-@pytest.mark.parametrize("shape", [(1025, 1025), (5, 7), (3, 3)])
+@pytest.mark.parametrize("shape", [(1025, 1025), (5, 7), (3, 3),
+                                   (3,), (6,), (4097,), (1025, 1023)])
 def test_copy2x_and_parity_probe_match_twins(dev, shape):
     u = _field(shape, 47, dev, ring=True)
-    before = kmicro.copy2x.launches
-    _exact(kmicro.copy2x(u), kmicro.copy2x_plain(u))
-    assert kmicro.copy2x.launches == before + 1
-    nx, ny = shape
-    if min(shape) >= 5:
+    for variant in [*kmicro.COPY_VARIANTS, None]:  # ragged tails too
+        before = kmicro.copy2x.launches
+        _exact(kmicro.copy2x(u, variant=variant), kmicro.copy2x_plain(u))
+        assert kmicro.copy2x.launches == before + 1
+    if len(shape) == 2 and min(shape) >= 5:
+        nx, ny = shape
         up = planes.split_field(u)
         fp = planes.split_field(_field(shape, 48, dev))
         _exact(kmicro.parity(up.clone(), fp, nx=nx, ny=ny, sweeps=3),
@@ -471,6 +505,8 @@ def test_plane_and_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     flat = torch.zeros(1026 * 1026 + 1, device=dev)[1:]
     with pytest.raises(ValueError, match="aligned"):
         kmicro.copy2x(flat)
+    with pytest.raises(ValueError, match="variant"):
+        kmicro.copy2x(u, variant="stride")
 
 
 def test_plane_ir_solve_kernel_path_matches_plain_and_standard_paths(dev):
