@@ -32,8 +32,9 @@ Phases, each of which must pass:
   8. solve the 3D path at 257^3 and at 513^3 with backend='auto', the
      513^3 run from launch counts reset to zero, and check convergence, the
      outer-step count of the JAX reference, the l2 error against the closed
-     form, that E, F and G launched and that E made at most one launch per
-     smoothing call (E3D_MAX_LAUNCHES); print the peak device memory;
+     form, that E, F and G launched and that E made exactly the launches
+     it plans for the solve's smoothing calls (one per call, 170); print
+     the peak device memory;
   9. solve it at 513^3 with backend='torch' and check that both paths agree;
  10. time both 3D paths over frequency-swept right-hand sides, print ms and
      DoF/s, and profile one kernel-path solve with torch.profiler;
@@ -54,8 +55,9 @@ The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
      513^2, 257^2; 1, 2, 3 sweeps and omega 1.3) and the probes, the copy
      and the c = 4 parity probe (513^2, 1025^2) against their twins, bit for
      bit, and L against A; time A, K and L per 2-sweep call at 1025^2 in
-     turns; the copy's variants against torch.mul in turns at 1025^2 and
-     8192^2, their bandwidth and device time per launch (torch.profiler);
+     turns; the copy (also exact at 8192^2) against torch.mul in turns at
+     1025^2 and 8192^2, bandwidth and device time per launch
+     (torch.profiler) in every turn;
  16. solve the 1025^2 main path (FMG, IR) with PARITY_DEFAULT on, from
      launch counts reset to zero: L launches, A's RB-GS does not, 3 outer
      steps, u equal to the direct layout's bit for bit; time it;
@@ -74,7 +76,20 @@ The kernels' JSON record gives each kernel's bound: its compulsory bytes
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failure exits non-zero.
 
-Usage: python3 chip_smoke.py     (needs one CUDA card; imports no JAX)
+With --against DIR it instead times this checkout against another commit of
+the port unpacked into DIR (for example ``git archive <commit> | tar -x -C
+DIR``), in fresh processes whose import path holds one tree each, taking
+turns DIR, this, this, DIR. A set is: E's 2-sweep call at 513^3 (CUDA
+events, device time per launch, launches per call); the copy and torch.mul
+at 1025^2 and 8192^2 (CUDA events, device time per launch); the host time
+to enqueue kernel A's 2-sweep call at 1025^2 (minimum over 5 x 200 calls)
+and its CUDA-event time; ir_solve3d at 513^3 (fp32 levels, tol 1e-9): wall
+ms per solve (minimum over 3 repeats of 2 right-hand sides), peak device
+memory, E's launches and the outer steps. Only entry points both trees have
+are called. It prints one JSON line per set and a summary.
+
+Usage: python3 chip_smoke.py [--against DIR]
+       (needs one CUDA card; imports no JAX)
 """
 
 from __future__ import annotations
@@ -133,9 +148,7 @@ VAR_PATH_RTOL = 1e-8      # max|u_auto - u_torch| <= this * max|u|
 PLANE_ITERS_EXPECTED = 4
 PLANE_PATH_ATOL = 1e-8    # max|du| plane path vs plain path and standard IR
 N_COPY_HBM = 8192         # copy at 2 x 268 MB, far beyond the 50 MB L2
-# E's launches per 513^3 solve: one per smoothing call, 17 calls per V(2,2)
-# cycle over nine levels, two cycles per outer step, five steps = 170.
-E3D_MAX_LAUNCHES = 200
+IR_INNER_CYCLES = 2       # cycles per outer step of solve_poisson3d
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth
 # and fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -446,6 +459,20 @@ def solve3d(mg, n, backend, dev):
         fail(f"3D {n}^3 l2 error {res.errors['l2']:.4e} not within "
              f"{L2_RTOL:.0%} of {L2_3D_EXPECTED[n]:.4e}")
     return res, peak
+
+
+def e_launches_per_cycle(mg, ks3, n, dev) -> int:
+    """E's launches in one V-cycle of the n^3 solve: the launches E plans
+    for each smoothing call over the solve's hierarchy (building it
+    allocates no field)."""
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    *upper, coarsest = mg.build_hierarchy3d(mg.Grid3D(n, n, n),
+                                           dtype="float32", device=dev,
+                                           cfg=cfg)
+    calls = [(lev.grid.shape, s) for lev in upper
+             for s in (cfg.pre_sweeps, cfg.post_sweeps)]
+    calls.append((coarsest.grid.shape, cfg.coarse_sweeps))
+    return sum(len(ks3.plan_passes(shape, s)) for shape, s in calls)
 
 
 def rhs3d(levels, i, r, k, dev):
@@ -792,10 +819,8 @@ def kernel_phase_parity(levels, card, dev):
             times[(f"probe_{mode}", n)] = (
                 time_ms(lambda: kb.probe(u, f, mode=mode)),
                 time_ms(lambda: kb.probe_plain(u, f, mode=mode)))
-        for variant in [*kb.COPY_VARIANTS, None]:
-            compare("copy", f"{n}^2 {variant or 'default'}",
-                    lambda a: kb.copy2x(a, variant=variant),
-                    kb.copy2x_plain, lambda: (u,), errs, exact=True)
+        compare("copy", f"{n}^2", kb.copy2x, kb.copy2x_plain, lambda: (u,),
+                errs, exact=True)
         times[("copy", n)] = (time_ms(lambda: kb.copy2x(u)),
                               time_ms(lambda: kb.copy2x_plain(u)))
         library[("copy", n)] = time_ms(lambda: torch.mul(u, 2.0))
@@ -822,32 +847,33 @@ def kernel_phase_parity(levels, card, dev):
     print("turns at 1025^2, ms per 2-sweep call: " + ", ".join(
         f"{name} {np.mean(t):.4f} ({t[0]:.4f}, {t[1]:.4f})"
         for name, t in turns.items()) + f" [{card}]")
-    # the copy's variants and torch.mul in turns (forward, then back)
+    # the copy and torch.mul in turns (copy mul mul copy): CUDA events and
+    # device time per launch (torch.profiler), each read in every turn
     big = torch.randn(N_COPY_HBM, N_COPY_HBM, device=dev)
+    compare("copy", f"{N_COPY_HBM}^2", kb.copy2x, kb.copy2x_plain,
+            lambda: (big,), errs, exact=True)
     rates, dev_ms = {}, {}
-    calls = {v: (lambda a, v=v: kb.copy2x(a, variant=v))
-             for v in kb.COPY_VARIANTS}
-    calls["default"] = kb.copy2x
-    calls["torch.mul"] = lambda a: torch.mul(a, 2.0)
-    kernel_of = dict.fromkeys(calls, "copy2x") | {"torch.mul": "elementwise"}
+    calls = {"copy": kb.copy2x, "torch.mul": lambda a: torch.mul(a, 2.0)}
+    kernel_of = {"copy": "copy2x", "torch.mul": "elementwise"}
     for label, arr in ((f"{N}^2", u), (f"{N_COPY_HBM}^2", big)):
         nbytes = 2 * arr.numel() * 4
-        turns = {name: [] for name in calls}
-        for name in list(calls) + list(calls)[::-1]:
-            turns[name].append(time_ms(lambda: calls[name](arr), reps=50))
-        for name, fn in calls.items():
-            d_ms = device_ms(lambda: fn(arr), kernel_of[name], reps=20)
-            t = float(np.mean(turns[name]))
+        wall = {name: [] for name in calls}
+        on_dev = {name: [] for name in calls}
+        for name in ("copy", "torch.mul", "torch.mul", "copy"):
+            fn = calls[name]
+            wall[name].append(time_ms(lambda: fn(arr), reps=50))
+            on_dev[name].append(device_ms(lambda: fn(arr), kernel_of[name],
+                                          reps=20))
+        for name in calls:
+            t, d = float(np.mean(wall[name])), float(np.mean(on_dev[name]))
             print(f"copy bandwidth {label} fp32 (read + write "
                   f"{nbytes / 1e6:.1f} MB) {name}: {t:.4f} ms "
-                  f"({turns[name][0]:.4f}, {turns[name][1]:.4f}), "
-                  f"{nbytes / t / 1e6:.1f} GB/s; device {d_ms:.4f} ms per "
-                  f"launch, {nbytes / d_ms / 1e6:.1f} GB/s [{card}]")
-            if name == "default":
-                rates[label] = nbytes / (t * 1e-3)
-                dev_ms[("copy", arr.shape[0])] = d_ms
-            if name == "torch.mul":
-                dev_ms[("copy_library", arr.shape[0])] = d_ms
+                  f"({wall[name][0]:.4f}, {wall[name][1]:.4f}), "
+                  f"{nbytes / t / 1e6:.1f} GB/s; device {d:.4f} ms per "
+                  f"launch ({on_dev[name][0]:.4f}, {on_dev[name][1]:.4f}), "
+                  f"{nbytes / d / 1e6:.1f} GB/s [{card}]")
+        rates[label] = nbytes / (float(np.mean(wall["copy"])) * 1e-3)
+        dev_ms[("copy", arr.shape[0])] = float(np.mean(on_dev["copy"]))
     del big
     torch.cuda.empty_cache()
     for (name, n), (k_ms, p_ms) in times.items():
@@ -1048,13 +1074,139 @@ def bound(name):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def main() -> int:
+def ab_set(tree: str) -> dict:
+    """One measurement set of --against, on the package under ``tree``."""
+    sys.path.insert(0, tree)
+    import torch
+
+    import mixed_precision_multigrid_solvers_for_pdes_torch as mg
+    from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking \
+        import kernel_microbench as kb
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
+        stencil3d
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import _build, smooth as ks, smooth3d as ks3
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(mg.__file__)))
+    if os.path.realpath(pkg_root) != os.path.realpath(tree):
+        fail(f"--against: imported the package from {pkg_root}, not {tree}")
+    dev = torch.device("cuda", 0)
+    _build.library()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+
+    st3 = stencil3d.make_stencil3d(mg.Grid3D(N3, N3, N3))
+    u = torch.randn((N3,) * 3, generator=gen, device=dev)
+    f = st3.c * torch.randn((N3,) * 3, generator=gen, device=dev)
+    call = lambda: ks3.rbgs3d(st3, u, f, sweeps=2)  # noqa: E731
+    out["E_ms"] = time_ms(call, reps=20)
+    out["E_device_ms"] = device_ms(call, "rbgs3d")
+    before = ks3.rbgs3d.launches
+    call()
+    out["E_launches_per_call"] = ks3.rbgs3d.launches - before
+    del u, f
+    torch.cuda.empty_cache()
+
+    for n in (N, N_COPY_HBM):
+        a = torch.randn((n, n), generator=gen, device=dev)
+        for name, fn, kernel in (
+                ("copy", lambda: kb.copy2x(a), "copy2x"),
+                ("mul", lambda: torch.mul(a, 2.0), "elementwise")):
+            out[f"{name}_{n}_ms"] = time_ms(fn, reps=50)
+            out[f"{name}_{n}_device_ms"] = device_ms(fn, kernel, reps=20)
+        del a
+    torch.cuda.empty_cache()
+
+    prob = mg.poisson_mms_sinsin(N)
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    st2 = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                             device=dev, cfg=cfg)[0].stencil
+    u2 = torch.randn((N, N), generator=gen, device=dev)
+    f2 = st2.c * torch.randn((N, N), generator=gen, device=dev)
+    call = lambda: ks.multisweep(st2, u2, f2, layout="direct")  # noqa: E731
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host.append((time.perf_counter() - t0) / 200)
+    torch.cuda.synchronize()
+    out["A_host_us_per_call"] = min(host) * 1e6
+    out["A_ms"] = time_ms(call, reps=200)
+
+    cfg3 = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    levels3 = mg.build_hierarchy3d(mg.Grid3D(N3, N3, N3), dtype="float32",
+                                   device=dev, cfg=cfg3)
+    u0 = torch.zeros((N3,) * 3, dtype=torch.float64, device=dev)
+    rhs = [rhs3d(levels3, i, 0, 2, dev) for i in range(2)]
+    mg.ir_solve3d(levels3, rhs[0], u0, cfg3, inner_cycles=2)  # warm-up
+    ks3.rbgs3d.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, info = mg.ir_solve3d(levels3, rhs[0], u0, cfg3, inner_cycles=2)
+    torch.cuda.synchronize()
+    out["solve3d_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["solve3d_E_launches"] = ks3.rbgs3d.launches
+    out["solve3d_iterations"] = int(info["iterations"])
+    best = float("inf")
+    for _ in range(3):
+        total = 0.0
+        for fr in rhs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mg.ir_solve3d(levels3, fr, u0, cfg3, inner_cycles=2)
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+        best = min(best, total / len(rhs))
+    out["solve3d_ms"] = best * 1e3
+    return out
+
+
+def against(other: str) -> int:
+    """--against DIR: sets on DIR and on this checkout, in turns."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    sets = []
+    for label, tree in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--ab-set", tree],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            print(run.stdout[-2000:] + run.stderr[-4000:], file=sys.stderr)
+            fail(f"--against: the set on {tree} failed")
+        rec = json.loads(run.stdout.strip().splitlines()[-1])
+        sets.append(rec | {"tree": label})
+        print(json.dumps(sets[-1]))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    for key in sets[0]:
+        if key != "tree":
+            print(f"{key}: " + " ".join(
+                f"{lab} {[r[key] for r in sets if r['tree'] == lab]}"
+                for lab in ("other", "this")) + f" [{card}]")
+    return 0
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    if len(argv) == 2 and argv[0] == "--ab-set":
+        print(json.dumps(ab_set(argv[1])))
+        return 0
+    if len(argv) == 2 and argv[0] == "--against":
+        return against(argv[1])
+    if argv:
+        print("usage: python3 chip_smoke.py [--against DIR]",
+              file=sys.stderr)
+        return 2
     import mixed_precision_multigrid_solvers_for_pdes_torch as mg
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
         import _build, smooth as ks, smooth3d as ks3, tail as kt, \
@@ -1160,10 +1312,14 @@ def main() -> int:
     missing = [name for name, c in launches3.items() if c <= 0]
     if missing:
         fail(f"kernels never launched on the 3D path: {missing}")
-    print(f"E launches per {N3}^3 solve: {launches3['rbgs3d']} (one per "
-          f"smoothing call; at most {E3D_MAX_LAUNCHES})")
-    if launches3["rbgs3d"] > E3D_MAX_LAUNCHES:
-        fail(f"E made {launches3['rbgs3d']} launches in the {N3}^3 solve")
+    per_cycle = e_launches_per_cycle(mg, ks3, N3, dev)
+    e_plan = res_k.iterations * IR_INNER_CYCLES * per_cycle
+    print(f"E launches per {N3}^3 solve: {launches3['rbgs3d']} (its plan: "
+          f"{res_k.iterations} outer steps x {IR_INNER_CYCLES} cycles x "
+          f"{per_cycle} = {e_plan})")
+    if launches3["rbgs3d"] != e_plan:
+        fail(f"E made {launches3['rbgs3d']} launches in the {N3}^3 solve, "
+             f"its plan {e_plan}")
     launches.update(launches3)
     res_p, peak_p = solve3d(mg, N3, "torch", dev)
     du = (res_k.u - res_p.u).abs().max().item()
@@ -1245,4 +1401,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

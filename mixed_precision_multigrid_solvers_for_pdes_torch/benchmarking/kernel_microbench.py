@@ -47,17 +47,6 @@ from ..ops.stencil import Stencil, make_stencil
 
 MODES = ("roll", "sub", "lane", "none", "concat")
 PROBE_STENCIL = Stencil(4.0, 1.0, 1.0, 1.0, 1.0)   # parity_call's c = 4
-# The copy kernel's variants (mg_copy2x in csrc/probes.cu): float4 loads in
-# flight per thread, with or without streaming (evict-first) hints. By
-# default a copy whose bytes fit the card's L2 takes plain4 and a larger one
-# plain1, each the faster on the H100 on its side (PERF.md).
-COPY_VARIANTS = {"plain1": 0, "plain4": 1, "stream8": 2}
-
-
-def copy_variant(u) -> str:
-    """The variant ``copy2x`` takes for ``u`` by default."""
-    l2 = torch.cuda.get_device_properties(u.device).L2_cache_size
-    return "plain4" if 8 * u.numel() <= l2 else "plain1"
 
 
 def _nbsum(u, mode: str):
@@ -121,21 +110,17 @@ def copy2x_plain(u):
     return u * 2.0
 
 
-def copy2x(u, *, variant: str | None = None):
-    """o = 2 u (the copy kernel); returns a new tensor. ``variant`` is one
-    of COPY_VARIANTS, or None for the one ``copy_variant`` picks."""
-    if variant is not None and variant not in COPY_VARIANTS:
-        raise ValueError(f"copy2x: unknown variant {variant!r}")
+def copy2x(u):
+    """o = 2 u (the copy kernel); returns a new tensor."""
     if u.device.type == "cpu":
         return copy2x_plain(u)
     _build.check_cuda_fp32("copy2x", u, ndim=u.dim())
-    variant = variant or copy_variant(u)
     out = torch.empty_like(u)
     if u.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("copy2x: the kernel moves 16-byte vectors and "
                          "needs 16-byte aligned tensors")
     _build.launch("mg_copy2x", u.data_ptr(), out.data_ptr(), u.numel(),
-                  COPY_VARIANTS[variant], u.device.index, _build.stream_of(u))
+                  u.device.index, _build.stream_of(u))
     copy2x.launches += 1
     return out
 

@@ -30,9 +30,10 @@
 // gives the card's copy bandwidth, the yardstick for the other kernels. A
 // grid-stride loop over at most 8 blocks of 256 threads per SM reached 82% of
 // the published rate at 8192^2. What the card needs is a grid that covers the
-// array once in small blocks. Beyond L2, one float4 per thread matches
-// torch.mul; four per thread do better on a copy that L2 holds, and
-// evict-first hints measured no faster (the wrapper picks by size).
+// array once in small blocks. On the H100, one float4 per thread matches
+// torch.mul on a copy beyond L2, and four per thread match it on a copy that
+// L2 holds, where one per thread is ~20% slower (PERF.md); mg_copy2x picks by
+// the copy's bytes against the device's L2 size, read once per device.
 //
 // Bound: device memory bandwidth. A probe call of k sweeps must read u and f
 // and write u (12 bytes per node); it moves ~12 bytes per node per launch.
@@ -44,6 +45,7 @@ namespace {
 constexpr int kBlockX = 32;  // along j, the contiguous axis
 constexpr int kBlockY = 8;   // along i
 constexpr int kCopyThreads = 128;  // small blocks spread evenly over the SMs
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float probe_nbsum(const float* u, int i, int j,
                                              int nx, int ny, int mode) {
@@ -88,9 +90,8 @@ __global__ void probe_color_kernel(const float* __restrict__ src,
 // o = 2 u: each thread loads kUnroll float4s (one per block-wide stride,
 // so every load of a warp is coalesced) before it stores any, so kUnroll
 // 16-byte loads are in flight per thread; the grid covers the array once.
-// kStream marks the loads and stores evict-first (__ldcs/__stcs), so a stream
-// far beyond L2 does not churn it. Block 0 also doubles the n % 4 tail.
-template <int kUnroll, bool kStream>
+// Block 0 also doubles the n % 4 tail.
+template <int kUnroll>
 __global__ void __launch_bounds__(kCopyThreads)
     copy2x_kernel(const float* __restrict__ u, float* __restrict__ o, long n) {
   const long n4 = n / 4;
@@ -101,18 +102,14 @@ __global__ void __launch_bounds__(kCopyThreads)
 #pragma unroll
   for (int r = 0; r < kUnroll; ++r) {
     const long k = k0 + (long)r * kCopyThreads;
-    if (k < n4) v[r] = kStream ? __ldcs(u4 + k) : u4[k];
+    if (k < n4) v[r] = u4[k];
   }
 #pragma unroll
   for (int r = 0; r < kUnroll; ++r) {
     const long k = k0 + (long)r * kCopyThreads;
-    if (k >= n4) continue;
-    const float4 w = make_float4(__fmul_rn(2.0f, v[r].x), __fmul_rn(2.0f, v[r].y),
-                                 __fmul_rn(2.0f, v[r].z), __fmul_rn(2.0f, v[r].w));
-    if (kStream)
-      __stcs(o4 + k, w);
-    else
-      o4[k] = w;
+    if (k < n4)
+      o4[k] = make_float4(__fmul_rn(2.0f, v[r].x), __fmul_rn(2.0f, v[r].y),
+                          __fmul_rn(2.0f, v[r].z), __fmul_rn(2.0f, v[r].w));
   }
   if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4) {
     const long k = 4 * n4 + threadIdx.x;
@@ -120,12 +117,12 @@ __global__ void __launch_bounds__(kCopyThreads)
   }
 }
 
-template <int kUnroll, bool kStream>
+template <int kUnroll>
 cudaError_t launch_copy2x(const float* u, float* o, long n,
                           cudaStream_t stream) {
   const long per_block = (long)kCopyThreads * kUnroll;
   const long blocks = (n / 4 + per_block - 1) / per_block;
-  copy2x_kernel<kUnroll, kStream>
+  copy2x_kernel<kUnroll>
       <<<(unsigned)(blocks > 0 ? blocks : 1), kCopyThreads, 0, stream>>>(u, o,
                                                                          n);
   return cudaGetLastError();
@@ -148,25 +145,21 @@ int mg_probe_color(const float* src, float* dst, const float* f, int nx,
   return (int)cudaGetLastError();
 }
 
-// o = 2 u over n floats; u and o 16-byte aligned. `variant` (COPY_VARIANTS
-// in benchmarking/kernel_microbench.py): float4s in flight per thread, and
-// whether loads and stores are marked evict-first: 0 one, 1 four, 2 eight
-// with hints.
-int mg_copy2x(const float* u, float* o, long n, int variant, int device,
-              void* stream) {
-  const cudaError_t err = use_device(device);
+// o = 2 u over n floats; u and o 16-byte aligned. A copy whose bytes fit
+// the device's L2 takes four float4s per thread, a larger one one.
+int mg_copy2x(const float* u, float* o, long n, int device, void* stream) {
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (variant) {
-    case 0:
-      return (int)launch_copy2x<1, false>(u, o, n, st);
-    case 1:
-      return (int)launch_copy2x<4, false>(u, o, n, st);
-    case 2:
-      return (int)launch_copy2x<8, true>(u, o, n, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  static int l2_bytes[kMaxDevices] = {};
+  if (l2_bytes[device] == 0) {
+    err = cudaDeviceGetAttribute(&l2_bytes[device], cudaDevAttrL2CacheSize,
+                                 device);
+    if (err != cudaSuccess) return (int)err;
   }
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(8L * n <= l2_bytes[device] ? launch_copy2x<4>(u, o, n, st)
+                                          : launch_copy2x<1>(u, o, n, st));
 }
 
 }  // extern "C"

@@ -72,8 +72,10 @@
 
 namespace {
 
-// WAVE_TILE, MAX_WAVE_SWEEPS, WAVE_AHEAD and ONE_BLOCK_MAX_BYTES in
-// ops/cuda_kernels/smooth3d.py
+// The geometry below is this file's own: mg_rbgs3d_geometry reports it,
+// ops/cuda_kernels/smooth3d.py checks its launch planning against that
+// report before the first launch, and the CPU schedule test reads it from
+// this file.
 constexpr int kTileJ = 32;
 constexpr int kTileK = 64;
 constexpr int kMaxWaveSweeps = 2;
@@ -409,6 +411,19 @@ int mg_rbgs3d(const float* u, const float* f, float* out, int nx, int ny,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wave kernel's geometry for `sweeps` (1 .. kMaxWaveSweeps) sweeps per
+// launch, into out[7]: tile rows (j), tile columns (k), kMaxWaveSweeps,
+// kAhead, kOneBlockMaxBytes, u ring planes, f ring planes.
+int mg_rbgs3d_geometry(int sweeps, int* out) {
+  if (sweeps < 1 || sweeps > kMaxWaveSweeps) return (int)cudaErrorInvalidValue;
+  const int nu = sweeps == 1 ? Wave<1>::NU : Wave<2>::NU;
+  const int nf = sweeps == 1 ? Wave<1>::NF : Wave<2>::NF;
+  const int g[7] = {kTileJ, kTileK, kMaxWaveSweeps, kAhead, kOneBlockMaxBytes,
+                    nu, nf};
+  for (int i = 0; i < 7; ++i) out[i] = g[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "mg_tail_var_vcycle": ([_P, _P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
                             _I, _I, _I, _P], _I),
     "mg_rbgs3d": ([_P] * 3 + [_I] * 3 + [_F] * 8 + [_I] * 4 + [_P], _I),
+    "mg_rbgs3d_geometry": ([_I, _IP], _I),
     "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
                                + [_I, _P], _I),
     "mg_prolong_correct3d": ([_P, _P] + [_I] * 5 + [_I, _P], _I),
@@ -61,7 +62,7 @@ _SIGNATURES = {
                              _I),
     "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_probe_color": ([_P] * 3 + [_I] * 4 + [_I, _P], _I),
-    "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _I, _P], _I),
+    "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 

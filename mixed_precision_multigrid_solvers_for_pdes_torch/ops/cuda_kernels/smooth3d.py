@@ -20,10 +20,14 @@ launches.
 
 The geometry the kernel is launched with (passes, tiles, x-chunks) is
 computed here, so the CPU tests can emulate the kernel's schedule with it.
+The kernel's source owns the constants: ``check_geometry`` holds this
+module's copy against the built library before the first launch, and the
+CPU tests hold it against the source.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -34,8 +38,8 @@ from .. import smooth3d as smooth3d_mod
 from ..stencil3d import Stencil3D
 from . import _build
 
-# Mirrors of csrc/smooth3d.cu: kTileJ x kTileK, kMaxWaveSweeps, kAhead,
-# kOneBlockMaxBytes.
+# csrc/smooth3d.cu's kTileJ x kTileK, kMaxWaveSweeps, kAhead,
+# kOneBlockMaxBytes (check_geometry holds them against the library).
 WAVE_TILE = (32, 64)
 MAX_WAVE_SWEEPS = 2
 WAVE_AHEAD = 2
@@ -84,6 +88,28 @@ def ring_planes(sweeps: int):
     return (2 * sweeps + 3 + WAVE_AHEAD, 2 * sweeps + 2 + WAVE_AHEAD)
 
 
+def geometry(sweeps: int) -> tuple:
+    """The wave kernel's geometry for ``sweeps`` sweeps per launch, as this
+    module plans with it, in the order ``mg_rbgs3d_geometry`` reports it:
+    tile rows, tile columns, MAX_WAVE_SWEEPS, WAVE_AHEAD,
+    ONE_BLOCK_MAX_BYTES, u ring planes, f ring planes."""
+    return (*WAVE_TILE, MAX_WAVE_SWEEPS, WAVE_AHEAD, ONE_BLOCK_MAX_BYTES,
+            *ring_planes(sweeps))
+
+
+@functools.cache
+def check_geometry() -> None:
+    """Raise unless the built kernel reports this module's geometry for
+    every sweep count of a wave launch (once per process)."""
+    for sweeps in range(1, MAX_WAVE_SWEEPS + 1):
+        got = (ctypes.c_int * 7)()
+        _build.launch("mg_rbgs3d_geometry", sweeps, got)
+        if tuple(got) != geometry(sweeps):
+            raise RuntimeError(
+                f"rbgs3d: the kernel's geometry for {sweeps} sweeps is "
+                f"{tuple(got)}, this module plans with {geometry(sweeps)}")
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -105,6 +131,7 @@ def rbgs3d(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
         return rbgs3d_plain(st, u.clone(), f, sweeps=sweeps, omega=omega,
                             reverse=reverse)
     _build.check_cuda_fp32("rbgs3d", u, f, ndim=3)
+    check_geometry()
     if f.shape != u.shape:
         raise ValueError(f"rbgs3d: f {tuple(f.shape)} != u {tuple(u.shape)}")
     passes = plan_passes(u.shape, sweeps)

@@ -471,11 +471,10 @@ def test_probe_matches_twin(dev, n, mode):
 @pytest.mark.parametrize("shape", [(1025, 1025), (5, 7), (3, 3),
                                    (3,), (6,), (4097,), (1025, 1023)])
 def test_copy2x_and_parity_probe_match_twins(dev, shape):
-    u = _field(shape, 47, dev, ring=True)
-    for variant in [*kmicro.COPY_VARIANTS, None]:  # ragged tails too
-        before = kmicro.copy2x.launches
-        _exact(kmicro.copy2x(u, variant=variant), kmicro.copy2x_plain(u))
-        assert kmicro.copy2x.launches == before + 1
+    u = _field(shape, 47, dev, ring=True)  # ragged tails too
+    before = kmicro.copy2x.launches
+    _exact(kmicro.copy2x(u), kmicro.copy2x_plain(u))
+    assert kmicro.copy2x.launches == before + 1
     if len(shape) == 2 and min(shape) >= 5:
         nx, ny = shape
         up = planes.split_field(u)
@@ -484,6 +483,19 @@ def test_copy2x_and_parity_probe_match_twins(dev, shape):
                ksmooth_planes.multisweep_planes_plain(
                    kmicro.PROBE_STENCIL, up.clone(), fp, nx=nx, ny=ny,
                    sweeps=3))
+
+
+def test_copy2x_beyond_l2_matches_twin(dev):
+    """A copy larger than L2 takes the kernel's other grid (one float4 per
+    thread), with a ragged tail."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    u = _field((l2 // 8 + 3,), 49, dev, ring=True)
+    _exact(kmicro.copy2x(u), kmicro.copy2x_plain(u))
+
+
+def test_rbgs3d_geometry_matches_the_library(dev):
+    ksmooth3d.check_geometry.cache_clear()
+    ksmooth3d.check_geometry()
 
 
 def test_plane_and_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -505,8 +517,6 @@ def test_plane_and_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     flat = torch.zeros(1026 * 1026 + 1, device=dev)[1:]
     with pytest.raises(ValueError, match="aligned"):
         kmicro.copy2x(flat)
-    with pytest.raises(ValueError, match="variant"):
-        kmicro.copy2x(u, variant="stride")
 
 
 def test_plane_ir_solve_kernel_path_matches_plain_and_standard_paths(dev):

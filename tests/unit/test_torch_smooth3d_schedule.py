@@ -18,6 +18,9 @@ has no barrier between phases. Every node is the twin's arithmetic, so the
 emulation must equal ``rbgs3d_plain`` bit for bit.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +31,7 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
     smooth3d as ks3,
 )
 
+SOURCE = Path(T.__file__).parent / "csrc" / "smooth3d.cu"
 SHAPES = [(5, 5, 5), (9, 33, 17), (17, 17, 17)]
 TINY_TILE = (4, 8)
 
@@ -190,3 +194,18 @@ def test_launch_plan_of_the_513_solve():
     for s in (1, 2):
         rj, rk = (t + 4 * s for t in ks3.WAVE_TILE)
         assert sum(ks3.ring_planes(s)) * rj * rk * 4 <= 232448
+
+
+@pytest.mark.parametrize("sweeps", [1, 2])
+def test_geometry_is_the_kernel_sources(sweeps):
+    """The geometry the emulation and the launch plan use is the one
+    csrc/smooth3d.cu compiles: its constants and its ring sizes."""
+    exprs = dict(re.findall(r"constexpr int (\w+) = ([^;]+);",
+                            SOURCE.read_text()))
+    names = ("kTileJ", "kTileK", "kMaxWaveSweeps", "kAhead",
+             "kOneBlockMaxBytes")
+    consts = {k: eval(exprs[k], {}) for k in names}
+    ring = tuple(eval(exprs[k], {"S": sweeps, "kAhead": consts["kAhead"]})
+                 for k in ("NU", "NF"))
+    assert ks3.geometry(sweeps) == (*(consts[k] for k in names), *ring)
+    assert sweeps <= ks3.MAX_WAVE_SWEEPS
