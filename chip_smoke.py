@@ -26,15 +26,17 @@ Phases, each of which must pass:
   6. time both 2D paths over 16 frequency-swept right-hand sides as bench.py
      does, and print per-solve ms and DoF/s;
   7. hold each 3D kernel (E-G) against its twin at 513^3, 257^3, 129^3 and
-     5^3 (E bit for bit, also reversed, with omega != 1, with 3 sweeps at
+     5^3, bit for bit (E also reversed, with omega != 1, with 3 sweeps at
      257^3, and with the coarsest solve's 32 sweeps at 5^3 and 3^3), time
-     both, and read E's device time per launch from torch.profiler;
+     both, read the device time per launch from torch.profiler (E at
+     513^3, F and G at 513^3 and 257^3), and time G against the in-place
+     yardstick u.mul_(2.0) at 513^3 in turns;
   8. solve the 3D path at 257^3 and at 513^3 with backend='auto', the
      513^3 run from launch counts reset to zero, and check convergence, the
      outer-step count of the JAX reference, the l2 error against the closed
-     form, that E, F and G launched and that E made exactly the launches
-     it plans for the solve's smoothing calls (one per call, 170); print
-     the peak device memory;
+     form, that E made exactly the launches it plans for the solve's
+     smoothing calls (one per call, 170) and F and G one per transfer call
+     (80 each); print the peak device memory;
   9. solve it at 513^3 with backend='torch' and check that both paths agree;
  10. time both 3D paths over frequency-swept right-hand sides, print ms and
      DoF/s, and profile one kernel-path solve with torch.profiler;
@@ -80,7 +82,9 @@ With --against DIR it instead times this checkout against another commit of
 the port unpacked into DIR (for example ``git archive <commit> | tar -x -C
 DIR``), in fresh processes whose import path holds one tree each, taking
 turns DIR, this, this, DIR. A set is: E's 2-sweep call at 513^3 (CUDA
-events, device time per launch, launches per call); the copy and torch.mul
+events, device time per launch, launches per call); F's 513^3 -> 257^3 and
+G's 257^3 -> 513^3 call and u.mul_(2.0) at 513^3 (CUDA events, device time
+per launch); the copy and torch.mul
 at 1025^2 and 8192^2 (CUDA events, device time per launch); the host time
 to enqueue kernel A's 2-sweep call at 1025^2 (minimum over 5 x 200 calls)
 and its CUDA-event time; ir_solve3d at 513^3 (fp32 levels, tol 1e-9): wall
@@ -230,23 +234,26 @@ def time_ms(fn, reps: int = 20) -> float:
 def device_ms(fn, kernel: str, reps: int = 10) -> float:
     """Mean device time per launch of the kernels whose name holds
     ``kernel``, from torch.profiler over ``reps`` calls of ``fn`` after a
-    warm-up."""
+    warm-up. A trace now and then holds no device events at all; such a
+    trace is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and kernel in e.key]
-    launches = sum(e.count for e in kernels)
-    if launches == 0:
-        fail(f"the profiler saw no {kernel} kernel in {reps} calls")
-    return sum(e.self_device_time_total for e in kernels) / 1e3 / launches
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and kernel in e.key]
+        launches = sum(e.count for e in kernels)
+        if launches:
+            return (sum(e.self_device_time_total for e in kernels) / 1e3
+                    / launches)
+    fail(f"the profiler saw no {kernel} kernel in {reps} calls, three times")
 
 
 def kernel_phase(levels, cfg, dev):
@@ -362,9 +369,33 @@ def timed_solves(mg, levels, prob, cfg, dev) -> float:
     return best
 
 
-def kernel_phase3d(dev):
+def g_against_mul(u, ec, kx3, card) -> None:
+    """G's call at 513^3 against the in-place yardstick u.mul_(2.0), which
+    moves the same u bytes (G also reads ec), in turns (G mul mul G): CUDA
+    events and device time per launch, each read in every turn."""
+    calls = {"G": (lambda: kx3.prolong_correct3d(ec, u), "prolong_correct3d"),
+             "u.mul_(2.0)": (lambda: u.mul_(2.0), "elementwise")}
+    wall = {name: [] for name in calls}
+    on_dev = {name: [] for name in calls}
+    for name in ("G", "u.mul_(2.0)", "u.mul_(2.0)", "G"):
+        fn, kernel = calls[name]
+        wall[name].append(time_ms(fn, reps=20))
+        on_dev[name].append(device_ms(fn, kernel))
+    for name in calls:
+        print(f"yardstick {N3}^3 in place {name}: {np.mean(wall[name]):.4f} "
+              f"ms ({wall[name][0]:.4f}, {wall[name][1]:.4f}); device "
+              f"{np.mean(on_dev[name]):.4f} ms per launch "
+              f"({on_dev[name][0]:.4f}, {on_dev[name][1]:.4f}) [{card}]")
+    ratio = np.mean(on_dev["G"]) / np.mean(on_dev["u.mul_(2.0)"])
+    print(f"yardstick {N3}^3: G's device time is {ratio:.3f} x "
+          f"u.mul_(2.0)'s (target <= 1.15) [{card}]")
+
+
+def kernel_phase3d(dev, card):
     """Phase 7: kernels E, F, G against their twins at 513^3, 257^3, 129^3
-    and 5^3; inputs from a seeded generator on the card."""
+    and 5^3 (bit for bit); inputs from a seeded generator on the card;
+    device time per launch of E at 513^3, of F and G at 513^3 and 257^3,
+    and G against its in-place yardstick at 513^3."""
     import torch
 
     from mixed_precision_multigrid_solvers_for_pdes_torch import Grid3D
@@ -407,17 +438,26 @@ def kernel_phase3d(dev):
         compare("residual_restrict3d", f"{n}->{nc}",
                 lambda a, b: kx3.residual_restrict3d(st, a, b),
                 lambda a, b: kx3.residual_restrict3d_plain(st, a, b),
-                lambda: (u, f), errs)
+                lambda: (u, f), errs, exact=True)
         times[("residual_restrict3d", n)] = (
             time_ms(lambda: kx3.residual_restrict3d(st, u, f), reps=10),
             time_ms(lambda: kx3.residual_restrict3d_plain(st, u, f),
                     reps=10))
         ec = field((nc,) * 3, shell=True)  # a non-zero coarse shell too
         compare("prolong_correct3d", f"{nc}->{n}", kx3.prolong_correct3d,
-                kx3.prolong_correct3d_plain, lambda: (ec, u.clone()), errs)
+                kx3.prolong_correct3d_plain, lambda: (ec, u.clone()), errs,
+                exact=True)
         times[("prolong_correct3d", n)] = (
             time_ms(lambda: kx3.prolong_correct3d(ec, u), reps=10),
             time_ms(lambda: kx3.prolong_correct3d_plain(ec, u), reps=10))
+        if n in (N3, N3_REF):
+            dev_ms[("residual_restrict3d", n)] = device_ms(
+                lambda: kx3.residual_restrict3d(st, u, f),
+                "residual_restrict3d")
+            dev_ms[("prolong_correct3d", n)] = device_ms(
+                lambda: kx3.prolong_correct3d(ec, u), "prolong_correct3d")
+        if n == N3:
+            g_against_mul(u, ec, kx3, card)
         del u, f, ec
         torch.cuda.empty_cache()
     st = stencil3d.make_stencil3d(Grid3D(3, 3, 3))  # the coarsest level
@@ -461,10 +501,11 @@ def solve3d(mg, n, backend, dev):
     return res, peak
 
 
-def e_launches_per_cycle(mg, ks3, n, dev) -> int:
-    """E's launches in one V-cycle of the n^3 solve: the launches E plans
-    for each smoothing call over the solve's hierarchy (building it
-    allocates no field)."""
+def launches_per_cycle(mg, ks3, n, dev):
+    """(E's, F's = G's) launches in one V-cycle of the n^3 solve: the
+    launches E plans for each smoothing call over the solve's hierarchy, and
+    one F and one G call per level above the coarsest (building it allocates
+    no field)."""
     cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
     *upper, coarsest = mg.build_hierarchy3d(mg.Grid3D(n, n, n),
                                            dtype="float32", device=dev,
@@ -472,7 +513,8 @@ def e_launches_per_cycle(mg, ks3, n, dev) -> int:
     calls = [(lev.grid.shape, s) for lev in upper
              for s in (cfg.pre_sweeps, cfg.post_sweeps)]
     calls.append((coarsest.grid.shape, cfg.coarse_sweeps))
-    return sum(len(ks3.plan_passes(shape, s)) for shape, s in calls)
+    return (sum(len(ks3.plan_passes(shape, s)) for shape, s in calls),
+            len(upper))
 
 
 def rhs3d(levels, i, r, k, dev):
@@ -1085,7 +1127,7 @@ def ab_set(tree: str) -> dict:
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
         stencil3d
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
-        import _build, smooth as ks, smooth3d as ks3
+        import _build, smooth as ks, smooth3d as ks3, transfer3d as kx3
 
     pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(mg.__file__)))
     if os.path.realpath(pkg_root) != os.path.realpath(tree):
@@ -1104,7 +1146,19 @@ def ab_set(tree: str) -> dict:
     before = ks3.rbgs3d.launches
     call()
     out["E_launches_per_call"] = ks3.rbgs3d.launches - before
-    del u, f
+    # F at 513 -> 257 and G at 257 -> 513, and G's in-place yardstick
+    call = lambda: kx3.residual_restrict3d(st3, u, f)  # noqa: E731
+    out["F_ms"] = time_ms(call, reps=20)
+    out["F_device_ms"] = device_ms(call, "residual_restrict3d")
+    ec = torch.randn(kx3.coarse_shape3d(N3, N3, N3), generator=gen,
+                     device=dev)
+    call = lambda: kx3.prolong_correct3d(ec, u)  # noqa: E731
+    out["G_ms"] = time_ms(call, reps=20)
+    out["G_device_ms"] = device_ms(call, "prolong_correct3d")
+    call = lambda: u.mul_(2.0)  # noqa: E731
+    out["mul_inplace_ms"] = time_ms(call, reps=20)
+    out["mul_inplace_device_ms"] = device_ms(call, "elementwise")
+    del u, f, ec
     torch.cuda.empty_cache()
 
     for n in (N, N_COPY_HBM):
@@ -1296,7 +1350,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # ---- 3D path ----------------------------------------------------------
-    errs3, times3, dev_ms3 = kernel_phase3d(dev)
+    errs3, times3, dev_ms3 = kernel_phase3d(dev, card)
     errs.update(errs3)
     times.update(times3)
     dev_ms.update(dev_ms3)
@@ -1312,14 +1366,20 @@ def main(argv) -> int:
     missing = [name for name, c in launches3.items() if c <= 0]
     if missing:
         fail(f"kernels never launched on the 3D path: {missing}")
-    per_cycle = e_launches_per_cycle(mg, ks3, N3, dev)
-    e_plan = res_k.iterations * IR_INNER_CYCLES * per_cycle
+    per_cycle, transfers = launches_per_cycle(mg, ks3, N3, dev)
+    cycles = res_k.iterations * IR_INNER_CYCLES
+    e_plan = cycles * per_cycle
     print(f"E launches per {N3}^3 solve: {launches3['rbgs3d']} (its plan: "
           f"{res_k.iterations} outer steps x {IR_INNER_CYCLES} cycles x "
-          f"{per_cycle} = {e_plan})")
+          f"{per_cycle} = {e_plan}); F and G: one per call, "
+          f"{cycles} cycles x {transfers} levels = {cycles * transfers}")
     if launches3["rbgs3d"] != e_plan:
         fail(f"E made {launches3['rbgs3d']} launches in the {N3}^3 solve, "
              f"its plan {e_plan}")
+    for name in ("residual_restrict3d", "prolong_correct3d"):
+        if launches3[name] != cycles * transfers:
+            fail(f"{name} made {launches3[name]} launches in the {N3}^3 "
+                 f"solve, one per call is {cycles * transfers}")
     launches.update(launches3)
     res_p, peak_p = solve3d(mg, N3, "torch", dev)
     du = (res_k.u - res_p.u).abs().max().item()

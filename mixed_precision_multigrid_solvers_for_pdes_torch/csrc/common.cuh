@@ -123,6 +123,50 @@ __device__ __forceinline__ float half_sum(float a, float b) {
   return __fmul_rn(0.5f, __fadd_rn(a, b));
 }
 
+// The 3D fields are unpadded (a 513-node row is 2052 bytes), so neither TMA
+// nor 16-byte copies can address their rows: the streaming kernels E and F
+// bring planes into shared memory with 4-byte cp.async, zero-filled where
+// `valid` is false, in commit groups.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// First and one-past-last node a tile t of `tile` interior nodes stores
+// along an axis of n nodes: its interior nodes, plus the shell node next to
+// it at either end.
+__device__ __forceinline__ void tile_span(int t, int tile, int n, int* lo,
+                                          int* hi) {
+  *lo = t == 0 ? 0 : 1 + t * tile;
+  *hi = min(1 + (t + 1) * tile, n - 1);
+  if (*hi == n - 1) *hi = n;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raise a kernel's dynamic shared-memory limit once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int device, bool* done) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[device] = true;
+  return err;
+}
+
 // ---------------------------------------------------------------------------
 // 2D coefficient planes (kernels H, I and J): the five (nx, ny) planes of a
 // variable-coefficient or Neumann/Robin stencil, laid out as the fields.

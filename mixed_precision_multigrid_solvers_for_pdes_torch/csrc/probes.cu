@@ -45,7 +45,6 @@ namespace {
 constexpr int kBlockX = 32;  // along j, the contiguous axis
 constexpr int kBlockY = 8;   // along i
 constexpr int kCopyThreads = 128;  // small blocks spread evenly over the SMs
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float probe_nbsum(const float* u, int i, int j,
                                              int nx, int ny, int mode) {

@@ -83,7 +83,6 @@ constexpr int kAhead = 2;  // planes whose loads are in flight ahead of a step
 constexpr int kWaveThreads = 768;
 constexpr int kOneBlockMaxBytes = 64 * 1024;
 constexpr int kOneBlockThreads = 512;
-constexpr int kMaxDevices = 64;
 static_assert(kMaxWaveSweeps == 2,
               "mg_rbgs3d instantiates the wave kernel for 1 and 2 sweeps");
 
@@ -108,23 +107,6 @@ struct Wave {
       ((kTileJ + 2) * (kTileK + 2) + kWaveThreads - 1) / kWaveThreads;
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // RB-GS/SOR value of a node from its value uc, its right-hand side fv and its
 // neighbours W, E (i -+ 1), S, N (j -+ 1), B, T (k -+ 1). kUnitOmega skips
 // the product by omega = 1, which is exact.
@@ -142,15 +124,6 @@ __device__ __forceinline__ float rbgs7(float uc, float fv, float W, float E,
   const float gs = __fmul_rn(__fadd_rn(fv, acc), inv_c);
   const float d = __fsub_rn(gs, uc);
   return __fadd_rn(uc, kUnitOmega ? d : __fmul_rn(omega, d));
-}
-
-// First and one-past-last node a tile stores along an axis of n nodes: its
-// interior nodes, plus the shell node next to it at either end.
-__device__ __forceinline__ void tile_span(int t, int tile, int n, int* lo,
-                                          int* hi) {
-  *lo = t == 0 ? 0 : 1 + t * tile;
-  *hi = min(1 + (t + 1) * tile, n - 1);
-  if (*hi == n - 1) *hi = n;
 }
 
 template <int S, bool kUnitOmega>
@@ -340,17 +313,6 @@ __global__ void __launch_bounds__(kOneBlockThreads)
   }
   __syncthreads();
   for (int t = threadIdx.x; t < n; t += kOneBlockThreads) out[t] = us[t];
-}
-
-// Raise a kernel's dynamic shared-memory limit once per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int device, bool* done) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
 }
 
 template <int S>

@@ -3,88 +3,429 @@
 // F, residual_restrict3d, replaces the Pallas residual_restrict3d of
 // mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/
 // transfer3d.py (:194, kernel _rr3_kernel :80): fc = R(f - A u), 27-point
-// full weighting (1,2,1)^3/64, coarse shell zero. One thread per coarse
-// node. An interior coarse node computes the 27 fine residuals of its window
-// in registers, so the fine residual never reaches memory. _rr3_kernel masks
-// the residual to fine unknowns; here every node of an interior coarse
-// node's window is one (2I-1 >= 1 and 2I+1 <= nf-2 for 1 <= I <= nc-2), so
-// that mask is identically true and costs nothing. The sum runs in the plain
-// twin's order (ops/transfer3d.RESTRICT_TERMS): centre, then the fine
-// nodes with one, two and three odd offsets.
+// full weighting (1,2,1)^3/64, coarse shell zero. _rr3_kernel masks the
+// residual to fine unknowns; every fine node of an interior coarse node's
+// window is one (2I-1 >= 1 and 2I+1 <= nf-2 for 1 <= I <= nc-2), so that
+// mask is identically true here.
 //
 // G, prolong_correct3d, replaces the Pallas prolong_correct3d of the same
 // file (:342, kernel _pc3_kernel :250): u <- u + P ec on fine interior nodes,
-// P trilinear, in place. One thread per fine interior node; it reads at most
-// eight coarse values and interpolates along z, then y, then x, as the plain
-// twin does, so the two round identically.
+// P trilinear, in place.
 //
-// Bound: device memory bandwidth. F reads u and f once from memory (8 bytes
-// per fine node; the 3x3x3 windows of neighbouring threads overlap in L1/L2,
-// ~216 cached loads per coarse node) and writes 4 bytes per coarse node. G
-// reads and writes u (8 bytes per fine node) and reads ec from cache. The
-// TPU streamed x-planes and needed transpose tricks for the stride-2 lane
-// access; here each thread computes its own 64-bit addresses.
+// Both round every product and sum explicitly in the plain twins' order
+// (ops/transfer3d.py): F sums a residual as residual7 does and the 27 terms
+// in RESTRICT_TERMS order (centre, then the fine nodes with one, two and
+// three odd offsets, weight 8 / 2^odd); G interpolates along z, then y, then
+// x. So both equal their twins bit for bit.
+//
+// Bound: device memory bandwidth. F must read u and f once (8 bytes per fine
+// node) and write fc; G must read and write u (8 bytes per fine node) and
+// read ec. What bounds them in practice is below.
+//
+// Design of F, a plane stream in the image of kernel E (smooth3d.cu):
+// - A block owns a kRrTileJ x kRrTileK tile of the coarse (J, K) interior
+//   and a chunk of at most kRrMaxChunk coarse interior planes [I0, I1), and
+//   marches along x. It holds rings of fine x-planes in shared memory over
+//   the tile's window: u over fine rows 2*J0-2 .. 2*J0+2*kRrTileJ and
+//   columns 2*K0-2 .. 2*K0+2*kRrTileK (the fine residual window plus one
+//   node), f over the residual window, and a pair of fine residual planes.
+// - Step I: u planes 2I+1, 2I+2 and f planes 2I, 2I+1 have landed (issued
+//   kRrAhead steps earlier). The block computes fine residual planes 2I and
+//   2I+1 over its window, each residual once; after a barrier each coarse
+//   node of plane I sums its 27 residuals from planes 2I-1, 2I, 2I+1 and
+//   stores. Residual plane 2I+1 serves coarse planes I and I+1: each coarse
+//   node keeps its nine values of it in registers for the next step. Only
+//   the window's edge rows and columns are computed by two tiles. A chunk
+//   starts with a lead-in step I0 - 1 that computes residual plane 2I0-1.
+// - A thread computes the residuals of a strip of rows of one window column
+//   (kRrStrips strips to a column), walking down the strip with its u
+//   values in registers: a residual reads its y neighbours and, across
+//   steps, its x neighbours from registers, and only its z neighbours, its
+//   new u planes and f from shared memory (~4.5 shared reads a residual,
+//   where 7 u and 1 f each would be 8).
+// - Loads: 4-byte cp.async (the rows are unpadded), coalesced along z,
+//   zero-filled outside the field; roughly one load per fine node, where the
+//   one-thread-per-coarse-node kernel this replaces made 216 scattered
+//   stride-2 loads per coarse node (each fine residual ~3.4 times).
+// - Shared-memory layout: each window row keeps its even-z and odd-z nodes in
+//   two halves, so a warp's 32 residual columns of one row's half, their
+//   neighbour sets, and a warp's 32 coarse nodes' terms are consecutive
+//   words: no bank conflicts (the last odd column of every strip goes to a
+//   ninth warp).
+// - What bounds it on the H100 is not DRAM, nor occupancy: timed alone, the
+//   loads take ~70% and the compute ~60% of the whole, and they overlap
+//   only in part. At 96 registers two blocks (18 warps) share a
+//   multiprocessor; three blocks at 72 registers without spills (load
+//   offsets packed) ran no faster, and smaller tiles at more blocks spilled.
+//   A second barrier per step (the residuals, then the restriction of the
+//   same step) was faster than one barrier with the restriction a step
+//   behind. Short x-chunks keep the blocks of a wave within a few planes of
+//   each other, which the loads gain by (PERF.md §6).
+//
+// Design of G, a stream of fine row pairs:
+// - A thread takes one interior k of fine rows 2J and 2J+1 and kPcSteps
+//   coarse x-steps I (fine planes 2I and 2I+1 each); blockIdx.y is J,
+//   blockIdx.z the group of steps. It issues all its 4 * kPcSteps u loads
+//   first, then forms the z interpolants of coarse rows J and J+1 of each
+//   coarse plane once, the y-z interpolants Pyz at rows 2J and 2J+1 from
+//   them (z first, then y), and adds Pyz(I) to plane 2I and
+//   half_sum(Pyz(I), Pyz(I+1)) to plane 2I+1: the twin's z, y, x order.
+//   Coarse plane I+1's interpolants serve the next step too. Row 0 and
+//   plane 0 are the shell and are left alone.
+// - What bounded the one-thread-per-fine-node kernel this replaces: its ec
+//   reads (3.375 scalar loads per fine node, through L1 and L2) and one
+//   4-byte u load in flight per thread. Here a fine node costs ~1.1 ec
+//   loads, coarse rows are not re-read across fine rows, and a thread has
+//   eight u loads in flight (PERF.md §6).
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;  // along k, the contiguous axis
-constexpr int kBlockY = 8;   // along j
+// The geometry below is this file's own; the CPU schedule test
+// (tests/unit/test_torch_transfer3d_schedule.py) reads it from here.
+// F:
+constexpr int kRrTileJ = 8;        // coarse rows (J) of a tile
+constexpr int kRrTileK = 32;       // coarse columns (K) of a tile
+constexpr int kRrAhead = 1;        // steps whose plane loads are in flight
+constexpr int kRrStrips = 4;       // row strips of a residual column
+constexpr int kRrThreads = 288;    // a column strip each; the first
+                                   // kRrTileJ * kRrTileK a coarse node too
+constexpr int kRrBlocksPerSM = 2;
+constexpr int kRrMinChunk = 4;     // fewest coarse planes of an x-chunk
+constexpr int kRrMaxChunk = 32;    // most coarse planes of an x-chunk
+constexpr int kRrRows = 2 * kRrTileJ + 3;  // u window rows
+constexpr int kRrCols = 2 * kRrTileK + 3;  // u window columns
+constexpr int kRrHalf = kRrTileK + 2;      // one parity half of a window row
+constexpr int kRrPlane = kRrRows * 2 * kRrHalf;
+// Rings: step I reads u planes 2I .. 2I+2 (plane 2I-1 is in registers), f
+// planes 2I, 2I+1 and residual planes 2I, 2I+1 (2I-1 is in registers),
+// while the loads of the next kRrAhead steps are in flight (issued after
+// the step's first barrier, so no thread still reads an earlier step's
+// planes).
+constexpr int kRrRingU = 2 * kRrAhead + 3;
+constexpr int kRrRingF = 2 * kRrAhead + 2;
+constexpr int kRrRingR = 2;
+constexpr int kRrBytes =
+    (kRrRingU + kRrRingF + kRrRingR) * kRrPlane * (int)sizeof(float);
+// G:
+constexpr int kPcThreads = 256;    // threads of a block, one k each
+constexpr int kPcSteps = 2;        // coarse x-steps a thread takes
 
-__global__ void residual_restrict3d_kernel(const float* __restrict__ u,
-                                           const float* __restrict__ f,
-                                           float* __restrict__ fc, int nyf,
-                                           int nzf, int ncx, int ncy, int ncz,
-                                           Stencil7 st) {
-  const int K = blockIdx.x * kBlockX + threadIdx.x;
-  const int J = blockIdx.y * kBlockY + threadIdx.y;
-  const int I = blockIdx.z;
-  if (J >= ncy || K >= ncz) return;
-  float out = 0.0f;
-  if (I > 0 && I < ncx - 1 && J > 0 && J < ncy - 1 && K > 0 && K < ncz - 1) {
-    const long sx = (long)nyf * nzf;
-    const long centre = (long)(2 * I) * sx + (long)(2 * J) * nzf + 2 * K;
-    float acc = 0.0f;
-    // parity pattern p = (px, py, pz) in binary order, weight 8 / 2^#odd;
-    // on the odd axes the offsets run over (+1, -1)^#odd, first axis slowest
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int px = (p >> 2) & 1, py = (p >> 1) & 1, pz = p & 1;
-      const int nodd = px + py + pz;
-      const float wgt = (float)(8 >> nodd);
-#pragma unroll
-      for (int sgn = 0; sgn < (1 << nodd); ++sgn) {
-        int bit = nodd - 1, dx = 0, dy = 0, dz = 0;
-        if (px) dx = ((sgn >> bit--) & 1) ? -1 : 1;
-        if (py) dy = ((sgn >> bit--) & 1) ? -1 : 1;
-        if (pz) dz = ((sgn >> bit) & 1) ? -1 : 1;
-        const long idx = centre + dx * sx + (long)dy * nzf + dz;
-        acc = __fadd_rn(acc, __fmul_rn(wgt, residual7(u, f, idx, sx, nzf, st)));
-      }
-    }
-    out = __fmul_rn(acc, 1.0f / 64.0f);
-  }
-  fc[((long)I * ncy + J) * ncz + K] = out;
+// Residual window of a tile: fine rows 1 .. 2*kRrTileJ+1 of the u window,
+// columns 1 .. 2*kRrTileK+1 (kRrTileK even ones, kRrTileK+1 odd ones).
+constexpr int kRrResRows = 2 * kRrTileJ + 1;
+constexpr int kRrStripRows = (kRrResRows + kRrStrips - 1) / kRrStrips;
+constexpr int kRrMain = kRrStrips * 2 * kRrTileK;      // warps of 32 columns
+constexpr int kRrItems = kRrMain + kRrStrips;          // + the last odd ones
+constexpr int kRrLoadsU = (kRrRows * kRrCols + kRrThreads - 1) / kRrThreads;
+constexpr int kRrLoadsF =
+    (kRrResRows * (kRrCols - 2) + kRrThreads - 1) / kRrThreads;
+
+static_assert(kRrItems <= kRrThreads && kRrTileJ * kRrTileK <= kRrThreads,
+              "F takes a column strip and a coarse node a thread");
+static_assert(kRrTileK % 32 == 0, "F's warps take 32 columns of one row");
+static_assert(kRrBytes * kRrBlocksPerSM <= 227 * 1024,
+              "F's rings must fit kRrBlocksPerSM blocks on a multiprocessor");
+
+// Shared-memory word of window node (lj, lk).
+__device__ __forceinline__ int rr_word(int lj, int lk) {
+  return lj * 2 * kRrHalf + (lk & 1) * kRrHalf + (lk >> 1);
 }
 
-__global__ void prolong_correct3d_kernel(const float* __restrict__ ec,
-                                         float* __restrict__ u, int ncy,
-                                         int ncz, int nyf, int nzf) {
-  const int k = blockIdx.x * kBlockX + threadIdx.x + 1;
-  const int j = blockIdx.y * kBlockY + threadIdx.y + 1;
-  const int i = blockIdx.z + 1;
-  if (j >= nyf - 1 || k >= nzf - 1) return;
-  const long csx = (long)ncy * ncz;
-  const float* c = ec + (long)(i >> 1) * csx + (long)(j >> 1) * ncz + (k >> 1);
-  auto along_z = [&](const float* p) {
-    return (k & 1) ? half_sum(p[0], p[1]) : p[0];
+// f - (c*u - nb) with nb = w*W + e*E + s*S + n*N + b*B + t*T, left to right:
+// residual7's rounding.
+__device__ __forceinline__ float residual_of(float fv, float uc, float W,
+                                             float E, float S, float N,
+                                             float B, float T,
+                                             const Stencil7& st) {
+  float nb = __fmul_rn(st.w, W);
+  nb = __fadd_rn(nb, __fmul_rn(st.e, E));
+  nb = __fadd_rn(nb, __fmul_rn(st.s, S));
+  nb = __fadd_rn(nb, __fmul_rn(st.n, N));
+  nb = __fadd_rn(nb, __fmul_rn(st.b, B));
+  nb = __fadd_rn(nb, __fmul_rn(st.t, T));
+  return __fsub_rn(fv, __fsub_rn(__fmul_rn(st.c, uc), nb));
+}
+
+// Adds the terms of parity pattern P = (px, py, pz) (bits 2, 1, 0) to acc,
+// weight 8 / 2^#odd; on the odd axes the offsets run over (+1, -1)^#odd,
+// first axis slowest. A term of residual plane 2I-1 comes from rw, of 2I
+// from r1, of 2I+1 from r2 (and goes to rn for the next step); rw and rn
+// are indexed by (dy + 1) * 3 + dz + 1, and a z offset of +1 / -1 is the odd
+// half's word m / m - 1.
+template <int P>
+__device__ __forceinline__ void restrict_pattern(float& acc, const float* r1,
+                                                 const float* r2, int centre,
+                                                 const float* rw, float* rn) {
+  constexpr int px = (P >> 2) & 1, py = (P >> 1) & 1, pz = P & 1;
+  constexpr int nodd = px + py + pz;
+  constexpr float wgt = (float)(8 >> nodd);
+#pragma unroll
+  for (int sgn = 0; sgn < (1 << nodd); ++sgn) {
+    int bit = nodd - 1, dx = 0, dy = 0, dz = 0;
+    if (px) dx = ((sgn >> bit--) & 1) ? -1 : 1;
+    if (py) dy = ((sgn >> bit--) & 1) ? -1 : 1;
+    if (pz) dz = ((sgn >> bit) & 1) ? -1 : 1;
+    const int idx = (dy + 1) * 3 + dz + 1;
+    const int w = centre + dy * 2 * kRrHalf + (dz == 0 ? 0 : kRrHalf) -
+                  (dz < 0 ? 1 : 0);
+    float v;
+    if (dx < 0) {
+      v = rw[idx];
+    } else if (dx == 0) {
+      v = r1[w];
+    } else {
+      v = r2[w];
+      rn[idx] = v;
+    }
+    acc = __fadd_rn(acc, __fmul_rn(wgt, v));
+  }
+}
+
+__global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
+    residual_restrict3d_kernel(const float* __restrict__ u,
+                               const float* __restrict__ f,
+                               float* __restrict__ fc, int nyf, int nzf,
+                               int ncx, int ncy, int ncz, int chunk,
+                               Stencil7 st) {
+  constexpr int R = kRrStripRows, nj = 2 * kRrHalf;
+  extern __shared__ float sm[];
+  float* us = sm;                              // kRrRingU u planes
+  float* fs = us + kRrRingU * kRrPlane;        // kRrRingF f planes
+  float* r1 = fs + kRrRingF * kRrPlane;        // residual plane 2I
+  float* r2 = r1 + kRrPlane;                   // residual plane 2I + 1
+  const int tid = threadIdx.x;
+  const int J0 = 1 + blockIdx.y * kRrTileJ, K0 = 1 + blockIdx.x * kRrTileK;
+  const int I0 = 1 + blockIdx.z * chunk, I1 = min(I0 + chunk, ncx - 1);
+  const int fj0 = 2 * J0 - 2, fk0 = 2 * K0 - 2;  // the window's fine origin
+  const long sx = (long)nyf * nzf;
+
+  // This thread's window nodes to load: shared word and in-plane offset in
+  // the field (-1 outside it); the same in every plane.
+  int lu_s[kRrLoadsU], lu_g[kRrLoadsU], lf_s[kRrLoadsF], lf_g[kRrLoadsF];
+#pragma unroll
+  for (int r = 0; r < kRrLoadsU; ++r) {
+    const int t = tid + r * kRrThreads;
+    const int lj = t / kRrCols, lk = t - lj * kRrCols;
+    const int j = fj0 + lj, k = fk0 + lk;
+    lu_s[r] = t < kRrRows * kRrCols ? rr_word(lj, lk) : -1;
+    lu_g[r] = j < nyf && k < nzf ? j * nzf + k : -1;
+  }
+#pragma unroll
+  for (int r = 0; r < kRrLoadsF; ++r) {
+    const int t = tid + r * kRrThreads;
+    const int lj = 1 + t / (kRrCols - 2), lk = 1 + t % (kRrCols - 2);
+    const int j = fj0 + lj, k = fk0 + lk;
+    lf_s[r] = t < kRrResRows * (kRrCols - 2) ? rr_word(lj, lk) : -1;
+    lf_g[r] = j < nyf && k < nzf ? j * nzf + k : -1;
+  }
+  auto load_u = [&](int q) {
+    float* d = us + (q % kRrRingU) * kRrPlane;
+    const float* g = u + q * sx;
+#pragma unroll
+    for (int r = 0; r < kRrLoadsU; ++r)
+      if (lu_s[r] >= 0) cp_async4(d + lu_s[r], g + max(lu_g[r], 0),
+                                  lu_g[r] >= 0);
   };
-  auto along_y = [&](const float* p) {
-    return (j & 1) ? half_sum(along_z(p), along_z(p + ncz)) : along_z(p);
+  auto load_f = [&](int q) {
+    float* d = fs + (q % kRrRingF) * kRrPlane;
+    const float* g = f + q * sx;
+#pragma unroll
+    for (int r = 0; r < kRrLoadsF; ++r)
+      if (lf_s[r] >= 0) cp_async4(d + lf_s[r], g + max(lf_g[r], 0),
+                                  lf_g[r] >= 0);
   };
-  const float e = (i & 1) ? half_sum(along_y(c), along_y(c + csx)) : along_y(c);
-  const long idx = ((long)i * nyf + j) * nzf + k;
-  u[idx] = __fadd_rn(u[idx], e);
+  // step I's planes (one commit group; empty past the chunk's last step)
+  auto issue = [&](int I) {
+    if (I < I1) {
+      load_u(2 * I + 1);
+      load_u(2 * I + 2);
+      load_f(2 * I);
+      load_f(2 * I + 1);
+    }
+    cp_async_commit();
+  };
+
+  // This thread's residual strip: n rows from window row `top` of one
+  // column (parity half h, word m): shared word of its first row and the
+  // offset of a node's z - 1 neighbour (n = 0: none).
+  int first, kd, n;
+  {
+    int s, h, m;
+    if (tid < kRrMain) {
+      const int w = tid % (2 * kRrTileK);
+      s = tid / (2 * kRrTileK);
+      h = w / kRrTileK;
+      m = w % kRrTileK + 1 - h;
+    } else {
+      s = min(tid - kRrMain, kRrStrips - 1);
+      h = 1;
+      m = kRrTileK;
+    }
+    const int top = 1 + s * kRrResRows / kRrStrips;
+    n = tid < kRrItems ? 1 + (s + 1) * kRrResRows / kRrStrips - top : 0;
+    first = top * nj + h * kRrHalf + m;
+    kd = h ? -kRrHalf : kRrHalf - 1;
+  }
+  // The strip's u column: rows top-1 .. top+n of plane 2I (cb) and rows
+  // top .. top+n-1 of plane 2I-1 (ca), carried from step to step.
+  float ca[R], cb[R + 2];
+
+  // This thread's coarse node, its centre word in the residual planes, and
+  // its nine values of residual plane 2I-1.
+  const int J = J0 + tid / kRrTileK, K = K0 + tid % kRrTileK;
+  const bool mine = tid < kRrTileJ * kRrTileK && J <= ncy - 2 && K <= ncz - 2;
+  const int centre = rr_word(2 * (J - J0) + 2, 2 * (K - K0) + 2);
+  float rw[9];
+  int jlo, jhi, klo, khi;
+  tile_span(blockIdx.y, kRrTileJ, ncy, &jlo, &jhi);
+  tile_span(blockIdx.x, kRrTileK, ncz, &klo, &khi);
+  const bool edge = jlo == 0 || jhi == ncy || klo == 0 || khi == ncz;
+  // zero this tile's span of plane I: all of it, or its shell nodes
+  auto zero_span = [&](int I, bool all) {
+    const int cols = khi - klo, nodes = (jhi - jlo) * cols;
+    for (int t = tid; t < nodes; t += kRrThreads) {
+      const int j = jlo + t / cols, k = klo + t % cols;
+      if (all || j == 0 || j == ncy - 1 || k == 0 || k == ncz - 1)
+        fc[((long)I * ncy + j) * ncz + k] = 0.0f;
+    }
+  };
+  if (I0 == 1) zero_span(0, true);
+
+  load_u(2 * I0 - 2);  // the lead-in's west plane, in the first group
+  for (int d = 0; d < kRrAhead; ++d) issue(I0 - 1 + d);
+  for (int I = I0 - 1; I < I1; ++I) {
+    cp_async_wait<kRrAhead - 1>();  // step I's planes have landed
+    __syncthreads();
+    issue(I + kRrAhead);
+    const bool lead = I < I0;  // computes residual plane 2I+1 alone
+    const float* u1 = us + ((2 * I) % kRrRingU) * kRrPlane + first;
+    const float* u2 = us + ((2 * I + 1) % kRrRingU) * kRrPlane + first;
+    const float* u3 = us + ((2 * I + 2) % kRrRingU) * kRrPlane + first;
+    const float* f1 = fs + ((2 * I) % kRrRingF) * kRrPlane + first;
+    const float* f2 = fs + ((2 * I + 1) % kRrRingF) * kRrPlane + first;
+    if (n > 0) {
+      // rows top-1 .. top+n of planes 2I+1 (cc) and 2I+2 (cd)
+      float cc[R + 2], cd[R + 2];
+#pragma unroll
+      for (int i = 0; i < R + 2; ++i) {
+        if (i > n + 1) continue;
+        if (lead) cb[i] = u1[(i - 1) * nj];
+        cc[i] = u2[(i - 1) * nj];
+        cd[i] = u3[(i - 1) * nj];
+      }
+#pragma unroll
+      for (int i = 1; i <= R; ++i) {
+        if (i > n) continue;
+        const int o = (i - 1) * nj;
+        if (!lead)
+          r1[first + o] = residual_of(f1[o], cb[i], ca[i - 1], cc[i],
+                                      cb[i - 1], cb[i + 1], u1[o + kd],
+                                      u1[o + kd + 1], st);
+        r2[first + o] = residual_of(f2[o], cc[i], cb[i], cd[i], cc[i - 1],
+                                    cc[i + 1], u2[o + kd], u2[o + kd + 1],
+                                    st);
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) ca[i] = cc[i + 1];
+#pragma unroll
+      for (int i = 0; i < R + 2; ++i) cb[i] = cd[i];
+    }
+    __syncthreads();
+    if (lead) {
+      if (mine) {
+#pragma unroll
+        for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+          for (int dz = -1; dz <= 1; ++dz)
+            rw[(dy + 1) * 3 + dz + 1] =
+                r2[centre + dy * nj + (dz == 0 ? 0 : kRrHalf) -
+                   (dz < 0 ? 1 : 0)];
+      }
+      continue;
+    }
+    if (mine) {
+      float rn[9];
+      float acc = __fmul_rn(8.0f, r1[centre]);
+      restrict_pattern<1>(acc, r1, r2, centre, rw, rn);
+      restrict_pattern<2>(acc, r1, r2, centre, rw, rn);
+      restrict_pattern<3>(acc, r1, r2, centre, rw, rn);
+      restrict_pattern<4>(acc, r1, r2, centre, rw, rn);
+      restrict_pattern<5>(acc, r1, r2, centre, rw, rn);
+      restrict_pattern<6>(acc, r1, r2, centre, rw, rn);
+      restrict_pattern<7>(acc, r1, r2, centre, rw, rn);
+      fc[((long)I * ncy + J) * ncz + K] = __fmul_rn(acc, 1.0f / 64.0f);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) rw[i] = rn[i];
+    }
+    if (edge) zero_span(I, false);
+  }
+  if (I1 == ncx - 1) zero_span(ncx - 1, true);
+  cp_async_wait<0>();
+}
+
+// F's blocks the card holds at once (resident blocks per multiprocessor
+// times multiprocessors), read once per device; 0 if it cannot be read.
+int rr_block_slots(int device) {
+  static int slots[kMaxDevices] = {};
+  if (slots[device] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, residual_restrict3d_kernel, kRrThreads, kRrBytes) ==
+            cudaSuccess &&
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) == cudaSuccess)
+      slots[device] = per_sm * sms;
+  }
+  return slots[device];
+}
+
+__global__ void __launch_bounds__(kPcThreads)
+    prolong_correct3d_kernel(const float* __restrict__ ec,
+                             float* __restrict__ u, int ncy, int ncz,
+                             int nyf, int nzf, int steps) {
+  const int I0 = blockIdx.z * kPcSteps, J = blockIdx.y;
+  const int k = 1 + blockIdx.x * kPcThreads + threadIdx.x;
+  if (k > nzf - 2) return;
+  const long sx = (long)nyf * nzf, csx = (long)ncy * ncz;
+  float* w = u + (long)(2 * I0) * sx + (long)(2 * J) * nzf + k;
+  const int ns = min(kPcSteps, steps - I0);
+  // u at rows 2J + r of planes 2(I0 + s) + p, all loaded first
+  float v[kPcSteps][2][2];
+#pragma unroll
+  for (int s = 0; s < kPcSteps; ++s)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool in = s < ns && (I0 + s > 0 || p == 1) && (J > 0 || r == 1);
+        v[s][p][r] = in ? w[(2 * s + p) * sx + r * nzf] : 0.0f;
+      }
+  const bool kodd = k & 1;
+  auto along_z = [&](const float* q) {
+    return kodd ? half_sum(q[0], q[1]) : q[0];
+  };
+  // Pyz at rows 2J (e) and 2J + 1 (o) of coarse plane I0 + s
+  const float* q = ec + (long)I0 * csx + (long)J * ncz + (k >> 1);
+  float e0 = along_z(q), o0 = half_sum(e0, along_z(q + ncz));
+#pragma unroll
+  for (int s = 0; s < kPcSteps; ++s) {
+    if (s >= ns) break;
+    q += csx;
+    const float e1 = along_z(q), o1 = half_sum(e1, along_z(q + ncz));
+    float* w0 = w + 2 * s * sx;  // plane 2I, row 2J
+    float* w1 = w0 + sx;         // plane 2I + 1
+    if (I0 + s > 0) {
+      if (J > 0) w0[0] = __fadd_rn(v[s][0][0], e0);
+      w0[nzf] = __fadd_rn(v[s][0][1], o0);
+    }
+    if (J > 0) w1[0] = __fadd_rn(v[s][1][0], half_sum(e0, e1));
+    w1[nzf] = __fadd_rn(v[s][1][1], half_sum(o0, o1));
+    e0 = e1;
+    o0 = o1;
+  }
 }
 
 }  // namespace
@@ -97,14 +438,25 @@ int mg_residual_restrict3d(const float* u, const float* f, float* fc, int nyf,
                            int nzf, int ncx, int ncy, int ncz, float c,
                            float w, float e, float s, float n, float b,
                            float t, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (ncx < 3 || ncy < 3 || ncz < 3) return (int)cudaErrorInvalidValue;
+  static bool done[kMaxDevices] = {};
+  err = allow_smem(residual_restrict3d_kernel, kRrBytes, device, done);
   if (err != cudaSuccess) return (int)err;
   const Stencil7 st{c, w, e, s, n, b, t};
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((ncz + kBlockX - 1) / kBlockX, (ncy + kBlockY - 1) / kBlockY,
-                  ncx);
-  residual_restrict3d_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      u, f, fc, nyf, nzf, ncx, ncy, ncz, st);
+  const int tj = (ncy - 2 + kRrTileJ - 1) / kRrTileJ;
+  const int tk = (ncz - 2 + kRrTileK - 1) / kRrTileK;
+  const int planes = ncx - 2;
+  // as many chunks as fill the card, none over kRrMaxChunk planes (but
+  // none under kRrMinChunk where filling the card asks for more)
+  const int fill = std::max(
+      1, std::min(rr_block_slots(device) / (tj * tk), planes / kRrMinChunk));
+  const int chunk = std::min((planes + fill - 1) / fill, kRrMaxChunk);
+  const dim3 grid(tk, tj, (planes + chunk - 1) / chunk);
+  residual_restrict3d_kernel<<<grid, kRrThreads, kRrBytes,
+                               (cudaStream_t)stream>>>(
+      u, f, fc, nyf, nzf, ncx, ncy, ncz, chunk, st);
   return (int)cudaGetLastError();
 }
 
@@ -112,13 +464,14 @@ int mg_residual_restrict3d(const float* u, const float* f, float* fc, int nyf,
 // lengths (ncy, ncz).
 int mg_prolong_correct3d(const float* ec, float* u, int ncy, int ncz, int nxf,
                          int nyf, int nzf, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((nzf - 2 + kBlockX - 1) / kBlockX,
-                  (nyf - 2 + kBlockY - 1) / kBlockY, nxf - 2);
-  prolong_correct3d_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      ec, u, ncy, ncz, nyf, nzf);
+  if (nxf < 5 || nyf < 5 || nzf < 5) return (int)cudaErrorInvalidValue;
+  const int steps = (nxf - 1) / 2;  // fine plane pairs (2I, 2I + 1)
+  const dim3 grid((nzf - 2 + kPcThreads - 1) / kPcThreads, ncy - 1,
+                  (steps + kPcSteps - 1) / kPcSteps);
+  prolong_correct3d_kernel<<<grid, kPcThreads, 0, (cudaStream_t)stream>>>(
+      ec, u, ncy, ncz, nyf, nzf, steps);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,12 @@ F replaces the Pallas ``residual_restrict3d`` and G the Pallas
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/transfer3d.py``
 (:194, :342) for constant-coefficient 7-point stencils on all-Dirichlet boxes
 in fp32. The source note in ``csrc/transfer3d.cu`` gives the design and what
-bounds it.
+bounds it: F streams fine x-planes of a coarse tile through shared memory
+and computes each fine residual once; G gives a thread one k of a fine row
+pair over two coarse x-steps. Both equal their twins bit for bit. Each call is one launch,
+whose tiles and x-chunks the C entry point plans (from the card's
+multiprocessor count); the kernels' geometry lives in the source, which the
+CPU test of their schedules reads.
 
 On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
 launches its kernel or raises. ``residual_restrict3d.launches`` and

@@ -12,7 +12,8 @@ non-power-of-two domain below makes those roundings differ for real: on the
 unit square the coefficients are powers of two and the two agree bit for bit.
 The 3D kernels E, F and G round every product and sum explicitly in their
 twins' order; E multiplies by 1/c, as PyTorch's CUDA division by a scalar
-does, so E is held to its twin bit for bit on the card.
+does, so E, F and G are held to their twins bit for bit on the card, at
+shapes where their tiles and x-chunks do not divide the grid too.
 
 The coefficient-plane kernels H, I and J and kernel C round every operation
 in their twins' order and divide as the twins do, so they are held to their
@@ -211,26 +212,43 @@ def test_rbgs3d_several_passes(dev, sweeps):
                                        omega=1.3))
 
 
+# (37, 69, 131) and (17, 129, 65): F's 8 x 32 coarse tiles and x-chunks and
+# G's 256-wide k blocks do not divide the interior; (11, 9, 7): five coarse
+# x-steps, so G's last thread takes one step of its two
+SHAPES_TRANSFER3D = [(65, 65, 65), (9, 33, 17), (5, 5, 5), (37, 69, 131),
+                     (17, 129, 65), (11, 9, 7)]
+
+
 @pytest.mark.parametrize("domain", list(DOMAINS3D))
-@pytest.mark.parametrize("shape", [(65, 65, 65), (9, 33, 17), (5, 5, 5)])
+@pytest.mark.parametrize("shape", SHAPES_TRANSFER3D)
 def test_residual_restrict3d_matches_twin(dev, shape, domain):
     g, st = _stencil3d(shape, domain)
-    u, f = _field(shape, 23, dev), _field(shape, 24, dev, st.c)
+    u = _field(shape, 23, dev, ring=True)  # the fine shell is read too
+    f = _field(shape, 24, dev, st.c)
+    fc = torch.full(ktransfer3d.coarse_shape3d(*shape), float("nan"),
+                    device=dev)
+    del fc  # a NaN-filled allocation first: every coarse node is written
     before = ktransfer3d.residual_restrict3d.launches
     got = ktransfer3d.residual_restrict3d(st, u, f)
     assert ktransfer3d.residual_restrict3d.launches == before + 1
-    _close(got, ktransfer3d.residual_restrict3d_plain(st, u, f))
-    assert not got[0].any() and not got[:, -1].any() and not got[..., 0].any()
+    _exact(got, ktransfer3d.residual_restrict3d_plain(st, u, f))
+    for shell in ((0,), (-1,), (slice(None), 0), (slice(None), -1),
+                  (Ellipsis, 0), (Ellipsis, -1)):
+        assert not got[shell].any()
 
 
-@pytest.mark.parametrize("shape", [(65, 65, 65), (9, 33, 17), (5, 5, 5)])
+@pytest.mark.parametrize("shape", SHAPES_TRANSFER3D)
 def test_prolong_correct3d_matches_twin(dev, shape):
     nc = tuple((n - 1) // 2 + 1 for n in shape)
     u = _field(shape, 25, dev, ring=True)
     ec = _field(nc, 26, dev, ring=True)  # the coarse shell interpolates too
+    before = ktransfer3d.prolong_correct3d.launches
     got = ktransfer3d.prolong_correct3d(ec, u.clone())
-    _close(got, ktransfer3d.prolong_correct3d_plain(ec, u.clone()))
-    assert torch.equal(got[-1], u[-1]) and torch.equal(got[:, 0], u[:, 0])
+    assert ktransfer3d.prolong_correct3d.launches == before + 1
+    _exact(got, ktransfer3d.prolong_correct3d_plain(ec, u.clone()))
+    for shell in ((0,), (-1,), (slice(None), 0), (slice(None), -1),
+                  (Ellipsis, 0), (Ellipsis, -1)):
+        assert torch.equal(got[shell], u[shell])
 
 
 def test_3d_wrappers_raise_on_what_the_kernels_do_not_take(dev):
