@@ -43,12 +43,20 @@ Phases, each of which must pass:
  11. hold each coefficient-plane kernel against its twin at the path's
      shapes (H at 1025^2, 513^2, 257^2 on both coefficient fields; I from
      1025^2, 513^2, 257^2 on three side sets; C with the Robin sides; J
-     from 129^2 on both fields), and time both;
+     from 129^2 on both fields), time both, and read J's device time per
+     launch from 129^2 on both fields;
  12. solve the three problems with backend='auto', each from launch counts
      reset to zero, and check the outer-step count and the l2 error of the
-     JAX reference and which kernels launched;
+     JAX reference, which kernels launched, and on the varcoef and jump
+     solves that H made its planned launches (one per 2-sweep call: 180 in
+     the 15-step jump solve) and J one per cycle;
  13. solve them with backend='torch' and check that both paths agree;
- 14. time both paths per solve, and profile the jump solve.
+ 14. time both paths per solve, and profile the jump solve;
+     then H's device time per 2-sweep call (every device op of the call,
+     the copy-back included) and launches per call at 1025^2, 513^2 and
+     257^2, J's device time per launch from entries 3^2 to 129^2 on the
+     jump tail, and the cost of one __syncwarp, __syncthreads and
+     cluster.sync (csrc/barriers.cu), J's latency yardstick.
 The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
 1025^2 (level 0 held as four parity planes, smoothed by kernel K; levels
 >= 1 on kernels A-D) and the main path with the parity layout of kernel A
@@ -89,8 +97,12 @@ at 1025^2 and 8192^2 (CUDA events, device time per launch); the host time
 to enqueue kernel A's 2-sweep call at 1025^2 (minimum over 5 x 200 calls)
 and its CUDA-event time; ir_solve3d at 513^3 (fp32 levels, tol 1e-9): wall
 ms per solve (minimum over 3 repeats of 2 right-hand sides), peak device
-memory, E's launches and the outer steps. Only entry points both trees have
-are called. It prints one JSON line per set and a summary.
+memory, E's launches and the outer steps; H's 2-sweep call at 1025^2 and J
+from 129^2 on the jump hierarchy (CUDA events, device time per call or
+launch, H's host time per call and launches per call); the varcoef and jump
+solve_poisson calls (ms per solve, minimum over 3 after a warm-up). Only
+entry points both trees have are called. It prints one JSON line per set
+and a summary.
 
 Usage: python3 chip_smoke.py [--against DIR]
        (needs one CUDA card; imports no JAX)
@@ -146,6 +158,10 @@ VAR_L2 = {"varcoef": 4.2673e-6, "robin": 1.2164e-8}
 ROBIN_L2_FACTOR = 1.5     # Robin: l2 <= this * the reference (the
                           # tolerance, not the grid, sets that l2)
 VAR_PATH_RTOL = 1e-8      # max|u_auto - u_torch| <= this * max|u|
+VAR_UPPER_LEVELS = 3      # 1025^2, 513^2, 257^2 smooth with H above the tail
+# Targets of the redesigned H and J on the H100 (device time): H per 2-sweep
+# RB-GS call at 1025^2, its copy-back included; J per launch from 129^2.
+H_TARGET_MS, J_TARGET_MS = 0.020, 0.060
 # The parity paths. plane_ir_solve at 1025^2 without FMG: the JAX
 # package's plane A/B reached 4 outer steps on both arms
 # (reports/plane_ab.json); its l2 is the main path's.
@@ -254,6 +270,117 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
             return (sum(e.self_device_time_total for e in kernels) / 1e3
                     / launches)
     fail(f"the profiler saw no {kernel} kernel in {reps} calls, three times")
+
+
+def device_ms_per_call(fn, reps: int = 10) -> float:
+    """Mean device time per call of ``fn``: every kernel and copy on the
+    card in the profiled window (a wrapper's copy-back included), over
+    ``reps`` calls after a warm-up; retried as ``device_ms`` is."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    fail(f"the profiler saw no device work in {reps} calls, three times")
+
+
+BARRIER_ITERS = 20000
+
+
+def barrier_costs(card, dev) -> dict:
+    """ns per barrier (csrc/barriers.cu): __syncwarp, __syncthreads with
+    1024 threads, cluster.sync at 2, 8 and 16 blocks of 1024 threads; a
+    launch of BARRIER_ITERS barriers against one of none, CUDA events."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import _build
+
+    sink = torch.zeros(1, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for label, kind, cluster, threads in (
+            ("__syncwarp", 2, 1, 32), ("__syncthreads x1024", 0, 1, 1024),
+            ("cluster.sync 2x1024", 1, 2, 1024),
+            ("cluster.sync 8x1024", 1, 8, 1024),
+            ("cluster.sync 16x1024", 1, 16, 1024)):
+        ms = {}
+        for iters in (0, BARRIER_ITERS):
+            ms[iters] = time_ms(lambda: _build.launch(
+                "mg_barrier_probe", kind, cluster, threads, iters,
+                sink.data_ptr(), dev.index, stream), reps=5)
+        out[label] = (ms[BARRIER_ITERS] - ms[0]) * 1e6 / BARRIER_ITERS
+        print(f"barrier {label}: {out[label]:.1f} ns per barrier [{card}]")
+    return out
+
+
+def tail_var_entries(mg, card, dev) -> dict:
+    """J's device ms per launch on the jump hierarchy's tail from entries
+    3, 5, ..., 129: the differences are each level's cost."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import tail as kt
+
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    prob = mg.jump_coefficient_problem(N_VAR, 1e3)
+    levels = mg.build_hierarchy(prob.grid, prob.spec, a=prob.a, device=dev,
+                                cfg=cfg)
+    kw = dict(pre=cfg.pre_sweeps, post=cfg.post_sweeps, omega=cfg.omega,
+              method=cfg.smoother, coarse_sweeps=cfg.coarse_sweeps,
+              symmetric=cfg.symmetric)
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    out = {}
+    for entry in (3, 5, 9, 17, 33, 65, 129):
+        tail = [lev for lev in levels if lev.grid.nx <= entry]
+        sts = [lev.stencil for lev in tail]
+        shapes = [lev.grid.shape for lev in tail]
+        f = 1e3 * torch.randn(shapes[0], generator=gen, device=dev)
+        u = torch.zeros(shapes[0], device=dev)
+        out[entry] = device_ms(lambda: kt.tail_vcycle_var(
+            sts, u, f, shapes=shapes, **kw), "tail_var", reps=20)
+    print("J device ms per launch by entry (jump tail): " + ", ".join(
+        f"{e}^2 {ms:.4f}" for e, ms in out.items()) + f" [{card}]")
+    return out
+
+
+def smooth_var_per_call(mg, card, dev) -> dict:
+    """H's device ms per 2-sweep RB-GS call (every device op of the call)
+    and its launches per call, at 1025^2, 513^2 and 257^2 of the jump
+    hierarchy."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth_var as ksv
+
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    prob = mg.jump_coefficient_problem(N_VAR, 1e3)
+    levels = mg.build_hierarchy(prob.grid, prob.spec, a=prob.a, device=dev,
+                                cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(8642)
+    out = {}
+    for lev in levels[:3]:
+        n, st = lev.grid.nx, lev.stencil
+        u = torch.randn((n, n), generator=gen, device=dev)
+        f = 1e3 * torch.randn((n, n), generator=gen, device=dev)
+        call = lambda: ksv.multisweep_var(st, u, f, sweeps=2)  # noqa: E731
+        before = ksv.multisweep_var.launches
+        call()
+        per_call = ksv.multisweep_var.launches - before
+        out[n] = (device_ms_per_call(call, reps=20), per_call)
+        print(f"H {n}^2 2-sweep RB-GS call: device {out[n][0]:.4f} ms per "
+              f"call (every device op), {per_call} launches per call "
+              f"[{card}]")
+    return out
 
 
 def kernel_phase(levels, cfg, dev):
@@ -692,6 +819,10 @@ def kernel_phase_var(mg, cfg, dev):
                     sts, u0.clone(), f, shapes=shapes, **tail_kw)),
                 time_ms(lambda: kt.tail_vcycle_plain(
                     sts, u0.clone(), f, shapes=shapes, **tail_kw)))
+        ms = device_ms(lambda: kt.tail_vcycle_var(
+            sts, u0, f, shapes=shapes, **tail_kw), "tail_var", reps=20)
+        print(f"device time tail_vcycle_var {coef} 129^2: {ms:.4f} ms per "
+              f"launch (target <= {J_TARGET_MS})")
     for (name, n), (k_ms, p_ms) in times.items():
         print(f"time {name} {n}^2: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     return errs, times
@@ -770,6 +901,18 @@ def var_path(mg, card, dev):
         missing = [k for k in expected[name] if counts[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {name} solve: {missing}")
+        if name != "robin":
+            # one J launch per cycle; H's planned launches for each of the
+            # cycle's pre- and post-smoothing calls above the tail
+            cycles = results[name].iterations * IR_INNER_CYCLES
+            want = {"smooth_var": cycles * VAR_UPPER_LEVELS * len(
+                        ksv.plan_passes(cfg.pre_sweeps)) * 2,
+                    "tail_vcycle_var": cycles}
+            print(f"solve_var {name}: H and J launches {counts['smooth_var']}"
+                  f", {counts['tail_vcycle_var']}; planned {want}")
+            if any(counts[k] != v for k, v in want.items()):
+                fail(f"{name}: H and J launches {counts} differ from the "
+                     f"plan {want}")
         for k in launches:
             launches[k] += counts[k]
     for name, prob in var_problems(mg).items():
@@ -1189,6 +1332,51 @@ def ab_set(tree: str) -> dict:
     out["A_host_us_per_call"] = min(host) * 1e6
     out["A_ms"] = time_ms(call, reps=200)
 
+    # H's 2-sweep call at 1025^2 and J from 129^2 on the jump hierarchy,
+    # and the varcoef and jump solves
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth_var as ksv, tail as kt
+    jump = mg.jump_coefficient_problem(N_VAR, 1e3)
+    levels = mg.build_hierarchy(jump.grid, jump.spec, a=jump.a, device=dev,
+                                cfg=cfg)
+    st = levels[0].stencil
+    uh = torch.randn((N_VAR, N_VAR), generator=gen, device=dev)
+    fh = 1e3 * torch.randn((N_VAR, N_VAR), generator=gen, device=dev)
+    call = lambda: ksv.multisweep_var(st, uh, fh, sweeps=2)  # noqa: E731
+    out["H_ms"] = time_ms(call, reps=50)
+    out["H_device_ms_per_call"] = device_ms_per_call(call, reps=20)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host.append((time.perf_counter() - t0) / 200)
+    torch.cuda.synchronize()
+    out["H_host_us_per_call"] = min(host) * 1e6
+    before = ksv.multisweep_var.launches
+    call()
+    out["H_launches_per_call"] = ksv.multisweep_var.launches - before
+    tail = [lev for lev in levels if lev.grid.nx <= 129]
+    sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
+                                                   for lev in tail]
+    uj = torch.zeros(shapes[0], device=dev)
+    fj = 1e3 * torch.randn(shapes[0], generator=gen, device=dev)
+    call = lambda: kt.tail_vcycle_var(  # noqa: E731
+        sts, uj, fj, shapes=shapes, pre=cfg.pre_sweeps, post=cfg.post_sweeps,
+        omega=cfg.omega, method=cfg.smoother, coarse_sweeps=cfg.coarse_sweeps,
+        symmetric=cfg.symmetric)
+    out["J_ms"] = time_ms(call, reps=50)
+    out["J_device_ms"] = device_ms(call, "tail_var", reps=20)
+    del uh, fh, levels
+    for name, prob in (("varcoef", mg.variable_coefficient_mms(N_VAR)),
+                       ("jump", jump)):
+        solves = [mg.solve_poisson(prob, precision="fp32", cfg=cfg,
+                                   device=dev) for _ in range(4)]
+        out[f"solve_{name}_ms"] = min(r.solve_time for r in solves[1:]) * 1e3
+        out[f"solve_{name}_iterations"] = int(solves[-1].iterations)
+    torch.cuda.empty_cache()
+
     cfg3 = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
     levels3 = mg.build_hierarchy3d(mg.Grid3D(N3, N3, N3), dtype="float32",
                                    device=dev, cfg=cfg3)
@@ -1347,6 +1535,16 @@ def main(argv) -> int:
         errs[name] = max(errs.get(name, 0.0), err)
     times.update(times_var)
     launches.update(launches_var)
+    for n, (ms, per_call) in smooth_var_per_call(mg, card, dev).items():
+        dev_ms[("smooth_var", n)] = ms
+        if per_call != 1:
+            fail(f"H made {per_call} launches in a 2-sweep call at {n}^2, "
+                 "its plan is 1")
+    print(f"H device ms per 2-sweep call at {N_VAR}^2: "
+          f"{dev_ms[('smooth_var', N_VAR)]:.4f} (target <= {H_TARGET_MS}) "
+          f"[{card}]")
+    dev_ms[("tail_vcycle_var", 129)] = tail_var_entries(mg, card, dev)[129]
+    barrier_costs(card, dev)
     torch.cuda.empty_cache()
 
     # ---- 3D path ----------------------------------------------------------

@@ -195,16 +195,45 @@ __host__ __device__ __forceinline__ Rect unknown_rect(int nx, int ny,
               ny - ((sides >> 3) & 1)};
 }
 
+// w*W + e*E + s*S + n*N, left to right, for the neighbour values W, E, S, N
+// at (i-1, j), (i+1, j), (i, j-1), (i, j+1).
+__device__ __forceinline__ float nbsum_values(float w, float e, float s,
+                                              float n, float W, float E,
+                                              float S, float N) {
+  float acc = __fmul_rn(w, W);
+  acc = __fadd_rn(acc, __fmul_rn(e, E));
+  acc = __fadd_rn(acc, __fmul_rn(s, S));
+  return __fadd_rn(acc, __fmul_rn(n, N));
+}
+
+// Red-black Gauss-Seidel / SOR value of an unknown node from its value uc,
+// right-hand side fv, centre coefficient c and neighbour sum nb:
+// u + omega*((f + nb)/c - u).
+__device__ __forceinline__ float rbgs_var_update(float uc, float fv, float c,
+                                                 float nb, float omega) {
+  const float gs = __fdiv_rn(__fadd_rn(fv, nb), c);
+  return __fadd_rn(uc, __fmul_rn(omega, __fsub_rn(gs, uc)));
+}
+
+// Weighted-Jacobi value of an unknown node: u + (omega*(f - (c*u - nb)))/c.
+__device__ __forceinline__ float jacobi_var_update(float uc, float fv,
+                                                   float c, float nb,
+                                                   float omega) {
+  const float r = __fsub_rn(fv, __fsub_rn(__fmul_rn(c, uc), nb));
+  return __fadd_rn(uc, __fdiv_rn(__fmul_rn(omega, r), c));
+}
+
 // w*u[i-1,j] + e*u[i+1,j] + s*u[i,j-1] + n*u[i,j+1], left to right, reading
 // zero outside the (nx, ny) array as the twins' zero halo does.
 __device__ __forceinline__ float neighbor_sum_var(const float* u,
                                                   const Planes5& p, int i,
                                                   int j, int nx, int ny) {
   const long idx = (long)i * ny + j;
-  float acc = __fmul_rn(p.w[idx], i > 0 ? u[idx - ny] : 0.0f);
-  acc = __fadd_rn(acc, __fmul_rn(p.e[idx], i < nx - 1 ? u[idx + ny] : 0.0f));
-  acc = __fadd_rn(acc, __fmul_rn(p.s[idx], j > 0 ? u[idx - 1] : 0.0f));
-  return __fadd_rn(acc, __fmul_rn(p.n[idx], j < ny - 1 ? u[idx + 1] : 0.0f));
+  return nbsum_values(p.w[idx], p.e[idx], p.s[idx], p.n[idx],
+                      i > 0 ? u[idx - ny] : 0.0f,
+                      i < nx - 1 ? u[idx + ny] : 0.0f,
+                      j > 0 ? u[idx - 1] : 0.0f,
+                      j < ny - 1 ? u[idx + 1] : 0.0f);
 }
 
 // f - (c*u - neighbour sum) at node (i, j).
@@ -214,33 +243,6 @@ __device__ __forceinline__ float residual_var(const float* u, const float* f,
   const long idx = (long)i * ny + j;
   return __fsub_rn(f[idx], __fsub_rn(__fmul_rn(p.c[idx], u[idx]),
                                      neighbor_sum_var(u, p, i, j, nx, ny)));
-}
-
-// Red-black Gauss-Seidel / SOR value at unknown node (i, j):
-// u + omega*((f + neighbour sum)/c - u).
-__device__ __forceinline__ float rbgs_var_value(const float* u,
-                                                const float* f,
-                                                const Planes5& p, int i,
-                                                int j, int nx, int ny,
-                                                float omega) {
-  const long idx = (long)i * ny + j;
-  const float uc = u[idx];
-  const float gs = __fdiv_rn(
-      __fadd_rn(f[idx], neighbor_sum_var(u, p, i, j, nx, ny)), p.c[idx]);
-  return __fadd_rn(uc, __fmul_rn(omega, __fsub_rn(gs, uc)));
-}
-
-// Weighted-Jacobi value at unknown node (i, j): u + (omega*r)/c.
-__device__ __forceinline__ float jacobi_var_value(const float* u,
-                                                  const float* f,
-                                                  const Planes5& p, int i,
-                                                  int j, int nx, int ny,
-                                                  float omega) {
-  const long idx = (long)i * ny + j;
-  return __fadd_rn(u[idx],
-                   __fdiv_rn(__fmul_rn(omega, residual_var(u, f, p, i, j, nx,
-                                                           ny)),
-                             p.c[idx]));
 }
 
 // Fine index k of a restriction window, folded back into the domain where it

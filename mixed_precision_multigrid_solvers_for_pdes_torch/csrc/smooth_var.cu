@@ -1,94 +1,245 @@
 // Kernel H: multi-sweep smoothing (RB-GS / SOR / weighted Jacobi) with a
 // variable-coefficient 5-point stencil, its five coefficient planes c, w, e,
-// s, n read from device memory, on an all-Dirichlet rectangle.
+// s, n, on an all-Dirichlet rectangle: every sweep of a call in one launch,
+// out of place.
 //
 // Replaces the variable-coefficient branches of the Pallas kernels
 // multisweep (whole level in VMEM, _smooth_kernel_var :231) and
-// multisweep_strips (row strips streaming seven windows, _strips_kernel with
-// n_in = 7 :353) of
+// multisweep_strips (row strips streaming seven windows with a 2 * sweeps
+// halo, _strips_kernel with n_in = 7 :353) of
 // mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth.py
 // (:290 and :507). As for kernel A, the whole-grid/strip split existed only
-// because of the TPU's VMEM budget, and one kernel covers both.
+// because of the TPU's VMEM budget; the strips' halo is kept, at tile size.
 //
-// Design: as kernel A. One launch per colour half-sweep, one thread per
-// interior node; a thread whose node has the other colour exits at once. A
-// colour update reads only nodes of the other colour and its own, so the
-// in-place update has no race. Jacobi reads src and writes every node of dst
-// (the ring copied), ping-ponging with a scratch array. Only interior nodes
-// are updated: the kernel serves all-Dirichlet levels, and Neumann/Robin
-// levels smooth on the plain path, as in the JAX package.
+// Design, in the image of kernel L (csrc/smooth_parity.cu):
+// - Each block owns a kTileX x kTileY tile of the interior (plus the ring
+//   next to it at the field's edge) and loads a window of u, f and the five
+//   planes into shared memory: the tile plus a halo of 2 * sweeps nodes per
+//   side for RB-GS/SOR, sweeps nodes for Jacobi, clamped to the field. The
+//   loads are 4-byte cp.async (rows of unpadded levels are not 16-byte
+//   aligned), all in flight at once.
+// - The block runs every sweep in shared memory, with __syncthreads()
+//   between colour phases (between sweeps for Jacobi, which ping-pongs
+//   between two u buffers). A node is updated only if it is an unknown of
+//   the field and not on the window's border. A stale border value travels
+//   one node per colour phase (per Jacobi sweep), so after the call the tile,
+//   halo nodes in, is exact; where the window is clamped its border is the
+//   field's fixed ring, which is exact too.
+// - Each window row keeps its even and odd columns in two halves, so the
+//   nodes of one colour in a row, and each of their four neighbour sets, are
+//   consecutive words: a warp's phase reads are free of bank conflicts
+//   within a row.
+// - The tile goes to a separate output: neighbouring blocks load this
+//   block's nodes as their halo, so writing u in place would race. The
+//   wrapper copies the output back into u (ops/cuda_kernels/smooth_var.py).
+// - A launch takes at most kMaxSweeps sweeps; the wrapper splits longer runs.
 //
-// Arithmetic: the Pallas kernels multiply by 1/c with c forced to 1 off the
-// unknowns; here the update divides by c, in the twin's order with every
-// operation rounded explicitly (common.cuh), so H matches the plain twin bit
-// for bit. A thread never divides on a fixed node.
+// Arithmetic: the twins' order with every operation rounded explicitly and
+// the update divided by c (common.cuh: nbsum_values, rbgs_var_update,
+// jacobi_var_update), so H matches multisweep_plain bit for bit.
 //
-// Bound: device memory bandwidth. A sweep reads f and the five planes once
-// (24 bytes per node), reads u in both colour launches (the neighbours cover
-// the other colour) and writes it once: ~36 bytes per node, where kernel A
-// moves ~16 by the same count. Keeping the planes in fewer bytes (c is
-// w + e + s + n + lam) or several sweeps in shared memory is the next step
-// and not done here.
+// Bound: device memory bandwidth. A call must read u, f and the five planes
+// once and write u once (32 bytes per node). H reads the windows (1.41x the
+// tile at 2 sweeps), writes the tile, and the wrapper's copy adds 8 bytes
+// per node; the 1025^2 level's 29 MB of inputs fit the 50 MB L2, so repeated
+// calls may read them from L2. What bounds it on the H100 is latency: a
+// block's life (loads, 2 * sweeps phases, store) is ~7 us, ~2 block lives
+// per call at 1025^2 with two blocks per SM (PERF.md).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;  // along j, the contiguous axis
-constexpr int kBlockY = 8;   // along i
+// The geometry below is this file's own: mg_smooth_var_geometry reports it,
+// ops/cuda_kernels/smooth_var.py checks its launch planning against that
+// report before the first launch, and the CPU schedule test reads it from
+// this file.
+constexpr int kTileX = 32;   // interior rows (i) per block
+constexpr int kTileY = 64;   // interior columns (j, contiguous) per block; even
+constexpr int kThreads = 512;
+constexpr int kMaxSweeps = 4;  // sweeps per launch
 
-__global__ void rbgs_var_color_kernel(float* u, const float* __restrict__ f,
-                                      Planes5 p, int nx, int ny, float omega,
-                                      int color) {
-  const int j = blockIdx.x * kBlockX + threadIdx.x + 1;
-  const int i = blockIdx.y * kBlockY + threadIdx.y + 1;
-  if (i >= nx - 1 || j >= ny - 1 || ((i + j) & 1) != color) return;
-  u[(long)i * ny + j] = rbgs_var_value(u, f, p, i, j, nx, ny, omega);
+// Items (node pairs of a window row) a thread takes in an RB-GS phase, at
+// most: (kTileX + 4 kMaxSweeps - 2) rows of (kTileY / 2 + 2 kMaxSweeps).
+constexpr int kRbItems =
+    ((kTileX + 4 * kMaxSweeps - 2) * (kTileY / 2 + 2 * kMaxSweeps) +
+     kThreads - 1) /
+    kThreads;
+
+__host__ __device__ __forceinline__ int halo_of(int sweeps, bool jacobi) {
+  return jacobi ? sweeps : 2 * sweeps;
 }
 
-__global__ void jacobi_var_kernel(const float* __restrict__ src,
-                                  float* __restrict__ dst,
-                                  const float* __restrict__ f, Planes5 p,
-                                  int nx, int ny, float omega) {
-  const int j = blockIdx.x * kBlockX + threadIdx.x;
-  const int i = blockIdx.y * kBlockY + threadIdx.y;
-  if (i >= nx || j >= ny) return;
-  const long idx = (long)i * ny + j;
-  dst[idx] = (i > 0 && i < nx - 1 && j > 0 && j < ny - 1)
-                 ? jacobi_var_value(src, f, p, i, j, nx, ny, omega)
-                 : src[idx];
+// Floats of one window array (rows x row stride) at `halo`.
+__host__ __device__ __forceinline__ int window_floats(int halo) {
+  return (kTileX + 2 * halo) * (kTileY + 2 * halo);
+}
+
+// u, f, c, w, e, s, n (and Jacobi's second u buffer).
+__host__ __forceinline__ int smem_bytes(int sweeps, bool jacobi) {
+  return (jacobi ? 8 : 7) * window_floats(halo_of(sweeps, jacobi)) *
+         (int)sizeof(float);
+}
+
+template <bool kJacobi>
+__global__ void __launch_bounds__(kThreads)
+    smooth_var_kernel(const float* __restrict__ u, const float* __restrict__ f,
+                      Planes5 p, float* __restrict__ out, int nx, int ny,
+                      float omega, int sweeps, int c0) {
+  extern __shared__ float sm[];
+  const int halo = halo_of(sweeps, kJacobi);
+  const int RS = kTileY + 2 * halo;  // row stride: two halves of HP
+  const int HP = RS / 2;
+  const int PL = window_floats(halo);
+  float* us = sm;
+  float* fs = sm + PL;
+  float* cs = sm + 2 * PL;
+  float* ws = sm + 3 * PL;
+  float* es = sm + 4 * PL;
+  float* ss = sm + 5 * PL;
+  float* ns = sm + 6 * PL;
+  float* vs = sm + 7 * PL;  // Jacobi only
+
+  const int ai = 1 + blockIdx.y * kTileX, bi = min(ai + kTileX, nx - 1);
+  const int aj = 1 + blockIdx.x * kTileY, bj = min(aj + kTileY, ny - 1);
+  const int wi0 = max(ai - halo, 0), wx = min(bi + halo, nx) - wi0;
+  const int wj0 = max(aj - halo, 0), wy = min(bj + halo, ny) - wj0;
+  auto at = [&](int li, int lj) { return li * RS + (lj & 1) * HP + (lj >> 1); };
+
+  for (int t = threadIdx.x; t < wx * wy; t += kThreads) {
+    const int li = t / wy, lj = t - li * wy;
+    const long g = (long)(wi0 + li) * ny + (wj0 + lj);
+    const int s = at(li, lj);
+    cp_async4(us + s, u + g, true);
+    if (kJacobi) cp_async4(vs + s, u + g, true);
+    cp_async4(fs + s, f + g, true);
+    cp_async4(cs + s, p.c + g, true);
+    cp_async4(ws + s, p.w + g, true);
+    cp_async4(es + s, p.e + g, true);
+    cp_async4(ss + s, p.s + g, true);
+    cp_async4(ns + s, p.n + g, true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+
+  const float* fin = us;
+  if (!kJacobi) {
+    // phase ph updates colour (c0 + ph) & 1; item (row li, m) is the node
+    // of that colour among columns 2m, 2m + 1 of the row. A thread computes
+    // all its items before it stores any (a phase reads only the other
+    // colour and each node's own old value), so their loads and divisions
+    // overlap.
+    for (int ph = 0; ph < 2 * sweeps; ++ph) {
+      const int color = (c0 + ph) & 1;
+      __syncthreads();
+      float nv[kRbItems];
+      int at_self[kRbItems];
+#pragma unroll
+      for (int r = 0; r < kRbItems; ++r) {
+        const int t = threadIdx.x + r * kThreads;
+        const int li = 1 + t / HP, m = t - (li - 1) * HP;
+        const int b = (color + wi0 + wj0 + li) & 1;
+        const int lj = 2 * m + b;
+        at_self[r] = -1;
+        if (t >= (wx - 2) * HP || lj < 1 || lj > wy - 2) continue;
+        const int self = li * RS + b * HP + m;
+        const int sj = b ? self - HP : self + HP - 1;  // (li, lj - 1)
+        const int nj = b ? self - HP + 1 : self + HP;  // (li, lj + 1)
+        const float nb = nbsum_values(ws[self], es[self], ss[self], ns[self],
+                                      us[self - RS], us[self + RS], us[sj],
+                                      us[nj]);
+        nv[r] = rbgs_var_update(us[self], fs[self], cs[self], nb, omega);
+        at_self[r] = self;
+      }
+#pragma unroll
+      for (int r = 0; r < kRbItems; ++r)
+        if (at_self[r] >= 0) us[at_self[r]] = nv[r];
+    }
+  } else {
+    float* src = us;
+    float* dst = vs;
+    for (int sw = 0; sw < sweeps; ++sw) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < (wx - 2) * RS; t += kThreads) {
+        const int li = 1 + t / RS, rem = t - (li - 1) * RS;
+        const int b = rem >= HP, m = rem - b * HP;
+        const int lj = 2 * m + b;
+        if (lj < 1 || lj > wy - 2) continue;
+        const int self = li * RS + rem;
+        const int sj = b ? self - HP : self + HP - 1;
+        const int nj = b ? self - HP + 1 : self + HP;
+        const float nb = nbsum_values(ws[self], es[self], ss[self], ns[self],
+                                      src[self - RS], src[self + RS],
+                                      src[sj], src[nj]);
+        dst[self] = jacobi_var_update(src[self], fs[self], cs[self], nb,
+                                      omega);
+      }
+      float* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+    fin = src;
+  }
+  __syncthreads();
+
+  // the tile (with the ring next to it at the field's edge) -> out
+  int lo_i, hi_i, lo_j, hi_j;
+  tile_span(blockIdx.y, kTileX, nx, &lo_i, &hi_i);
+  tile_span(blockIdx.x, kTileY, ny, &lo_j, &hi_j);
+  const int ty = hi_j - lo_j;
+  for (int t = threadIdx.x; t < (hi_i - lo_i) * ty; t += kThreads) {
+    const int i = t / ty, j = t - i * ty;
+    out[(long)(lo_i + i) * ny + lo_j + j] =
+        fin[at(lo_i + i - wi0, lo_j + j - wj0)];
+  }
+}
+
+template <bool kJacobi>
+cudaError_t launch(const float* u, const float* f, const Planes5& p,
+                   float* out, int nx, int ny, float omega, int sweeps,
+                   int c0, int device, cudaStream_t stream) {
+  static bool done[kMaxDevices] = {};
+  const auto kernel = smooth_var_kernel<kJacobi>;
+  const cudaError_t err =
+      allow_smem(kernel, smem_bytes(kMaxSweeps, kJacobi), device, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((ny - 2 + kTileY - 1) / kTileY,
+                  (nx - 2 + kTileX - 1) / kTileX);
+  kernel<<<grid, kThreads, smem_bytes(sweeps, kJacobi), stream>>>(
+      u, f, p, out, nx, ny, omega, sweeps, c0);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// One RB-GS/SOR half-sweep of colour `color` (0 = red) in place on u.
-int mg_rbgs_var_color(float* u, const float* f, const float* c,
-                      const float* w, const float* e, const float* s,
-                      const float* n, int nx, int ny, float omega, int color,
-                      int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// `sweeps` (1 .. kMaxSweeps) sweeps of u, written to out (every node of out
+// is written; u, f and the planes are only read, and out must not alias
+// them): weighted Jacobi when `jacobi`, else RB-GS/SOR, red first, black
+// first when `reverse`.
+int mg_smooth_var(const float* u, const float* f, const float* c,
+                  const float* w, const float* e, const float* s,
+                  const float* n, float* out, int nx, int ny, float omega,
+                  int sweeps, int jacobi, int reverse, int device,
+                  void* stream) {
+  if (sweeps < 1 || sweeps > kMaxSweeps || nx < 3 || ny < 3)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((ny - 2 + kBlockX - 1) / kBlockX,
-                  (nx - 2 + kBlockY - 1) / kBlockY);
-  rbgs_var_color_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      u, f, Planes5{c, w, e, s, n}, nx, ny, omega, color);
-  return (int)cudaGetLastError();
+  const Planes5 p{c, w, e, s, n};
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(jacobi ? launch<true>(u, f, p, out, nx, ny, omega, sweeps, 0,
+                                     device, st)
+                      : launch<false>(u, f, p, out, nx, ny, omega, sweeps,
+                                      reverse ? 1 : 0, device, st));
 }
 
-// One weighted-Jacobi sweep src -> dst (every node of dst is written).
-int mg_jacobi_var(const float* src, float* dst, const float* f,
-                  const float* c, const float* w, const float* e,
-                  const float* s, const float* n, int nx, int ny,
-                  float omega, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((ny + kBlockX - 1) / kBlockX, (nx + kBlockY - 1) / kBlockY);
-  jacobi_var_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      src, dst, f, Planes5{c, w, e, s, n}, nx, ny, omega);
-  return (int)cudaGetLastError();
+// H's geometry into out[4]: tile rows (i), tile columns (j), threads per
+// block, kMaxSweeps.
+int mg_smooth_var_geometry(int* out) {
+  const int g[4] = {kTileX, kTileY, kThreads, kMaxSweeps};
+  for (int i = 0; i < 4; ++i) out[i] = g[i];
+  return 0;
 }
 
 }  // extern "C"

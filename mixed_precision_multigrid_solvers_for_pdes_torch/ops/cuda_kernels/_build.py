@@ -42,8 +42,8 @@ _SIGNATURES = {
     # name: (argtypes, restype)
     "mg_rbgs_color": ([_P, _P, _I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_jacobi": ([_P, _P, _P, _I, _I] + [_F] * 6 + [_I, _P], _I),
-    "mg_rbgs_var_color": ([_P] * 7 + [_I, _I, _F, _I, _I, _P], _I),
-    "mg_jacobi_var": ([_P] * 8 + [_I, _I, _F, _I, _P], _I),
+    "mg_smooth_var": ([_P] * 8 + [_I, _I, _F] + [_I] * 4 + [_P], _I),
+    "mg_smooth_var_geometry": ([_IP], _I),
     "mg_residual_restrict": ([_P, _P, _P, _I, _I, _I] + [_F] * 5 + [_I, _P],
                              _I),
     "mg_residual_restrict_var": ([_P] * 8 + [_I] * 5 + [_I, _P], _I),
@@ -51,8 +51,9 @@ _SIGNATURES = {
     "mg_tail_workspace_floats": ([_I, _IP, _IP], ctypes.c_long),
     "mg_tail_vcycle": ([_P, _P, _P, _I, _IP, _IP, _FP, _I, _I, _F, _I, _I,
                         _I, _I, _P], _I),
-    "mg_tail_var_vcycle": ([_P, _P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
+    "mg_tail_var_vcycle": ([_P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
                             _I, _I, _I, _P], _I),
+    "mg_tail_var_geometry": ([_I, _IP, _IP, _IP], _I),
     "mg_rbgs3d": ([_P] * 3 + [_I] * 3 + [_F] * 8 + [_I] * 4 + [_P], _I),
     "mg_rbgs3d_geometry": ([_I, _IP], _I),
     "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_probe_color": ([_P] * 3 + [_I] * 4 + [_I, _P], _I),
     "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _P], _I),
+    "mg_barrier_probe": ([_I] * 4 + [_P, _I, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 

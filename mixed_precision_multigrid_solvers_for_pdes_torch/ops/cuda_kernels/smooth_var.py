@@ -9,17 +9,61 @@ fp32. The source note in ``csrc/smooth_var.cu`` gives the design and what
 bounds it.
 
 On a CPU tensor ``multisweep_var`` runs the plain twin; on a CUDA tensor it
-launches the kernel or raises. ``multisweep_var.launches`` counts kernel
-launches (one per colour half-sweep, one per Jacobi sweep).
+launches the kernel or raises. The kernel runs up to ``MAX_SWEEPS`` sweeps
+per launch into a separate output, which is copied back into ``u``; longer
+calls take several launches (``plan_passes``). ``multisweep_var.launches``
+counts kernel launches: one per call at the multigrid cycle's 2 sweeps.
+
+The launch geometry is the kernel source's: ``check_geometry`` holds this
+module's copy against the built library before the first launch, and the
+CPU schedule test holds it against the source.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from ..stencil import Stencil
 from . import _build
 from .smooth import RBGS, multisweep_plain
+
+# csrc/smooth_var.cu's kTileX, kTileY, kThreads, kMaxSweeps
+TILE = (32, 64)
+THREADS = 512
+MAX_SWEEPS = 4
+
+
+def halo(sweeps: int, method: str) -> int:
+    """Halo of a launch's window: 2 nodes per sweep for the RB-GS family
+    (one per colour phase), one per Jacobi sweep."""
+    return sweeps if method == "jacobi" else 2 * sweeps
+
+
+def plan_passes(sweeps: int) -> list:
+    """Sweeps of each launch of a ``sweeps``-sweep call."""
+    full, rest = divmod(max(sweeps, 0), MAX_SWEEPS)
+    return [MAX_SWEEPS] * full + ([rest] if rest else [])
+
+
+def geometry() -> tuple:
+    """This module's copy of the kernel's geometry, in the order
+    ``mg_smooth_var_geometry`` reports it."""
+    return (*TILE, THREADS, MAX_SWEEPS)
+
+
+@functools.cache
+def check_geometry() -> None:
+    """Raise unless the built kernel reports this module's geometry (once
+    per process)."""
+    got = (ctypes.c_int * 4)()
+    _build.launch("mg_smooth_var_geometry", got)
+    if tuple(got) != geometry():
+        raise RuntimeError(f"multisweep_var: the kernel's geometry is "
+                           f"{tuple(got)}, this module plans with "
+                           f"{geometry()}")
 
 
 def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
@@ -41,26 +85,23 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
     if any(t.shape != u.shape for t in (f, *st.coefs)):
         raise ValueError(f"multisweep_var: f and the planes must have u's "
                          f"shape {tuple(u.shape)}")
+    check_geometry()
+    passes = plan_passes(sweeps)
+    if not passes:
+        return u
     nx, ny = u.shape
     planes = [x.data_ptr() for x in st.coefs]
     dev, stream = u.device.index, _build.stream_of(u)
-    if method == "jacobi":
-        scratch = torch.empty_like(u)
-        src, dst = u, scratch
-        for _ in range(sweeps):
-            _build.launch("mg_jacobi_var", src.data_ptr(), dst.data_ptr(),
-                          f.data_ptr(), *planes, nx, ny, omega, dev, stream)
-            multisweep_var.launches += 1
-            src, dst = dst, src
-        if src is not u:
-            u.copy_(src)
-        return u
-    colors = (1, 0) if method == "rbgs_rev" else (0, 1)
-    for _ in range(sweeps):
-        for color in colors:
-            _build.launch("mg_rbgs_var_color", u.data_ptr(), f.data_ptr(),
-                          *planes, nx, ny, omega, color, dev, stream)
-            multisweep_var.launches += 1
+    # a separate output: neighbouring blocks read this block's nodes as
+    # their halo, so H cannot write u in place
+    out = torch.empty_like(u)
+    for k in passes:
+        _build.launch("mg_smooth_var", u.data_ptr(), f.data_ptr(), *planes,
+                      out.data_ptr(), nx, ny, omega, k,
+                      int(method == "jacobi"), int(method == "rbgs_rev"),
+                      dev, stream)
+        multisweep_var.launches += 1
+        u.copy_(out)
     return u
 
 

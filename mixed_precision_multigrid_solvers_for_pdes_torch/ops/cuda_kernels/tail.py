@@ -7,7 +7,10 @@ D replaces the Pallas ``tail_vcycle`` and J the Pallas ``tail_vcycle_var`` of
 (:170, :122) for all-Dirichlet hierarchies in fp32: D for
 constant-coefficient stencils, J for stencils with (nx, ny) coefficient
 planes on every level. The source notes in ``csrc/`` give the design and
-what bounds each kernel.
+what bounds each kernel. D walks the tail in one CTA over a workspace the
+wrapper allocates; J in the shared memory of one thread-block cluster, laid
+out by ``var_plan``, which ``check_var_plan`` holds against the library's
+own plan before a tail shape's first launch.
 
 On a CPU tensor ``tail_vcycle`` and ``tail_vcycle_var`` run the plain twin;
 on a CUDA tensor they launch their kernel or raise. ``tail_vcycle.launches``
@@ -17,6 +20,8 @@ and ``tail_vcycle_var.launches`` count launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -57,12 +62,17 @@ def _check_cuda(name: str, stencils, u, f, shapes) -> None:
         raise ValueError(f"{name}: f {tuple(f.shape)} != u {tuple(u.shape)}")
 
 
-def _workspace(shapes, u):
-    """(nx, ny) ctypes arrays and the workspace tensor of a tail launch."""
+def _shape_arrays(shapes):
+    """(nx, ny) of every level as ctypes int arrays."""
     L = len(shapes)
-    nx = (ctypes.c_int * L)(*(s[0] for s in shapes))
-    ny = (ctypes.c_int * L)(*(s[1] for s in shapes))
-    n = _build.library().lib.mg_tail_workspace_floats(L, nx, ny)
+    return ((ctypes.c_int * L)(*(s[0] for s in shapes)),
+            (ctypes.c_int * L)(*(s[1] for s in shapes)))
+
+
+def _workspace(shapes, u):
+    """(nx, ny) ctypes arrays and the workspace tensor of a D launch."""
+    nx, ny = _shape_arrays(shapes)
+    n = _build.library().lib.mg_tail_workspace_floats(len(shapes), nx, ny)
     return nx, ny, torch.empty(n, dtype=torch.float32, device=u.device)
 
 
@@ -127,12 +137,95 @@ def tail_vcycle(stencils: Sequence[Stencil], u, f, *,
 tail_vcycle.launches = 0
 
 
+# csrc/tail_var.cu's kCluster, kThreads, kMinBandRows, kWarpMaxNodes and
+# the shared memory a CTA may use (check_var_plan holds them, and var_plan,
+# against the library)
+CLUSTER = 8
+THREADS = 1024
+MIN_BAND_ROWS = 8
+WARP_MAX_NODES = 9 * 9
+MAX_SMEM_BYTES = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class VarPlan:
+    """How J lays a tail out: levels 0 .. ``split`` - 1 are cut into row
+    bands of ``band0 >> l`` rows, one per CTA of the cluster (the last CTA
+    takes the rest); the others are walked by CTA 0, from ``warp_from`` on
+    by its first warp alone. ``bytes``: shared memory per CTA."""
+
+    split: int
+    band0: int
+    warp_from: int
+    bytes: int
+
+    def band(self, level: int, rank: int, nx: int) -> Tuple[int, int]:
+        """Rows [row0, row1) of ``level`` (nx rows) that CTA ``rank``
+        holds."""
+        if level >= self.split:
+            return (0, nx)
+        b = self.band0 >> level
+        return rank * b, (nx if rank == CLUSTER - 1 else (rank + 1) * b)
+
+
+def var_plan(shapes: Sequence[Tuple[int, int]]) -> VarPlan:
+    """J's plan for a tail of ``shapes`` (``plan`` in csrc/tail_var.cu)."""
+    nx = [s[0] for s in shapes]
+    L = len(shapes)
+    split = 0
+    while split < L - 1 and nx[split] - 1 >= CLUSTER * MIN_BAND_ROWS:
+        split += 1
+    band0 = 0
+    while split > 0:
+        unit = CLUSTER << split
+        band0 = (1 << split) * -(-(nx[0] - 1) // unit)
+        if all((CLUSTER - 1) * (band0 >> lvl) < nx[lvl] - 1
+               for lvl in range(split)):
+            break
+        split -= 1
+    if split == 0:
+        band0 = 0
+    warp_from = L
+    for lvl in range(L - 1, split - 1, -1):
+        if shapes[lvl][0] * shapes[lvl][1] > WARP_MAX_NODES:
+            break
+        warp_from = lvl
+    floats = 0
+    for lvl, (n, m) in enumerate(shapes):
+        rows = n
+        if lvl < split:
+            b = band0 >> lvl
+            rows = max(b, n - (CLUSTER - 1) * b)
+        floats += 8 * rows * m   # u, f, r and the five planes
+    return VarPlan(split, band0, warp_from, 4 * floats)
+
+
+@functools.lru_cache(maxsize=64)
+def check_var_plan(shapes: Tuple[Tuple[int, int], ...]) -> None:
+    """Raise unless the built kernel reports this module's constants and
+    plan for ``shapes`` (once per tail shape and process)."""
+    got = (ctypes.c_int * 8)()
+    _build.launch("mg_tail_var_geometry", len(shapes), *_shape_arrays(shapes),
+                  got)
+    q = var_plan(shapes)
+    want = (CLUSTER, THREADS, MIN_BAND_ROWS, WARP_MAX_NODES, q.split,
+            q.band0, q.warp_from, q.bytes)
+    if tuple(got) != want:
+        raise RuntimeError(f"tail_vcycle_var: the kernel plans {tuple(got)} "
+                           f"for {shapes}, this module {want}")
+    if q.bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"tail_vcycle_var: a tail of {shapes} needs "
+                         f"{q.bytes} bytes of shared memory per CTA, more "
+                         f"than {MAX_SMEM_BYTES}")
+
+
 def tail_vcycle_var(stencils: Sequence[Stencil], u, f, *,
                     shapes: Sequence[Tuple[int, int]], pre: int, post: int,
                     omega: float, method: str = "rbgs",
                     coarse_sweeps: int = 32, symmetric: bool = False):
     """J: ``tail_vcycle`` for stencils whose leaves are (nx, ny) coefficient
-    planes on every level, in place on ``u``; returns ``u``."""
+    planes on every level, in place on ``u``; returns ``u``. One launch of
+    one thread-block cluster (``var_plan``)."""
     _check_method("tail_vcycle_var", method)
     if any(st.scalar for st in stencils):
         raise ValueError("tail_vcycle_var: every level needs a stencil with "
@@ -148,12 +241,13 @@ def tail_vcycle_var(stencils: Sequence[Stencil], u, f, *,
         if any(tuple(x.shape) != tuple(shape) for x in st.coefs):
             raise ValueError(f"tail_vcycle_var: planes must have their "
                              f"level's shape {tuple(shape)}")
+    shapes = tuple(tuple(s) for s in shapes)
+    check_var_plan(shapes)
     L = len(shapes)
-    nx, ny, work = _workspace(shapes, u)
     planes = (ctypes.c_void_p * (5 * L))(*(x.data_ptr() for st in stencils
                                            for x in st.coefs))
-    _build.launch("mg_tail_var_vcycle", u.data_ptr(), f.data_ptr(),
-                  work.data_ptr(), L, nx, ny, planes, pre, post, omega,
+    _build.launch("mg_tail_var_vcycle", u.data_ptr(), f.data_ptr(), L,
+                  *_shape_arrays(shapes), planes, pre, post, omega,
                   int(method == "jacobi"), coarse_sweeps, int(symmetric),
                   u.device.index, _build.stream_of(u))
     tail_vcycle_var.launches += 1

@@ -322,22 +322,28 @@ def _coef(g, coef):
 
 
 def _var_stencil(n, coef, dev, spec=bc.dirichlet()):
-    g = T.Grid(n, n)
+    """The stencil of an n x n grid, or of an (nx, ny) grid when n is a
+    pair."""
+    g = T.Grid(*((n, n) if isinstance(n, int) else n))
     return g, stencil.make_stencil(g, spec, a=_coef(g, coef), device=dev)
 
 
+# (70, 133): H's 32 x 64 tiles divide neither axis; 5 sweeps take two
+# launches (MAX_SWEEPS per launch)
 @pytest.mark.parametrize("coef", ["smooth", "jump"])
 @pytest.mark.parametrize("method,omega", [("rbgs", 1.0), ("rbgs_rev", 1.0),
                                           ("sor", 1.3), ("jacobi", 0.8)])
-@pytest.mark.parametrize("n,sweeps", [(257, 2), (129, 3), (5, 1)])
+@pytest.mark.parametrize("n,sweeps", [(257, 2), (129, 3), (5, 1),
+                                      ((70, 133), 5)])
 def test_multisweep_var_matches_twin(dev, n, sweeps, method, omega, coef):
     g, st = _var_stencil(n, coef, dev)
     u, f = _field(g.shape, 31, dev), _field(g.shape, 32, dev, 1e3)
     before = ksmooth_var.multisweep_var.launches
     got = ksmooth_var.multisweep_var(st, u.clone(), f, method=method,
                                      sweeps=sweeps, omega=omega)
-    per_sweep = 1 if method == "jacobi" else 2
-    assert ksmooth_var.multisweep_var.launches - before == per_sweep * sweeps
+    assert ksmooth_var.multisweep_var.launches - before == len(
+        ksmooth_var.plan_passes(sweeps))
+    assert len(ksmooth_var.plan_passes(2)) == 1
     _exact(got, ksmooth.multisweep_plain(st, u.clone(), f, method=method,
                                          sweeps=sweeps, omega=omega))
     assert torch.equal(got[0], u[0]) and torch.equal(got[:, -1], u[:, -1])
@@ -365,16 +371,19 @@ def test_residual_restrict_var_and_prolong_sides_match_twins(dev, n,
     assert torch.equal(got_u[fixed], u[fixed])
 
 
+# J's cluster plan: from 129^2 and (129, 65) two split levels, from 65^2 and
+# (65, 129) one, from 17^2 and 3^2 none (CTA 0 walks them all)
 @pytest.mark.parametrize("coef", ["smooth", "jump"])
 @pytest.mark.parametrize("entry,method,symmetric", [
     (129, "rbgs", False), (129, "rbgs", True), (65, "jacobi", False),
-    (3, "rbgs", False)])
+    (3, "rbgs", False), (65, "rbgs", True), (17, "rbgs", False),
+    ((129, 65), "rbgs", False), ((65, 129), "jacobi", False)])
 def test_tail_vcycle_var_matches_twin(dev, entry, method, symmetric, coef):
-    g = T.Grid(entry, entry)
+    shape = (entry, entry) if isinstance(entry, int) else entry
+    g = T.Grid(*shape)
     levels = T.build_hierarchy(g, a=_coef(g, coef), device=dev)
     sts = [lev.stencil for lev in levels]
-    u, f = _field((entry, entry), 36, dev), _field((entry, entry), 37, dev,
-                                                   1e3)
+    u, f = _field(shape, 36, dev), _field(shape, 37, dev, 1e3)
     kw = dict(shapes=[lev.grid.shape for lev in levels], pre=2, post=2,
               omega=0.8 if method == "jacobi" else 1.0, method=method,
               coarse_sweeps=32, symmetric=symmetric)
@@ -514,6 +523,21 @@ def test_copy2x_beyond_l2_matches_twin(dev):
 def test_rbgs3d_geometry_matches_the_library(dev):
     ksmooth3d.check_geometry.cache_clear()
     ksmooth3d.check_geometry()
+
+
+def test_smooth_var_geometry_matches_the_library(dev):
+    ksmooth_var.check_geometry.cache_clear()
+    ksmooth_var.check_geometry()
+
+
+@pytest.mark.parametrize("entry", [(129, 129), (129, 65), (65, 129),
+                                   (97, 49), (17, 17), (3, 3)])
+def test_tail_var_plan_matches_the_library(dev, entry):
+    levels = T.build_hierarchy(T.Grid(*entry), a=_coef(T.Grid(*entry),
+                                                      "smooth"), device=dev)
+    shapes = tuple(lev.grid.shape for lev in levels)
+    ktail.check_var_plan.cache_clear()
+    ktail.check_var_plan(shapes)
 
 
 def test_plane_and_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
