@@ -54,9 +54,8 @@ Phases, each of which must pass:
  14. time both paths per solve, and profile the jump solve;
      then H's device time per 2-sweep call (every device op of the call,
      the copy-back included) and launches per call at 1025^2, 513^2 and
-     257^2, J's device time per launch from entries 3^2 to 129^2 on the
-     jump tail, and the cost of one __syncwarp, __syncthreads and
-     cluster.sync (csrc/barriers.cu), J's latency yardstick.
+     257^2, and J's device time per launch from entries 3^2 to 129^2 on
+     the jump tail.
 The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
 1025^2 (level 0 held as four parity planes, smoothed by kernel K; levels
 >= 1 on kernels A-D) and the main path with the parity layout of kernel A
@@ -99,7 +98,8 @@ and its CUDA-event time; ir_solve3d at 513^3 (fp32 levels, tol 1e-9): wall
 ms per solve (minimum over 3 repeats of 2 right-hand sides), peak device
 memory, E's launches and the outer steps; H's 2-sweep call at 1025^2 and J
 from 129^2 on the jump hierarchy (CUDA events, device time per call or
-launch, H's host time per call and launches per call); the varcoef and jump
+launch, H's host time per call and launches per call) and H's device time
+per call at 513^2 and 257^2; the varcoef and jump
 solve_poisson calls (ms per solve, minimum over 3 after a warm-up). Only
 entry points both trees have are called. It prints one JSON line per set
 and a summary.
@@ -293,36 +293,6 @@ def device_ms_per_call(fn, reps: int = 10) -> float:
     fail(f"the profiler saw no device work in {reps} calls, three times")
 
 
-BARRIER_ITERS = 20000
-
-
-def barrier_costs(card, dev) -> dict:
-    """ns per barrier (csrc/barriers.cu): __syncwarp, __syncthreads with
-    1024 threads, cluster.sync at 2, 8 and 16 blocks of 1024 threads; a
-    launch of BARRIER_ITERS barriers against one of none, CUDA events."""
-    import torch
-
-    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
-        import _build
-
-    sink = torch.zeros(1, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    out = {}
-    for label, kind, cluster, threads in (
-            ("__syncwarp", 2, 1, 32), ("__syncthreads x1024", 0, 1, 1024),
-            ("cluster.sync 2x1024", 1, 2, 1024),
-            ("cluster.sync 8x1024", 1, 8, 1024),
-            ("cluster.sync 16x1024", 1, 16, 1024)):
-        ms = {}
-        for iters in (0, BARRIER_ITERS):
-            ms[iters] = time_ms(lambda: _build.launch(
-                "mg_barrier_probe", kind, cluster, threads, iters,
-                sink.data_ptr(), dev.index, stream), reps=5)
-        out[label] = (ms[BARRIER_ITERS] - ms[0]) * 1e6 / BARRIER_ITERS
-        print(f"barrier {label}: {out[label]:.1f} ns per barrier [{card}]")
-    return out
-
-
 def tail_var_entries(mg, card, dev) -> dict:
     """J's device ms per launch on the jump hierarchy's tail from entries
     3, 5, ..., 129: the differences are each level's cost."""
@@ -378,8 +348,8 @@ def smooth_var_per_call(mg, card, dev) -> dict:
         per_call = ksv.multisweep_var.launches - before
         out[n] = (device_ms_per_call(call, reps=20), per_call)
         print(f"H {n}^2 2-sweep RB-GS call: device {out[n][0]:.4f} ms per "
-              f"call (every device op), {per_call} launches per call "
-              f"[{card}]")
+              f"call (every device op), {per_call} launches per call, tile "
+              f"{ksv.tile(n, n)} [{card}]")
     return out
 
 
@@ -1357,6 +1327,12 @@ def ab_set(tree: str) -> dict:
     before = ksv.multisweep_var.launches
     call()
     out["H_launches_per_call"] = ksv.multisweep_var.launches - before
+    for lev in levels[1:VAR_UPPER_LEVELS]:
+        n, stn = lev.grid.nx, lev.stencil
+        un = torch.randn((n, n), generator=gen, device=dev)
+        fn = 1e3 * torch.randn((n, n), generator=gen, device=dev)
+        out[f"H{n}_device_ms_per_call"] = device_ms_per_call(
+            lambda: ksv.multisweep_var(stn, un, fn, sweeps=2), reps=20)
     tail = [lev for lev in levels if lev.grid.nx <= 129]
     sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
                                                    for lev in tail]
@@ -1544,7 +1520,6 @@ def main(argv) -> int:
           f"{dev_ms[('smooth_var', N_VAR)]:.4f} (target <= {H_TARGET_MS}) "
           f"[{card}]")
     dev_ms[("tail_vcycle_var", 129)] = tail_var_entries(mg, card, dev)[129]
-    barrier_costs(card, dev)
     torch.cuda.empty_cache()
 
     # ---- 3D path ----------------------------------------------------------

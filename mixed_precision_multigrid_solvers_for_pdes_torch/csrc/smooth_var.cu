@@ -12,12 +12,19 @@
 // because of the TPU's VMEM budget; the strips' halo is kept, at tile size.
 //
 // Design, in the image of kernel L (csrc/smooth_parity.cu):
-// - Each block owns a kTileX x kTileY tile of the interior (plus the ring
-//   next to it at the field's edge) and loads a window of u, f and the five
-//   planes into shared memory: the tile plus a halo of 2 * sweeps nodes per
-//   side for RB-GS/SOR, sweeps nodes for Jacobi, clamped to the field. The
-//   loads are 4-byte cp.async (rows of unpadded levels are not 16-byte
-//   aligned), all in flight at once.
+// - Each block owns a tile of the interior (plus the ring next to it at the
+//   field's edge) and loads a window of u, f and the five planes into shared
+//   memory: the tile plus a halo of 2 * sweeps nodes per side for RB-GS/SOR,
+//   sweeps nodes for Jacobi, clamped to the field. The loads are 4-byte
+//   cp.async (rows of unpadded levels are not 16-byte aligned), all in
+//   flight at once.
+// - The tile's size is the level's (tile_of): the largest of kTiles whose
+//   grid holds at least kMinBlocks blocks, about one per SM, else the
+//   smallest. A block's life (loads, 2 * sweeps phases, store) is a chain of
+//   latencies, so a level of far fewer blocks than SMs takes one such life
+//   whatever its size: smaller tiles give it more, shorter lives (257^2:
+//   8 x 64 tiles ~35% faster than 32 x 64). Once a level fills the SMs,
+//   smaller tiles only add halo (513^2 and 1025^2: 32 x 64 fastest; PERF.md).
 // - The block runs every sweep in shared memory, with __syncthreads()
 //   between colour phases (between sweeps for Jacobi, which ping-pongs
 //   between two u buffers). A node is updated only if it is an unknown of
@@ -31,7 +38,8 @@
 //   within a row.
 // - The tile goes to a separate output: neighbouring blocks load this
 //   block's nodes as their halo, so writing u in place would race. The
-//   wrapper copies the output back into u (ops/cuda_kernels/smooth_var.py).
+//   wrapper alternates u and that output across the launches of a call and
+//   copies the result back into u once (ops/cuda_kernels/smooth_var.py).
 // - A launch takes at most kMaxSweeps sweeps; the wrapper splits longer runs.
 //
 // Arithmetic: the twins' order with every operation rounded explicitly and
@@ -40,47 +48,65 @@
 //
 // Bound: device memory bandwidth. A call must read u, f and the five planes
 // once and write u once (32 bytes per node). H reads the windows (1.41x the
-// tile at 2 sweeps), writes the tile, and the wrapper's copy adds 8 bytes
-// per node; the 1025^2 level's 29 MB of inputs fit the 50 MB L2, so repeated
-// calls may read them from L2. What bounds it on the H100 is latency: a
-// block's life (loads, 2 * sweeps phases, store) is ~7 us, ~2 block lives
-// per call at 1025^2 with two blocks per SM (PERF.md).
+// tile at 2 sweeps with 32 x 64 tiles), writes the tile, and the wrapper's
+// copy adds 8 bytes per node; the 1025^2 level's 29 MB of inputs fit the
+// 50 MB L2, so repeated calls may read them from L2. What bounds it on the
+// H100 is latency: a block's life is ~7 us at 32 x 64 (PERF.md).
 #include "common.cuh"
 
 namespace {
 
 // The geometry below is this file's own: mg_smooth_var_geometry reports it,
 // ops/cuda_kernels/smooth_var.py checks its launch planning against that
-// report before the first launch, and the CPU schedule test reads it from
-// this file.
-constexpr int kTileX = 32;   // interior rows (i) per block
-constexpr int kTileY = 64;   // interior columns (j, contiguous) per block; even
+// report before a level's first launch, and the CPU schedule test reads it
+// from this file.
+struct Tile {
+  int x, y;  // interior rows (i) and columns (j, contiguous; even)
+};
+constexpr Tile kTiles[] = {{32, 64}, {16, 64}, {8, 64}};
+constexpr int kNumTiles = 3;
+static_assert(sizeof(kTiles) / sizeof(Tile) == kNumTiles);
+constexpr int kMinBlocks = 128;  // about one per SM of the H100's 132
 constexpr int kThreads = 512;
 constexpr int kMaxSweeps = 4;  // sweeps per launch
 
+__host__ __device__ constexpr int blocks_of(int nx, int ny, Tile t) {
+  return ((nx - 2 + t.x - 1) / t.x) * ((ny - 2 + t.y - 1) / t.y);
+}
+
+// The tile of an (nx, ny) level: an index into kTiles.
+int tile_of(int nx, int ny) {
+  for (int k = 0; k < kNumTiles - 1; ++k)
+    if (blocks_of(nx, ny, kTiles[k]) >= kMinBlocks) return k;
+  return kNumTiles - 1;
+}
+
 // Items (node pairs of a window row) a thread takes in an RB-GS phase, at
-// most: (kTileX + 4 kMaxSweeps - 2) rows of (kTileY / 2 + 2 kMaxSweeps).
-constexpr int kRbItems =
-    ((kTileX + 4 * kMaxSweeps - 2) * (kTileY / 2 + 2 * kMaxSweeps) +
-     kThreads - 1) /
-    kThreads;
+// most: (TX + 4 kMaxSweeps - 2) rows of (TY / 2 + 2 kMaxSweeps).
+__host__ __device__ constexpr int rb_items(int tx, int ty) {
+  return ((tx + 4 * kMaxSweeps - 2) * (ty / 2 + 2 * kMaxSweeps) + kThreads -
+          1) /
+         kThreads;
+}
 
 __host__ __device__ __forceinline__ int halo_of(int sweeps, bool jacobi) {
   return jacobi ? sweeps : 2 * sweeps;
 }
 
 // Floats of one window array (rows x row stride) at `halo`.
-__host__ __device__ __forceinline__ int window_floats(int halo) {
-  return (kTileX + 2 * halo) * (kTileY + 2 * halo);
+__host__ __device__ __forceinline__ int window_floats(int tx, int ty,
+                                                     int halo) {
+  return (tx + 2 * halo) * (ty + 2 * halo);
 }
 
 // u, f, c, w, e, s, n (and Jacobi's second u buffer).
-__host__ __forceinline__ int smem_bytes(int sweeps, bool jacobi) {
-  return (jacobi ? 8 : 7) * window_floats(halo_of(sweeps, jacobi)) *
+__host__ __forceinline__ int smem_bytes(int tx, int ty, int sweeps,
+                                        bool jacobi) {
+  return (jacobi ? 8 : 7) * window_floats(tx, ty, halo_of(sweeps, jacobi)) *
          (int)sizeof(float);
 }
 
-template <bool kJacobi>
+template <int kTileX, int kTileY, bool kJacobi>
 __global__ void __launch_bounds__(kThreads)
     smooth_var_kernel(const float* __restrict__ u, const float* __restrict__ f,
                       Planes5 p, float* __restrict__ out, int nx, int ny,
@@ -89,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
   const int halo = halo_of(sweeps, kJacobi);
   const int RS = kTileY + 2 * halo;  // row stride: two halves of HP
   const int HP = RS / 2;
-  const int PL = window_floats(halo);
+  const int PL = window_floats(kTileX, kTileY, halo);
   float* us = sm;
   float* fs = sm + PL;
   float* cs = sm + 2 * PL;
@@ -131,10 +157,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int ph = 0; ph < 2 * sweeps; ++ph) {
       const int color = (c0 + ph) & 1;
       __syncthreads();
-      float nv[kRbItems];
-      int at_self[kRbItems];
+      constexpr int kItems = rb_items(kTileX, kTileY);
+      float nv[kItems];
+      int at_self[kItems];
 #pragma unroll
-      for (int r = 0; r < kRbItems; ++r) {
+      for (int r = 0; r < kItems; ++r) {
         const int t = threadIdx.x + r * kThreads;
         const int li = 1 + t / HP, m = t - (li - 1) * HP;
         const int b = (color + wi0 + wj0 + li) & 1;
@@ -151,7 +178,7 @@ __global__ void __launch_bounds__(kThreads)
         at_self[r] = self;
       }
 #pragma unroll
-      for (int r = 0; r < kRbItems; ++r)
+      for (int r = 0; r < kItems; ++r)
         if (at_self[r] >= 0) us[at_self[r]] = nv[r];
     }
   } else {
@@ -193,20 +220,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kJacobi>
+template <int kTileX, int kTileY, bool kJacobi>
 cudaError_t launch(const float* u, const float* f, const Planes5& p,
                    float* out, int nx, int ny, float omega, int sweeps,
                    int c0, int device, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const auto kernel = smooth_var_kernel<kJacobi>;
-  const cudaError_t err =
-      allow_smem(kernel, smem_bytes(kMaxSweeps, kJacobi), device, done);
+  const auto kernel = smooth_var_kernel<kTileX, kTileY, kJacobi>;
+  const cudaError_t err = allow_smem(
+      kernel, smem_bytes(kTileX, kTileY, kMaxSweeps, kJacobi), device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((ny - 2 + kTileY - 1) / kTileY,
                   (nx - 2 + kTileX - 1) / kTileX);
-  kernel<<<grid, kThreads, smem_bytes(sweeps, kJacobi), stream>>>(
-      u, f, p, out, nx, ny, omega, sweeps, c0);
+  kernel<<<grid, kThreads, smem_bytes(kTileX, kTileY, sweeps, kJacobi),
+           stream>>>(u, f, p, out, nx, ny, omega, sweeps, c0);
   return cudaGetLastError();
+}
+
+template <int k>
+cudaError_t launch_tile(const float* u, const float* f, const Planes5& p,
+                        float* out, int nx, int ny, float omega, int sweeps,
+                        bool jacobi, int c0, int device, cudaStream_t st) {
+  constexpr Tile t = kTiles[k];
+  return jacobi ? launch<t.x, t.y, true>(u, f, p, out, nx, ny, omega, sweeps,
+                                         0, device, st)
+                : launch<t.x, t.y, false>(u, f, p, out, nx, ny, omega,
+                                          sweeps, c0, device, st);
 }
 
 }  // namespace
@@ -228,17 +266,28 @@ int mg_smooth_var(const float* u, const float* f, const float* c,
   if (err != cudaSuccess) return (int)err;
   const Planes5 p{c, w, e, s, n};
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(jacobi ? launch<true>(u, f, p, out, nx, ny, omega, sweeps, 0,
-                                     device, st)
-                      : launch<false>(u, f, p, out, nx, ny, omega, sweeps,
-                                      reverse ? 1 : 0, device, st));
+  const int c0 = reverse ? 1 : 0;
+  static_assert(kNumTiles == 3, "one case per tile");
+  switch (tile_of(nx, ny)) {
+    case 0:
+      return (int)launch_tile<0>(u, f, p, out, nx, ny, omega, sweeps, jacobi,
+                                 c0, device, st);
+    case 1:
+      return (int)launch_tile<1>(u, f, p, out, nx, ny, omega, sweeps, jacobi,
+                                 c0, device, st);
+    default:
+      return (int)launch_tile<2>(u, f, p, out, nx, ny, omega, sweeps, jacobi,
+                                 c0, device, st);
+  }
 }
 
-// H's geometry into out[4]: tile rows (i), tile columns (j), threads per
-// block, kMaxSweeps.
-int mg_smooth_var_geometry(int* out) {
-  const int g[4] = {kTileX, kTileY, kThreads, kMaxSweeps};
-  for (int i = 0; i < 4; ++i) out[i] = g[i];
+// H's geometry for an (nx, ny) level into out[6]: its tile's rows (i) and
+// columns (j), threads per block, kMaxSweeps, kMinBlocks, and the number of
+// tiles a level may take.
+int mg_smooth_var_geometry(int nx, int ny, int* out) {
+  const Tile t = kTiles[tile_of(nx, ny)];
+  const int g[6] = {t.x, t.y, kThreads, kMaxSweeps, kMinBlocks, kNumTiles};
+  for (int i = 0; i < 6; ++i) out[i] = g[i];
   return 0;
 }
 

@@ -18,7 +18,7 @@
 // unknown, each phase a chain of dependent shared-memory loads and an IEEE
 // division behind a barrier. On the H100 a __syncthreads() of 1024 threads
 // costs ~38 ns, a cluster barrier ~0.73 us whatever the cluster's size, a
-// __syncwarp() ~1.5 ns (csrc/barriers.cu, PERF.md), so cluster barriers
+// __syncwarp() ~1.5 ns (PERF.md), so cluster barriers
 // are kept to the levels too large for one SM.
 //
 // Design:
@@ -28,9 +28,10 @@
 //   16-byte aligned; CTA 0's own levels in a second group, awaited just
 //   before its walk) and writes the entry u back once at the end.
 // - The large levels (the first `ns`, whose rows number at least kCluster *
-//   kMinBandRows; 129^2 and 65^2 from a 129^2 entry) are split into row
-//   bands, one per CTA: rank r holds rows [r B_l, (r + 1) B_l) of level l
-//   (the last rank up to the end), with B_l = B_0 / 2^l even, so band starts
+//   kMinBandRows, and more while the rest would not fit a CTA's shared
+//   memory; 129^2 and 65^2 from a 129^2 entry) are split into row bands,
+//   one per CTA: rank r holds rows [r B_l, (r + 1) B_l) of level l (the
+//   last rank up to the end), with B_l = B_0 / 2^l even, so band starts
 //   are even on every split level and restriction and prolongation stay
 //   local to a CTA except for one halo row. A CTA reads its neighbours' edge
 //   rows straight from their shared memory (cluster.map_shared_rank) and
@@ -71,7 +72,7 @@ namespace {
 
 constexpr int kCluster = 8;           // CTAs of the cluster (portable size)
 constexpr int kThreads = 1024;        // threads per CTA
-constexpr int kMinBandRows = 8;       // a split level has >= kCluster * 8 rows
+constexpr int kMinBandRows = 8;       // levels of >= kCluster * 8 rows split
 constexpr int kWarpMaxNodes = 9 * 9;  // levels walked by one warp
 constexpr int kTailMaxLevels = 16;    // as kernel D
 constexpr int kArrays = 8;            // u, f, r, c, w, e, s, n per level
@@ -86,22 +87,27 @@ struct Plan {
   int bytes;      // dynamic shared memory per CTA
 };
 
-// The launch plan of a tail with `levels` levels of (nx[l], ny[l]) nodes.
-Plan plan(int levels, const int* nx, const int* ny) {
-  Plan q{};
-  int ns = 0;
-  while (ns < levels - 1 && nx[ns] - 1 >= kCluster * kMinBandRows) ++ns;
-  // B_0: a multiple of 2^ns covering the rows; fewer split levels if a
-  // band would be empty
-  for (; ns > 0; --ns) {
-    const int unit = kCluster << ns;
-    q.b0 = (1 << ns) * ((nx[0] - 1 + unit - 1) / unit);
-    bool ok = true;
+// B_0 of a tail whose first ns levels are split: the largest multiple of
+// 2^ns, at most nx[0] - 1 rows over kCluster rounded up, that leaves the
+// last CTA at least two rows of every split level; 0 when none does.
+int band0(int ns, const int* nx) {
+  const int unit = 1 << ns;
+  for (int b = unit * ((nx[0] - 1 + kCluster * unit - 1) / (kCluster * unit));
+       b >= unit; b -= unit) {
+    bool fits = true;
     for (int l = 0; l < ns; ++l)
-      ok = ok && (kCluster - 1) * (q.b0 >> l) < nx[l] - 1;
-    if (ok) break;
+      fits = fits && (kCluster - 1) * (b >> l) < nx[l] - 1;
+    if (fits) return b;
   }
-  if (ns == 0) q.b0 = 0;
+  return 0;
+}
+
+// The layout of a tail with `levels` levels of (nx[l], ny[l]) nodes whose
+// first `ns` levels are split (fewer when no band size fits them).
+Plan layout(int levels, const int* nx, const int* ny, int ns) {
+  Plan q{};
+  for (; ns > 0; --ns)
+    if ((q.b0 = band0(ns, nx)) > 0) break;
   q.ns = ns;
   q.warp_from = levels;
   for (int l = levels - 1; l >= ns && nx[l] * ny[l] <= kWarpMaxNodes; --l)
@@ -118,6 +124,22 @@ Plan plan(int levels, const int* nx, const int* ny) {
     off += kArrays * q.stride[l];
   }
   q.bytes = off * (int)sizeof(float);
+  return q;
+}
+
+// The launch plan: the levels of at least kCluster * kMinBandRows rows are
+// split; while a CTA's shared memory would overflow, the next level is split
+// too. Every tail of two or more levels from an entry of at most 129 x 129
+// then fits; a one-level tail (the coarsest solve alone) cannot be split and
+// fits up to 7264 nodes.
+Plan plan(int levels, const int* nx, const int* ny) {
+  int ns = 0;
+  while (ns < levels - 1 && nx[ns] - 1 >= kCluster * kMinBandRows) ++ns;
+  Plan q = layout(levels, nx, ny, ns);
+  for (int k = ns + 1; k < levels && q.bytes > kMaxSmemBytes; ++k) {
+    const Plan more = layout(levels, nx, ny, k);
+    if (more.bytes < q.bytes) q = more;
+  }
   return q;
 }
 

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "mg_rbgs_color": ([_P, _P, _I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_jacobi": ([_P, _P, _P, _I, _I] + [_F] * 6 + [_I, _P], _I),
     "mg_smooth_var": ([_P] * 8 + [_I, _I, _F] + [_I] * 4 + [_P], _I),
-    "mg_smooth_var_geometry": ([_IP], _I),
+    "mg_smooth_var_geometry": ([_I, _I, _IP], _I),
     "mg_residual_restrict": ([_P, _P, _P, _I, _I, _I] + [_F] * 5 + [_I, _P],
                              _I),
     "mg_residual_restrict_var": ([_P] * 8 + [_I] * 5 + [_I, _P], _I),
@@ -64,7 +64,6 @@ _SIGNATURES = {
     "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_probe_color": ([_P] * 3 + [_I] * 4 + [_I, _P], _I),
     "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _P], _I),
-    "mg_barrier_probe": ([_I] * 4 + [_P, _I, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -10,13 +10,16 @@ bounds it.
 
 On a CPU tensor ``multisweep_var`` runs the plain twin; on a CUDA tensor it
 launches the kernel or raises. The kernel runs up to ``MAX_SWEEPS`` sweeps
-per launch into a separate output, which is copied back into ``u``; longer
-calls take several launches (``plan_passes``). ``multisweep_var.launches``
-counts kernel launches: one per call at the multigrid cycle's 2 sweeps.
+per launch into a separate output; longer calls take several launches
+(``plan_passes``), alternating between ``u`` and that output, and the result
+is copied back into ``u`` once. ``multisweep_var.launches`` counts kernel
+launches: one per call at the multigrid cycle's 2 sweeps.
 
-The launch geometry is the kernel source's: ``check_geometry`` holds this
-module's copy against the built library before the first launch, and the
-CPU schedule test holds it against the source.
+The launch geometry is the kernel source's: a level takes the largest tile
+of ``TILES`` whose grid holds at least ``MIN_BLOCKS`` blocks (``tile``).
+``check_geometry`` holds this module's copy against the built library before
+a level shape's first launch, and the CPU schedule test holds it against the
+source.
 """
 
 from __future__ import annotations
@@ -30,10 +33,22 @@ from ..stencil import Stencil
 from . import _build
 from .smooth import RBGS, multisweep_plain
 
-# csrc/smooth_var.cu's kTileX, kTileY, kThreads, kMaxSweeps
-TILE = (32, 64)
+# csrc/smooth_var.cu's kTiles (rows, columns; largest first), kMinBlocks,
+# kThreads, kMaxSweeps
+TILES = ((32, 64), (16, 64), (8, 64))
+MIN_BLOCKS = 128
 THREADS = 512
 MAX_SWEEPS = 4
+
+
+def tile(nx: int, ny: int) -> tuple:
+    """The tile of an (nx, ny) level (``tile_of`` in csrc/smooth_var.cu):
+    the largest whose grid holds at least MIN_BLOCKS blocks, else the
+    smallest."""
+    for t in TILES[:-1]:
+        if -(-(nx - 2) // t[0]) * -(-(ny - 2) // t[1]) >= MIN_BLOCKS:
+            return t
+    return TILES[-1]
 
 
 def halo(sweeps: int, method: str) -> int:
@@ -48,22 +63,22 @@ def plan_passes(sweeps: int) -> list:
     return [MAX_SWEEPS] * full + ([rest] if rest else [])
 
 
-def geometry() -> tuple:
-    """This module's copy of the kernel's geometry, in the order
-    ``mg_smooth_var_geometry`` reports it."""
-    return (*TILE, THREADS, MAX_SWEEPS)
+def geometry(nx: int, ny: int) -> tuple:
+    """This module's copy of the kernel's geometry for an (nx, ny) level, in
+    the order ``mg_smooth_var_geometry`` reports it."""
+    return (*tile(nx, ny), THREADS, MAX_SWEEPS, MIN_BLOCKS, len(TILES))
 
 
-@functools.cache
-def check_geometry() -> None:
-    """Raise unless the built kernel reports this module's geometry (once
-    per process)."""
-    got = (ctypes.c_int * 4)()
-    _build.launch("mg_smooth_var_geometry", got)
-    if tuple(got) != geometry():
-        raise RuntimeError(f"multisweep_var: the kernel's geometry is "
-                           f"{tuple(got)}, this module plans with "
-                           f"{geometry()}")
+@functools.lru_cache(maxsize=64)
+def check_geometry(nx: int, ny: int) -> None:
+    """Raise unless the built kernel reports this module's geometry for an
+    (nx, ny) level (once per level shape and process)."""
+    got = (ctypes.c_int * 6)()
+    _build.launch("mg_smooth_var_geometry", nx, ny, got)
+    if tuple(got) != geometry(nx, ny):
+        raise RuntimeError(f"multisweep_var: the kernel's geometry at "
+                           f"({nx}, {ny}) is {tuple(got)}, this module plans "
+                           f"with {geometry(nx, ny)}")
 
 
 def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
@@ -85,23 +100,25 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
     if any(t.shape != u.shape for t in (f, *st.coefs)):
         raise ValueError(f"multisweep_var: f and the planes must have u's "
                          f"shape {tuple(u.shape)}")
-    check_geometry()
+    nx, ny = u.shape
+    check_geometry(nx, ny)
     passes = plan_passes(sweeps)
     if not passes:
         return u
-    nx, ny = u.shape
     planes = [x.data_ptr() for x in st.coefs]
     dev, stream = u.device.index, _build.stream_of(u)
     # a separate output: neighbouring blocks read this block's nodes as
-    # their halo, so H cannot write u in place
-    out = torch.empty_like(u)
+    # their halo, so H cannot write its input in place
+    src, dst = u, torch.empty_like(u)
     for k in passes:
-        _build.launch("mg_smooth_var", u.data_ptr(), f.data_ptr(), *planes,
-                      out.data_ptr(), nx, ny, omega, k,
+        _build.launch("mg_smooth_var", src.data_ptr(), f.data_ptr(), *planes,
+                      dst.data_ptr(), nx, ny, omega, k,
                       int(method == "jacobi"), int(method == "rbgs_rev"),
                       dev, stream)
         multisweep_var.launches += 1
-        u.copy_(out)
+        src, dst = dst, src
+    if src is not u:
+        u.copy_(src)
     return u
 
 

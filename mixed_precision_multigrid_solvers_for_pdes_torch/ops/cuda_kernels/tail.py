@@ -168,23 +168,30 @@ class VarPlan:
         return rank * b, (nx if rank == CLUSTER - 1 else (rank + 1) * b)
 
 
-def var_plan(shapes: Sequence[Tuple[int, int]]) -> VarPlan:
-    """J's plan for a tail of ``shapes`` (``plan`` in csrc/tail_var.cu)."""
+def _band0(split: int, nx: Sequence[int]) -> int:
+    """``band0`` in csrc/tail_var.cu: the largest multiple of 2^split, at
+    most the rows over CLUSTER rounded up, that leaves the last CTA two rows
+    of every split level; 0 when none does."""
+    unit = 1 << split
+    for b in range(unit * -(-(nx[0] - 1) // (CLUSTER * unit)), unit - 1,
+                   -unit):
+        if all((CLUSTER - 1) * (b >> lvl) < nx[lvl] - 1
+               for lvl in range(split)):
+            return b
+    return 0
+
+
+def _layout(shapes: Sequence[Tuple[int, int]], split: int) -> VarPlan:
+    """``layout`` in csrc/tail_var.cu: the first ``split`` levels split
+    (fewer when no band size fits them)."""
     nx = [s[0] for s in shapes]
     L = len(shapes)
-    split = 0
-    while split < L - 1 and nx[split] - 1 >= CLUSTER * MIN_BAND_ROWS:
-        split += 1
     band0 = 0
     while split > 0:
-        unit = CLUSTER << split
-        band0 = (1 << split) * -(-(nx[0] - 1) // unit)
-        if all((CLUSTER - 1) * (band0 >> lvl) < nx[lvl] - 1
-               for lvl in range(split)):
+        band0 = _band0(split, nx)
+        if band0:
             break
         split -= 1
-    if split == 0:
-        band0 = 0
     warp_from = L
     for lvl in range(L - 1, split - 1, -1):
         if shapes[lvl][0] * shapes[lvl][1] > WARP_MAX_NODES:
@@ -198,6 +205,32 @@ def var_plan(shapes: Sequence[Tuple[int, int]]) -> VarPlan:
             rows = max(b, n - (CLUSTER - 1) * b)
         floats += 8 * rows * m   # u, f, r and the five planes
     return VarPlan(split, band0, warp_from, 4 * floats)
+
+
+def var_plan(shapes: Sequence[Tuple[int, int]]) -> VarPlan:
+    """J's plan for a tail of ``shapes`` (``plan`` in csrc/tail_var.cu): the
+    levels of at least CLUSTER * MIN_BAND_ROWS rows split, and the next ones
+    too while a CTA's shared memory would overflow."""
+    L = len(shapes)
+    split = 0
+    while split < L - 1 and shapes[split][0] - 1 >= CLUSTER * MIN_BAND_ROWS:
+        split += 1
+    q = _layout(shapes, split)
+    for k in range(split + 1, L):
+        if q.bytes <= MAX_SMEM_BYTES:
+            break
+        more = _layout(shapes, k)
+        if more.bytes < q.bytes:
+            q = more
+    return q
+
+
+@functools.lru_cache(maxsize=64)
+def var_fits(shapes: Tuple[Tuple[int, int], ...]) -> bool:
+    """True when J takes a tail of ``shapes``: every tail of two or more
+    levels from an entry of at most 129 x 129 does; a one-level tail does up
+    to 7264 nodes."""
+    return var_plan(shapes).bytes <= MAX_SMEM_BYTES
 
 
 @functools.lru_cache(maxsize=64)

@@ -23,7 +23,11 @@ kernel I and prolongs with C, both given the per-side Dirichlet flags; a
 level with a Neumann/Robin side smooths on the plain path and has no tail
 kernel, as in the JAX package. A tail starts at the first level whose
 logical size is at most ``TAIL_MAX_ENTRY`` x ``TAIL_MAX_ENTRY``; that is
-where the TPU started its tail, and H100 gates await H100 measurements.
+where the TPU started its tail, and H100 gates await H100 measurements. J
+holds its tail in the shared memory of one thread-block cluster, which takes
+every tail of two or more levels from such an entry; a one-level tail of
+more than 7264 nodes (the coarsest solve alone) smooths with kernel H
+instead (``cuda_kernels.tail.var_fits``).
 Kernel A's wrapper picks the direct body (A) or the parity body (kernel L)
 by ``layout``, as the Pallas kernels do (``ops/cuda_kernels/smooth.py``).
 
@@ -142,6 +146,9 @@ def tail_ok(levels, lvl, cfg, cycle_type) -> bool:
         return False
     if len(tail) > k_tail.MAX_LEVELS:
         return False
+    if not tail[0].stencil.scalar and not k_tail.var_fits(
+            tuple(lev.grid.shape for lev in tail)):
+        return False  # J holds a tail in shared memory: too large a level
     return all(lev.dtype == torch.float32 and lev.spec.all_dirichlet
                for lev in tail)
 

@@ -328,13 +328,15 @@ def _var_stencil(n, coef, dev, spec=bc.dirichlet()):
     return g, stencil.make_stencil(g, spec, a=_coef(g, coef), device=dev)
 
 
-# (70, 133): H's 32 x 64 tiles divide neither axis; 5 sweeps take two
-# launches (MAX_SWEEPS per launch)
+# (70, 133): H's tiles divide neither axis; 5 sweeps take two launches
+# (MAX_SWEEPS per launch); 1025^2 takes its 32 x 64 tiles and (257, 513) its
+# 16 x 64 tiles, the other shapes 8 x 64
 @pytest.mark.parametrize("coef", ["smooth", "jump"])
 @pytest.mark.parametrize("method,omega", [("rbgs", 1.0), ("rbgs_rev", 1.0),
                                           ("sor", 1.3), ("jacobi", 0.8)])
 @pytest.mark.parametrize("n,sweeps", [(257, 2), (129, 3), (5, 1),
-                                      ((70, 133), 5)])
+                                      ((70, 133), 5), (1025, 2),
+                                      ((257, 513), 5)])
 def test_multisweep_var_matches_twin(dev, n, sweeps, method, omega, coef):
     g, st = _var_stencil(n, coef, dev)
     u, f = _field(g.shape, 31, dev), _field(g.shape, 32, dev, 1e3)
@@ -372,12 +374,15 @@ def test_residual_restrict_var_and_prolong_sides_match_twins(dev, n,
 
 
 # J's cluster plan: from 129^2 and (129, 65) two split levels, from 65^2 and
-# (65, 129) one, from 17^2 and 3^2 none (CTA 0 walks them all)
+# (65, 129) one, from 17^2 and 3^2 none (CTA 0 walks them all); (49, 129)
+# and (121, 129) split one more level than the row rule, to fit shared
+# memory
 @pytest.mark.parametrize("coef", ["smooth", "jump"])
 @pytest.mark.parametrize("entry,method,symmetric", [
     (129, "rbgs", False), (129, "rbgs", True), (65, "jacobi", False),
     (3, "rbgs", False), (65, "rbgs", True), (17, "rbgs", False),
-    ((129, 65), "rbgs", False), ((65, 129), "jacobi", False)])
+    ((129, 65), "rbgs", False), ((65, 129), "jacobi", False),
+    ((49, 129), "rbgs", True), ((121, 129), "jacobi", False)])
 def test_tail_vcycle_var_matches_twin(dev, entry, method, symmetric, coef):
     shape = (entry, entry) if isinstance(entry, int) else entry
     g = T.Grid(*shape)
@@ -525,13 +530,16 @@ def test_rbgs3d_geometry_matches_the_library(dev):
     ksmooth3d.check_geometry()
 
 
-def test_smooth_var_geometry_matches_the_library(dev):
+@pytest.mark.parametrize("shape", [(1025, 1025), (257, 513), (513, 513),
+                                   (257, 257), (5, 5)])
+def test_smooth_var_geometry_matches_the_library(dev, shape):
     ksmooth_var.check_geometry.cache_clear()
-    ksmooth_var.check_geometry()
+    ksmooth_var.check_geometry(*shape)
 
 
 @pytest.mark.parametrize("entry", [(129, 129), (129, 65), (65, 129),
-                                   (97, 49), (17, 17), (3, 3)])
+                                   (97, 49), (17, 17), (3, 3), (49, 129),
+                                   (121, 129), (51, 115)])
 def test_tail_var_plan_matches_the_library(dev, entry):
     levels = T.build_hierarchy(T.Grid(*entry), a=_coef(T.Grid(*entry),
                                                       "smooth"), device=dev)

@@ -6,11 +6,12 @@ loads a window of u, f and the five planes, the tile plus a halo of 2 nodes
 per RB-GS sweep (1 per Jacobi sweep) clamped to the field, runs every colour
 phase (every Jacobi sweep) on the window, updating only nodes off the
 window's border, and stores the tile into a separate output, which the
-wrapper copies back into u. The emulation below repeats that with torch ops
-on each window, colours taken from the global node index, at tiny tiles and
-at the kernel's own, on shapes the tiles do not divide. Every node is the
-twin's arithmetic, so the emulation must equal ``multisweep_plain`` bit for
-bit, and a halo one node short must break it.
+wrapper copies back into u; a level takes the largest of the kernel's tiles
+whose grid holds enough blocks. The emulation below repeats that with torch
+ops on each window, colours taken from the global node index, at tiny tiles
+and at each of the kernel's own, on shapes the tiles do not divide. Every
+node is the twin's arithmetic, so the emulation must equal
+``multisweep_plain`` bit for bit, and a halo one node short must break it.
 """
 
 import math
@@ -100,7 +101,8 @@ def _launch(st, src, f, *, method, sweeps, omega, tile, halo):
 
 
 def _emulate(st, u, f, *, method, sweeps, omega, tile, short=0):
-    """A call: its launches (plan_passes), each copied back into u."""
+    """A call: its launches (plan_passes), each sweeping the last one's
+    output."""
     for k in ksv.plan_passes(sweeps):
         u = _launch(st, u, f, method=method, sweeps=k, omega=omega,
                     tile=tile, halo=ksv.halo(k, method) - short)
@@ -129,37 +131,63 @@ def test_window_schedule_fails_with_a_halo_one_short(method, omega):
     assert not torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("tile", ksv.TILES)
 @pytest.mark.parametrize("method,omega", METHODS)
-def test_window_schedule_at_the_kernels_tile(method, omega):
-    shape = (70, 133)  # 3 x 3 tiles of 32 x 64, neither divides
+def test_window_schedule_at_the_kernels_tile(method, omega, tile):
+    shape = (70, 133)  # tiles of 32, 16 or 8 x 64 divide neither axis
     st, u, f = _problem(shape)
     ref = ksmooth.multisweep_plain(st, u.clone(), f, method=method, sweeps=2,
                                    omega=omega)
-    got = _emulate(st, u, f, method=method, sweeps=2, omega=omega,
-                   tile=ksv.TILE)
+    got = _emulate(st, u, f, method=method, sweeps=2, omega=omega, tile=tile)
     assert torch.equal(got, ref)
 
 
+def _source_geometry():
+    text = SOURCE.read_text()
+    exprs = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", text))
+    consts = {k: eval(exprs[k], {}) for k in ("kNumTiles", "kMinBlocks",
+                                              "kThreads", "kMaxSweeps")}
+    body = re.search(r"constexpr Tile kTiles\[\] = \{(.*?)\};", text,
+                     re.S).group(1)
+    tiles = tuple((int(a), int(b))
+                  for a, b in re.findall(r"\{(\d+), (\d+)\}", body))
+    return tiles, consts
+
+
 def test_launch_plan_and_geometry_are_the_kernel_sources():
-    """One launch per 2-sweep call; the geometry is the one
-    csrc/smooth_var.cu compiles, and its windows fit shared memory."""
-    exprs = dict(re.findall(r"constexpr int (\w+) = ([^;]+);",
-                            SOURCE.read_text()))
-    consts = [eval(exprs[k], {}) for k in ("kTileX", "kTileY", "kThreads",
-                                           "kMaxSweeps")]
-    assert ksv.geometry() == tuple(consts)
-    assert ksv.TILE[1] % 2 == 0
+    """One launch per 2-sweep call; the tiles are the ones
+    csrc/smooth_var.cu compiles, each level takes the largest whose grid
+    holds MIN_BLOCKS blocks, and every window fits shared memory."""
+    tiles, consts = _source_geometry()
+    assert tiles == ksv.TILES and consts["kNumTiles"] == len(tiles)
+    assert (consts["kMinBlocks"], consts["kThreads"], consts["kMaxSweeps"]) \
+        == (ksv.MIN_BLOCKS, ksv.THREADS, ksv.MAX_SWEEPS)
+    assert ksv.geometry(1025, 1025) == (*ksv.TILES[0], ksv.THREADS,
+                                        ksv.MAX_SWEEPS, ksv.MIN_BLOCKS,
+                                        len(ksv.TILES))
+    # the multigrid levels: 32 x 64 at 1025^2 and 513^2, 8 x 64 at 257^2
+    assert [ksv.tile(n, n) for n in (1025, 513, 257)] == \
+        [ksv.TILES[0], ksv.TILES[0], ksv.TILES[-1]]
+    assert sorted(tiles, reverse=True) == list(tiles)
     assert [len(ksv.plan_passes(s)) for s in (0, 1, 2, 4, 5, 9)] == \
         [0, 1, 1, 1, 2, 3]
     assert ksv.plan_passes(5) == [ksv.MAX_SWEEPS, 1]
-    for method, arrays in (("rbgs", 7), ("jacobi", 8)):
-        h = ksv.halo(ksv.MAX_SWEEPS, method)
-        nbytes = arrays * 4 * (ksv.TILE[0] + 2 * h) * (ksv.TILE[1] + 2 * h)
-        assert nbytes <= 232448
-    # two blocks per SM at the cycle's 2 RB-GS sweeps
-    h = ksv.halo(2, "rbgs")
-    assert 2 * 7 * 4 * (ksv.TILE[0] + 2 * h) * (ksv.TILE[1] + 2 * h) \
-        <= 232448
+    for nx, ny in ((1025, 1025), (513, 513), (257, 257), (257, 513),
+                   (513, 1025), (5, 5)):
+        t = ksv.tile(nx, ny)
+        blocks = [math.ceil((nx - 2) / a) * math.ceil((ny - 2) / b)
+                  for a, b in tiles]
+        k = tiles.index(t)
+        assert k == len(tiles) - 1 or blocks[k] >= ksv.MIN_BLOCKS
+        assert all(n < ksv.MIN_BLOCKS for n in blocks[:k])
+    for t in tiles:
+        assert t[1] % 2 == 0
+        for method, arrays in (("rbgs", 7), ("jacobi", 8)):
+            h = ksv.halo(ksv.MAX_SWEEPS, method)
+            assert arrays * 4 * (t[0] + 2 * h) * (t[1] + 2 * h) <= 232448
+        # two blocks per SM at the cycle's 2 RB-GS sweeps
+        h = ksv.halo(2, "rbgs")
+        assert 2 * 7 * 4 * (t[0] + 2 * h) * (t[1] + 2 * h) <= 232448
 
 
 def test_multisweep_var_on_cpu_runs_the_twin_in_place():

@@ -24,6 +24,7 @@ import torch
 import mixed_precision_multigrid_solvers_for_pdes_torch as T
 from mixed_precision_multigrid_solvers_for_pdes_torch.core import bc
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
+    dispatch,
     smooth as smooth_mod,
     stencil as st_mod,
     transfer as transfer_mod,
@@ -35,8 +36,10 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels.transfer 
     import coarse_shape, prolong_correct_plain
 
 SOURCE = Path(T.__file__).parent / "csrc" / "tail_var.cu"
+# (49, 129) and (121, 129): levels split past the row rule so that the
+# tail fits a CTA's shared memory
 ENTRIES = [(129, 129), (65, 65), (17, 17), (3, 3), (129, 65), (65, 129),
-           (97, 49)]
+           (97, 49), (49, 129), (121, 129)]
 
 
 def _hierarchy(entry):
@@ -221,6 +224,48 @@ def test_plan_of_the_129_tail():
             assert all(rows[r][1] == rows[r + 1][0]
                        for r in range(kt.CLUSTER - 1))
     assert kt.var_plan([(3, 3)]) == kt.VarPlan(0, 0, 0, 4 * 8 * 9)
+    # fitted by bytes: 49 rows split into bands of 6 (row rule: none);
+    # from 121 rows the 61-row level splits too, in bands of 8
+    for entry, split_band0 in (((49, 129), (1, 6)), ((121, 129), (2, 16))):
+        q = kt.var_plan(_hierarchy(entry)[0])
+        assert (q.split, q.band0) == split_band0
+
+
+def _chain(entry):
+    """Every level shape of the hierarchy below ``entry``."""
+    shapes = [entry]
+    while T.Grid(*shapes[-1]).can_coarsen():
+        shapes.append(coarse_shape(*shapes[-1]))
+    return shapes
+
+
+def test_every_tail_of_two_or_more_levels_fits():
+    """Each tail a V-cycle may hand J from an entry of at most 129 x 129
+    (any shape, any number of levels from two on) fits a CTA's shared
+    memory, in bands that leave the last CTA two rows or more; a one-level
+    tail fits up to 7264 nodes."""
+    for nx in range(3, 130):
+        for ny in range(3, 130):
+            chain = _chain((nx, ny))
+            for L in range(2, len(chain) + 1):
+                q = kt.var_plan(chain[:L])
+                assert q.bytes <= kt.MAX_SMEM_BYTES, chain[:L]
+                for lvl in range(q.split):
+                    n = chain[lvl][0]
+                    b = q.band0 >> lvl
+                    assert b % 2 == 0 and (kt.CLUSTER - 1) * b < n - 1
+            one = [chain[0]]
+            assert kt.var_fits(tuple(one)) == (nx * ny <= 7264)
+
+
+@pytest.mark.parametrize("max_levels,takes_j", [(1, False), (2, True)])
+def test_the_cycle_takes_j_only_where_it_fits(max_levels, takes_j):
+    g = T.Grid(129, 129)
+    X, Y = g.coordinates()
+    cfg = T.MultigridConfig(max_levels=max_levels)
+    levels = T.build_hierarchy(g, a=1.0 + X + Y, cfg=cfg, device="cpu")
+    assert len(levels) == max_levels
+    assert dispatch.tail_ok(levels, 0, cfg, "V") == takes_j
 
 
 def test_constants_are_the_kernel_sources():
