@@ -17,14 +17,21 @@ Phases, each of which must pass:
   1. print the card (nvidia-smi name and power limit) and the host's tools;
   2. build the CUDA kernels from csrc/ with nvcc and print the build time;
   3. hold each 2D kernel (A-D) against its plain PyTorch twin on the card at
-     the 2D path's shapes, and time both with CUDA events;
+     the 2D path's shapes, and time both with CUDA events; hold D from
+     129^2 against the same V-cycle run through A, B and C launches (the
+     tail gate shut) and report whether they agree bit for bit;
   4. solve the 2D path with backend='auto' (the kernels), from launch
      counts reset to zero, and check the iteration count, the error against
-     the exact solution and that every kernel launched;
+     the exact solution, that every kernel launched, and that A and D made
+     exactly their planned launches (48 and 16 in the 3-step solve);
   5. solve it again with backend='torch' (the plain path on the card) and
      check that both paths agree;
   6. time both 2D paths over 16 frequency-swept right-hand sides as bench.py
-     does, and print per-solve ms and DoF/s;
+     does, and print per-solve ms and DoF/s; profile one kernel-path solve
+     (device ops and busy share); read with torch.profiler A's and L's
+     device time per 2-sweep call at 1025^2, 513^2 and 257^2, B's and C's
+     per call at 1025^2, and D's per launch on the main tail from entries
+     3^2 to 129^2;
   7. hold each 3D kernel (E-G) against its twin at 513^3, 257^3, 129^3 and
      5^3, bit for bit (E also reversed, with omega != 1, with 3 sweeps at
      257^3, and with the coarsest solve's 32 sweeps at 5^3 and 3^3), time
@@ -54,8 +61,8 @@ Phases, each of which must pass:
  14. time both paths per solve, and profile the jump solve;
      then H's device time per 2-sweep call (every device op of the call,
      the copy-back included) and launches per call at 1025^2, 513^2 and
-     257^2, and J's device time per launch from entries 3^2 to 129^2 on
-     the jump tail.
+     257^2, J's device time per launch from entries 3^2 to 129^2 on the
+     jump tail, and I's device time per call at 1025^2.
 The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
 1025^2 (level 0 held as four parity planes, smoothed by kernel K; levels
 >= 1 on kernels A-D) and the main path with the parity layout of kernel A
@@ -66,7 +73,7 @@ The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
      bit, and L against A; time A, K and L per 2-sweep call at 1025^2 in
      turns; the copy (also exact at 8192^2) against torch.mul in turns at
      1025^2 and 8192^2, bandwidth and device time per launch
-     (torch.profiler) in every turn;
+     (torch.profiler) in every turn; K's device time per call at 1025^2;
  16. solve the 1025^2 main path (FMG, IR) with PARITY_DEFAULT on, from
      launch counts reset to zero: L launches, A's RB-GS does not, 3 outer
      steps, u equal to the direct layout's bit for bit; time it;
@@ -85,26 +92,30 @@ The kernels' JSON record gives each kernel's bound: its compulsory bytes
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failure exits non-zero.
 
-With --against DIR it instead times this checkout against another commit of
-the port unpacked into DIR (for example ``git archive <commit> | tar -x -C
-DIR``), in fresh processes whose import path holds one tree each, taking
-turns DIR, this, this, DIR. A set is: E's 2-sweep call at 513^3 (CUDA
-events, device time per launch, launches per call); F's 513^3 -> 257^3 and
-G's 257^3 -> 513^3 call and u.mul_(2.0) at 513^3 (CUDA events, device time
-per launch); the copy and torch.mul
-at 1025^2 and 8192^2 (CUDA events, device time per launch); the host time
-to enqueue kernel A's 2-sweep call at 1025^2 (minimum over 5 x 200 calls)
-and its CUDA-event time; ir_solve3d at 513^3 (fp32 levels, tol 1e-9): wall
-ms per solve (minimum over 3 repeats of 2 right-hand sides), peak device
-memory, E's launches and the outer steps; H's 2-sweep call at 1025^2 and J
-from 129^2 on the jump hierarchy (CUDA events, device time per call or
-launch, H's host time per call and launches per call) and H's device time
-per call at 513^2 and 257^2; the varcoef and jump
-solve_poisson calls (ms per solve, minimum over 3 after a warm-up). Only
-entry points both trees have are called. It prints one JSON line per set
-and a summary.
+With --against DIR [DIR ...] it instead times this checkout against other
+commits of the port, each unpacked into a DIR (for example ``git archive
+<commit> | tar -x -C DIR``), in fresh processes whose import path holds one
+tree each, taking turns DIR, this, this, DIR for each DIR. A set is: E's
+2-sweep call at 513^3 (CUDA events, device time per launch, launches per
+call); F's 513^3 -> 257^3 and G's 257^3 -> 513^3 call and u.mul_(2.0) at
+513^3 (CUDA events, device time per launch); the copy and torch.mul at
+1025^2 and 8192^2 (CUDA events, device time per launch); the host time to
+enqueue kernel A's 2-sweep call at 1025^2 (minimum over 5 x 200 calls) and
+its CUDA-event time; A's and L's device time per 2-sweep call at 1025^2,
+513^2 and 257^2 (every device op of a call); D's CUDA-event and device time
+per launch from 129^2 on the main path's tail; the 1025^2 main-path solve
+(FMG, IR; minimum of 5 after a warm-up, one right-hand side); ir_solve3d at
+513^3 (fp32 levels, tol 1e-9): wall ms per solve (minimum over 3 repeats of
+2 right-hand sides), peak device memory, E's launches and the outer steps;
+H's 2-sweep call at 1025^2 and J from 129^2 on the jump hierarchy (CUDA
+events, device time per call or launch, H's host time per call and launches
+per call) and H's device time per call at 513^2 and 257^2; the varcoef and
+jump solve_poisson calls (ms per solve, minimum over 3 after a warm-up).
+With --2d a set is its 2D Poisson part alone (kernels A, D, L and the main
+path). Only entry points both trees have are called. It prints one JSON
+line per set and a summary.
 
-Usage: python3 chip_smoke.py [--against DIR]
+Usage: python3 chip_smoke.py [--against DIR [DIR ...] [--2d]]
        (needs one CUDA card; imports no JAX)
 """
 
@@ -353,6 +364,26 @@ def smooth_var_per_call(mg, card, dev) -> dict:
     return out
 
 
+def var_transfer_device(mg, card, dev) -> float:
+    """I's device ms per 1025^2 -> 513^2 call on the varcoef hierarchy."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import transfer as kx
+
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    prob = mg.variable_coefficient_mms(N_VAR)
+    st = mg.build_hierarchy(prob.grid, prob.spec, a=prob.a, device=dev,
+                            cfg=cfg)[0].stencil
+    gen = torch.Generator(device=dev).manual_seed(531)
+    u = torch.randn((N_VAR, N_VAR), generator=gen, device=dev)
+    f = 1e3 * torch.randn((N_VAR, N_VAR), generator=gen, device=dev)
+    ms = device_ms_per_call(lambda: kx.residual_restrict_var(st, u, f), 20)
+    print(f"I {N_VAR}->{(N_VAR - 1) // 2 + 1}: device {ms:.4f} ms per call "
+          f"[{card}]")
+    return ms
+
+
 def kernel_phase(levels, cfg, dev):
     """Phase 3: each kernel against its twin at the main path's shapes."""
     import torch
@@ -417,9 +448,106 @@ def kernel_phase(levels, cfg, dev):
                                            **tail_kw)),
             time_ms(lambda: kt.tail_vcycle_plain(sts, u0.clone(), f,
                                                  shapes=shapes, **tail_kw)))
+    # D against the same cycle run through A, B and C launches: the tail
+    # gate shut, the coarsest sweeps on A
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import dispatch
+    from mixed_precision_multigrid_solvers_for_pdes_torch.solvers import \
+        multigrid
+    lvl = next(k for k, lev in enumerate(levels) if lev.grid.nx <= 129)
+    f = field(levels[lvl].grid.shape, levels[lvl].stencil.c)
+    u0 = torch.zeros_like(f)
+    got = dispatch.tail_vcycle(levels, lvl, u0.clone(), f, cfg)
+    saved, dispatch.TAIL_MAX_ENTRY = dispatch.TAIL_MAX_ENTRY, 0
+    try:
+        ref = multigrid._cycle(levels, u0.clone(), f, lvl, cfg, "V")
+    finally:
+        dispatch.TAIL_MAX_ENTRY = saved
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    print(f"check tail_vcycle 129^2 against the A/B/C recursion: max_abs_err "
+          f"{err:.3e} ({'bit for bit' if err == 0 else 'NOT bit for bit'})")
+    if err > KERNEL_RTOL * ref.abs().max().item():
+        fail(f"D disagrees with the A/B/C recursion ({err:.3e})")
     for (name, n), (k_ms, p_ms) in times.items():
         print(f"time {name} {n}^2: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     return errs, times
+
+
+def main_path_device(levels, card):
+    """Device time on the card (torch.profiler): A's and L's ms per 2-sweep
+    call at 1025^2, 513^2 and 257^2 (every device op of the call, L's
+    copy-back included) with A's launches per call, B's and C's ms per call
+    at 1025^2, and D's ms per launch on the main path's tail from entries
+    3^2 .. 129^2 (the differences are each level's cost)."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, tail as kt, transfer as kx
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(97)
+    out = {}
+    for lev in levels[:3]:
+        n, st = lev.grid.nx, lev.stencil
+        u = torch.randn((n, n), generator=gen, device=dev)
+        f = st.c * torch.randn((n, n), generator=gen, device=dev)
+        before = ks.multisweep.launches
+        ks.multisweep(st, u, f, layout="direct")
+        per_call = ks.multisweep.launches - before
+        a = device_ms_per_call(lambda: ks.multisweep(st, u, f,
+                                                     layout="direct"), 20)
+        el = device_ms_per_call(lambda: ks.multisweep_parity(st, u, f), 20)
+        out[("smooth_multisweep", n)], out[("smooth_parity", n)] = a, el
+        print(f"A {n}^2 2-sweep RB-GS call: device {a:.4f} ms per call "
+              f"(every device op), {per_call} launches per call, tile "
+              f"{ks.tile(n, n)}; L {el:.4f} ms per call (copy-back "
+              f"included) [{card}]")
+        if per_call != len(ks.plan_passes(2)):
+            fail(f"A made {per_call} launches in a 2-sweep call at {n}^2")
+        if n == N:
+            nc = (n - 1) // 2 + 1
+            ec = torch.randn((nc, nc), generator=gen, device=dev)
+            out[("residual_restrict", n)] = device_ms_per_call(
+                lambda: kx.residual_restrict(st, u, f), 20)
+            out[("prolong_correct", n)] = device_ms_per_call(
+                lambda: kx.prolong_correct(ec, u), 20)
+            print(f"B {n}->{nc}: device {out[('residual_restrict', n)]:.4f} "
+                  f"ms per call; C {nc}->{n}: "
+                  f"{out[('prolong_correct', n)]:.4f} ms per call [{card}]")
+    cfg_kw = dict(pre=2, post=2, omega=1.0, method="rbgs", coarse_sweeps=32,
+                  symmetric=False)
+    entries = {}
+    for entry in (3, 5, 9, 17, 33, 65, 129):
+        tail = [lev for lev in levels if lev.grid.nx <= entry]
+        sts = [lev.stencil for lev in tail]
+        shapes = [lev.grid.shape for lev in tail]
+        f = sts[0].c * torch.randn(shapes[0], generator=gen, device=dev)
+        u = torch.zeros(shapes[0], device=dev)
+        entries[entry] = device_ms(lambda: kt.tail_vcycle(
+            sts, u, f, shapes=shapes, **cfg_kw), "tail_vcycle", reps=20)
+    print("D device ms per launch by entry (main tail): " + ", ".join(
+        f"{e}^2 {ms:.4f}" for e, ms in entries.items()) + f" [{card}]")
+    out[("tail_vcycle", 129)] = entries[129]
+    return out
+
+
+def main_path_launches(levels, cfg, iterations):
+    """(A's, D's) launches in one main-path solve, FMG then ``iterations``
+    outer steps of IR_INNER_CYCLES cycles: FMG starts one cycle from every
+    level and the outer steps theirs from level 0; a cycle started above
+    the tail smooths twice on each level above the tail down to the tail
+    (A's planned passes per call) and launches D once, one started in the
+    tail launches D once."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks
+
+    upper = sum(lev.grid.nx > 129 for lev in levels)
+    per_cycle = (len(ks.plan_passes(cfg.pre_sweeps))
+                 + len(ks.plan_passes(cfg.post_sweeps)))
+    starts = [1] * upper
+    starts[0] += iterations * IR_INNER_CYCLES
+    a = sum(n * per_cycle * (upper - lvl) for lvl, n in enumerate(starts))
+    return a, len(levels) - upper + sum(starts)
 
 
 def solve(mg, levels, prob, cfg, f, dev):
@@ -1002,12 +1130,15 @@ def kernel_phase_parity(levels, card, dev):
     print("turns at 1025^2, ms per 2-sweep call: " + ", ".join(
         f"{name} {np.mean(t):.4f} ({t[0]:.4f}, {t[1]:.4f})"
         for name, t in turns.items()) + f" [{card}]")
+    k_dev = device_ms_per_call(calls["K"], reps=20)
+    print(f"K {N}^2 planes 2-sweep call: device {k_dev:.4f} ms per call "
+          f"(every device op) [{card}]")
     # the copy and torch.mul in turns (copy mul mul copy): CUDA events and
     # device time per launch (torch.profiler), each read in every turn
     big = torch.randn(N_COPY_HBM, N_COPY_HBM, device=dev)
     compare("copy", f"{N_COPY_HBM}^2", kb.copy2x, kb.copy2x_plain,
             lambda: (big,), errs, exact=True)
-    rates, dev_ms = {}, {}
+    rates, dev_ms = {}, {("smooth_planes", N): k_dev}
     calls = {"copy": kb.copy2x, "torch.mul": lambda a: torch.mul(a, 2.0)}
     kernel_of = {"copy": "copy2x", "torch.mul": "elementwise"}
     for label, arr in ((f"{N}^2", u), (f"{N_COPY_HBM}^2", big)):
@@ -1229,26 +1360,9 @@ def bound(name):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def ab_set(tree: str) -> dict:
-    """One measurement set of --against, on the package under ``tree``."""
-    sys.path.insert(0, tree)
+def _ab_3d_and_copy(mg, kb, stencil3d, ks3, kx3, dev, gen, out):
+    """--against: E, F, G and u.mul_ at 513^3; the copy and torch.mul."""
     import torch
-
-    import mixed_precision_multigrid_solvers_for_pdes_torch as mg
-    from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking \
-        import kernel_microbench as kb
-    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
-        stencil3d
-    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
-        import _build, smooth as ks, smooth3d as ks3, transfer3d as kx3
-
-    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(mg.__file__)))
-    if os.path.realpath(pkg_root) != os.path.realpath(tree):
-        fail(f"--against: imported the package from {pkg_root}, not {tree}")
-    dev = torch.device("cuda", 0)
-    _build.library()
-    gen = torch.Generator(device=dev).manual_seed(11)
-    out = {}
 
     st3 = stencil3d.make_stencil3d(mg.Grid3D(N3, N3, N3))
     u = torch.randn((N3,) * 3, generator=gen, device=dev)
@@ -1284,6 +1398,12 @@ def ab_set(tree: str) -> dict:
         del a
     torch.cuda.empty_cache()
 
+
+def _ab_2d(mg, ks, dev, gen, out):
+    """--against: A's host and device time per call, L's and D's device
+    time, and the main-path solve."""
+    import torch
+
     prob = mg.poisson_mms_sinsin(N)
     cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
     st2 = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
@@ -1301,11 +1421,79 @@ def ab_set(tree: str) -> dict:
     torch.cuda.synchronize()
     out["A_host_us_per_call"] = min(host) * 1e6
     out["A_ms"] = time_ms(call, reps=200)
+    # A's and L's device time per 2-sweep call on the main path's levels,
+    # D's per launch from 129^2 on its tail, and the main-path solve
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import tail as kt
+    levels2 = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                                 device=dev, cfg=cfg)
+    for lev in levels2[:3]:
+        n, stn = lev.grid.nx, lev.stencil
+        un = torch.randn((n, n), generator=gen, device=dev)
+        fn = stn.c * torch.randn((n, n), generator=gen, device=dev)
+        out[f"A{n}_device_ms_per_call"] = device_ms_per_call(
+            lambda: ks.multisweep(stn, un, fn, layout="direct"), reps=20)
+        out[f"L{n}_device_ms_per_call"] = device_ms_per_call(
+            lambda: ks.multisweep_parity(stn, un, fn), reps=20)
+    tail = [lev for lev in levels2 if lev.grid.nx <= 129]
+    sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
+                                                   for lev in tail]
+    ud = torch.zeros(shapes[0], device=dev)
+    fd = sts[0].c * torch.randn(shapes[0], generator=gen, device=dev)
+    call = lambda: kt.tail_vcycle(  # noqa: E731
+        sts, ud, fd, shapes=shapes, pre=cfg.pre_sweeps, post=cfg.post_sweeps,
+        omega=cfg.omega, method=cfg.smoother, coarse_sweeps=cfg.coarse_sweeps,
+        symmetric=cfg.symmetric)
+    out["D_ms"] = time_ms(call, reps=50)
+    out["D_device_ms"] = device_ms(call, "tail_vcycle", reps=20)
+    f2 = prob.rhs(torch.float64, dev)
+    u0 = prob.initial_guess(torch.float64, dev)
+    walls = []
+    for _ in range(6):   # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, info = mg.ir_solve(levels2, f2, u0, cfg, inner_cycles=2,
+                              max_outer=100, use_fmg=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["solve2d_ms"] = min(walls[1:]) * 1e3
+    out["solve2d_iterations"] = int(info["iterations"])
+    del levels2, un, fn
+
+
+def ab_set(tree: str, only_2d: bool = False) -> dict:
+    """One measurement set of --against, on the package under ``tree``
+    (with ``only_2d``, its 2D Poisson part alone)."""
+    sys.path.insert(0, tree)
+    import torch
+
+    import mixed_precision_multigrid_solvers_for_pdes_torch as mg
+    from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking \
+        import kernel_microbench as kb
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
+        stencil3d
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import _build, smooth as ks, smooth3d as ks3, transfer3d as kx3
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(mg.__file__)))
+    if os.path.realpath(pkg_root) != os.path.realpath(tree):
+        fail(f"--against: imported the package from {pkg_root}, not {tree}")
+    dev = torch.device("cuda", 0)
+    _build.library()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+
+    if not only_2d:
+        _ab_3d_and_copy(mg, kb, stencil3d, ks3, kx3, dev, gen, out)
+    _ab_2d(mg, ks, dev, gen, out)
+    if only_2d:
+        return out
 
     # H's 2-sweep call at 1025^2 and J from 129^2 on the jump hierarchy,
     # and the varcoef and jump solves
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
         import smooth_var as ksv, tail as kt
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
     jump = mg.jump_coefficient_problem(N_VAR, 1e3)
     levels = mg.build_hierarchy(jump.grid, jump.spec, a=jump.a, device=dev,
                                 cfg=cfg)
@@ -1381,31 +1569,36 @@ def ab_set(tree: str) -> dict:
     return out
 
 
-def against(other: str) -> int:
-    """--against DIR: sets on DIR and on this checkout, in turns."""
+def against(others, only_2d: bool = False) -> int:
+    """--against DIR [DIR ...]: sets on each DIR and on this checkout, in
+    turns (DIR, this, this, DIR for each)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    other = os.path.abspath(other)
     sets = []
-    for label, tree in (("other", other), ("this", here), ("this", here),
-                        ("other", other)):
-        run = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--ab-set", tree],
-            cwd=tree, capture_output=True, text=True, timeout=900)
-        if run.returncode != 0:
-            print(run.stdout[-2000:] + run.stderr[-4000:], file=sys.stderr)
-            fail(f"--against: the set on {tree} failed")
-        rec = json.loads(run.stdout.strip().splitlines()[-1])
-        sets.append(rec | {"tree": label})
-        print(json.dumps(sets[-1]))
+    for other in map(os.path.abspath, others):
+        name = os.path.basename(other.rstrip("/"))
+        for label, tree in ((name, other), ("this", here), ("this", here),
+                            (name, other)):
+            cmd = [sys.executable, os.path.abspath(__file__), "--ab-set",
+                   tree] + (["--2d"] if only_2d else [])
+            run = subprocess.run(cmd, cwd=tree, capture_output=True,
+                                 text=True, timeout=900)
+            if run.returncode != 0:
+                print(run.stdout[-2000:] + run.stderr[-4000:],
+                      file=sys.stderr)
+                fail(f"--against: the set on {tree} failed")
+            rec = json.loads(run.stdout.strip().splitlines()[-1])
+            sets.append(rec | {"tree": label})
+            print(json.dumps(sets[-1]))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    labels = list(dict.fromkeys(r["tree"] for r in sets))
     for key in sets[0]:
         if key != "tree":
             print(f"{key}: " + " ".join(
                 f"{lab} {[r[key] for r in sets if r['tree'] == lab]}"
-                for lab in ("other", "this")) + f" [{card}]")
+                for lab in labels) + f" [{card}]")
     return 0
 
 
@@ -1416,14 +1609,16 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    if len(argv) == 2 and argv[0] == "--ab-set":
-        print(json.dumps(ab_set(argv[1])))
+    only_2d = "--2d" in argv
+    args = [a for a in argv if a != "--2d"]
+    if len(args) == 2 and args[0] == "--ab-set":
+        print(json.dumps(ab_set(args[1], only_2d)))
         return 0
-    if len(argv) == 2 and argv[0] == "--against":
-        return against(argv[1])
+    if len(args) >= 2 and args[0] == "--against":
+        return against(args[1:], only_2d)
     if argv:
-        print("usage: python3 chip_smoke.py [--against DIR]",
-              file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--against DIR [DIR ...] "
+              "[--2d]]", file=sys.stderr)
         return 2
     import mixed_precision_multigrid_solvers_for_pdes_torch as mg
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
@@ -1473,6 +1668,13 @@ def main(argv) -> int:
     missing = [name for name, c in launches.items() if c <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    a_plan, d_plan = main_path_launches(levels, cfg, info_k["iterations"])
+    print(f"main path: A {launches['smooth_multisweep']} launches (plan "
+          f"{a_plan}), D {launches['tail_vcycle']} (plan {d_plan})")
+    if (launches["smooth_multisweep"], launches["tail_vcycle"]) != \
+            (a_plan, d_plan):
+        fail(f"A and D launches {launches} differ from the plan "
+             f"({a_plan}, {d_plan})")
 
     cfg_plain = cfg.replace(backend="torch")
     u_p, info_p = solve(mg, levels, prob, cfg_plain, f, dev)
@@ -1491,10 +1693,16 @@ def main(argv) -> int:
     for label, t in (("kernels (auto)", t_k), ("plain (torch)", t_p)):
         print(f"solve time {label}: {t * 1e3:.3f} ms per solve, "
               f"{dofs / t:.6e} DoF/s [{card}]")
+    u0 = prob.initial_guess(torch.float64, dev)
+    profile_solve(f"main path {N}^2", lambda: mg.ir_solve(
+        levels, f, u0, cfg, inner_cycles=2, max_outer=100, use_fmg=True),
+        wrappers)
+    dev_ms = main_path_device(levels, card)
 
     # ---- parity paths: kernels K, L and M -------------------------------
-    errs_par, times_par, library, copy_rate, dev_ms = kernel_phase_parity(
-        levels, card, dev)
+    errs_par, times_par, library, copy_rate, dev_ms_par = \
+        kernel_phase_parity(levels, card, dev)
+    dev_ms.update(dev_ms_par)
     errs.update(errs_par)
     times.update(times_par)
     launches["smooth_parity"] = parity_main_path(mg, levels, prob, cfg, f,
@@ -1520,6 +1728,8 @@ def main(argv) -> int:
           f"{dev_ms[('smooth_var', N_VAR)]:.4f} (target <= {H_TARGET_MS}) "
           f"[{card}]")
     dev_ms[("tail_vcycle_var", 129)] = tail_var_entries(mg, card, dev)[129]
+    dev_ms[("residual_restrict_var", N_VAR)] = var_transfer_device(mg, card,
+                                                                   dev)
     torch.cuda.empty_cache()
 
     # ---- 3D path ----------------------------------------------------------

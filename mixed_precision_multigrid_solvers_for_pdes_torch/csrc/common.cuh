@@ -44,6 +44,24 @@ __device__ __forceinline__ float rbgs_scalar_update(float p, float f, float W,
   return __fadd_rn(p, __fmul_rn(omega, __fsub_rn(gs, p)));
 }
 
+// Weighted-Jacobi value of a node from the same operands:
+// p + (omega*(f - (c*p - (w*W + e*E + s*S + n*N))))*inv_c, every operation
+// rounded explicitly in the plain twin's order, which divides by c where
+// this multiplies by inv_c (kernels A and D).
+__device__ __forceinline__ float jacobi_scalar_update(float p, float f,
+                                                      float W, float E,
+                                                      float S, float N,
+                                                      const Stencil5& st,
+                                                      float inv_c,
+                                                      float omega) {
+  float acc = __fmul_rn(st.w, W);
+  acc = __fadd_rn(acc, __fmul_rn(st.e, E));
+  acc = __fadd_rn(acc, __fmul_rn(st.s, S));
+  acc = __fadd_rn(acc, __fmul_rn(st.n, N));
+  const float r = __fsub_rn(f, __fsub_rn(__fmul_rn(st.c, p), acc));
+  return __fadd_rn(p, __fmul_rn(__fmul_rn(omega, r), inv_c));
+}
+
 // f - A u at an interior node.
 __device__ __forceinline__ float residual_at(const float* u, const float* f,
                                              long idx, int ny,

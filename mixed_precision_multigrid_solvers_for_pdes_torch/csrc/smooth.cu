@@ -1,5 +1,6 @@
 // Kernel A: multi-sweep smoothing (RB-GS / SOR / weighted Jacobi) with a
-// constant-coefficient 5-point stencil on an all-Dirichlet rectangle.
+// constant-coefficient 5-point stencil on an all-Dirichlet rectangle: every
+// sweep of a call in one launch, out of place.
 //
 // Replaces the Pallas kernels multisweep (whole level in VMEM) and
 // multisweep_strips (double-buffered row strips with a redundant halo) of
@@ -7,57 +8,243 @@
 // (:290 and :507). On Hopper one kernel covers both: the whole-grid/strip
 // split existed only because of the TPU's VMEM budget.
 //
-// Design: one launch per colour half-sweep (2*sweeps launches per call for
-// RB-GS), one thread per interior node; a thread whose node has the other
-// colour exits at once. A colour update reads only nodes of the other colour
-// plus its own, so the in-place update has no race. The colour is that of
-// the global index, red where (i + j) is even. Jacobi reads src and writes
-// every node of dst (the ring copied), ping-ponging with a scratch array.
+// What bounds it: device memory bandwidth. A call must read u and f and
+// write u once (12 bytes per node, 3.76 us at 1025^2 at 3.35 TB/s). One
+// launch per colour phase (this kernel's first design) moved that much per
+// phase and paid a launch for each; a row wavefront with one ring of rows
+// per block or per warp (kernel E's pattern in 2D) paid more per row step
+// than it saved (PERF.md).
 //
-// Bound: device memory bandwidth. Each half-sweep reads f and u and writes u
-// for its colour: about 12 bytes per node of the colour, plus the
-// neighbour reads, which mostly hit L1/L2 since neighbouring threads share
-// them. A full RB-GS sweep moves ~24 bytes per node, where the TPU kernel
-// moved ~12/sweeps by keeping the level resident. Temporal blocking of
-// several sweeps in shared memory is the next step and not done here.
+// Design, in the image of kernel H (csrc/smooth_var.cu) with no planes:
+// - Each block owns a tile of the interior (plus the ring next to it at the
+//   field's edge) and loads a window of u and f into shared memory: the tile
+//   plus a halo of P nodes per side, clamped to the field, where P is the
+//   number of phases of the launch: 2 per RB-GS sweep (one per colour), 1
+//   per Jacobi sweep. The loads are 4-byte cp.async (rows of unpadded
+//   levels are not 16-byte aligned), all in flight at once.
+// - The tile's size is the level's (tile_of): the largest of kTiles whose
+//   grid holds at least kMinBlocks blocks, about one per SM, else the
+//   smallest.
+// - The block runs every sweep in shared memory, with __syncthreads()
+//   between colour phases (between sweeps for Jacobi, which ping-pongs
+//   between two u buffers). A node is updated only if it is off the
+//   window's border. A stale border value travels one node per phase, so
+//   after the call the tile, P nodes in, is exact; where the window is
+//   clamped its border is the field's fixed ring, which is exact too.
+// - Each window row keeps its even and odd columns in two halves, so the
+//   nodes of one colour in a row, and each of their four neighbour sets, are
+//   consecutive words. A thread computes all its items of a phase before it
+//   stores any (a phase reads only the other colour and each node's own old
+//   value), so their loads overlap.
+// - The tile goes to a separate output: neighbouring blocks load this
+//   block's nodes as their halo, so writing u in place would race. The
+//   wrapper returns that output (ops/cuda_kernels/smooth.py); u is left as
+//   it was.
+// - A launch takes at most kMaxSweeps sweeps; the wrapper splits longer
+//   runs.
 //
-// The update multiplies by 1/c (computed once in fp32 on the host), as the
-// Pallas kernel does; the plain twin divides by c. The two differ by one
-// rounding per update. The RB-GS update rounds every operation explicitly in
-// the Pallas body's operand order (rbgs_scalar_update), as kernels K and L
-// do, so the direct and the parity layouts agree bit for bit.
+// Arithmetic: the Pallas sweep bodies' per-node updates with 1/c computed
+// once in fp32 on the host and every operation rounded explicitly
+// (common.cuh: rbgs_scalar_update, jacobi_scalar_update), as kernels K and
+// L do, so the direct and the parity layouts agree bit for bit; the plain
+// twin divides by c, one rounding apart per update.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;  // along j, the contiguous axis
-constexpr int kBlockY = 8;   // along i
+// The geometry below is this file's own: mg_smooth_geometry reports it,
+// ops/cuda_kernels/smooth.py checks its launch planning against that report
+// before a level's first launch, and the CPU schedule test reads it from
+// this file.
+struct Tile {
+  int x, y;  // interior rows (i) and columns (j, contiguous; even)
+};
+constexpr Tile kTiles[] = {{64, 64}, {32, 64}, {8, 64}};
+constexpr int kNumTiles = 3;
+static_assert(sizeof(kTiles) / sizeof(Tile) == kNumTiles);
+constexpr int kMinBlocks = 128;  // about one per SM of the H100's 132
+constexpr int kThreads = 512;
+constexpr int kMaxSweeps = 4;  // sweeps per launch
 
-__global__ void rbgs_color_kernel(float* u, const float* __restrict__ f,
-                                  int nx, int ny, Stencil5 st, float inv_c,
-                                  float omega, int color) {
-  const int j = blockIdx.x * kBlockX + threadIdx.x + 1;
-  const int i = blockIdx.y * kBlockY + threadIdx.y + 1;
-  if (i >= nx - 1 || j >= ny - 1 || ((i + j) & 1) != color) return;
-  const long idx = (long)i * ny + j;
-  u[idx] = rbgs_scalar_update(u[idx], f[idx], u[idx - ny], u[idx + ny],
-                              u[idx - 1], u[idx + 1], st, inv_c, omega);
+__host__ __device__ constexpr int blocks_of(int nx, int ny, Tile t) {
+  return ((nx - 2 + t.x - 1) / t.x) * ((ny - 2 + t.y - 1) / t.y);
 }
 
-__global__ void jacobi_kernel(const float* __restrict__ src,
-                              float* __restrict__ dst,
-                              const float* __restrict__ f, int nx, int ny,
-                              Stencil5 st, float inv_c, float omega) {
-  const int j = blockIdx.x * kBlockX + threadIdx.x;
-  const int i = blockIdx.y * kBlockY + threadIdx.y;
-  if (i >= nx || j >= ny) return;
-  const long idx = (long)i * ny + j;
-  float v = src[idx];
-  if (i > 0 && i < nx - 1 && j > 0 && j < ny - 1) {
-    const float r = f[idx] - (st.c * v - neighbor_sum(src, idx, ny, st));
-    v = v + omega * r * inv_c;
+// The tile of an (nx, ny) level: an index into kTiles.
+int tile_of(int nx, int ny) {
+  for (int k = 0; k < kNumTiles - 1; ++k)
+    if (blocks_of(nx, ny, kTiles[k]) >= kMinBlocks) return k;
+  return kNumTiles - 1;
+}
+
+__host__ __device__ constexpr int halo_of(int sweeps, bool jacobi) {
+  return jacobi ? sweeps : 2 * sweeps;
+}
+
+// Items (node pairs of a window row) a thread takes in an RB-GS phase, at
+// most: (TX + 2 halo - 2) rows of (TY / 2 + halo).
+__host__ __device__ constexpr int rb_items(int tx, int ty, int halo) {
+  return ((tx + 2 * halo - 2) * (ty / 2 + halo) + kThreads - 1) / kThreads;
+}
+
+// Floats of one window array (rows x row stride) at `halo`.
+__host__ __device__ constexpr int window_floats(int tx, int ty, int halo) {
+  return (tx + 2 * halo) * (ty + 2 * halo);
+}
+
+// u and f (and Jacobi's second u buffer).
+__host__ __device__ constexpr int smem_bytes(int tx, int ty, int sweeps,
+                                             bool jacobi) {
+  return (jacobi ? 3 : 2) * window_floats(tx, ty, halo_of(sweeps, jacobi)) *
+         (int)sizeof(float);
+}
+
+// Every geometry value is a compile-time constant of the instantiation, so
+// a thread's index arithmetic is shifts and multiplies.
+template <int kTileX, int kTileY, int kSweeps, bool kJacobi>
+__global__ void __launch_bounds__(kThreads)
+    smooth_kernel(const float* __restrict__ u, const float* __restrict__ f,
+                  float* __restrict__ out, int nx, int ny, Stencil5 st,
+                  float inv_c, float omega, int c0) {
+  extern __shared__ float sm[];
+  constexpr int halo = halo_of(kSweeps, kJacobi);
+  constexpr int RS = kTileY + 2 * halo;  // row stride: two halves of HP
+  constexpr int HP = RS / 2;
+  constexpr int PL = window_floats(kTileX, kTileY, halo);
+  float* us = sm;
+  float* fs = sm + PL;
+  float* vs = sm + 2 * PL;  // Jacobi only
+
+  const int ai = 1 + blockIdx.y * kTileX, bi = min(ai + kTileX, nx - 1);
+  const int aj = 1 + blockIdx.x * kTileY, bj = min(aj + kTileY, ny - 1);
+  const int wi0 = max(ai - halo, 0), wx = min(bi + halo, nx) - wi0;
+  const int wj0 = max(aj - halo, 0), wy = min(bj + halo, ny) - wj0;
+  auto at = [&](int li, int lj) { return li * RS + (lj & 1) * HP + (lj >> 1); };
+
+  for (int t = threadIdx.x; t < wx * wy; t += kThreads) {
+    const int li = t / wy, lj = t - li * wy;
+    const long g = (long)(wi0 + li) * ny + (wj0 + lj);
+    const int s = at(li, lj);
+    cp_async4(us + s, u + g, true);
+    if (kJacobi) cp_async4(vs + s, u + g, true);
+    cp_async4(fs + s, f + g, true);
   }
-  dst[idx] = v;
+  cp_async_commit();
+  cp_async_wait<0>();
+
+  const float* fin = us;
+  if (!kJacobi) {
+    // phase ph updates colour (c0 + ph) & 1; item (row li, m) is the node
+    // of that colour among columns 2m, 2m + 1 of the row
+    for (int ph = 0; ph < 2 * kSweeps; ++ph) {
+      const int color = (c0 + ph) & 1;
+      __syncthreads();
+      constexpr int kItems = rb_items(kTileX, kTileY, halo);
+      float nv[kItems];
+      int at_self[kItems];
+#pragma unroll
+      for (int r = 0; r < kItems; ++r) {
+        const int t = threadIdx.x + r * kThreads;
+        const int li = 1 + t / HP, m = t - (li - 1) * HP;
+        const int b = (color + wi0 + wj0 + li) & 1;
+        const int lj = 2 * m + b;
+        at_self[r] = -1;
+        if (t >= (wx - 2) * HP || lj < 1 || lj > wy - 2) continue;
+        const int self = li * RS + b * HP + m;
+        const int sj = b ? self - HP : self + HP - 1;  // (li, lj - 1)
+        const int nj = b ? self - HP + 1 : self + HP;  // (li, lj + 1)
+        nv[r] = rbgs_scalar_update(us[self], fs[self], us[self - RS],
+                                   us[self + RS], us[sj], us[nj], st, inv_c,
+                                   omega);
+        at_self[r] = self;
+      }
+#pragma unroll
+      for (int r = 0; r < kItems; ++r)
+        if (at_self[r] >= 0) us[at_self[r]] = nv[r];
+    }
+  } else {
+    float* src = us;
+    float* dst = vs;
+    for (int sw = 0; sw < kSweeps; ++sw) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < (wx - 2) * RS; t += kThreads) {
+        const int li = 1 + t / RS, rem = t - (li - 1) * RS;
+        const int b = rem >= HP, m = rem - b * HP;
+        const int lj = 2 * m + b;
+        if (lj < 1 || lj > wy - 2) continue;
+        const int self = li * RS + rem;
+        const int sj = b ? self - HP : self + HP - 1;
+        const int nj = b ? self - HP + 1 : self + HP;
+        dst[self] = jacobi_scalar_update(src[self], fs[self], src[self - RS],
+                                         src[self + RS], src[sj], src[nj],
+                                         st, inv_c, omega);
+      }
+      float* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+    fin = src;
+  }
+  __syncthreads();
+
+  // the tile (with the ring next to it at the field's edge) -> out
+  int lo_i, hi_i, lo_j, hi_j;
+  tile_span(blockIdx.y, kTileX, nx, &lo_i, &hi_i);
+  tile_span(blockIdx.x, kTileY, ny, &lo_j, &hi_j);
+  const int ty = hi_j - lo_j;
+  for (int t = threadIdx.x; t < (hi_i - lo_i) * ty; t += kThreads) {
+    const int i = t / ty, j = t - i * ty;
+    out[(long)(lo_i + i) * ny + lo_j + j] =
+        fin[at(lo_i + i - wi0, lo_j + j - wj0)];
+  }
+}
+
+template <int kTileX, int kTileY, int kSweeps, bool kJacobi>
+cudaError_t launch(const float* u, const float* f, float* out, int nx, int ny,
+                   const Stencil5& st, float omega, int c0, int device,
+                   cudaStream_t stream) {
+  static bool done[kMaxDevices] = {};
+  const auto kernel = smooth_kernel<kTileX, kTileY, kSweeps, kJacobi>;
+  constexpr int bytes = smem_bytes(kTileX, kTileY, kSweeps, kJacobi);
+  const cudaError_t err = allow_smem(kernel, bytes, device, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((ny - 2 + kTileY - 1) / kTileY,
+                  (nx - 2 + kTileX - 1) / kTileX);
+  kernel<<<grid, kThreads, bytes, stream>>>(u, f, out, nx, ny, st,
+                                            1.0f / st.c, omega, c0);
+  return cudaGetLastError();
+}
+
+template <int k, int kSweeps>
+cudaError_t launch_sweeps(const float* u, const float* f, float* out, int nx,
+                          int ny, const Stencil5& st, float omega, bool jacobi,
+                          int c0, int device, cudaStream_t stream) {
+  constexpr Tile t = kTiles[k];
+  return jacobi ? launch<t.x, t.y, kSweeps, true>(u, f, out, nx, ny, st,
+                                                  omega, 0, device, stream)
+                : launch<t.x, t.y, kSweeps, false>(u, f, out, nx, ny, st,
+                                                   omega, c0, device, stream);
+}
+
+template <int k>
+cudaError_t launch_tile(const float* u, const float* f, float* out, int nx,
+                        int ny, const Stencil5& st, float omega, int sweeps,
+                        bool jacobi, int c0, int device, cudaStream_t stream) {
+  static_assert(kMaxSweeps == 4, "one case per sweep count");
+  switch (sweeps) {
+    case 1:
+      return launch_sweeps<k, 1>(u, f, out, nx, ny, st, omega, jacobi, c0,
+                                 device, stream);
+    case 2:
+      return launch_sweeps<k, 2>(u, f, out, nx, ny, st, omega, jacobi, c0,
+                                 device, stream);
+    case 3:
+      return launch_sweeps<k, 3>(u, f, out, nx, ny, st, omega, jacobi, c0,
+                                 device, stream);
+    default:
+      return launch_sweeps<k, 4>(u, f, out, nx, ny, st, omega, jacobi, c0,
+                                 device, stream);
+  }
 }
 
 }  // namespace
@@ -69,33 +256,42 @@ const char* mg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// One RB-GS/SOR half-sweep of colour `color` (0 = red) in place on u.
-int mg_rbgs_color(float* u, const float* f, int nx, int ny, float c, float w,
-                  float e, float s, float n, float omega, int color,
-                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// `sweeps` (1 .. kMaxSweeps) sweeps of u, written to out (every node of out
+// is written; u and f are only read, and out must not alias them): weighted
+// Jacobi when `jacobi`, else RB-GS/SOR, red first, black first when
+// `reverse`.
+int mg_smooth(const float* u, const float* f, float* out, int nx, int ny,
+              float c, float w, float e, float s, float n, float omega,
+              int sweeps, int jacobi, int reverse, int device, void* stream) {
+  if (sweeps < 1 || sweeps > kMaxSweeps || nx < 3 || ny < 3)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const Stencil5 st{c, w, e, s, n};
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((ny - 2 + kBlockX - 1) / kBlockX,
-                  (nx - 2 + kBlockY - 1) / kBlockY);
-  rbgs_color_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      u, f, nx, ny, st, 1.0f / c, omega, color);
-  return (int)cudaGetLastError();
+  const cudaStream_t t = (cudaStream_t)stream;
+  const int c0 = reverse ? 1 : 0;
+  static_assert(kNumTiles == 3, "one case per tile");
+  switch (tile_of(nx, ny)) {
+    case 0:
+      return (int)launch_tile<0>(u, f, out, nx, ny, st, omega, sweeps, jacobi,
+                                 c0, device, t);
+    case 1:
+      return (int)launch_tile<1>(u, f, out, nx, ny, st, omega, sweeps, jacobi,
+                                 c0, device, t);
+    default:
+      return (int)launch_tile<2>(u, f, out, nx, ny, st, omega, sweeps, jacobi,
+                                 c0, device, t);
+  }
 }
 
-// One weighted-Jacobi sweep src -> dst (every node of dst is written).
-int mg_jacobi(const float* src, float* dst, const float* f, int nx, int ny,
-              float c, float w, float e, float s, float n, float omega,
-              int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const Stencil5 st{c, w, e, s, n};
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((ny + kBlockX - 1) / kBlockX, (nx + kBlockY - 1) / kBlockY);
-  jacobi_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      src, dst, f, nx, ny, st, 1.0f / c, omega);
-  return (int)cudaGetLastError();
+// A's geometry for an (nx, ny) level into out[6]: its tile's rows (i) and
+// columns (j), threads per block, kMaxSweeps, kMinBlocks, and the number of
+// tiles a level may take.
+int mg_smooth_geometry(int nx, int ny, int* out) {
+  const Tile t = kTiles[tile_of(nx, ny)];
+  const int g[6] = {t.x, t.y, kThreads, kMaxSweeps, kMinBlocks, kNumTiles};
+  for (int i = 0; i < 6; ++i) out[i] = g[i];
+  return 0;
 }
 
 }  // extern "C"

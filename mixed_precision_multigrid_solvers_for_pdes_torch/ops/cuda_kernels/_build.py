@@ -40,17 +40,17 @@ _IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "mg_rbgs_color": ([_P, _P, _I, _I] + [_F] * 6 + [_I, _I, _P], _I),
-    "mg_jacobi": ([_P, _P, _P, _I, _I] + [_F] * 6 + [_I, _P], _I),
+    "mg_smooth": ([_P, _P, _P, _I, _I] + [_F] * 6 + [_I] * 4 + [_P], _I),
+    "mg_smooth_geometry": ([_I, _I, _IP], _I),
     "mg_smooth_var": ([_P] * 8 + [_I, _I, _F] + [_I] * 4 + [_P], _I),
     "mg_smooth_var_geometry": ([_I, _I, _IP], _I),
     "mg_residual_restrict": ([_P, _P, _P, _I, _I, _I] + [_F] * 5 + [_I, _P],
                              _I),
     "mg_residual_restrict_var": ([_P] * 8 + [_I] * 5 + [_I, _P], _I),
     "mg_prolong_correct": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "mg_tail_workspace_floats": ([_I, _IP, _IP], ctypes.c_long),
-    "mg_tail_vcycle": ([_P, _P, _P, _I, _IP, _IP, _FP, _I, _I, _F, _I, _I,
+    "mg_tail_vcycle": ([_P, _P, _I, _IP, _IP, _FP, _I, _I, _F, _I, _I,
                         _I, _I, _P], _I),
+    "mg_tail_geometry": ([_I, _IP, _IP, _IP], _I),
     "mg_tail_var_vcycle": ([_P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
                             _I, _I, _I, _P], _I),
     "mg_tail_var_geometry": ([_I, _IP, _IP, _IP], _I),

@@ -14,14 +14,25 @@ the designs and what bounds them.
 ``PARITY_DEFAULT``. Jacobi and the reversed colour order ('rbgs_rev') always
 take the direct body: the parity body sweeps red then black only.
 
-On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
-launches its kernel or raises. ``multisweep.launches`` counts A's launches
-(one per colour half-sweep, one per Jacobi sweep),
-``multisweep_parity.launches`` counts L's (one per call of up to
-``MAX_PARITY_SWEEPS`` sweeps).
+On a CPU tensor each wrapper runs its plain twin in place and returns
+``u``; on a CUDA tensor it launches its kernel or raises. A runs up to
+``MAX_SWEEPS`` sweeps per launch into a separate output and returns that
+output, leaving ``u`` untouched; longer calls take several launches
+(``plan_passes``). L updates ``u`` in place and returns it.
+``multisweep.launches`` counts A's launches, ``multisweep_parity.launches``
+L's (one per call of up to ``MAX_PARITY_SWEEPS`` sweeps).
+
+A's launch geometry is the kernel source's: a level takes the largest tile
+of ``TILES`` whose grid holds at least ``MIN_BLOCKS`` blocks (``tile``).
+``check_geometry`` holds this module's copy against the built library
+before a level shape's first launch, and the CPU schedule test holds it
+against the source.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -36,6 +47,52 @@ LAYOUTS = ("auto", "direct", "parity")
 # Off by default, as in the JAX package (its smooth.py:277).
 PARITY_DEFAULT = False
 MAX_PARITY_SWEEPS = 24   # kMaxSweeps in csrc/smooth_parity.cu
+# csrc/smooth.cu's kTiles (rows, columns; largest first), kMinBlocks,
+# kThreads, kMaxSweeps
+TILES = ((64, 64), (32, 64), (8, 64))
+MIN_BLOCKS = 128
+THREADS = 512
+MAX_SWEEPS = 4
+
+
+def tile(nx: int, ny: int) -> tuple:
+    """A's tile of an (nx, ny) level (``tile_of`` in csrc/smooth.cu): the
+    largest whose grid holds at least MIN_BLOCKS blocks, else the
+    smallest."""
+    for t in TILES[:-1]:
+        if -(-(nx - 2) // t[0]) * -(-(ny - 2) // t[1]) >= MIN_BLOCKS:
+            return t
+    return TILES[-1]
+
+
+def halo(sweeps: int, method: str) -> int:
+    """Halo of a launch's window: 2 nodes per RB-GS sweep (one per colour
+    phase), one per Jacobi sweep."""
+    return sweeps if method == "jacobi" else 2 * sweeps
+
+
+def plan_passes(sweeps: int) -> list:
+    """Sweeps of each launch of a ``sweeps``-sweep call."""
+    full, rest = divmod(max(sweeps, 0), MAX_SWEEPS)
+    return [MAX_SWEEPS] * full + ([rest] if rest else [])
+
+
+def geometry(nx: int, ny: int) -> tuple:
+    """This module's copy of A's geometry for an (nx, ny) level, in the
+    order ``mg_smooth_geometry`` reports it."""
+    return (*tile(nx, ny), THREADS, MAX_SWEEPS, MIN_BLOCKS, len(TILES))
+
+
+@functools.lru_cache(maxsize=64)
+def check_geometry(nx: int, ny: int) -> None:
+    """Raise unless the built kernel reports this module's geometry for an
+    (nx, ny) level (once per level shape and process)."""
+    got = (ctypes.c_int * 6)()
+    _build.launch("mg_smooth_geometry", nx, ny, got)
+    if tuple(got) != geometry(nx, ny):
+        raise RuntimeError(f"multisweep: the kernel's geometry at ({nx}, "
+                           f"{ny}) is {tuple(got)}, this module plans with "
+                           f"{geometry(nx, ny)}")
 
 
 def _resolve_parity(layout: str, method: str) -> bool:
@@ -104,7 +161,9 @@ def multisweep_parity(st: Stencil, u, f, *, sweeps: int = 2,
 
 def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
                omega: float = 1.0, layout: str = "auto"):
-    """``sweeps`` sweeps of ``method`` in place on ``u``; returns ``u``.
+    """``sweeps`` sweeps of ``method``; returns the smoothed field: ``u``
+    itself, updated in place, on the CPU and from L, a new tensor from A
+    (``u`` untouched).
 
     ``method``: 'jacobi', an RB-GS name ('rbgs', 'gauss_seidel', 'red_black',
     'sor'), or 'rbgs_rev' (black before red). ``layout``: 'auto', 'direct'
@@ -121,25 +180,26 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
         raise ValueError(f"multisweep: f {tuple(f.shape)} != u "
                          f"{tuple(u.shape)}")
     nx, ny = u.shape
-    dev, stream = u.device.index, _build.stream_of(u)
-    if method == "jacobi":
-        scratch = torch.empty_like(u)
-        src, dst = u, scratch
-        for _ in range(sweeps):
-            _build.launch("mg_jacobi", src.data_ptr(), dst.data_ptr(),
-                          f.data_ptr(), nx, ny, *st.coefs, omega, dev, stream)
-            multisweep.launches += 1
-            src, dst = dst, src
-        if src is not u:
-            u.copy_(src)
+    check_geometry(nx, ny)
+    passes = plan_passes(sweeps)
+    if not passes:
         return u
-    colors = (1, 0) if method == "rbgs_rev" else (0, 1)
-    for _ in range(sweeps):
-        for color in colors:
-            _build.launch("mg_rbgs_color", u.data_ptr(), f.data_ptr(), nx, ny,
-                          *st.coefs, omega, color, dev, stream)
-            multisweep.launches += 1
-    return u
+    dev, stream = u.device.index, _build.stream_of(u)
+    # a separate output: neighbouring blocks read this block's nodes as
+    # their halo, so A cannot write its input in place
+    out = torch.empty_like(u)
+    scratch = torch.empty_like(u) if len(passes) > 1 else None
+    src = u
+    for i, k in enumerate(passes):
+        # the last pass writes out: earlier ones alternate before it
+        dst = out if (len(passes) - 1 - i) % 2 == 0 else scratch
+        _build.launch("mg_smooth", src.data_ptr(), f.data_ptr(),
+                      dst.data_ptr(), nx, ny, *st.coefs, omega, k,
+                      int(method == "jacobi"), int(method == "rbgs_rev"),
+                      dev, stream)
+        multisweep.launches += 1
+        src = dst
+    return out
 
 
 multisweep.launches = 0

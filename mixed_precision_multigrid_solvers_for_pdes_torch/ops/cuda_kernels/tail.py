@@ -7,10 +7,10 @@ D replaces the Pallas ``tail_vcycle`` and J the Pallas ``tail_vcycle_var`` of
 (:170, :122) for all-Dirichlet hierarchies in fp32: D for
 constant-coefficient stencils, J for stencils with (nx, ny) coefficient
 planes on every level. The source notes in ``csrc/`` give the design and
-what bounds each kernel. D walks the tail in one CTA over a workspace the
-wrapper allocates; J in the shared memory of one thread-block cluster, laid
-out by ``var_plan``, which ``check_var_plan`` holds against the library's
-own plan before a tail shape's first launch.
+what bounds each kernel. D walks the tail in the shared memory of one CTA,
+laid out by ``plan``; J in the shared memory of one thread-block cluster,
+laid out by ``var_plan``. ``check_plan`` and ``check_var_plan`` hold these
+against the library's own plans before a tail shape's first launch.
 
 On a CPU tensor ``tail_vcycle`` and ``tail_vcycle_var`` run the plain twin;
 on a CUDA tensor they launch their kernel or raise. ``tail_vcycle.launches``
@@ -34,6 +34,16 @@ from .transfer import coarse_shape, prolong_correct_plain, \
     residual_restrict_plain
 
 MAX_LEVELS = 16  # kTailMaxLevels in csrc/tail.cu and csrc/tail_var.cu
+# kThreads, kWarpMaxNodes and kMaxSmemBytes of both sources (the shared
+# memory a CTA may use); kJacobiItems of csrc/tail.cu; kCluster and
+# kMinBandRows of csrc/tail_var.cu. check_plan and check_var_plan hold them,
+# and the plans, against the library.
+THREADS = 1024
+WARP_MAX_NODES = 9 * 9
+MAX_SMEM_BYTES = 232448
+JACOBI_ITEMS = 16
+CLUSTER = 8
+MIN_BAND_ROWS = 8
 
 
 def _check_shapes(shapes: Sequence[Tuple[int, int]], stencils, u) -> None:
@@ -69,11 +79,73 @@ def _shape_arrays(shapes):
             (ctypes.c_int * L)(*(s[1] for s in shapes)))
 
 
-def _workspace(shapes, u):
-    """(nx, ny) ctypes arrays and the workspace tensor of a D launch."""
-    nx, ny = _shape_arrays(shapes)
-    n = _build.library().lib.mg_tail_workspace_floats(len(shapes), nx, ny)
-    return nx, ny, torch.empty(n, dtype=torch.float32, device=u.device)
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How D lays a tail out in its CTA's shared memory: level l's u at
+    float ``offsets[l]`` in rows of ``strides[l]`` floats (ny rounded up to
+    even), its f right after; levels from ``warp_from`` on walked by one
+    warp, the coarsest level's unknowns in lanes' registers when ``lanes``.
+    ``fits``: the ``bytes`` fit a CTA and a Jacobi sweep's unknowns its
+    threads' registers."""
+
+    warp_from: int
+    lanes: bool
+    offsets: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    bytes: int
+    fits: bool
+
+
+def plan(shapes: Sequence[Tuple[int, int]]) -> Plan:
+    """D's plan for a tail of ``shapes`` (``plan`` in csrc/tail.cu)."""
+    L = len(shapes)
+    warp_from = L
+    for lvl in range(L - 1, -1, -1):
+        if shapes[lvl][0] * shapes[lvl][1] > WARP_MAX_NODES:
+            break
+        warp_from = lvl
+    nx, ny = shapes[-1]
+    lanes = warp_from <= L - 1 and (nx - 2) * (ny - 2) <= 32
+    offsets, strides, off, fits = [], [], 0, True
+    for lvl, (nx, ny) in enumerate(shapes):
+        rs = (ny + 1) & ~1
+        offsets.append(off)
+        strides.append(rs)
+        off += 2 * nx * rs
+        group = 32 if lvl >= warp_from else THREADS
+        fits &= (nx - 2) * (ny - 2) <= JACOBI_ITEMS * group
+    nbytes = 4 * off
+    return Plan(warp_from, lanes, tuple(offsets), tuple(strides), nbytes,
+                fits and nbytes <= MAX_SMEM_BYTES)
+
+
+@functools.lru_cache(maxsize=64)
+def check_plan(shapes: Tuple[Tuple[int, int], ...]) -> None:
+    """Raise unless the built kernel reports this module's constants and
+    plan for ``shapes``, and the plan fits (once per tail shape and
+    process)."""
+    L = len(shapes)
+    got = (ctypes.c_int * (8 + 2 * L))()
+    _build.launch("mg_tail_geometry", L, *_shape_arrays(shapes), got)
+    q = plan(shapes)
+    want = (THREADS, WARP_MAX_NODES, JACOBI_ITEMS, MAX_SMEM_BYTES,
+            q.warp_from, int(q.lanes), q.bytes, int(q.fits),
+            *(x for pair in zip(q.offsets, q.strides) for x in pair))
+    if tuple(got) != want:
+        raise RuntimeError(f"tail_vcycle: the kernel plans {tuple(got)} for "
+                           f"{shapes}, this module {want}")
+    if not q.fits:
+        raise ValueError(f"tail_vcycle: a tail of {shapes} does not fit one "
+                         f"CTA ({q.bytes} bytes of shared memory, at most "
+                         f"{MAX_SMEM_BYTES})")
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_arrays(shapes, coefs):
+    """The ctypes arrays of a D launch: (nx, ny) per level and the
+    stencils' (c, w, e, s, n), cached per tail."""
+    return (*_shape_arrays(shapes),
+            (ctypes.c_float * len(coefs))(*coefs))
 
 
 def tail_vcycle_plain(stencils: Sequence[Stencil], u, f, *,
@@ -122,29 +194,19 @@ def tail_vcycle(stencils: Sequence[Stencil], u, f, *,
                                  coarse_sweeps=coarse_sweeps,
                                  symmetric=symmetric)
     _check_cuda("tail_vcycle", stencils, u, f, shapes)
-    L = len(shapes)
-    nx, ny, work = _workspace(shapes, u)
-    coefs = (ctypes.c_float * (5 * L))(*(x for st in stencils
-                                         for x in st.coefs))
-    _build.launch("mg_tail_vcycle", u.data_ptr(), f.data_ptr(),
-                  work.data_ptr(), L, nx, ny, coefs, pre, post, omega,
-                  int(method == "jacobi"), coarse_sweeps, int(symmetric),
-                  u.device.index, _build.stream_of(u))
+    shapes = tuple(tuple(s) for s in shapes)
+    check_plan(shapes)
+    nx, ny, coefs = _launch_arrays(shapes, tuple(x for st in stencils
+                                                 for x in st.coefs))
+    _build.launch("mg_tail_vcycle", u.data_ptr(), f.data_ptr(), len(shapes),
+                  nx, ny, coefs, pre, post, omega, int(method == "jacobi"),
+                  coarse_sweeps, int(symmetric), u.device.index,
+                  _build.stream_of(u))
     tail_vcycle.launches += 1
     return u
 
 
 tail_vcycle.launches = 0
-
-
-# csrc/tail_var.cu's kCluster, kThreads, kMinBandRows, kWarpMaxNodes and
-# the shared memory a CTA may use (check_var_plan holds them, and var_plan,
-# against the library)
-CLUSTER = 8
-THREADS = 1024
-MIN_BAND_ROWS = 8
-WARP_MAX_NODES = 9 * 9
-MAX_SMEM_BYTES = 232448
 
 
 @dataclasses.dataclass(frozen=True)

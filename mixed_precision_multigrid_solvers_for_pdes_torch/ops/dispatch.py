@@ -13,8 +13,8 @@ dropped. ``backend`` is 'auto' or 'torch':
 - 'torch' forces the plain PyTorch path on any device.
 
 Constant-coefficient stencils (float leaves, all-Dirichlet) take kernels A
-(smoothing), B and C (fused transfers) on every level above the tail, and
-the tail kernel D. Stencils with (nx, ny) coefficient planes (a coefficient
+(smoothing, out of place), B and C (fused transfers) on every level above
+the tail, and the tail kernel D. Stencils with (nx, ny) coefficient planes (a coefficient
 field, an array lam, or Neumann/Robin sides) follow the JAX package's
 varcoef routes (``_pallas_smooth_ok``, ``transfer_fused_ok`` with
 ``_dirichlet_sides``, ``tail_ok``/``tail_vcycle``): all-Dirichlet levels
@@ -75,7 +75,9 @@ def kernel_smooth_ok(u, lev, backend: str, method: str) -> bool:
 
 def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
            backend: str = "auto"):
-    """``sweeps`` smoothing sweeps in place on ``u``; returns ``u``."""
+    """``sweeps`` smoothing sweeps of ``u``; returns the smoothed field: a
+    new tensor from kernel A (which works out of place), ``u`` itself,
+    updated in place, from kernels H and L and the plain path."""
     if kernel_smooth_ok(u, lev, backend, method):
         kernel = (k_smooth.multisweep if stencil.scalar
                   else k_smooth_var.multisweep_var)

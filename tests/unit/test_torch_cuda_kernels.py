@@ -19,7 +19,9 @@ The coefficient-plane kernels H, I and J and kernel C round every operation
 in their twins' order and divide as the twins do, so they are held to their
 twins bit for bit. So are the parity-plane kernel K, the parity layout L and
 the microbenchmark's probe and copy kernels M, whose twins multiply by the
-same fp32 1/c; L and A agree bit for bit as well.
+same fp32 1/c; A's red-then-black sweeps and L agree with L's twin bit for
+bit as well, and the tail kernel D with the same V-cycle run through A, B
+and C launches.
 """
 
 import numpy as np
@@ -93,14 +95,50 @@ def test_multisweep_matches_twin(dev, n, sweeps, method, domain):
     u, f = _field(g.shape, 1, dev), _field(g.shape, 2, dev, st.c)
     omega = {"jacobi": 0.8, "sor": 1.3}.get(method, 1.0)
     before = ksmooth.multisweep.launches
-    got = ksmooth.multisweep(st, u.clone(), f, method=method, sweeps=sweeps,
+    u_in = u.clone()
+    got = ksmooth.multisweep(st, u_in, f, method=method, sweeps=sweeps,
                              omega=omega)
-    per_sweep = 1 if method == "jacobi" else 2
-    assert ksmooth.multisweep.launches - before == per_sweep * sweeps
+    assert ksmooth.multisweep.launches - before == len(
+        ksmooth.plan_passes(sweeps))
+    assert got is not u_in and torch.equal(u_in, u)  # out of place
     ref = ksmooth.multisweep_plain(st, u.clone(), f, method=method,
                                    sweeps=sweeps, omega=omega)
     _close(got, ref)
     assert torch.equal(got[0], u[0]) and torch.equal(got[:, -1], u[:, -1])
+
+
+@pytest.mark.parametrize("omega", [1.0, 1.3])
+@pytest.mark.parametrize("shape", [(1025, 1025), (513, 513), (257, 257),
+                                   (1025, 263), (71, 515), (3, 3)])
+def test_multisweep_equals_parity_twin_and_kernel_l(dev, shape, omega):
+    """Red then black at the main path's levels and at ragged ones: A equals
+    L and L's twin bit for bit, in one launch per 2-sweep call."""
+    g = T.Grid(*shape, DOMAINS["skew"])
+    st = stencil.make_stencil(g)
+    u = _field(g.shape, 47, dev, ring=True)
+    f = _field(g.shape, 48, dev, st.c)
+    before = ksmooth.multisweep.launches
+    got = ksmooth.multisweep(st, u, f, sweeps=2, omega=omega,
+                             layout="direct")
+    assert ksmooth.multisweep.launches == before + 1
+    _exact(got, ksmooth.multisweep_parity_plain(st, u.clone(), f, sweeps=2,
+                                                omega=omega))
+    _exact(got, ksmooth.multisweep_parity(st, u.clone(), f, sweeps=2,
+                                          omega=omega))
+
+
+@pytest.mark.parametrize("method", ["rbgs_rev", "jacobi"])
+@pytest.mark.parametrize("shape", [(1025, 1025), (257, 257), (71, 515)])
+def test_multisweep_other_orders_match_twin(dev, shape, method):
+    g = T.Grid(*shape, DOMAINS["skew"])
+    st = stencil.make_stencil(g)
+    u, f = _field(g.shape, 49, dev), _field(g.shape, 50, dev, st.c)
+    omega = 0.8 if method == "jacobi" else 1.0
+    for sweeps in (2, 4, 5):
+        got = ksmooth.multisweep(st, u, f, method=method, sweeps=sweeps,
+                                 omega=omega)
+        _close(got, ksmooth.multisweep_plain(st, u.clone(), f, method=method,
+                                             sweeps=sweeps, omega=omega))
 
 
 @pytest.mark.parametrize("domain", list(DOMAINS))
@@ -142,6 +180,53 @@ def test_tail_vcycle_matches_twin(dev, entry, method, symmetric, domain):
     got = ktail.tail_vcycle(sts, u.clone(), f, **kw)
     assert ktail.tail_vcycle.launches == before + 1
     _close(got, ktail.tail_vcycle_plain(sts, u.clone(), f, **kw))
+
+
+@pytest.mark.parametrize("method,omega,symmetric", [
+    ("rbgs", 1.0, False), ("sor", 1.3, True), ("jacobi", 0.8, False)])
+@pytest.mark.parametrize("entry,levels", [
+    ((129, 65), None), ((65, 129), None), ((97, 49), None), ((129, 129), 1),
+    ((129, 129), 2), ((17, 33), 1)])
+def test_tail_vcycle_ragged_matches_twin(dev, entry, levels, method, omega,
+                                         symmetric):
+    cfg = T.MultigridConfig(max_levels=levels or 16)
+    hier = T.build_hierarchy(T.Grid(*entry, DOMAINS["skew"]), device=dev,
+                             cfg=cfg)
+    sts = [lev.stencil for lev in hier]
+    shapes = [lev.grid.shape for lev in hier]
+    u, f = _field(entry, 51, dev), _field(entry, 52, dev, sts[0].c)
+    kw = dict(shapes=shapes, pre=2, post=2, omega=omega, method=method,
+              coarse_sweeps=32, symmetric=symmetric)
+    before = ktail.tail_vcycle.launches
+    got = ktail.tail_vcycle(sts, u.clone(), f, **kw)
+    assert ktail.tail_vcycle.launches == before + 1
+    _close(got, ktail.tail_vcycle_plain(sts, u.clone(), f, **kw))
+
+
+@pytest.mark.parametrize("method,symmetric", [("rbgs", False),
+                                              ("rbgs", True),
+                                              ("jacobi", False)])
+def test_tail_vcycle_equals_the_abc_recursion(dev, monkeypatch, method,
+                                              symmetric):
+    """D from 129^2 against the same V-cycle through A, B and C launches
+    (the tail gate shut, the coarsest sweeps on A): D uses A's updates and
+    B's and C's device functions, so the two agree bit for bit."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import dispatch
+    from mixed_precision_multigrid_solvers_for_pdes_torch.solvers import \
+        multigrid
+    cfg = T.MultigridConfig(smoother=method, symmetric=symmetric,
+                            omega=0.8 if method == "jacobi" else 1.0)
+    hier = T.build_hierarchy(T.Grid(129, 129, DOMAINS["skew"]), device=dev,
+                             cfg=cfg)
+    u, f = _field((129, 129), 53, dev), _field((129, 129), 54, dev,
+                                               hier[0].stencil.c)
+    got = dispatch.tail_vcycle(hier, 0, u.clone(), f, cfg)
+    monkeypatch.setattr(dispatch, "TAIL_MAX_ENTRY", 0)
+    before = ktail.tail_vcycle.launches, ksmooth.multisweep.launches
+    ref = multigrid.mg_cycle(hier, u.clone(), f, cfg)
+    assert ktail.tail_vcycle.launches == before[0]
+    assert ksmooth.multisweep.launches > before[1]
+    _exact(got, ref)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -535,6 +620,25 @@ def test_rbgs3d_geometry_matches_the_library(dev):
 def test_smooth_var_geometry_matches_the_library(dev, shape):
     ksmooth_var.check_geometry.cache_clear()
     ksmooth_var.check_geometry(*shape)
+
+
+@pytest.mark.parametrize("shape", [(1025, 1025), (513, 513), (257, 257),
+                                   (1025, 263), (5, 5)])
+def test_smooth_geometry_matches_the_library(dev, shape):
+    ksmooth.check_geometry.cache_clear()
+    ksmooth.check_geometry(*shape)
+
+
+@pytest.mark.parametrize("entry,levels", [
+    ((129, 129), None), ((129, 65), None), ((65, 129), None),
+    ((97, 49), None), ((17, 17), None), ((3, 3), None), ((129, 129), 1),
+    ((33, 17), 1)])
+def test_tail_plan_matches_the_library(dev, entry, levels):
+    cfg = T.MultigridConfig(max_levels=levels or 16)
+    hier = T.build_hierarchy(T.Grid(*entry), device=dev, cfg=cfg)
+    shapes = tuple(lev.grid.shape for lev in hier)
+    ktail.check_plan.cache_clear()
+    ktail.check_plan(shapes)
 
 
 @pytest.mark.parametrize("entry", [(129, 129), (129, 65), (65, 129),
