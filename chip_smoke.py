@@ -67,21 +67,28 @@ The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
 1025^2 (level 0 held as four parity planes, smoothed by kernel K; levels
 >= 1 on kernels A-D) and the main path with the parity layout of kernel A
 (kernel L) switched on; and the microbenchmark probes (kernel M):
- 15. hold K (1025^2 and 513^2 planes, 2 sweeps, omega 1 and 1.3), L (1025^2,
-     513^2, 257^2; 1, 2, 3 sweeps and omega 1.3) and the probes, the copy
+ 15. hold K (1025^2 and 513^2 planes, 2 sweeps, omega 1 and 1.3; 5 sweeps,
+     two launches, at 513^2; 3 sweeps on the odd-sided (1000, 771) field's
+     planes, padding included), L (1025^2, 513^2, 257^2; 1, 2, 3 sweeps and
+     omega 1.3; 5 sweeps at 513^2; (1000, 771)) and the probes, the copy
      and the c = 4 parity probe (513^2, 1025^2) against their twins, bit for
-     bit, and L against A; time A, K and L per 2-sweep call at 1025^2 in
-     turns; the copy (also exact at 8192^2) against torch.mul in turns at
-     1025^2 and 8192^2, bandwidth and device time per launch
-     (torch.profiler) in every turn; K's device time per call at 1025^2;
+     bit, and L against A; read K's device time and launches per 2-sweep
+     call at 1025^2 and 513^2 planes (one launch each) and the probe's
+     device time per launch at 513^2 and 1025^2 with its share of bound;
+     time A, K and L per 2-sweep call at 1025^2 in turns; the copy (also
+     exact at 8192^2) against torch.mul in turns at 1025^2 and 8192^2,
+     bandwidth and device time per launch (torch.profiler) in every turn;
  16. solve the 1025^2 main path (FMG, IR) with PARITY_DEFAULT on, from
-     launch counts reset to zero: L launches, A's RB-GS does not, 3 outer
-     steps, u equal to the direct layout's bit for bit; time it;
+     launch counts reset to zero: L makes exactly its planned launches (48,
+     one per 2-sweep call, as A on the direct path) and A's RB-GS none, 3
+     outer steps, u equal to the direct layout's bit for bit; time it and
+     profile one solve (device ops per solve);
  17. run the microbenchmark (benchmarking/kernel_microbench.run at 513^2 and
      1025^2) from launch counts reset to zero: the probe and copy launch;
  18. solve plane_ir_solve at 1025^2 with backend='auto', from launch counts
      reset to zero: the JAX reference's 4 outer steps, l2 within 2% of
-     3.92e-7, K launched and A-D launched on levels >= 1; then with
+     3.92e-7, K made exactly its planned launches (16: one per 2-sweep
+     call) and A-D launched on levels >= 1; then with
      backend='torch' and against the standard ir_solve(use_fmg=False) on the
      same levels: the same count and u within 1e-8;
  19. time the plane solve against the standard no-FMG solve, in turns, and
@@ -102,17 +109,19 @@ call); F's 513^3 -> 257^3 and G's 257^3 -> 513^3 call and u.mul_(2.0) at
 1025^2 and 8192^2 (CUDA events, device time per launch); the host time to
 enqueue kernel A's 2-sweep call at 1025^2 (minimum over 5 x 200 calls) and
 its CUDA-event time; A's and L's device time per 2-sweep call at 1025^2,
-513^2 and 257^2 (every device op of a call); D's CUDA-event and device time
-per launch from 129^2 on the main path's tail; the 1025^2 main-path solve
-(FMG, IR; minimum of 5 after a warm-up, one right-hand side); ir_solve3d at
+513^2 and 257^2 (every device op of a call), and K's and its launches per
+call on the planes of the 1025^2 and 513^2 fields; D's CUDA-event and
+device time per launch from 129^2 on the main path's tail; the 1025^2
+main-path solve (FMG, IR; minimum of 5 after a warm-up, one right-hand
+side); ir_solve3d at
 513^3 (fp32 levels, tol 1e-9): wall ms per solve (minimum over 3 repeats of
 2 right-hand sides), peak device memory, E's launches and the outer steps;
 H's 2-sweep call at 1025^2 and J from 129^2 on the jump hierarchy (CUDA
 events, device time per call or launch, H's host time per call and launches
 per call) and H's device time per call at 513^2 and 257^2; the varcoef and
 jump solve_poisson calls (ms per solve, minimum over 3 after a warm-up).
-With --2d a set is its 2D Poisson part alone (kernels A, D, L and the main
-path). Only entry points both trees have are called. It prints one JSON
+With --2d a set is its 2D Poisson part alone (kernels A, D, K, L and the
+main path). Only entry points both trees have are called. It prints one JSON
 line per set and a summary.
 
 Usage: python3 chip_smoke.py [--against DIR [DIR ...] [--2d]]
@@ -285,7 +294,7 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
 
 def device_ms_per_call(fn, reps: int = 10) -> float:
     """Mean device time per call of ``fn``: every kernel and copy on the
-    card in the profiled window (a wrapper's copy-back included), over
+    card in the profiled window (a wrapper's copies included), over
     ``reps`` calls after a warm-up; retried as ``device_ms`` is."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -475,8 +484,8 @@ def kernel_phase(levels, cfg, dev):
 
 def main_path_device(levels, card):
     """Device time on the card (torch.profiler): A's and L's ms per 2-sweep
-    call at 1025^2, 513^2 and 257^2 (every device op of the call, L's
-    copy-back included) with A's launches per call, B's and C's ms per call
+    call at 1025^2, 513^2 and 257^2 (every device op of the call) with A's
+    and L's launches per call, B's and C's ms per call
     at 1025^2, and D's ms per launch on the main path's tail from entries
     3^2 .. 129^2 (the differences are each level's cost)."""
     import torch
@@ -491,19 +500,22 @@ def main_path_device(levels, card):
         n, st = lev.grid.nx, lev.stencil
         u = torch.randn((n, n), generator=gen, device=dev)
         f = st.c * torch.randn((n, n), generator=gen, device=dev)
-        before = ks.multisweep.launches
+        before = ks.multisweep.launches, ks.multisweep_parity.launches
         ks.multisweep(st, u, f, layout="direct")
-        per_call = ks.multisweep.launches - before
+        ks.multisweep_parity(st, u, f)
+        per_call = (ks.multisweep.launches - before[0],
+                    ks.multisweep_parity.launches - before[1])
         a = device_ms_per_call(lambda: ks.multisweep(st, u, f,
                                                      layout="direct"), 20)
         el = device_ms_per_call(lambda: ks.multisweep_parity(st, u, f), 20)
         out[("smooth_multisweep", n)], out[("smooth_parity", n)] = a, el
         print(f"A {n}^2 2-sweep RB-GS call: device {a:.4f} ms per call "
-              f"(every device op), {per_call} launches per call, tile "
-              f"{ks.tile(n, n)}; L {el:.4f} ms per call (copy-back "
-              f"included) [{card}]")
-        if per_call != len(ks.plan_passes(2)):
-            fail(f"A made {per_call} launches in a 2-sweep call at {n}^2")
+              f"(every device op), tile {ks.tile(n, n)}; L {el:.4f} ms per "
+              f"call; launches per call A {per_call[0]}, L {per_call[1]} "
+              f"[{card}]")
+        if per_call != (len(ks.plan_passes(2)),) * 2:
+            fail(f"A and L made {per_call} launches in a 2-sweep call at "
+                 f"{n}^2")
         if n == N:
             nc = (n - 1) // 2 + 1
             ec = torch.randn((nc, nc), generator=gen, device=dev)
@@ -1055,43 +1067,77 @@ def kernel_phase_parity(levels, card, dev):
 
     rng = np.random.default_rng(97531)
 
-    def field(n, scale=1.0):
-        a = np.zeros((n, n), np.float32)
-        a[1:-1, 1:-1] = scale * rng.standard_normal((n - 2, n - 2))
+    def field(n, scale=1.0, ny=None):
+        ny = ny or n
+        a = np.zeros((n, ny), np.float32)
+        a[1:-1, 1:-1] = scale * rng.standard_normal((n - 2, ny - 2))
         return torch.from_numpy(a).to(dev)
 
+    def stencil_of(nx, ny):
+        from mixed_precision_multigrid_solvers_for_pdes_torch.core.grid \
+            import Grid
+        from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
+            stencil
+        return stencil.make_stencil(Grid(nx, ny))
+
     by_n = {lev.grid.nx: lev for lev in levels}
-    errs, times, library = {}, {}, {}
-    for n in (1025, 513):
-        st = by_n[n].stencil
-        up, fp = pln.split_field(field(n)), pln.split_field(field(n, st.c))
-        for omega in (1.0, 1.3):
-            kw = dict(nx=n, ny=n, sweeps=2, omega=omega)
-            compare("smooth_planes", f"{n}^2 planes omega {omega}",
+    errs, times, library, dev_ms = {}, {}, {}, {}
+    # K and L on the main path's levels (K: the plane solve's level 0 and
+    # 513^2), beyond MAX_SWEEPS (two launches) and on an odd-sided field
+    # (K's planes then carry padding); the square 2-sweep calls timed
+    k_cases = ((1025, 1025, ((2, 1.0), (2, 1.3)), True),
+               (513, 513, ((2, 1.0), (2, 1.3), (5, 1.3)), True),
+               (1000, 771, ((3, 1.3),), False))
+    l_cases = ((1025, 1025, ((1, 1.0), (2, 1.0), (3, 1.0), (2, 1.3)), True),
+               (513, 513, ((1, 1.0), (2, 1.0), (3, 1.0), (2, 1.3),
+                           (5, 1.3)), True),
+               (257, 257, ((1, 1.0), (2, 1.0), (3, 1.0), (2, 1.3)), True),
+               (1000, 771, ((2, 1.3), (5, 1.0)), False))
+    for n, ny, cases, timed in k_cases:
+        st = by_n[n].stencil if timed else stencil_of(n, ny)
+        up = pln.split_field(field(n, ny=ny))
+        fp = pln.split_field(field(n, st.c, ny=ny))
+        for sweeps, omega in cases:
+            kw = dict(nx=n, ny=ny, sweeps=sweeps, omega=omega)
+            compare("smooth_planes", f"({n}, {ny}) planes {kw}",
                     lambda a, b: kp.multisweep_planes(st, a, b, **kw),
                     lambda a, b: kp.multisweep_planes_plain(st, a, b, **kw),
                     lambda: (up.clone(), fp), errs, exact=True)
+        if not timed:
+            continue
         kw = dict(nx=n, ny=n, sweeps=2)
+        before = kp.multisweep_planes.launches
+        kp.multisweep_planes(st, up, fp, **kw)
+        per_call = kp.multisweep_planes.launches - before
         times[("smooth_planes", n)] = (
             time_ms(lambda: kp.multisweep_planes(st, up, fp, **kw)),
             time_ms(lambda: kp.multisweep_planes_plain(st, up, fp, **kw)))
-    for n in (1025, 513, 257):
-        st = by_n[n].stencil
-        u, f = field(n), field(n, st.c)
-        for sweeps, omega in ((1, 1.0), (2, 1.0), (3, 1.0), (2, 1.3)):
+        dev_ms[("smooth_planes", n)] = device_ms_per_call(
+            lambda: kp.multisweep_planes(st, up, fp, **kw), reps=20)
+        print(f"K {n}^2 planes 2-sweep call: device "
+              f"{dev_ms[('smooth_planes', n)]:.4f} ms per call (every "
+              f"device op), {per_call} launches per call, tile "
+              f"{ks.tile(n, n)} [{card}]")
+        if per_call != len(ks.plan_passes(2)):
+            fail(f"K made {per_call} launches in a 2-sweep call at {n}^2")
+    for n, ny, cases, timed in l_cases:
+        st = by_n[n].stencil if timed else stencil_of(n, ny)
+        u, f = field(n, ny=ny), field(n, st.c, ny=ny)
+        for sweeps, omega in cases:
             kw = dict(sweeps=sweeps, omega=omega)
-            compare("smooth_parity", f"{n}^2 {kw}",
+            compare("smooth_parity", f"({n}, {ny}) {kw}",
                     lambda a, b: ks.multisweep_parity(st, a, b, **kw),
                     lambda a, b: ks.multisweep_parity_plain(st, a, b, **kw),
                     lambda: (u.clone(), f), errs, exact=True)
-            compare("smooth_parity_vs_A", f"{n}^2 {kw}",
+            compare("smooth_parity_vs_A", f"({n}, {ny}) {kw}",
                     lambda a, b: ks.multisweep_parity(st, a, b, **kw),
                     lambda a, b: ks.multisweep(st, a, b, layout="direct",
                                                **kw),
                     lambda: (u.clone(), f), errs, exact=True)
-        times[("smooth_parity", n)] = (
-            time_ms(lambda: ks.multisweep_parity(st, u, f)),
-            time_ms(lambda: ks.multisweep_parity_plain(st, u, f)))
+        if timed:
+            times[("smooth_parity", n)] = (
+                time_ms(lambda: ks.multisweep_parity(st, u, f)),
+                time_ms(lambda: ks.multisweep_parity_plain(st, u, f)))
     for n in (513, 1025):
         u, f = field(n), field(n)
         for mode in kb.MODES:
@@ -1102,6 +1148,17 @@ def kernel_phase_parity(levels, card, dev):
             times[(f"probe_{mode}", n)] = (
                 time_ms(lambda: kb.probe(u, f, mode=mode)),
                 time_ms(lambda: kb.probe_plain(u, f, mode=mode)))
+        # a probe launch is one colour update over the whole field: it reads
+        # u and f and writes u once, 12 bytes per node
+        probe_ms = device_ms(lambda: kb.probe(u, f, mode="roll"),
+                             "probe_color", reps=20)
+        dev_ms[("probe_launch", n)] = probe_ms
+        dev_ms[("probe_roll", n)] = device_ms_per_call(
+            lambda: kb.probe(u, f, mode="roll"), reps=20)
+        bound_ms = 12 * n * n / HBM_BYTES_PER_S * 1e3
+        print(f"M probe (roll) {n}^2: device {probe_ms:.4f} ms per launch, "
+              f"bound {bound_ms:.5f} ms (12 bytes per node at 3.35 TB/s), "
+              f"{bound_ms / probe_ms:.1%} of it [{card}]")
         compare("copy", f"{n}^2", kb.copy2x, kb.copy2x_plain, lambda: (u,),
                 errs, exact=True)
         times[("copy", n)] = (time_ms(lambda: kb.copy2x(u)),
@@ -1130,15 +1187,12 @@ def kernel_phase_parity(levels, card, dev):
     print("turns at 1025^2, ms per 2-sweep call: " + ", ".join(
         f"{name} {np.mean(t):.4f} ({t[0]:.4f}, {t[1]:.4f})"
         for name, t in turns.items()) + f" [{card}]")
-    k_dev = device_ms_per_call(calls["K"], reps=20)
-    print(f"K {N}^2 planes 2-sweep call: device {k_dev:.4f} ms per call "
-          f"(every device op) [{card}]")
     # the copy and torch.mul in turns (copy mul mul copy): CUDA events and
     # device time per launch (torch.profiler), each read in every turn
     big = torch.randn(N_COPY_HBM, N_COPY_HBM, device=dev)
     compare("copy", f"{N_COPY_HBM}^2", kb.copy2x, kb.copy2x_plain,
             lambda: (big,), errs, exact=True)
-    rates, dev_ms = {}, {("smooth_planes", N): k_dev}
+    rates = {}
     calls = {"copy": kb.copy2x, "torch.mul": lambda a: torch.mul(a, 2.0)}
     kernel_of = {"copy": "copy2x", "torch.mul": "elementwise"}
     for label, arr in ((f"{N}^2", u), (f"{N_COPY_HBM}^2", big)):
@@ -1170,8 +1224,8 @@ def kernel_phase_parity(levels, card, dev):
 
 
 def parity_main_path(mg, levels, prob, cfg, f, u_direct, card, dev):
-    """Phase 16: the main path with PARITY_DEFAULT on; returns L's
-    launches."""
+    """Phase 16: the main path with PARITY_DEFAULT on, and its profile;
+    returns L's launches."""
     import torch
 
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
@@ -1190,6 +1244,10 @@ def parity_main_path(mg, levels, prob, cfg, f, u_direct, card, dev):
         torch.cuda.synchronize()
         launches = {name: w.launches for name, w in wrappers.items()}
         t = timed_solves(mg, levels, prob, cfg, dev)
+        u0 = prob.initial_guess(torch.float64, dev)
+        profile_solve(f"parity-layout main path {N}^2", lambda: mg.ir_solve(
+            levels, f, u0, cfg, inner_cycles=2, max_outer=100, use_fmg=True),
+            wrappers)
     finally:
         ks.PARITY_DEFAULT = False
     du = (u - u_direct).abs().max().item()
@@ -1197,8 +1255,13 @@ def parity_main_path(mg, levels, prob, cfg, f, u_direct, card, dev):
           f"history {info['history'].tolist()} launches {launches} "
           f"max|u_parity - u_direct| {du:.3e}; {t * 1e3:.3f} ms per solve, "
           f"{(N - 2) ** 2 / t:.6e} DoF/s [{card}]")
-    if launches["smooth_parity"] <= 0 or launches["smooth_multisweep"] != 0:
-        fail("the parity-layout main path must launch L and not A")
+    l_plan = main_path_launches(levels, cfg, info["iterations"])[0]
+    print(f"parity-layout main path: L {launches['smooth_parity']} launches "
+          f"(plan {l_plan})")
+    if launches["smooth_parity"] != l_plan or \
+            launches["smooth_multisweep"] != 0:
+        fail(f"the parity-layout main path must launch L {l_plan} times "
+             f"and not A: {launches}")
     if not info["converged"] or info["iterations"] != ITERS_EXPECTED:
         fail(f"parity main path: expected convergence in {ITERS_EXPECTED} "
              "outer steps")
@@ -1267,6 +1330,15 @@ def plane_path(mg, card, dev):
     missing = [name for name, c in launches.items() if c <= 0]
     if missing:
         fail(f"kernels never launched on the plane solve: {missing}")
+    # level 0 smooths twice per cycle, IR_INNER_CYCLES cycles per outer step
+    k_plan = info["iterations"] * IR_INNER_CYCLES * (
+        len(ks.plan_passes(cfg.pre_sweeps))
+        + len(ks.plan_passes(cfg.post_sweeps)))
+    print(f"plane solve: K {launches['smooth_planes']} launches (plan "
+          f"{k_plan})")
+    if launches["smooth_planes"] != k_plan:
+        fail(f"K made {launches['smooth_planes']} launches in the plane "
+             f"solve, its plan {k_plan}")
     u_p, info_p = mg.plane_ir_solve(levels, f, u0, cfg.replace(
         backend="torch"), inner_cycles=2)
     u_s, info_s = mg.ir_solve(levels, f, u0, cfg, inner_cycles=2,
@@ -1400,7 +1472,7 @@ def _ab_3d_and_copy(mg, kb, stencil3d, ks3, kx3, dev, gen, out):
 
 
 def _ab_2d(mg, ks, dev, gen, out):
-    """--against: A's host and device time per call, L's and D's device
+    """--against: A's host and device time per call, K's, L's and D's device
     time, and the main-path solve."""
     import torch
 
@@ -1421,10 +1493,13 @@ def _ab_2d(mg, ks, dev, gen, out):
     torch.cuda.synchronize()
     out["A_host_us_per_call"] = min(host) * 1e6
     out["A_ms"] = time_ms(call, reps=200)
-    # A's and L's device time per 2-sweep call on the main path's levels,
-    # D's per launch from 129^2 on its tail, and the main-path solve
+    # A's and L's device time per 2-sweep call on the main path's levels
+    # (K's on the planes of the 1025^2 and 513^2 levels), D's per launch
+    # from 129^2 on its tail, and the main-path solve
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
+        planes as pln
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
-        import tail as kt
+        import smooth_planes as kp, tail as kt
     levels2 = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
                                  device=dev, cfg=cfg)
     for lev in levels2[:3]:
@@ -1435,6 +1510,16 @@ def _ab_2d(mg, ks, dev, gen, out):
             lambda: ks.multisweep(stn, un, fn, layout="direct"), reps=20)
         out[f"L{n}_device_ms_per_call"] = device_ms_per_call(
             lambda: ks.multisweep_parity(stn, un, fn), reps=20)
+        if n in (N, 513):   # K on the planes of the same field
+            up, fp = pln.split_field(un), pln.split_field(fn)
+            call = lambda: kp.multisweep_planes(  # noqa: E731
+                stn, up, fp, nx=n, ny=n)
+            before = kp.multisweep_planes.launches
+            call()
+            out[f"K{n}_launches_per_call"] = (kp.multisweep_planes.launches
+                                              - before)
+            out[f"K{n}_device_ms_per_call"] = device_ms_per_call(call,
+                                                                 reps=20)
     tail = [lev for lev in levels2 if lev.grid.nx <= 129]
     sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
                                                    for lev in tail]
@@ -1805,7 +1890,7 @@ def main(argv) -> int:
                                        "transfer3d.py:194"),
                "prolong_correct3d": ("csrc/transfer3d.cu",
                                      "transfer3d.py:342"),
-               "smooth_planes": ("csrc/smooth_planes.cu",
+               "smooth_planes": ("csrc/smooth_parity.cu",
                                  "smooth_planes.py:225"),
                "smooth_parity": ("csrc/smooth_parity.cu", "smooth.py:119"),
                "probe": ("csrc/probes.cu",

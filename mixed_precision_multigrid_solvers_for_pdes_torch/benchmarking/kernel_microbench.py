@@ -127,8 +127,9 @@ def copy2x(u):
 
 def parity(up, fp, *, nx: int, ny: int, sweeps: int = 2):
     """``parity_call``: RB-GS sweeps with the c = 4 stencil on pre-split
-    (4, hx, hy) planes, through kernel K (its twin on the CPU); in place on
-    ``up``."""
+    (4, hx, hy) planes, through kernel K (its twin on the CPU); returns the
+    smoothed planes: new planes from K (``up`` untouched), ``up`` itself
+    from the twin."""
     return k_planes.multisweep_planes(PROBE_STENCIL, up, fp, nx=nx, ny=ny,
                                       sweeps=sweeps, omega=1.0)
 
@@ -177,7 +178,8 @@ def run(sizes=(513, 1025), *, sweeps: int = 2, reps: int = 50,
         st = make_stencil(Grid(n, n))
         up, fp = pln.split_field(u), pln.split_field(f)
         unknown = bc.unknown_mask(n, n, device=device)
-        # the smoothers update their own copies in place, call after call
+        # the plain smoother updates its own copy in place, call after call;
+        # the kernels return new fields and leave theirs untouched
         us, ups = u.clone(), up.clone()
         variants = {
             "plain_rbgs": lambda: smooth_mod.smooth(

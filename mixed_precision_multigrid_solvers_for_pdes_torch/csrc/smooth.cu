@@ -24,7 +24,7 @@
 //   levels are not 16-byte aligned), all in flight at once.
 // - The tile's size is the level's (tile_of): the largest of kTiles whose
 //   grid holds at least kMinBlocks blocks, about one per SM, else the
-//   smallest.
+//   smallest. This geometry is in smooth_tiles.cuh, shared with K and L.
 // - The block runs every sweep in shared memory, with __syncthreads()
 //   between colour phases (between sweeps for Jacobi, which ping-pongs
 //   between two u buffers). A node is updated only if it is off the
@@ -49,33 +49,9 @@
 // L do, so the direct and the parity layouts agree bit for bit; the plain
 // twin divides by c, one rounding apart per update.
 #include "common.cuh"
+#include "smooth_tiles.cuh"
 
 namespace {
-
-// The geometry below is this file's own: mg_smooth_geometry reports it,
-// ops/cuda_kernels/smooth.py checks its launch planning against that report
-// before a level's first launch, and the CPU schedule test reads it from
-// this file.
-struct Tile {
-  int x, y;  // interior rows (i) and columns (j, contiguous; even)
-};
-constexpr Tile kTiles[] = {{64, 64}, {32, 64}, {8, 64}};
-constexpr int kNumTiles = 3;
-static_assert(sizeof(kTiles) / sizeof(Tile) == kNumTiles);
-constexpr int kMinBlocks = 128;  // about one per SM of the H100's 132
-constexpr int kThreads = 512;
-constexpr int kMaxSweeps = 4;  // sweeps per launch
-
-__host__ __device__ constexpr int blocks_of(int nx, int ny, Tile t) {
-  return ((nx - 2 + t.x - 1) / t.x) * ((ny - 2 + t.y - 1) / t.y);
-}
-
-// The tile of an (nx, ny) level: an index into kTiles.
-int tile_of(int nx, int ny) {
-  for (int k = 0; k < kNumTiles - 1; ++k)
-    if (blocks_of(nx, ny, kTiles[k]) >= kMinBlocks) return k;
-  return kNumTiles - 1;
-}
 
 __host__ __device__ constexpr int halo_of(int sweeps, bool jacobi) {
   return jacobi ? sweeps : 2 * sweeps;
@@ -215,38 +191,6 @@ cudaError_t launch(const float* u, const float* f, float* out, int nx, int ny,
   return cudaGetLastError();
 }
 
-template <int k, int kSweeps>
-cudaError_t launch_sweeps(const float* u, const float* f, float* out, int nx,
-                          int ny, const Stencil5& st, float omega, bool jacobi,
-                          int c0, int device, cudaStream_t stream) {
-  constexpr Tile t = kTiles[k];
-  return jacobi ? launch<t.x, t.y, kSweeps, true>(u, f, out, nx, ny, st,
-                                                  omega, 0, device, stream)
-                : launch<t.x, t.y, kSweeps, false>(u, f, out, nx, ny, st,
-                                                   omega, c0, device, stream);
-}
-
-template <int k>
-cudaError_t launch_tile(const float* u, const float* f, float* out, int nx,
-                        int ny, const Stencil5& st, float omega, int sweeps,
-                        bool jacobi, int c0, int device, cudaStream_t stream) {
-  static_assert(kMaxSweeps == 4, "one case per sweep count");
-  switch (sweeps) {
-    case 1:
-      return launch_sweeps<k, 1>(u, f, out, nx, ny, st, omega, jacobi, c0,
-                                 device, stream);
-    case 2:
-      return launch_sweeps<k, 2>(u, f, out, nx, ny, st, omega, jacobi, c0,
-                                 device, stream);
-    case 3:
-      return launch_sweeps<k, 3>(u, f, out, nx, ny, st, omega, jacobi, c0,
-                                 device, stream);
-    default:
-      return launch_sweeps<k, 4>(u, f, out, nx, ny, st, omega, jacobi, c0,
-                                 device, stream);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -270,18 +214,14 @@ int mg_smooth(const float* u, const float* f, float* out, int nx, int ny,
   const Stencil5 st{c, w, e, s, n};
   const cudaStream_t t = (cudaStream_t)stream;
   const int c0 = reverse ? 1 : 0;
-  static_assert(kNumTiles == 3, "one case per tile");
-  switch (tile_of(nx, ny)) {
-    case 0:
-      return (int)launch_tile<0>(u, f, out, nx, ny, st, omega, sweeps, jacobi,
-                                 c0, device, t);
-    case 1:
-      return (int)launch_tile<1>(u, f, out, nx, ny, st, omega, sweeps, jacobi,
-                                 c0, device, t);
-    default:
-      return (int)launch_tile<2>(u, f, out, nx, ny, st, omega, sweeps, jacobi,
-                                 c0, device, t);
-  }
+  return (int)with_tile_and_sweeps(nx, ny, sweeps, [&](auto ti, auto sw) {
+    constexpr Tile tile = kTiles[decltype(ti)::value];
+    constexpr int kSweeps = decltype(sw)::value;
+    return jacobi ? launch<tile.x, tile.y, kSweeps, true>(
+                        u, f, out, nx, ny, st, omega, 0, device, t)
+                  : launch<tile.x, tile.y, kSweeps, false>(
+                        u, f, out, nx, ny, st, omega, c0, device, t);
+  });
 }
 
 // A's geometry for an (nx, ny) level into out[6]: its tile's rows (i) and

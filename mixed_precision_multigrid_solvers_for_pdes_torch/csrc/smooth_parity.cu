@@ -1,148 +1,281 @@
-// Kernel L: RB-GS / SOR sweeps on a standard (nx, ny) field through parity
-// planes held in shared memory, with a constant-coefficient 5-point stencil
-// on an all-Dirichlet rectangle.
+// Kernels L and K: RB-GS / SOR sweeps through parity planes held in shared
+// memory, with a constant-coefficient 5-point stencil on an all-Dirichlet
+// rectangle. L takes a standard (nx, ny) field, K a field stored as four
+// parity planes. Both run every sweep of a call in one launch, out of place.
 //
-// Replaces the layout="parity" body of the Pallas kernels multisweep and
+// L replaces the layout="parity" body of the Pallas kernels multisweep and
 // multisweep_strips (_parity_sweeps, _split_parity, _merge_parity) of
 // mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth.py
 // (:119, reached from _smooth_kernel :211 and _strips_kernel :413): split in
-// on-chip memory, sweep, merge.
+// on-chip memory, sweep, merge. K replaces the Pallas kernel
+// multisweep_planes (_whole_kernel, _strips_kernel, _plane_sweeps) of
+// mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth_planes.py
+// (:225). Its strip pipeline, over-budget strip floor (:286) and short first
+// window (:101) existed for the TPU's VMEM budget only, and have no
+// counterpart here.
 //
-// Design: one launch per call, whatever the sweep count. Each block owns a
-// tile of kTileX x kTileY nodes of the output and loads a window of u and f
-// around it, the tile plus a halo of 2 * sweeps nodes per side clamped to the
-// field, into shared memory as the four parity planes (ee, eo, oe, oo) of
-// u and of f. Tile and halo are even, so a window starts on an even node and
-// plane identity in the window is the node's global parity. The block then
-// runs every sweep in shared memory, red then black, with __syncthreads()
-// between colour phases; in a phase the threads walk the cells of that
-// colour's two planes only, so no thread idles on the other colour, and a
-// phase reads only the other colour's planes, so the update in place has no
-// race. A node is updated only if it is inside the window and not on its
-// border; the window is clamped to the field, so these are exactly the
-// unknowns it can update. A stale border value travels one node per colour
-// phase, 2 * sweeps - 1 nodes in all, so the tile, 2 * sweeps nodes in, is
-// exact: red-then-black has a dependency radius of 2 per sweep, the reason
-// the Pallas strips carry a halo of 2 * sweeps rows (smooth.py:536).
-// The tile's interior goes to a separate output array: neighbouring blocks
-// read this block's nodes as their halo, so writing u in place would race.
-// The wrapper copies the output back into u.
+// K's layout: up is a contiguous (4, hx, hy) fp32 array, planes in the order
+// ee, eo, oe, oo, with hx = (nx + 1) / 2 and hy = (ny + 1) / 2; plane (a, b)
+// entry (i, j) is node (2i + a, 2j + b). An entry beyond the field (the last
+// row of the odd-row planes of an odd nx, the last column of the odd-column
+// planes of an odd ny) is padding, copied to the output unchanged.
 //
-// Arithmetic: _parity_sweeps' per-node update p + omega*((f + (w*W + e*E +
-// s*S + n*N))*inv_c - p) with inv_c = 1/c in fp32, rounded explicitly as in
-// kernel K (common.cuh), so L matches its plain twin bit for bit.
+// Design: kernel A's engine (csrc/smooth.cu, smooth_tiles.cuh) with a
+// parity-plane layout in shared memory.
+// - The level's tile (tile_of), kThreads threads, the sweep count compiled
+//   in: 1 .. kMaxSweeps sweeps per launch. The wrappers split longer calls
+//   as they split A's. The colour phases are unrolled, and the registers
+//   capped so that two blocks share an SM: the 1025^2 level's 256 blocks
+//   then run in one wave (at 82 registers, one block per SM, L took 10%
+//   longer than A there).
+// - Each block loads a window of u and f: its tile plus a halo of 2 nodes
+//   per sweep, clamped to the field. The loads are 4-byte cp.async, all in
+//   flight at once. They land as the window's four parity planes: window
+//   node (li, lj) sits in plane (li & 1, lj & 1) at (li >> 1, lj >> 1).
+//   Both read window rows in order: a warp takes a run of a field row (L),
+//   or runs of two of the global planes' rows (K).
+// - A colour's nodes are two of the window's four planes. A colour phase
+//   walks whole rows of those two planes, so no thread takes a node of the
+//   other colour and a warp's lanes take consecutive words (no bank
+//   conflict); it skips the cells on the window's border, the first or last
+//   column of a plane and, in a window clamped at the field's far edge, its
+//   last rows and columns.
+// - A thread computes all its cells of a phase before it stores any (a
+//   phase reads only the other colour's planes and each cell's own old
+//   value), so their loads overlap.
+// - A stale border value travels one node per colour phase, so after the
+//   launch the tile, 2 * sweeps nodes in, is exact. Where the window is
+//   clamped its border is the field's fixed ring, which is exact too.
+// - The tile (with the ring next to it at the field's edge, and for K the
+//   padding) goes to a separate output: neighbouring blocks load this
+//   block's nodes as their halo, so writing u in place would race. The
+//   wrappers return that output; u is left as it was.
 //
-// Shared memory: 8 planes of (kTileX/2 + 2*sweeps) x (kTileY/2 + 2*sweeps)
-// floats, 23 KB at 2 sweeps; a launch takes at most kMaxSweeps sweeps (160
-// KB, above the 48 KB default, set with cudaFuncSetAttribute) and refuses
-// more; the wrapper splits longer runs into several launches.
+// Arithmetic: rbgs_scalar_update (common.cuh), 1/c computed once in fp32 on
+// the host, every operation rounded explicitly, red then black. So K and L
+// equal their plain twin (the parity body ops/planes.plane_sweeps) and
+// kernel A bit for bit.
 //
-// Bound: device memory bandwidth. A call must read u and f and write u once
-// (12 bytes per node); L reads the windows (1.41x the tile at 2 sweeps) and
-// writes the tile, and the wrapper's copy adds 8 bytes per node. Kernel A
-// moves ~16 bytes per node per sweep over 2 * sweeps launches.
+// Bound: device memory bandwidth. A call must read u and f and write u
+// once: 12 bytes per node, 3.76 us at 1025^2 at 3.35 TB/s. The windows read
+// (TX + 4 s)(TY + 4 s) / (TX TY) times the tile: 1.27x at 64 x 64 and 2
+// sweeps.
 #include "common.cuh"
+#include "smooth_tiles.cuh"
 
 namespace {
 
-constexpr int kTileX = 32;    // output rows (i) per block; even
-constexpr int kTileY = 64;    // output columns (j, contiguous) per block; even
-constexpr int kThreads = 256;
-// MAX_PARITY_SWEEPS in ops/cuda_kernels/smooth.py
-constexpr int kMaxSweeps = 24;
-
-// Rows and columns of one shared-memory plane at `sweeps` sweeps.
-__host__ __device__ __forceinline__ int plane_rows(int sweeps) {
-  return kTileX / 2 + 2 * sweeps;
-}
-__host__ __device__ __forceinline__ int plane_cols(int sweeps) {
-  return kTileY / 2 + 2 * sweeps;
+// Rows of one shared-memory plane for a tile of `rows` rows (columns alike):
+// the window holds rows + 4 * sweeps nodes, half of them in each plane.
+__host__ __device__ constexpr int plane_rows(int rows, int sweeps) {
+  return rows / 2 + 2 * sweeps;
 }
 
-__global__ void rbgs_parity_kernel(const float* __restrict__ u,
-                                   const float* __restrict__ f,
-                                   float* __restrict__ out, int nx, int ny,
-                                   Stencil5 st, float inv_c, float omega,
-                                   int sweeps) {
-  extern __shared__ float sm[];
-  const int pr = plane_rows(sweeps), pc = plane_cols(sweeps);
-  const int ps = pr * pc;
-  float* up = sm;           // u planes k = 2a + b: ee, eo, oe, oo
-  float* fp = sm + 4 * ps;  // f planes, same order
-  const int halo = 2 * sweeps;
-  const int ti0 = blockIdx.y * kTileX, tj0 = blockIdx.x * kTileY;
-  const int wi0 = max(ti0 - halo, 0), wj0 = max(tj0 - halo, 0);
-  const int wx = min(ti0 + kTileX + halo, nx) - wi0;
-  const int wy = min(tj0 + kTileY + halo, ny) - wj0;
+// u's four planes and f's.
+__host__ __device__ constexpr int smem_bytes(int tx, int ty, int sweeps) {
+  return 8 * plane_rows(tx, sweeps) * plane_rows(ty, sweeps) *
+         (int)sizeof(float);
+}
 
-  // window -> planes; global reads coalesced along j
-  for (int t = threadIdx.x; t < wx * wy; t += kThreads) {
-    const int li = t / wy, lj = t - li * wy;
-    const long g = (long)(wi0 + li) * ny + (wj0 + lj);
-    const int s = (2 * (li & 1) + (lj & 1)) * ps + (li >> 1) * pc + (lj >> 1);
-    up[s] = u[g];
-    fp[s] = f[g];
+// Offset of node (gi, gj) of an (nx, ny) field: row-major (L), or in the
+// (4, hx, hy) planes (K). K's offsets are 32-bit (mg_planes_rbgs refuses
+// planes of 2^31 entries or more): its 64-bit index arithmetic cost ~7% of
+// a call at 1025^2 (PERF.md).
+template <bool kPlanes>
+__device__ __forceinline__ long node_at(int gi, int gj, int ny, int hx,
+                                        int hy) {
+  if (kPlanes)
+    return ((2 * (gi & 1) + (gj & 1)) * hx + (gi >> 1)) * hy + (gj >> 1);
+  return (long)gi * ny + gj;
+}
+
+// The body of K and L, on the block's dynamic shared memory sm; every
+// geometry value is a compile-time constant of the instantiation.
+template <int kTileX, int kTileY, int kSweeps, bool kPlanes>
+__device__ __forceinline__ void parity_sweeps(float* sm,
+                                              const float* __restrict__ u,
+                                              const float* __restrict__ f,
+                                              float* __restrict__ out, int nx,
+                                              int ny, const Stencil5& st,
+                                              float inv_c, float omega) {
+  constexpr int halo = 2 * kSweeps;
+  constexpr int PR = plane_rows(kTileX, kSweeps);
+  constexpr int PC = plane_rows(kTileY, kSweeps);
+  constexpr int PS = PR * PC;
+  float* us = sm;  // planes 2a + b: ee, eo, oe, oo (the window's parity)
+  float* fs = sm + 4 * PS;
+  const int hx = (nx + 1) >> 1, hy = (ny + 1) >> 1;
+
+  const int ai = 1 + blockIdx.y * kTileX, bi = min(ai + kTileX, nx - 1);
+  const int aj = 1 + blockIdx.x * kTileY, bj = min(aj + kTileY, ny - 1);
+  const int wi0 = max(ai - halo, 0), wx = min(bi + halo, nx) - wi0;
+  const int wj0 = max(aj - halo, 0), wy = min(bj + halo, ny) - wj0;
+  auto at = [&](int li, int lj) {
+    return (2 * (li & 1) + (lj & 1)) * PS + (li >> 1) * PC + (lj >> 1);
+  };
+
+  // row by row: a warp reads a run of a field row (L), or of two global
+  // planes' rows (K); loading K plane by plane was slower (PERF.md)
+  constexpr int WY = 2 * PC;  // columns of a full window
+  for (int t = threadIdx.x; t < wx * WY; t += kThreads) {
+    const int li = t / WY, lj = t - li * WY;
+    if (lj >= wy) continue;
+    const long g = node_at<kPlanes>(wi0 + li, wj0 + lj, ny, hx, hy);
+    cp_async4(us + at(li, lj), u + g, true);
+    cp_async4(fs + at(li, lj), f + g, true);
   }
+  cp_async_commit();
+  cp_async_wait<0>();
 
-  const int hwx = (wx + 1) / 2, hwy = (wy + 1) / 2;  // plane cells in use
-  const int cells = hwx * hwy;
-  for (int sw = 0; sw < sweeps; ++sw) {
-    for (int color = 0; color < 2; ++color) {
-      __syncthreads();
-      for (int t = threadIdx.x; t < 2 * cells; t += kThreads) {
-        // red: ee (0,0) and oo (1,1); black: eo (0,1) and oe (1,0)
-        const int which = t >= cells;
-        const int r = t - which * cells;
-        const int pi = r / hwy, pj = r - pi * hwy;
-        const int a = which, b = color == 0 ? which : 1 - which;
-        const int li = 2 * pi + a, lj = 2 * pj + b;
-        if (li <= 0 || li >= wx - 1 || lj <= 0 || lj >= wy - 1) continue;
-        const float* xnb = up + (2 * (a ^ 1) + b) * ps;  // nodes (i -+ 1, j)
-        const float* ynb = up + (2 * a + (b ^ 1)) * ps;  // nodes (i, j -+ 1)
-        const int self = (2 * a + b) * ps + pi * pc + pj;
-        up[self] = rbgs_scalar_update(
-            up[self], fp[self], xnb[((li - 1) >> 1) * pc + pj],
-            xnb[((li + 1) >> 1) * pc + pj], ynb[pi * pc + ((lj - 1) >> 1)],
-            ynb[pi * pc + ((lj + 1) >> 1)], st, inv_c, omega);
-      }
+  // Plane (a, b) holds window nodes (2 pi + a, 2 pj + b); those off the
+  // window's border are rows pi = 1 - a .. (wx - 2 - a) / 2 and columns
+  // pj = 1 - b .. (wy - 2 - b) / 2. A phase walks whole rows 1 - a ..
+  // PR - 1 - a of its two planes, so a warp's lanes take consecutive words
+  // (no bank conflict), and skips the cells off those bounds: the first or
+  // last column, and in a window clamped at the field's far edge its last
+  // rows and columns.
+  constexpr int CELLS = (PR - 1) * PC;
+  constexpr int kItems = (2 * CELLS + kThreads - 1) / kThreads;
+  const int r_last0 = (wx - 2) >> 1, r_last1 = (wx - 3) >> 1;
+  const int c_last0 = (wy - 2) >> 1, c_last1 = (wy - 3) >> 1;
+  const int par = (wi0 + wj0) & 1;  // colour of window node (0, 0)
+#pragma unroll
+  for (int ph = 0; ph < 2 * kSweeps; ++ph) {
+    // colour ph & 1 (red first) is planes (0, b0) and (1, b0 ^ 1): items
+    // 0 .. CELLS - 1 walk the first, CELLS .. 2 CELLS - 1 the second
+    const int b0 = (ph + par) & 1;
+    __syncthreads();
+    float nv[kItems];
+    int self[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int t = threadIdx.x + k * kThreads;
+      const int a = t >= CELLS, b = b0 ^ a;
+      const int rc = t - a * CELLS, r = rc / PC;
+      const int pi = r + 1 - a, pj = rc - r * PC;
+      self[k] = -1;
+      // past 2 CELLS, pi >= PR - 1 > r_last1
+      if (pi > (a ? r_last1 : r_last0) || pj < 1 - b ||
+          pj > (b ? c_last1 : c_last0))
+        continue;
+      const int s = (2 * a + b) * PS + pi * PC + pj;
+      // (li + 1, lj) in plane (a ^ 1, b), (li - 1, lj) one plane row above;
+      // (li, lj + 1) in plane (a, b ^ 1), (li, lj - 1) one cell before
+      const float* xn = us + (2 * (a ^ 1) + b) * PS + (pi + a) * PC + pj;
+      const float* yn = us + (2 * a + (b ^ 1)) * PS + pi * PC + pj + b;
+      nv[k] = rbgs_scalar_update(us[s], fs[s], xn[-PC], xn[0], yn[-1], yn[0],
+                                 st, inv_c, omega);
+      self[k] = s;
     }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      if (self[k] >= 0) us[self[k]] = nv[k];
   }
   __syncthreads();
 
-  // the tile's interior -> out
-  const int oi = ti0 - wi0, oj = tj0 - wj0;
-  const int tx = min(kTileX, nx - ti0), ty = min(kTileY, ny - tj0);
-  for (int t = threadIdx.x; t < tx * ty; t += kThreads) {
-    const int i = t / ty, j = t - i * ty;
-    const int li = oi + i, lj = oj + j;
-    out[(long)(ti0 + i) * ny + (tj0 + j)] =
-        up[(2 * (li & 1) + (lj & 1)) * ps + (li >> 1) * pc + (lj >> 1)];
+  // the tile (with the ring next to it at the field's edge) -> out
+  int lo_i, hi_i, lo_j, hi_j;
+  tile_span(blockIdx.y, kTileX, nx, &lo_i, &hi_i);
+  tile_span(blockIdx.x, kTileY, ny, &lo_j, &hi_j);
+  constexpr int SY = kTileY + 2;  // columns of the span, at most
+  const int ty = hi_j - lo_j;
+  for (int t = threadIdx.x; t < (hi_i - lo_i) * SY; t += kThreads) {
+    const int i = t / SY, j = t - i * SY;
+    if (j >= ty) continue;
+    const int gi = lo_i + i, gj = lo_j + j;
+    out[node_at<kPlanes>(gi, gj, ny, hx, hy)] = us[at(gi - wi0, gj - wj0)];
   }
+  if (kPlanes) {
+    // K: the padding beyond an odd field's edge next to the span (row nx,
+    // column ny, their corner), copied from up
+    const int pad_i = (nx & 1) && hi_i == nx, pad_j = (ny & 1) && hi_j == ny;
+    const int row = pad_i ? ty + pad_j : 0;
+    for (int t = threadIdx.x; t < row + pad_j * (hi_i - lo_i); t += kThreads) {
+      const int gi = t < row ? nx : lo_i + t - row;
+      const int gj = t < row ? lo_j + t : ny;
+      const long g = node_at<true>(gi, gj, ny, hx, hy);
+      out[g] = u[g];
+    }
+  }
+}
+
+template <int kTileX, int kTileY, int kSweeps>
+__global__ void __launch_bounds__(kThreads, 2)
+    parity_kernel(const float* __restrict__ u, const float* __restrict__ f,
+                  float* __restrict__ out, int nx, int ny, Stencil5 st,
+                  float inv_c, float omega) {
+  extern __shared__ float sm[];
+  parity_sweeps<kTileX, kTileY, kSweeps, false>(sm, u, f, out, nx, ny, st,
+                                                inv_c, omega);
+}
+
+template <int kTileX, int kTileY, int kSweeps>
+__global__ void __launch_bounds__(kThreads, 2)
+    planes_kernel(const float* __restrict__ up, const float* __restrict__ fp,
+                  float* __restrict__ out, int nx, int ny, Stencil5 st,
+                  float inv_c, float omega) {
+  extern __shared__ float sm[];
+  parity_sweeps<kTileX, kTileY, kSweeps, true>(sm, up, fp, out, nx, ny, st,
+                                               inv_c, omega);
+}
+
+template <int kTileX, int kTileY, int kSweeps, bool kPlanes>
+cudaError_t launch(const float* u, const float* f, float* out, int nx, int ny,
+                   const Stencil5& st, float omega, int device,
+                   cudaStream_t stream) {
+  static bool done[kMaxDevices] = {};
+  const auto kernel = kPlanes ? planes_kernel<kTileX, kTileY, kSweeps>
+                              : parity_kernel<kTileX, kTileY, kSweeps>;
+  constexpr int bytes = smem_bytes(kTileX, kTileY, kSweeps);
+  const cudaError_t err = allow_smem(kernel, bytes, device, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((ny - 2 + kTileY - 1) / kTileY,
+                  (nx - 2 + kTileX - 1) / kTileX);
+  kernel<<<grid, kThreads, bytes, stream>>>(u, f, out, nx, ny, st,
+                                            1.0f / st.c, omega);
+  return cudaGetLastError();
+}
+
+template <bool kPlanes>
+int run(const float* u, const float* f, float* out, int nx, int ny, float c,
+        float w, float e, float s, float n, float omega, int sweeps,
+        int device, void* stream) {
+  if (sweeps < 1 || sweeps > kMaxSweeps || nx < 3 || ny < 3)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  const Stencil5 st{c, w, e, s, n};
+  return (int)with_tile_and_sweeps(nx, ny, sweeps, [&](auto ti, auto sw) {
+    constexpr Tile tile = kTiles[decltype(ti)::value];
+    return launch<tile.x, tile.y, decltype(sw)::value, kPlanes>(
+        u, f, out, nx, ny, st, omega, device, (cudaStream_t)stream);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// `sweeps` RB-GS/SOR sweeps (red then black) of u, written to out (every
-// node of out is written; u and f are only read).
+// Kernel L: `sweeps` (1 .. kMaxSweeps) RB-GS/SOR sweeps (red then black)
+// of the (nx, ny) field u, written to out (every node of out is written; u
+// and f are only read, and out must not alias them).
 int mg_rbgs_parity(const float* u, const float* f, float* out, int nx, int ny,
                    float c, float w, float e, float s, float n, float omega,
                    int sweeps, int device, void* stream) {
-  if (sweeps < 1 || sweeps > kMaxSweeps) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int bytes =
-      8 * plane_rows(sweeps) * plane_cols(sweeps) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(rbgs_parity_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return (int)err;
-  const Stencil5 st{c, w, e, s, n};
-  const dim3 grid((ny + kTileY - 1) / kTileY, (nx + kTileX - 1) / kTileX);
-  rbgs_parity_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      u, f, out, nx, ny, st, 1.0f / c, omega, sweeps);
-  return (int)cudaGetLastError();
+  return run<false>(u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device,
+                    stream);
+}
+
+// Kernel K: the same on the (4, hx, hy) planes up and fp of an (nx, ny)
+// field, written to the planes out (every entry written, padding copied);
+// the planes hold fewer than 2^31 entries.
+int mg_planes_rbgs(const float* up, const float* fp, float* out, int nx,
+                   int ny, float c, float w, float e, float s, float n,
+                   float omega, int sweeps, int device, void* stream) {
+  if (4L * ((nx + 1) / 2) * ((ny + 1) / 2) > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  return run<true>(up, fp, out, nx, ny, c, w, e, s, n, omega, sweeps, device,
+                   stream);
 }
 
 }  // extern "C"

@@ -15,18 +15,18 @@ the designs and what bounds them.
 take the direct body: the parity body sweeps red then black only.
 
 On a CPU tensor each wrapper runs its plain twin in place and returns
-``u``; on a CUDA tensor it launches its kernel or raises. A runs up to
-``MAX_SWEEPS`` sweeps per launch into a separate output and returns that
-output, leaving ``u`` untouched; longer calls take several launches
-(``plan_passes``). L updates ``u`` in place and returns it.
+``u``; on a CUDA tensor it launches its kernel or raises. A and L (and
+kernel K, ``smooth_planes.py``) run up to ``MAX_SWEEPS`` sweeps per launch
+into a separate output and return that output, leaving ``u`` untouched;
+longer calls take several launches (``plan_passes``, ``launch_passes``).
 ``multisweep.launches`` counts A's launches, ``multisweep_parity.launches``
-L's (one per call of up to ``MAX_PARITY_SWEEPS`` sweeps).
+L's.
 
-A's launch geometry is the kernel source's: a level takes the largest tile
-of ``TILES`` whose grid holds at least ``MIN_BLOCKS`` blocks (``tile``).
-``check_geometry`` holds this module's copy against the built library
-before a level shape's first launch, and the CPU schedule test holds it
-against the source.
+A, K and L share one launch geometry (``csrc/smooth_tiles.cuh``): a level
+takes the largest tile of ``TILES`` whose grid holds at least
+``MIN_BLOCKS`` blocks (``tile``). ``check_geometry`` holds this module's
+copy against the built library before a level shape's first launch, and the
+CPU schedule tests hold it against the source.
 """
 
 from __future__ import annotations
@@ -46,8 +46,7 @@ RBGS = smooth_mod.RBGS_METHODS + ("rbgs_rev",)
 LAYOUTS = ("auto", "direct", "parity")
 # Off by default, as in the JAX package (its smooth.py:277).
 PARITY_DEFAULT = False
-MAX_PARITY_SWEEPS = 24   # kMaxSweeps in csrc/smooth_parity.cu
-# csrc/smooth.cu's kTiles (rows, columns; largest first), kMinBlocks,
+# csrc/smooth_tiles.cuh's kTiles (rows, columns; largest first), kMinBlocks,
 # kThreads, kMaxSweeps
 TILES = ((64, 64), (32, 64), (8, 64))
 MIN_BLOCKS = 128
@@ -56,9 +55,9 @@ MAX_SWEEPS = 4
 
 
 def tile(nx: int, ny: int) -> tuple:
-    """A's tile of an (nx, ny) level (``tile_of`` in csrc/smooth.cu): the
-    largest whose grid holds at least MIN_BLOCKS blocks, else the
-    smallest."""
+    """The tile of an (nx, ny) level (``tile_of`` in
+    csrc/smooth_tiles.cuh): the largest whose grid holds at least
+    MIN_BLOCKS blocks, else the smallest."""
     for t in TILES[:-1]:
         if -(-(nx - 2) // t[0]) * -(-(ny - 2) // t[1]) >= MIN_BLOCKS:
             return t
@@ -78,8 +77,8 @@ def plan_passes(sweeps: int) -> list:
 
 
 def geometry(nx: int, ny: int) -> tuple:
-    """This module's copy of A's geometry for an (nx, ny) level, in the
-    order ``mg_smooth_geometry`` reports it."""
+    """This module's copy of A's, K's and L's geometry for an (nx, ny)
+    level, in the order ``mg_smooth_geometry`` reports it."""
     return (*tile(nx, ny), THREADS, MAX_SWEEPS, MIN_BLOCKS, len(TILES))
 
 
@@ -93,6 +92,32 @@ def check_geometry(nx: int, ny: int) -> None:
         raise RuntimeError(f"multisweep: the kernel's geometry at ({nx}, "
                            f"{ny}) is {tuple(got)}, this module plans with "
                            f"{geometry(nx, ny)}")
+
+
+def launch_passes(entry: str, wrapper, u, f, nx: int, ny: int, coefs,
+                  omega: float, sweeps: int, *flags):
+    """Launch C entry ``entry`` (A's, K's or L's) once per pass of
+    ``plan_passes(sweeps)``, each on the last one's output, and count the
+    launches on ``wrapper``; returns the last output, a new tensor (``u``
+    itself when there is no pass). The kernels write a separate output:
+    neighbouring blocks load a block's nodes as their halo, so no kernel
+    writes its input in place."""
+    passes = plan_passes(sweeps)
+    if not passes:
+        return u
+    check_geometry(nx, ny)
+    dev, stream = u.device.index, _build.stream_of(u)
+    out = torch.empty_like(u)
+    scratch = torch.empty_like(u) if len(passes) > 1 else None
+    src = u
+    for i, k in enumerate(passes):
+        # the last pass writes out: earlier ones alternate before it
+        dst = out if (len(passes) - 1 - i) % 2 == 0 else scratch
+        _build.launch(entry, src.data_ptr(), f.data_ptr(), dst.data_ptr(),
+                      nx, ny, *coefs, omega, k, *flags, dev, stream)
+        wrapper.launches += 1
+        src = dst
+    return out
 
 
 def _resolve_parity(layout: str, method: str) -> bool:
@@ -129,9 +154,9 @@ def multisweep_parity_plain(st: Stencil, u, f, *, sweeps: int = 2,
 
 def multisweep_parity(st: Stencil, u, f, *, sweeps: int = 2,
                       omega: float = 1.0):
-    """``sweeps`` red-then-black RB-GS/SOR sweeps in place on ``u`` through
-    parity planes (kernel L: one launch per call of up to
-    ``MAX_PARITY_SWEEPS`` sweeps); returns ``u``."""
+    """``sweeps`` red-then-black RB-GS/SOR sweeps through parity planes;
+    returns the smoothed field: ``u`` itself, updated in place, on the CPU,
+    a new tensor from kernel L (``u`` untouched)."""
     if not st.scalar:
         raise ValueError("multisweep_parity: takes a constant-coefficient "
                          "stencil")
@@ -141,29 +166,15 @@ def multisweep_parity(st: Stencil, u, f, *, sweeps: int = 2,
     if f.shape != u.shape:
         raise ValueError(f"multisweep_parity: f {tuple(f.shape)} != u "
                          f"{tuple(u.shape)}")
-    nx, ny = u.shape
-    # a separate output: neighbouring blocks read this block's nodes as
-    # their halo, so L cannot write u in place
-    out = torch.empty_like(u)
-    done = 0
-    while done < sweeps:
-        # the window of k sweeps must fit in shared memory: longer runs
-        # (a coarsest-level solve) take several launches
-        k = min(sweeps - done, MAX_PARITY_SWEEPS)
-        _build.launch("mg_rbgs_parity", u.data_ptr(), f.data_ptr(),
-                      out.data_ptr(), nx, ny, *st.coefs, omega, k,
-                      u.device.index, _build.stream_of(u))
-        multisweep_parity.launches += 1
-        u.copy_(out)
-        done += k
-    return u
+    return launch_passes("mg_rbgs_parity", multisweep_parity, u, f,
+                         *u.shape, st.coefs, omega, sweeps)
 
 
 def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
                omega: float = 1.0, layout: str = "auto"):
     """``sweeps`` sweeps of ``method``; returns the smoothed field: ``u``
-    itself, updated in place, on the CPU and from L, a new tensor from A
-    (``u`` untouched).
+    itself, updated in place, on the CPU, a new tensor from A and L (``u``
+    untouched).
 
     ``method``: 'jacobi', an RB-GS name ('rbgs', 'gauss_seidel', 'red_black',
     'sor'), or 'rbgs_rev' (black before red). ``layout``: 'auto', 'direct'
@@ -179,27 +190,9 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
     if f.shape != u.shape:
         raise ValueError(f"multisweep: f {tuple(f.shape)} != u "
                          f"{tuple(u.shape)}")
-    nx, ny = u.shape
-    check_geometry(nx, ny)
-    passes = plan_passes(sweeps)
-    if not passes:
-        return u
-    dev, stream = u.device.index, _build.stream_of(u)
-    # a separate output: neighbouring blocks read this block's nodes as
-    # their halo, so A cannot write its input in place
-    out = torch.empty_like(u)
-    scratch = torch.empty_like(u) if len(passes) > 1 else None
-    src = u
-    for i, k in enumerate(passes):
-        # the last pass writes out: earlier ones alternate before it
-        dst = out if (len(passes) - 1 - i) % 2 == 0 else scratch
-        _build.launch("mg_smooth", src.data_ptr(), f.data_ptr(),
-                      dst.data_ptr(), nx, ny, *st.coefs, omega, k,
-                      int(method == "jacobi"), int(method == "rbgs_rev"),
-                      dev, stream)
-        multisweep.launches += 1
-        src = dst
-    return out
+    return launch_passes("mg_smooth", multisweep, u, f, *u.shape, st.coefs,
+                         omega, sweeps, int(method == "jacobi"),
+                         int(method == "rbgs_rev"))
 
 
 multisweep.launches = 0

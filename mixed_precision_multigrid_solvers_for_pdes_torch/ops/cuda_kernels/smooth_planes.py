@@ -1,16 +1,19 @@
-"""Kernel K: RB-GS/SOR sweeps on parity planes (``csrc/smooth_planes.cu``)
+"""Kernel K: RB-GS/SOR sweeps on parity planes (``csrc/smooth_parity.cu``)
 and its plain twin.
 
 Replaces the Pallas ``multisweep_planes`` of
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth_planes.py``
 (:225) for constant-coefficient 5-point stencils on all-Dirichlet rectangles
-in fp32. The planes are the (4, hx, hy) layout of ``ops/planes.py``. The
-source note in ``csrc/smooth_planes.cu`` gives the design and what bounds
-it.
+in fp32. The planes are the (4, hx, hy) layout of ``ops/planes.py``. K is
+kernel L's body with its window loaded from, and its tile stored to, the
+planes; the source note in ``csrc/smooth_parity.cu`` gives the design and
+what bounds it.
 
-On a CPU tensor ``multisweep_planes`` runs the plain twin; on a CUDA tensor
-it launches the kernel or raises. ``multisweep_planes.launches`` counts
-kernel launches (one per colour half-sweep).
+On a CPU tensor ``multisweep_planes`` runs the plain twin in place and
+returns ``up``; on a CUDA tensor it launches the kernel or raises: up to
+``smooth.MAX_SWEEPS`` sweeps per launch into new planes, which it returns,
+leaving ``up`` untouched. ``multisweep_planes.launches`` counts the
+launches.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 from .. import planes as pln
 from ..stencil import Stencil
 from . import _build
+from .smooth import launch_passes
 
 
 def multisweep_planes_plain(st: Stencil, up, fp, *, nx: int, ny: int,
@@ -31,8 +35,10 @@ def multisweep_planes_plain(st: Stencil, up, fp, *, nx: int, ny: int,
 
 def multisweep_planes(st: Stencil, up, fp, *, nx: int, ny: int,
                       sweeps: int = 2, omega: float = 1.0):
-    """``sweeps`` RB-GS/SOR sweeps in place on the (4, hx, hy) parity planes
-    ``up`` of an (nx, ny) all-Dirichlet grid; returns ``up``."""
+    """``sweeps`` RB-GS/SOR sweeps (red then black) of the (4, hx, hy)
+    parity planes ``up`` of an (nx, ny) all-Dirichlet grid; returns the
+    smoothed planes: ``up`` itself, updated in place, on the CPU, new
+    planes from kernel K (``up`` untouched)."""
     if not st.scalar:
         raise ValueError("multisweep_planes: takes a constant-coefficient "
                          "stencil")
@@ -46,15 +52,8 @@ def multisweep_planes(st: Stencil, up, fp, *, nx: int, ny: int,
     if fp.shape != up.shape:
         raise ValueError(f"multisweep_planes: fp {tuple(fp.shape)} != up "
                          f"{tuple(up.shape)}")
-    _, hx, hy = up.shape
-    dev, stream = up.device.index, _build.stream_of(up)
-    for _ in range(sweeps):
-        for color in (0, 1):
-            _build.launch("mg_planes_rbgs_color", up.data_ptr(),
-                          fp.data_ptr(), hx, hy, nx, ny, *st.coefs, omega,
-                          color, dev, stream)
-            multisweep_planes.launches += 1
-    return up
+    return launch_passes("mg_planes_rbgs", multisweep_planes, up, fp, nx, ny,
+                         st.coefs, omega, sweeps)
 
 
 multisweep_planes.launches = 0

@@ -76,8 +76,9 @@ def kernel_smooth_ok(u, lev, backend: str, method: str) -> bool:
 def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
            backend: str = "auto"):
     """``sweeps`` smoothing sweeps of ``u``; returns the smoothed field: a
-    new tensor from kernel A (which works out of place), ``u`` itself,
-    updated in place, from kernels H and L and the plain path."""
+    new tensor from kernels A and L (which work out of place, ``u``
+    untouched), ``u`` itself, updated in place, from kernel H and the plain
+    path. Callers take the return value."""
     if kernel_smooth_ok(u, lev, backend, method):
         kernel = (k_smooth.multisweep if stencil.scalar
                   else k_smooth_var.multisweep_var)
@@ -94,8 +95,10 @@ def kernel_planes_ok(up, backend: str) -> bool:
 
 
 def smooth_planes(lev0, up, fp, cfg, sweeps: int):
-    """``sweeps`` RB-GS/SOR sweeps in place on the (4, hx, hy) parity planes
-    ``up`` of level 0 (kernel K, or its plain twin); returns ``up``."""
+    """``sweeps`` RB-GS/SOR sweeps of the (4, hx, hy) parity planes ``up``
+    of level 0; returns the smoothed planes: new planes from kernel K (which
+    works out of place, ``up`` untouched), ``up`` itself, updated in place,
+    from its plain twin. Callers take the return value."""
     if sweeps <= 0:
         return up
     kernel = (k_planes.multisweep_planes

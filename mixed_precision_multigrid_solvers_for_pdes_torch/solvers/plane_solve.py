@@ -46,7 +46,8 @@ def plane_solve_ok(levels, cfg: MultigridConfig) -> bool:
 
 def plane_cycle(levels, up, fp, cfg: MultigridConfig, masks):
     """One V-cycle with level 0 in plane space (levels >= 1 standard);
-    updates ``up`` in place and returns it."""
+    returns the new level-0 planes (kernel K and the correction work out of
+    place, so ``up`` may be left as it was: take the return value)."""
     lev0, nxt = levels[0], levels[1]
     up = dispatch.smooth_planes(lev0, up, fp, cfg, cfg.pre_sweeps)
     rp = pln.plane_residual(lev0.stencil.coefs, up, fp, masks)

@@ -538,17 +538,23 @@ def test_solve_poisson_varcoef_kernel_path_matches_plain_path(dev, problem):
 
 
 @pytest.mark.parametrize("domain", list(DOMAINS))
-@pytest.mark.parametrize("sweeps,omega", [(2, 1.0), (1, 1.3), (3, 1.3)])
-@pytest.mark.parametrize("nx,ny", [(257, 257), (129, 65), (5, 5)])
+@pytest.mark.parametrize("sweeps,omega", [(2, 1.0), (1, 1.3), (3, 1.3),
+                                          (5, 1.0)])
+@pytest.mark.parametrize("nx,ny", [(257, 257), (129, 65), (70, 37), (5, 5)])
 def test_multisweep_planes_matches_twin(dev, nx, ny, sweeps, omega, domain):
+    """K: one launch per call of up to MAX_SWEEPS sweeps, out of place (the
+    input planes untouched), the twin bit for bit, padding included."""
     g = T.Grid(nx, ny, DOMAINS[domain])
     st = stencil.make_stencil(g)
     u, f = _field(g.shape, 41, dev), _field(g.shape, 42, dev, st.c)
     up, fp = planes.split_field(u), planes.split_field(f)
+    up_in = up.clone()
     before = ksmooth_planes.multisweep_planes.launches
-    got = ksmooth_planes.multisweep_planes(st, up.clone(), fp, nx=nx, ny=ny,
+    got = ksmooth_planes.multisweep_planes(st, up_in, fp, nx=nx, ny=ny,
                                            sweeps=sweeps, omega=omega)
-    assert ksmooth_planes.multisweep_planes.launches - before == 2 * sweeps
+    assert ksmooth_planes.multisweep_planes.launches - before == len(
+        ksmooth.plan_passes(sweeps))
+    assert got is not up_in and torch.equal(up_in, up)
     _exact(got, ksmooth_planes.multisweep_planes_plain(
         st, up.clone(), fp, nx=nx, ny=ny, sweeps=sweeps, omega=omega))
 
@@ -562,12 +568,14 @@ def test_multisweep_parity_matches_twin_and_kernel_a(dev, nx, ny, sweeps,
     g = T.Grid(nx, ny, DOMAINS[domain])
     st = stencil.make_stencil(g)
     u, f = _field(g.shape, 43, dev), _field(g.shape, 44, dev, st.c)
+    u_in = u.clone()
     before = ksmooth.multisweep_parity.launches, ksmooth.multisweep.launches
-    got = ksmooth.multisweep(st, u.clone(), f, sweeps=sweeps, omega=omega,
+    got = ksmooth.multisweep(st, u_in, f, sweeps=sweeps, omega=omega,
                              layout="parity")
-    chunks = -(-sweeps // ksmooth.MAX_PARITY_SWEEPS)
+    passes = len(ksmooth.plan_passes(sweeps))
     assert (ksmooth.multisweep_parity.launches,
-            ksmooth.multisweep.launches) == (before[0] + chunks, before[1])
+            ksmooth.multisweep.launches) == (before[0] + passes, before[1])
+    assert got is not u_in and torch.equal(u_in, u)  # out of place
     _exact(got, ksmooth.multisweep_parity_plain(st, u.clone(), f,
                                                 sweeps=sweeps, omega=omega))
     _exact(got, ksmooth.multisweep(st, u.clone(), f, sweeps=sweeps,

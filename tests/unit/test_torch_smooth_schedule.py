@@ -33,7 +33,8 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
     smooth as ks,
 )
 
-SOURCE = Path(T.__file__).parent / "csrc" / "smooth.cu"
+CSRC = Path(T.__file__).parent / "csrc"
+SOURCE = CSRC / "smooth_tiles.cuh"   # A's geometry, which smooth.cu includes
 TINY_TILES = [(4, 6), (3, 5)]
 METHODS = [("rbgs", 1.0), ("sor", 1.3), ("rbgs_rev", 1.0), ("jacobi", 0.8)]
 
@@ -189,9 +190,11 @@ def _source_geometry():
 
 
 def test_launch_plan_and_geometry_are_the_kernel_sources():
-    """The tiles are the ones csrc/smooth.cu compiles, each level takes the
-    largest whose grid holds MIN_BLOCKS blocks, a 2-sweep call is one
-    launch, and every window fits shared memory."""
+    """The tiles are the ones csrc/smooth.cu compiles (from
+    csrc/smooth_tiles.cuh), each level takes the largest whose grid holds
+    MIN_BLOCKS blocks, a 2-sweep call is one launch, and every window fits
+    shared memory."""
+    assert '#include "smooth_tiles.cuh"' in (CSRC / "smooth.cu").read_text()
     tiles, consts = _source_geometry()
     assert tiles == ks.TILES and consts["kNumTiles"] == len(tiles)
     assert (consts["kMinBlocks"], consts["kThreads"], consts["kMaxSweeps"]) \
