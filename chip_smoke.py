@@ -93,6 +93,27 @@ The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
      same levels: the same count and u within 1e-8;
  19. time the plane solve against the standard no-FMG solve, in turns, and
      profile one plane solve.
+The rest of the 2D operator (after phase 10), at 1025^2 through
+solve_poisson(precision='fp32', tol 1e-9), each solve from launch counts
+reset to zero, each checked against the JAX reference's outer-step count
+and l2 error and against the same solve with backend='torch':
+ 20. W and F cycles on the Poisson problem: first A at 129^2 and 65^2, B
+     and C between 129^2 and 65^2 and D from 65^2 (the entries the W and F
+     branches give them) against their twins, and, for phase 22, A on the
+     coarsest level (32 sweeps) of the anisotropic and the isotropic
+     hierarchy and B and C between 1025^2 and 513^2 with the anisotropic
+     stencil; then A, B, C and D make
+     exactly the launches their plan derives from the recursion (W: D
+     from 65^2 only; F: from 65^2 and 129^2);
+ 21. periodic and segmented sides (periodic_helmholtz_mms,
+     mixed_segment_problem, mixed_segment_mms): no 2D kernel launches, and
+     the periodic duplicate nodes equal node 0;
+ 22. line_y and ADI smoothing on the anisotropic problem, Chebyshev on the
+     Poisson problem: B and C on every transfer, A on every coarsest
+     solve, D never;
+     then ms per solve (minimum of 3, the checked solves the warm-up) of
+     each, the plain path's too for Chebyshev, and profiles of the W,
+     line_y and periodic solves.
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -193,6 +214,31 @@ IR_INNER_CYCLES = 2       # cycles per outer step of solve_poisson3d
 # and fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# The rest of the 2D operator at 1025^2 (phases 20-22). The references are
+# the JAX package's solve_poisson(precision='fp32', cfg=MultigridConfig(
+# smoother='rbgs', omega=1.0, tol=1e-9) with the case's changes) on the CPU
+# at 1025^2: outer steps and l2 error against the exact solution. The
+# periodic l2 is that of the JAX solution after periodic_sync (the JAX
+# ir_solve leaves its duplicate nodes at the zero start; this port syncs
+# them). The segment problems' factor grows with h (0.37 and 0.42 at
+# 1025^2), so their counts get +-1, and the 1e-9 tolerance, not the grid,
+# sets their l2 (at most ROBIN_L2_FACTOR x the reference, as for Robin).
+OPERATOR_CASES = {
+    # name: (problem, config changes, steps, slack, l2, l2 check)
+    "W": ("poisson_mms_sinsin", dict(cycle="W"), 4, 0, 3.92183e-7, "rtol"),
+    "F": ("poisson_mms_sinsin", dict(cycle="F"), 4, 0, 3.92183e-7, "rtol"),
+    "periodic": ("periodic_helmholtz_mms", {}, 4, 0, 1.5505e-6, "rtol"),
+    "segments": ("mixed_segment_problem", {}, 17, 1, 1.9107e-8, "factor"),
+    "segment_mms": ("mixed_segment_mms", {}, 19, 1, 3.8250e-8, "factor"),
+    "line_y": ("poisson_mms_anisotropic", dict(smoother="line_y"), 4, 0,
+               1.24018e-7, "rtol"),
+    "adi": ("poisson_mms_anisotropic", dict(smoother="adi"), 4, 0,
+            1.24019e-7, "rtol"),
+    "chebyshev": ("poisson_mms_sinsin", dict(smoother="chebyshev"), 5, 0,
+                  3.92174e-7, "rtol"),
+}
+OPERATOR_PATH_RTOL = 1e-8  # max|u_auto - u_torch| <= this * max|u|
+TAIL_ENTRY = 129           # dispatch.TAIL_MAX_ENTRY: D takes V entries <= it
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
 
@@ -791,9 +837,12 @@ def timed_solves3d(mg, levels, cfg, k, dev) -> float:
     return best
 
 
-def profile_solve(label, run, wrappers) -> None:
+def profile_solve(label, run, wrappers, cpu: bool = True) -> None:
     """Profile one kernel-path solve (``run``): device-busy share against
-    the same solve unprofiled, top kernels, launches per solve."""
+    the same solve unprofiled, top kernels, launches per solve. ``cpu``
+    False traces the device alone: the host events of a solve of ~10^5
+    eager ops take the profiler a minute to aggregate, and only the device
+    events are read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -808,8 +857,8 @@ def profile_solve(label, run, wrappers) -> None:
     wall = timed()
     for w in wrappers.values():
         w.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         wall_prof = timed()
     launches = {name: w.launches for name, w in wrappers.items()}
     kernels = [e for e in prof.key_averages()
@@ -1380,6 +1429,271 @@ def plane_path(mg, card, dev):
     return k_planes
 
 
+def cycle_launches(levels, cfg, iterations):
+    """A's, B's, C's and D's launches in one solve_poisson run: no FMG,
+    ``iterations`` outer steps of IR_INNER_CYCLES cycles, walked from the
+    cycle recursion. With a point smoother (Jacobi or RB-GS) a cycle of
+    type V entered at a level of at most TAIL_ENTRY launches D once, and
+    any other entry smooths twice through A (its planned passes per call);
+    line, ADI and Chebyshev smoothing takes neither. Every entry above the
+    coarsest transfers once through B and once through C, then enters the
+    next level once (V), twice (W) or as F then V, while the level below
+    is within ``cfg.w_depth``, and as V beyond; the coarsest level's 32
+    RB-GS sweeps are A's planned passes for 32."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks
+
+    sizes = [lev.grid.nx for lev in levels]
+    point = cfg.smoother in ("jacobi", "rbgs")
+    per_call = len(ks.plan_passes(cfg.pre_sweeps)) + len(
+        ks.plan_passes(cfg.post_sweeps))
+    count = dict.fromkeys(("smooth_multisweep", "residual_restrict",
+                           "prolong_correct", "tail_vcycle"), 0)
+
+    def walk(lvl, cycle):
+        if point and cycle == "V" and sizes[lvl] <= TAIL_ENTRY:
+            count["tail_vcycle"] += 1
+            return
+        if lvl == len(sizes) - 1:
+            count["smooth_multisweep"] += len(ks.plan_passes(
+                cfg.coarse_sweeps))
+            return
+        count["smooth_multisweep"] += per_call if point else 0
+        count["residual_restrict"] += 1
+        count["prolong_correct"] += 1
+        branch = cycle if lvl + 1 < cfg.w_depth else "V"
+        for nxt in {"V": ("V",), "W": ("W", "W"), "F": ("F", "V")}[branch]:
+            walk(lvl + 1, nxt)
+
+    walk(0, cfg.cycle)
+    cycles = iterations * IR_INNER_CYCLES
+    return {k: v * cycles for k, v in count.items()}
+
+
+def operator_config(mg, name, backend):
+    prob_name, changes = OPERATOR_CASES[name][:2]
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                             backend=backend).replace(**changes)
+    return getattr(mg, prob_name)(N), cfg
+
+
+def operator_solve(mg, name, backend, dev):
+    """solve_poisson(precision='fp32', tol 1e-9) on one case of phases
+    20-22; checks the JAX reference's outer-step count and l2 error."""
+    import torch
+
+    prob, cfg = operator_config(mg, name, backend)
+    _, _, steps, slack, l2_ref, rule = OPERATOR_CASES[name]
+    res = mg.solve_poisson(prob, precision="fp32", cfg=cfg, device=dev)
+    print(f"solve {name} ({prob.name}) {N}^2 {backend}: iterations "
+          f"{res.iterations} converged {res.converged} history "
+          f"{res.info['history'].tolist()} errors {res.errors} solve "
+          f"{res.solve_time * 1e3:.3f} ms (first call)")
+    if tuple(res.u.shape) != (N, N) or not torch.isfinite(res.u).all():
+        fail(f"{name} solution is misshapen or not finite")
+    if not res.converged or abs(res.iterations - steps) > slack:
+        fail(f"{name} {backend}: expected convergence in {steps} +- {slack}"
+             " outer steps")
+    l2 = res.errors["l2"]
+    if rule == "rtol" and abs(l2 / l2_ref - 1) > L2_RTOL:
+        fail(f"{name} l2 error {l2:.4e} not within {L2_RTOL:.0%} of "
+             f"{l2_ref:.4e}")
+    if rule == "factor" and l2 > ROBIN_L2_FACTOR * l2_ref:
+        fail(f"{name} l2 error {l2:.4e} above {ROBIN_L2_FACTOR} x "
+             f"{l2_ref:.4e}")
+    return res
+
+
+def kernel_phase_wf(mg, levels, cfg, dev):
+    """The kernel checks of phases 20-22 at the entries no earlier phase
+    gives them, against their twins: A at 129^2 and 65^2 (2 sweeps), B and C
+    between 129^2 and 65^2 and D from 65^2 (the W and F cycles); A on the
+    coarsest level (32 RB-GS sweeps, omega 1) of the anisotropic hierarchy
+    and of the isotropic one, and B and C between 1025^2 and 513^2 with the
+    anisotropic stencil (the line, ADI and Chebyshev paths)."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, tail as kt, transfer as kx
+
+    gen = torch.Generator(device=dev).manual_seed(2020)
+
+    def field(shape, scale=1.0):
+        a = torch.zeros(shape, device=dev)
+        a[1:-1, 1:-1] = scale * torch.randn(
+            (shape[0] - 2, shape[1] - 2), generator=gen, device=dev)
+        return a
+
+    by_n = {lev.grid.nx: lev for lev in levels}
+    errs, times = {}, {}
+    sm = dict(method="rbgs", sweeps=cfg.pre_sweeps, omega=cfg.omega)
+    for n in (129, 65):
+        st = by_n[n].stencil
+        u, f = field((n, n)), field((n, n), st.c)
+        compare("smooth_multisweep", f"{n}^2 (W/F)", lambda a, b:
+                ks.multisweep(st, a, b, **sm), lambda a, b:
+                ks.multisweep_plain(st, a, b, **sm),
+                lambda: (u.clone(), f), errs)
+        times[("smooth_multisweep", n)] = (
+            time_ms(lambda: ks.multisweep(st, u, f, **sm)),
+            time_ms(lambda: ks.multisweep_plain(st, u, f, **sm)))
+    st, n, nc = by_n[129].stencil, 129, 65
+    u, f, ec = field((n, n)), field((n, n), st.c), field((nc, nc))
+    compare("residual_restrict", f"{n}->{nc} (W/F)",
+            lambda a, b: kx.residual_restrict(st, a, b),
+            lambda a, b: kx.residual_restrict_plain(st, a, b),
+            lambda: (u, f), errs)
+    compare("prolong_correct", f"{nc}->{n} (W/F)", kx.prolong_correct,
+            kx.prolong_correct_plain, lambda: (ec, u.clone()), errs)
+    times[("residual_restrict", n)] = (
+        time_ms(lambda: kx.residual_restrict(st, u, f)),
+        time_ms(lambda: kx.residual_restrict_plain(st, u, f)))
+    times[("prolong_correct", n)] = (
+        time_ms(lambda: kx.prolong_correct(ec, u)),
+        time_ms(lambda: kx.prolong_correct_plain(ec, u)))
+    tail = [lev for lev in levels if lev.grid.nx <= 65]
+    sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
+                                                   for lev in tail]
+    tail_kw = dict(pre=cfg.pre_sweeps, post=cfg.post_sweeps, omega=cfg.omega,
+                   method=cfg.smoother, coarse_sweeps=cfg.coarse_sweeps,
+                   symmetric=cfg.symmetric)
+    f = field(shapes[0], sts[0].c)
+    u0 = torch.zeros(shapes[0], device=dev)
+    compare("tail_vcycle", f"65^2 L={len(tail)} (W/F)",
+            lambda a, b: kt.tail_vcycle(sts, a, b, shapes=shapes, **tail_kw),
+            lambda a, b: kt.tail_vcycle_plain(sts, a, b, shapes=shapes,
+                                              **tail_kw),
+            lambda: (u0.clone(), f), errs)
+    times[("tail_vcycle", 65)] = (
+        time_ms(lambda: kt.tail_vcycle(sts, u0.clone(), f, shapes=shapes,
+                                       **tail_kw)),
+        time_ms(lambda: kt.tail_vcycle_plain(sts, u0.clone(), f,
+                                             shapes=shapes, **tail_kw)))
+    for (name, n), (k_ms, p_ms) in times.items():
+        print(f"time {name} {n}^2 (W/F entries): kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms")
+    prob, lcfg = operator_config(mg, "line_y", "auto")
+    aniso = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                               device=dev, cfg=lcfg)
+    coarse = dict(method="rbgs", sweeps=cfg.coarse_sweeps, omega=1.0)
+    for label, lev in (("anisotropic", aniso[-1]), ("isotropic", levels[-1])):
+        st, shape = lev.stencil, lev.grid.shape
+        u, f = field(shape), field(shape, st.c)
+        compare("smooth_multisweep", f"{shape[0]}^2 coarsest {label} "
+                f"({cfg.coarse_sweeps} sweeps)", lambda a, b:
+                ks.multisweep(st, a, b, **coarse), lambda a, b:
+                ks.multisweep_plain(st, a, b, **coarse),
+                lambda: (u.clone(), f), errs)
+    st, n, nc = aniso[0].stencil, aniso[0].grid.nx, aniso[1].grid.nx
+    print(f"anisotropic stencil {n}^2: c {st.c} w {st.w} e {st.e} s {st.s} "
+          f"n {st.n}")
+    u, f, ec = field((n, n)), field((n, n), st.c), field((nc, nc))
+    compare("residual_restrict", f"{n}->{nc} (anisotropic)",
+            lambda a, b: kx.residual_restrict(st, a, b),
+            lambda a, b: kx.residual_restrict_plain(st, a, b),
+            lambda: (u, f), errs)
+    compare("prolong_correct", f"{nc}->{n} (anisotropic)",
+            kx.prolong_correct, kx.prolong_correct_plain,
+            lambda: (ec, u.clone()), errs)
+    return errs
+
+
+def timed_operator_solves(mg, name, backend, dev) -> float:
+    """Min of 3 solve_poisson calls' wall time (the hierarchy set-up
+    included); the checked solves of the same case were the warm-up."""
+    prob, cfg = operator_config(mg, name, backend)
+    best = float("inf")
+    for _ in range(3):
+        res = mg.solve_poisson(prob, precision="fp32", cfg=cfg, device=dev)
+        if not res.converged:
+            fail(f"timed {name} solve (backend={backend}) did not converge")
+        best = min(best, res.solve_time)
+    return best
+
+
+def operator_path(mg, card, dev):
+    """Phases 20-22: W and F cycles, periodic and segmented sides, and the
+    line, ADI and Chebyshev smoothers at 1025^2; returns the kernel
+    checks' errors."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_planes as kp, smooth_var as ksv, \
+        tail as kt, transfer as kx
+
+    start = time.perf_counter()
+    counted = {"smooth_multisweep": ks.multisweep,
+               "residual_restrict": kx.residual_restrict,
+               "prolong_correct": kx.prolong_correct,
+               "tail_vcycle": kt.tail_vcycle}
+    others = {"smooth_parity": ks.multisweep_parity,
+              "smooth_var": ksv.multisweep_var,
+              "residual_restrict_var": kx.residual_restrict_var,
+              "tail_vcycle_var": kt.tail_vcycle_var,
+              "smooth_planes": kp.multisweep_planes}
+    every = {**counted, **others}
+    prob, cfg = operator_config(mg, "W", "auto")
+    levels = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                                device=dev, cfg=cfg)
+    errs = kernel_phase_wf(mg, levels, cfg, dev)
+    results = {}
+    for name in OPERATOR_CASES:
+        for w in every.values():
+            w.launches = 0
+        res = results[name] = operator_solve(mg, name, "auto", dev)
+        got = {k: w.launches for k, w in every.items()}
+        print(f"solve {name} auto launches {got}")
+        if name in ("periodic", "segments", "segment_mms"):
+            # phase 21: these levels pass no 2D kernel gate
+            if any(got.values()):
+                fail(f"{name}: 2D kernels launched on a periodic or "
+                     f"segmented solve: {got}")
+            if name == "periodic" and not (
+                    torch.equal(res.u[-1], res.u[0])
+                    and torch.equal(res.u[:, -1], res.u[:, 0])):
+                fail("periodic solution: the duplicate nodes differ from "
+                     "node 0")
+            continue
+        _, pcfg = operator_config(mg, name, "auto")
+        plan = cycle_launches(levels, pcfg, res.iterations)
+        print(f"solve {name}: launches {{A, B, C, D}} "
+              f"{[got[k] for k in counted]}, planned "
+              f"{[plan[k] for k in counted]}")
+        if any(got[k] != plan[k] for k in counted) or any(
+                got[k] for k in others):
+            fail(f"{name}: launches {got} differ from the plan {plan}")
+    for name in OPERATOR_CASES:
+        res_p = operator_solve(mg, name, "torch", dev)
+        u_k = results[name].u
+        du = (u_k - res_p.u).abs().max().item()
+        scale = res_p.u.abs().max().item()
+        print(f"solve {name}: max|u_auto - u_torch| {du:.3e} (max|u| "
+              f"{scale:.3e})")
+        if res_p.iterations != results[name].iterations or \
+                du > OPERATOR_PATH_RTOL * scale:
+            fail(f"{name}: kernel and plain paths disagree (iterations "
+                 f"{results[name].iterations} vs {res_p.iterations}, max "
+                 f"diff {du:.3e} > {OPERATOR_PATH_RTOL} * {scale:.3e})")
+    del results, levels
+    torch.cuda.empty_cache()
+    dofs = (N - 2) ** 2
+    for name in OPERATOR_CASES:
+        # the plain Chebyshev path is timed too (its transfers and coarsest
+        # solve take kernels); W's and F's show in their checked solves
+        for backend in ("auto", "torch") if name == "chebyshev" else (
+                "auto",):
+            t = timed_operator_solves(mg, name, backend, dev)
+            print(f"solve time {name} {N}^2 {backend}: {t * 1e3:.3f} ms per "
+                  f"solve, {dofs / t:.6e} DoF/s [{card}]")
+    for name in ("W", "line_y", "periodic"):
+        prob, pcfg = operator_config(mg, name, "auto")
+        profile_solve(f"{name} ({prob.name}) {N}^2", lambda: mg.solve_poisson(
+            prob, precision="fp32", cfg=pcfg, device=dev), counted,
+            cpu=name == "W")
+    print(f"phases 20-22: {time.perf_counter() - start:.1f} s")
+    return errs
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -1876,6 +2190,12 @@ def main(argv) -> int:
     u03 = torch.zeros_like(f3)
     profile_solve(f"3D {N3}^3", lambda: mg.ir_solve3d(
         levels3, f3, u03, cfg3, inner_cycles=2), wrappers3)
+    del levels3, f3, u03
+    torch.cuda.empty_cache()
+
+    # ---- the rest of the 2D operator: phases 20-22 -----------------------
+    for name, err in operator_path(mg, card, dev).items():
+        errs[name] = max(errs.get(name, 0.0), err)
 
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),

@@ -25,8 +25,18 @@ from .core.grid3d import Grid3D  # noqa: F401
 from .core.precision import Precision, as_dtype  # noqa: F401
 from .models.problems import (  # noqa: F401
     Problem,
+    boundary_layer_problem,
+    helmholtz_mms,
     jump_coefficient_problem,
+    mixed_segment_mms,
+    mixed_segment_problem,
     neumann_test_problem,
+    periodic_helmholtz_mms,
+    poisson_mms_anisotropic,
+    poisson_mms_exponential,
+    poisson_mms_high_frequency,
+    poisson_mms_inhomogeneous,
+    poisson_mms_polynomial,
     poisson_mms_sinsin,
     robin_test_problem,
     variable_coefficient_mms,

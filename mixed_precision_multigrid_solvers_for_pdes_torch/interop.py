@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.bc import SIDES, BCKind, BCSide, BoundarySpec
+from .core.bc import SIDES, BCKind, BCSegment, BCSide, BoundarySpec
 from .core.bc3d import BoundarySpec3D
 from .core.grid import Grid
 from .core.grid3d import Grid3D
@@ -39,27 +39,34 @@ def grid_from_jax(g) -> Grid:
     return Grid(int(g.nx), int(g.ny), tuple(float(x) for x in g.domain))
 
 
-def stencil_from_jax(st, grid=None, *, device="cpu") -> Stencil:
+def stencil_from_jax(st, grid=None, *, device="cpu",
+                     wrap=(False, False)) -> Stencil:
     """Port Stencil from a JAX Stencil: 0-d leaves become floats; padded
     2-d leaves (coefficient planes) become (nx, ny) tensors of their dtype
-    on ``device``, which needs the ``grid``."""
+    on ``device``, which needs the ``grid``. ``wrap`` holds the periodic
+    axes of the level's spec (JAX stencils carry them in their padding)."""
     if type(st).__name__ != "Stencil":
         raise NotImplementedError("the 9-point Galerkin stencil is not "
                                   "ported yet (ROADMAP item 10)")
     vals = [np.asarray(getattr(st, k)) for k in ("c", "w", "e", "s", "n")]
     if not any(v.ndim for v in vals):
-        return Stencil(*(float(v) for v in vals))
+        return Stencil(*(float(v) for v in vals), wrap=tuple(wrap))
     return Stencil(*(field_from_jax(np.broadcast_to(v, grid.shape_padded),
-                                    grid, device=device) for v in vals))
+                                    grid, device=device) for v in vals),
+                   wrap=tuple(wrap))
 
 
 def spec_from_jax(spec) -> BoundarySpec:
-    """Port BoundarySpec from a JAX one with whole-side conditions."""
+    """Port BoundarySpec from a JAX one, segments and periodic sides
+    included."""
     sides = {}
     for name in SIDES:
         s = spec.side(name)
+        segments = tuple(BCSegment(lo=g.lo, hi=g.hi, kind=BCKind(g.kind.value),
+                                   alpha=g.alpha, beta=g.beta)
+                         for g in s.segments)
         sides[name] = BCSide(kind=BCKind(s.kind.value), alpha=s.alpha,
-                             beta=s.beta, segments=tuple(s.segments))
+                             beta=s.beta, segments=segments)
     return BoundarySpec(**sides)
 
 
@@ -70,10 +77,12 @@ def levels_from_jax(levels, *, device="cpu"):
         if getattr(lev, "domain", None):
             raise NotImplementedError("irregular domains are not ported yet "
                                       "(ROADMAP item 8)")
+        spec = spec_from_jax(lev.spec)
         out.append(Level(stencil=stencil_from_jax(lev.stencil, lev.grid,
-                                                  device=device),
+                                                  device=device,
+                                                  wrap=spec.wrap),
                          grid=grid_from_jax(lev.grid),
-                         spec=spec_from_jax(lev.spec),
+                         spec=spec,
                          dtype=as_dtype(np.dtype(lev.dtype)),
                          device=torch.device(device)))
     return tuple(out)
@@ -128,8 +137,10 @@ def planes_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
 
 def problem_from_jax(prob) -> Problem:
     """Port Problem (f, a, lam, Dirichlet values, Neumann/Robin data g,
-    exact solution) from a JAX one on a rectangle. Array data are sliced to
-    the logical region; scalars stay scalars."""
+    exact solution) from a JAX one on a rectangle, with segmented or
+    periodic sides. Array data are sliced to the logical region (which
+    drops a periodic field's wrap line in the padding); scalars stay
+    scalars."""
     if prob.domain is not None:
         raise NotImplementedError("irregular domains are not ported yet "
                                   "(ROADMAP item 8)")

@@ -1,12 +1,14 @@
 """Problem definitions and the 2D problems of the port.
 
-Counterpart of ``Problem``, ``from_callables``, ``poisson_mms_sinsin``,
-``neumann_test_problem``, ``robin_test_problem``,
-``variable_coefficient_mms`` and ``jump_coefficient_problem`` in
-``mixed_precision_multigrid_solvers_for_pdes_tpu/models/problems.py``. Field
-data are host (numpy float64) arrays of the logical shape (nx, ny); ``rhs``
-and ``initial_guess`` put them on a device in a given dtype. Irregular
-domains and the rest of the catalogue are ROADMAP item 8.
+Counterpart of ``Problem``, ``from_callables`` and the problems of
+``mixed_precision_multigrid_solvers_for_pdes_tpu/models/problems.py`` on
+rectangles: the Poisson MMS problems (sinsin, polynomial, high frequency,
+inhomogeneous, exponential, anisotropic), Helmholtz, Neumann and Robin
+sides, per-segment mixed sides, the periodic Helmholtz problem, variable
+and jump coefficients and the boundary layer. Field data are host (numpy
+float64) arrays of the logical shape (nx, ny); ``rhs`` and
+``initial_guess`` put them on a device in a given dtype. Irregular domains,
+the corner and L-shaped problems and ``CATALOGUE`` are ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -55,10 +57,12 @@ class Problem:
         return f
 
     def initial_guess(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
-        """Zero on unknowns, Dirichlet values on every fixed node."""
+        """Zero on unknowns, Dirichlet values on every fixed node (the
+        duplicate nodes of a periodic axis included) when any side or
+        segment is Dirichlet; zero everywhere otherwise."""
         g = self.grid
         u0 = torch.zeros(g.shape, dtype=dtype, device=device)
-        if self.dirichlet_values is not None:
+        if self.dirichlet_values is not None and not _no_dirichlet(self.spec):
             fixed = ~bc_mod.unknown_mask(g.nx, g.ny, self.spec, device=device)
             vals = torch.as_tensor(self.dirichlet_values, dtype=dtype,
                                    device=device)
@@ -79,6 +83,11 @@ class Problem:
             "linf": diff.abs().max().item(),
             "h1": norms.h1_seminorm(diff, every, g.hx, g.hy).item(),
         }
+
+
+def _no_dirichlet(spec: BoundarySpec) -> bool:
+    return all(BCKind.DIRICHLET not in spec.side(s).kinds
+               for s in bc_mod.SIDES)
 
 
 def from_callables(name: str, grid: Grid, *, f: Callable,
@@ -102,6 +111,84 @@ def poisson_mms_sinsin(n: int, domain=(0.0, 1.0, 0.0, 1.0)) -> Problem:
         "poisson_sinsin", grid,
         u_exact=lambda X, Y: np.sin(pi * X) * np.sin(pi * Y),
         f=lambda X, Y: 2 * pi**2 * np.sin(pi * X) * np.sin(pi * Y),
+    )
+
+
+def poisson_mms_polynomial(n: int) -> Problem:
+    """u = x(1-x)y(1-y), f = 2[x(1-x) + y(1-y)], homogeneous Dirichlet."""
+    return from_callables(
+        "poisson_polynomial", Grid(n, n),
+        u_exact=lambda X, Y: X * (1 - X) * Y * (1 - Y),
+        f=lambda X, Y: 2 * (X * (1 - X) + Y * (1 - Y)),
+    )
+
+
+def poisson_mms_high_frequency(n: int, k: int = 4) -> Problem:
+    """u = sin(k pi x) sin(k pi y), f = 2 (k pi)^2 u."""
+    pi = np.pi
+    return from_callables(
+        f"poisson_highfreq_k{k}", Grid(n, n),
+        u_exact=lambda X, Y: np.sin(k * pi * X) * np.sin(k * pi * Y),
+        f=lambda X, Y: 2 * (k * pi) ** 2 * np.sin(k * pi * X)
+        * np.sin(k * pi * Y),
+    )
+
+
+def poisson_mms_inhomogeneous(n: int) -> Problem:
+    """u = x^2 + y^2 (inhomogeneous Dirichlet), f = -4."""
+    return from_callables(
+        "poisson_inhomogeneous", Grid(n, n),
+        u_exact=lambda X, Y: X**2 + Y**2,
+        f=lambda X, Y: -4.0 + 0.0 * X,
+    )
+
+
+def poisson_mms_exponential(n: int) -> Problem:
+    """u = exp(x+y) sin(pi x) sin(pi y), f = -lap(u) with
+    lap(u) = e^{x+y}[2 sin sin + 2 pi (cos sin + sin cos) - 2 pi^2 sin sin].
+    """
+    pi = np.pi
+
+    def u(X, Y):
+        return np.exp(X + Y) * np.sin(pi * X) * np.sin(pi * Y)
+
+    def f(X, Y):
+        E = np.exp(X + Y)
+        sx, cx = np.sin(pi * X), np.cos(pi * X)
+        sy, cy = np.sin(pi * Y), np.cos(pi * Y)
+        lap = E * (2 * sx * sy + 2 * pi * (cx * sy + sx * cy)
+                   - 2 * pi**2 * sx * sy)
+        return -lap
+
+    return from_callables("poisson_exponential", Grid(n, n), u_exact=u, f=f)
+
+
+def poisson_mms_anisotropic(n: int, ax: float = 1.0,
+                            ay: float = 0.01) -> Problem:
+    """Anisotropy by unequal spacings: the y-domain is [0, sqrt(ay/ax)], so
+    hy/hx = sqrt(ay/ax) and the y coupling is ax/ay times the x coupling;
+    u = sin(pi x) sin(ky y) with ky = pi/sqrt(ay/ax), homogeneous
+    Dirichlet. Point smoothers lose here; line smoothers along y do not."""
+    aspect = float(np.sqrt(ay / ax))
+    pi = np.pi
+    ky = pi / aspect
+    return from_callables(
+        "poisson_anisotropic", Grid(n, n, (0.0, 1.0, 0.0, aspect)),
+        u_exact=lambda X, Y: np.sin(pi * X) * np.sin(ky * Y),
+        f=lambda X, Y: (pi**2 + ky**2) * np.sin(pi * X) * np.sin(ky * Y),
+    )
+
+
+def helmholtz_mms(n: int, k: float = 2.0) -> Problem:
+    """-lap(u) - k^2 u = f with u = sin(pi x) sin(pi y):
+    f = (2 pi^2 - k^2) u, a negative scalar lam; definite while
+    k^2 < 2 pi^2."""
+    pi = np.pi
+    return from_callables(
+        f"helmholtz_k{k}", Grid(n, n),
+        u_exact=lambda X, Y: np.sin(pi * X) * np.sin(pi * Y),
+        f=lambda X, Y: (2 * pi**2 - k**2) * np.sin(pi * X) * np.sin(pi * Y),
+        lam=-float(k) ** 2,
     )
 
 
@@ -134,6 +221,66 @@ def robin_test_problem(n: int, alpha: float = 1.0,
     )
 
 
+def mixed_segment_problem(n: int) -> Problem:
+    """Per-segment mixed sides: u = x^2 + y^2, f = -4; the east side is
+    Dirichlet on y in [0, 0.5) and Robin (u + du/dn = g) on y in [0.5, 1],
+    the north side Neumann (du/dn = 2) on x in [0, 0.5] and Dirichlet
+    elsewhere. The quadratic u makes every ghost elimination exact."""
+    grid = Grid(n, n)
+    spec = BoundarySpec(
+        east=bc_mod.BCSide(
+            kind=BCKind.DIRICHLET,
+            segments=(bc_mod.BCSegment(0.5, 1.0, kind=BCKind.ROBIN,
+                                       alpha=1.0, beta=1.0),)),
+        north=bc_mod.BCSide(
+            kind=BCKind.DIRICHLET,
+            segments=(bc_mod.BCSegment(0.0, 0.5, kind=BCKind.NEUMANN),)),
+    )
+    _, Y = grid.coordinates()
+    return from_callables(
+        "poisson_mixed_segments", grid,
+        u_exact=lambda X, Y: X**2 + Y**2,
+        f=lambda X, Y: -4.0 + 0.0 * X,
+        spec=spec,
+        bc_values={"east": (1.0 + Y**2) + 2.0, "north": 2.0},
+    )
+
+
+def mixed_segment_mms(n: int) -> Problem:
+    """u = exp(x + y), f = -2 exp(x + y); the west side is Neumann
+    (du/dn = -exp(y)) on y in [0.25, 0.75] and Dirichlet elsewhere. The data
+    satisfy both conditions at the junctions, so second order holds."""
+    grid = Grid(n, n)
+    spec = BoundarySpec(
+        west=bc_mod.BCSide(
+            kind=BCKind.DIRICHLET,
+            segments=(bc_mod.BCSegment(0.25, 0.75, kind=BCKind.NEUMANN),)),
+    )
+    X, Y = grid.coordinates()
+    return from_callables(
+        "poisson_mixed_segment_mms", grid,
+        u_exact=lambda X, Y: np.exp(X + Y),
+        f=lambda X, Y: -2.0 * np.exp(X + Y),
+        spec=spec,
+        bc_values={"west": -np.exp(X + Y)},
+    )
+
+
+def periodic_helmholtz_mms(n: int) -> Problem:
+    """-lap(u) + u = f, periodic on [0, 1]^2: u = sin(2 pi x) cos(2 pi y),
+    f = (8 pi^2 + 1) u. The shift makes the periodic operator nonsingular."""
+    pi = np.pi
+    side = bc_mod.BCSide(kind=BCKind.PERIODIC)
+    return from_callables(
+        "periodic_helmholtz", Grid(n, n),
+        u_exact=lambda X, Y: np.sin(2 * pi * X) * np.cos(2 * pi * Y),
+        f=lambda X, Y: (8 * pi**2 + 1) * np.sin(2 * pi * X)
+        * np.cos(2 * pi * Y),
+        spec=BoundarySpec(side, side, side, side),
+        lam=1.0,
+    )
+
+
 def variable_coefficient_mms(n: int) -> Problem:
     """-div(a grad u) = f with a = 1 + x + y and u = sin(pi x) sin(pi y):
     f = a * 2 pi^2 sin sin - pi (cos sin + sin cos), homogeneous Dirichlet."""
@@ -161,3 +308,22 @@ def jump_coefficient_problem(n: int, ratio: float = 1e3) -> Problem:
         f=lambda X, Y: 1.0 + 0.0 * X,
         a=lambda X, Y: np.where(X < 0.5, 1.0, ratio),
     )
+
+
+def boundary_layer_problem(n: int, eps: float = 0.05) -> Problem:
+    """Exponential boundary layer of width eps at x = 0: u = g(x) sin(pi y)
+    with g(x) = (1 - e^{-x/eps}) - x (1 - e^{-1/eps}) (homogeneous
+    Dirichlet) and f = (pi^2 g - g'') sin(pi y), g'' = -e^{-x/eps}/eps^2.
+    Second order holds once h < eps."""
+    pi = np.pi
+    c1 = 1.0 - np.exp(-1.0 / eps)
+
+    def g(X):
+        return (1.0 - np.exp(-X / eps)) - X * c1
+
+    def f(X, Y):
+        gpp = -(1.0 / eps**2) * np.exp(-X / eps)
+        return (pi**2 * g(X) - gpp) * np.sin(pi * Y)
+
+    return from_callables(f"boundary_layer_eps{eps:g}", Grid(n, n),
+                          u_exact=lambda X, Y: g(X) * np.sin(pi * Y), f=f)

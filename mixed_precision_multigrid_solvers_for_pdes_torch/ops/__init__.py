@@ -2,5 +2,5 @@
 
 from . import (  # noqa: F401
     dispatch, norms, planes, smooth, smooth3d, stencil, stencil3d, transfer,
-    transfer3d,
+    transfer3d, tridiag,
 )

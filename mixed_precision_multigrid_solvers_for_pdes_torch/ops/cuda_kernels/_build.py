@@ -177,6 +177,15 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_unwrapped(name: str, *stencils) -> None:
+    """Raise on a stencil with a periodic axis: the 2D kernels take a
+    rectangle of unknowns and would solve a periodic level as a Dirichlet
+    one, while their plain twins wrap."""
+    if any(any(st.wrap) for st in stencils):
+        raise ValueError(f"{name}: takes no periodic axis (the stencil "
+                         f"wraps)")
+
+
 def check_cuda_fp32(name: str, *tensors: torch.Tensor,
                     ndim: int = 2) -> None:
     """Raise unless every tensor is a contiguous ``ndim``-D float32 CUDA

@@ -160,6 +160,7 @@ def multisweep_parity(st: Stencil, u, f, *, sweeps: int = 2,
     if not st.scalar:
         raise ValueError("multisweep_parity: takes a constant-coefficient "
                          "stencil")
+    _build.check_unwrapped("multisweep_parity", st)
     if u.device.type == "cpu":
         return multisweep_parity_plain(st, u, f, sweeps=sweeps, omega=omega)
     _build.check_cuda_fp32("multisweep_parity", u, f)
@@ -181,6 +182,7 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
     or 'parity' (see the module docstring)."""
     if method != "jacobi" and method not in RBGS:
         raise ValueError(f"multisweep: unsupported method {method!r}")
+    _build.check_unwrapped("multisweep", st)
     if _resolve_parity(layout, method):
         return multisweep_parity(st, u, f, sweeps=sweeps, omega=omega)
     if u.device.type == "cpu":

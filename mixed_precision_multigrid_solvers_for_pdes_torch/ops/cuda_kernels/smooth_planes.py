@@ -42,6 +42,7 @@ def multisweep_planes(st: Stencil, up, fp, *, nx: int, ny: int,
     if not st.scalar:
         raise ValueError("multisweep_planes: takes a constant-coefficient "
                          "stencil")
+    _build.check_unwrapped("multisweep_planes", st)
     if tuple(up.shape[1:]) != pln.plane_shape((nx, ny)) or up.shape[0] != 4:
         raise ValueError(f"multisweep_planes: planes {tuple(up.shape)} are "
                          f"not the (4, hx, hy) planes of a ({nx}, {ny}) grid")

@@ -93,6 +93,7 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
     if st.scalar:
         raise ValueError("multisweep_var: takes a stencil with (nx, ny) "
                          "coefficient planes")
+    _build.check_unwrapped("multisweep_var", st)
     if u.device.type == "cpu":
         return multisweep_plain(st, u, f, method=method, sweeps=sweeps,
                                 omega=omega)

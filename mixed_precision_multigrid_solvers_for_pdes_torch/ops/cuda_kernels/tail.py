@@ -188,6 +188,7 @@ def tail_vcycle(stencils: Sequence[Stencil], u, f, *,
     ``shapes`` lists (nx, ny) per level, finest first; one level (L = 1)
     runs only the coarsest-level sweeps."""
     _check_method("tail_vcycle", method)
+    _build.check_unwrapped("tail_vcycle", *stencils)
     if u.device.type == "cpu":
         return tail_vcycle_plain(stencils, u, f, shapes=shapes, pre=pre,
                                  post=post, omega=omega, method=method,
@@ -325,6 +326,7 @@ def tail_vcycle_var(stencils: Sequence[Stencil], u, f, *,
     if any(st.scalar for st in stencils):
         raise ValueError("tail_vcycle_var: every level needs a stencil with "
                          "(nx, ny) coefficient planes")
+    _build.check_unwrapped("tail_vcycle_var", *stencils)
     if u.device.type == "cpu":
         return tail_vcycle_plain(stencils, u, f, shapes=shapes, pre=pre,
                                  post=post, omega=omega, method=method,

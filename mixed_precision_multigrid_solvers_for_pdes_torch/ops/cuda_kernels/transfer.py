@@ -76,6 +76,7 @@ def _check_restrict(name, u, f, out_dtype, *planes):
 def residual_restrict(st: Stencil, u, f, *, out_dtype=None):
     """B: fc = R_fw(f - A u) on the coarse grid of an all-Dirichlet level
     with a constant stencil; coarse ring zero."""
+    _build.check_unwrapped("residual_restrict", st)
     if u.device.type == "cpu":
         return residual_restrict_plain(st, u, f, out_dtype=out_dtype)
     ncx, ncy = _check_restrict("residual_restrict", u, f, out_dtype)
@@ -98,6 +99,7 @@ def residual_restrict_var(st: Stencil, u, f, *, sides=DIRICHLET,
     if st.scalar:
         raise ValueError("residual_restrict_var: takes a stencil with "
                          "(nx, ny) coefficient planes")
+    _build.check_unwrapped("residual_restrict_var", st)
     if u.device.type == "cpu":
         return residual_restrict_plain(st, u, f, sides=sides,
                                        out_dtype=out_dtype)

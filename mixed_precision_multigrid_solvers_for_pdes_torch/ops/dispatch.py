@@ -14,20 +14,27 @@ dropped. ``backend`` is 'auto' or 'torch':
 
 Constant-coefficient stencils (float leaves, all-Dirichlet) take kernels A
 (smoothing, out of place), B and C (fused transfers) on every level above
-the tail, and the tail kernel D. Stencils with (nx, ny) coefficient planes (a coefficient
-field, an array lam, or Neumann/Robin sides) follow the JAX package's
-varcoef routes (``_pallas_smooth_ok``, ``transfer_fused_ok`` with
-``_dirichlet_sides``, ``tail_ok``/``tail_vcycle``): all-Dirichlet levels
-smooth with kernel H and take the tail kernel J; every level restricts with
-kernel I and prolongs with C, both given the per-side Dirichlet flags; a
-level with a Neumann/Robin side smooths on the plain path and has no tail
-kernel, as in the JAX package. A tail starts at the first level whose
-logical size is at most ``TAIL_MAX_ENTRY`` x ``TAIL_MAX_ENTRY``; that is
-where the TPU started its tail, and H100 gates await H100 measurements. J
-holds its tail in the shared memory of one thread-block cluster, which takes
-every tail of two or more levels from such an entry; a one-level tail of
-more than 7264 nodes (the coarsest solve alone) smooths with kernel H
-instead (``cuda_kernels.tail.var_fits``).
+the tail, and the tail kernel D, which runs V-recursions only: a W or F
+branch smooths and transfers through A, B and C down to the depth where the
+recursion turns into a V-cycle (``MultigridConfig.w_depth``). Stencils with
+(nx, ny) coefficient planes (a coefficient field, an array lam, or
+Neumann/Robin sides) follow the JAX package's varcoef routes
+(``_pallas_smooth_ok``, ``transfer_fused_ok`` with ``_dirichlet_sides``,
+``tail_ok``/``tail_vcycle``): all-Dirichlet levels smooth with kernel H and
+take the tail kernel J; every level restricts with kernel I and prolongs
+with C, both given the per-side Dirichlet flags; a level with a
+Neumann/Robin side smooths on the plain path and has no tail kernel, as in
+the JAX package. Periodic and segmented levels take no kernel at all, and
+the line, ADI and Chebyshev smoothers no smoothing or tail kernel, as in
+the JAX package; transfers on all-Dirichlet levels still take B and C
+whatever the smoother, and the coarsest level's RB-GS takes A. A tail
+starts at the first level whose logical size is at most
+``TAIL_MAX_ENTRY`` x ``TAIL_MAX_ENTRY``; that is where the TPU started its
+tail, and H100 gates await H100 measurements. J holds its tail in the
+shared memory of one thread-block cluster, which takes every tail of two or
+more levels from such an entry; a one-level tail of more than 7264 nodes
+(the coarsest solve alone) smooths with kernel H instead
+(``cuda_kernels.tail.var_fits``).
 Kernel A's wrapper picks the direct body (A) or the parity body (kernel L)
 by ``layout``, as the Pallas kernels do (``ops/cuda_kernels/smooth.py``).
 

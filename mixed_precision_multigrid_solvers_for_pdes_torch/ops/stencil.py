@@ -7,23 +7,26 @@ Counterpart of ``Stencil``, ``make_stencil``, ``bc_rhs_correction``,
     A u[i,j] = c*u - w*u[i-1,j] - e*u[i+1,j] - s*u[i,j-1] - n*u[i,j+1]
 
 with 1/h^2 folded into the coefficients. A stencil's leaves are either
-Python floats (constant coefficients on an all-Dirichlet rectangle) or
-(nx, ny) tensors, the coefficient planes of a coefficient field ``a``, an
+Python floats (constant coefficients with every side Dirichlet or periodic)
+or (nx, ny) tensors, the coefficient planes of a coefficient field ``a``, an
 array ``lam`` or Neumann/Robin ghost elimination.
 
-Scalar stencils act on the interior nodes only: neighbour reads are slices
-of the interior, so nothing wraps. Tensor stencils act on every node,
-because a Neumann/Robin ring holds unknowns: the neighbour outside the
-domain reads an explicit zero halo, as the JAX package reads its zero
-padding, and its coupling is zero there anyway. Sums run in the JAX
-package's order (w, e, s, n), so fp32 planes and residuals agree bit for
-bit. The 9-point stencil is ROADMAP item 10.
+A stencil acts on a region of the nodes (``region``): along a periodic axis
+(``Stencil.wrap``) on nodes 0..n-2, whose west/south neighbour of node 0 is
+node n-2 and east/north neighbour of node n-2 is node 0, so the duplicate
+node n-1 is never read; along any other axis a scalar stencil acts on the
+interior 1..n-2 and a tensor stencil on every node, because a Neumann/Robin
+ring holds unknowns: the neighbour outside the domain reads an explicit zero
+halo, as the JAX package reads its zero padding, and its coupling is zero
+there anyway. Sums run in the JAX package's order (w, e, s, n), so fp32
+planes and residuals agree bit for bit. The 9-point stencil is ROADMAP
+item 10.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +53,7 @@ class Stencil:
     e: Any  # coupling to u[i+1, j]
     s: Any  # coupling to u[i, j-1]
     n: Any  # coupling to u[i, j+1]
+    wrap: Tuple[bool, bool] = (False, False)  # periodic (x, y) axes
 
     @property
     def scalar(self) -> bool:
@@ -59,8 +63,9 @@ class Stencil:
         """Round every coefficient to ``dtype`` (exact when widening)."""
         dtype = as_dtype(dtype)
         if self.scalar:
-            return Stencil(*(_round(x, dtype) for x in self.coefs))
-        return Stencil(*(x.to(dtype) for x in self.coefs))
+            return Stencil(*(_round(x, dtype) for x in self.coefs),
+                           wrap=self.wrap)
+        return Stencil(*(x.to(dtype) for x in self.coefs), wrap=self.wrap)
 
     @property
     def coefs(self):
@@ -68,32 +73,60 @@ class Stencil:
 
 
 def region(st: Stencil, x: torch.Tensor) -> torch.Tensor:
-    """The nodes ``st`` acts on, as a view of ``x``: the interior for a
-    scalar stencil, every node for a tensor stencil."""
-    return x[1:-1, 1:-1] if st.scalar else x
+    """The nodes ``st`` acts on, as a view of ``x``: per axis 0..n-2 when
+    periodic, else the interior for a scalar stencil and every node for a
+    tensor stencil."""
+    return x[tuple(slice(0, -1) if w else slice(1, -1) if st.scalar
+                   else slice(None) for w in st.wrap)]
+
+
+def coef(st: Stencil, x):
+    """A coefficient leaf over ``region(st, .)``: a float as it is, a
+    coefficient plane as its region's view."""
+    return x if st.scalar else region(st, x)
+
+
+def _halo(st: Stencil, u: torch.Tensor) -> torch.Tensor:
+    """``u`` with one neighbour line on each side of each axis that the
+    stencil's region reads past: the wrap neighbours on a periodic axis
+    (nodes n-2 and 0 around the unique nodes 0..n-2), zeros around a tensor
+    stencil's other axes."""
+    for axis, wrap in enumerate(st.wrap):
+        if wrap:
+            core = u.narrow(axis, 0, u.shape[axis] - 1)
+            u = torch.cat([core.narrow(axis, -1, 1), core,
+                           core.narrow(axis, 0, 1)], dim=axis)
+    if st.scalar or all(st.wrap):
+        return u
+    return F.pad(u, [0 if w else 1 for w in st.wrap[::-1] for _ in "lr"])
 
 
 def neighbor_sum(st: Stencil, u: torch.Tensor) -> torch.Tensor:
     """w*u[i-1,j] + e*u[i+1,j] + s*u[i,j-1] + n*u[i,j+1] over
-    ``region(st, u)``; a tensor stencil reads zero outside the array."""
-    p = u if st.scalar else F.pad(u, (1, 1, 1, 1))
-    return (st.w * p[:-2, 1:-1] + st.e * p[2:, 1:-1]
-            + st.s * p[1:-1, :-2] + st.n * p[1:-1, 2:])
+    ``region(st, u)``; a tensor stencil reads zero outside the array, and a
+    periodic axis wraps."""
+    p = _halo(st, u)
+    w, e, s, n = (coef(st, x) for x in (st.w, st.e, st.s, st.n))
+    return (w * p[:-2, 1:-1] + e * p[2:, 1:-1]
+            + s * p[1:-1, :-2] + n * p[1:-1, 2:])
 
 
 def apply(st: Stencil, u: torch.Tensor) -> torch.Tensor:
-    """A u, shape (nx, ny). Valid on unknown nodes; a scalar stencil leaves
-    the ring at zero."""
+    """A u, shape (nx, ny). Valid on unknown nodes; zero off the
+    stencil's region."""
     out = torch.zeros_like(u)
-    region(st, out)[...] = st.c * region(st, u) - neighbor_sum(st, u)
+    region(st, out)[...] = (coef(st, st.c) * region(st, u)
+                            - neighbor_sum(st, u))
     return out
 
 
 def residual(st: Stencil, u: torch.Tensor, f: torch.Tensor,
              unknown: torch.Tensor) -> torch.Tensor:
-    """r = f - A u on unknown nodes, zero on fixed nodes; shape (nx, ny)."""
+    """r = f - A u on unknown nodes, zero on fixed nodes; shape (nx, ny).
+    A periodic axis reads its wrap neighbours, not the duplicate node, so
+    ``u`` needs no sync first."""
     r = torch.zeros_like(f)
-    region(st, r)[...] = region(st, f) - (st.c * region(st, u)
+    region(st, r)[...] = region(st, f) - (coef(st, st.c) * region(st, u)
                                           - neighbor_sum(st, u))
     return torch.where(unknown, r, torch.zeros((), dtype=r.dtype,
                                                device=r.device))
@@ -125,8 +158,11 @@ def make_stencil(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
     2*a*a_nb/(a + a_nb) (0 where a + a_nb <= 0, and outside the domain),
     Neumann/Robin sides drop the outward coupling and double the inward one,
     Robin adds 2*alpha/(beta*h) to the diagonal, and the centre is
-    ``w + e + s + n + lam (+ Robin)``.
+    ``w + e + s + n + lam (+ Robin)``. On a periodic axis the face means
+    wrap too: node 0 meets node n-2 (the JAX package reads its zero padding
+    there, which cuts the seam).
     """
+    spec.validate()
     dtype = as_dtype(dtype)
     ihx2 = 1.0 / (grid.hx * grid.hx)
     ihy2 = 1.0 / (grid.hy * grid.hy)
@@ -135,7 +171,7 @@ def make_stencil(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
         s = n = torch.tensor(ihy2, dtype=dtype)
         c = w + e + s + n + torch.tensor(lam, dtype=dtype)
         return Stencil(c=c.item(), w=w.item(), e=e.item(), s=s.item(),
-                       n=n.item())
+                       n=n.item(), wrap=spec.wrap)
 
     shape = grid.shape
     if a is None:
@@ -143,6 +179,10 @@ def make_stencil(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
     else:
         a = torch.as_tensor(a, dtype=dtype, device=device)
         ap = F.pad(a, (1, 1, 1, 1))
+        if spec.wrap[0]:
+            ap[0, 1:-1], ap[-2:, 1:-1] = a[-2], a[[0, 1]]
+        if spec.wrap[1]:
+            ap[:, 0], ap[:, -2:] = ap[:, -3], ap[:, [1, 2]]
         zero = torch.zeros((), dtype=dtype, device=device)
 
         def face(nb):
@@ -169,7 +209,7 @@ def make_stencil(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
     w, e, s, n = (coefs[k] for k in "wesn")
     lam_t = torch.as_tensor(lam, dtype=dtype).to(device)
     c = w + e + s + n + lam_t + robin
-    return Stencil(c=c, w=w, e=e, s=s, n=n)
+    return Stencil(c=c, w=w, e=e, s=s, n=n, wrap=spec.wrap)
 
 
 def bc_rhs_correction(grid: Grid, spec: BoundarySpec,

@@ -1,7 +1,8 @@
-"""Geometric multigrid driver: V-cycles, FMG and the cycle-iteration solve.
+"""Geometric multigrid driver: V, W and F cycles, FMG and the
+cycle-iteration solve.
 
 Counterpart of ``Level``, ``MultigridConfig``, ``build_hierarchy``
-(rediscretization), ``_cycle`` (V), ``mg_cycle``, ``fmg``, ``mg_solve``,
+(rediscretization), ``_cycle``, ``mg_cycle``, ``fmg``, ``mg_solve``,
 ``_unpack_info``, ``_sample_coarse`` and ``convergence_factor`` in
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/solvers/multigrid.py``.
 
@@ -10,7 +11,13 @@ step goes through ``ops/dispatch.py``, which picks the CUDA kernels or the
 plain path. Cycles update the fine-level iterate IN PLACE (the smoothers and
 the prolongation-correction write into it) and return it. The outer loop's
 stopping test reads the residual norm back to the host once per iteration.
-W/F cycles and Galerkin coarsening are ROADMAP item 7 and 10.
+A periodic level syncs its duplicate nodes where they are read (a coarse
+field before it is prolonged, in the cycle and in FMG) and where a solution
+is handed out (the end of ``mg_solve``); its operators and smoothers read
+the wrap neighbours directly. The JAX package's FMG prolongs a duplicate
+one update stale (its smoothers sync before each update, not
+after); the port's prolongs it fresh.
+Galerkin coarsening is ROADMAP item 10.
 """
 
 from __future__ import annotations
@@ -48,6 +55,12 @@ class Level:
         return bc_mod.unknown_mask(self.grid.nx, self.grid.ny, self.spec,
                                    device=self.device)
 
+    @functools.cached_property
+    def sync(self):
+        """In-place refresh of the periodic duplicate nodes, or None
+        (``core/bc.periodic_sync``)."""
+        return bc_mod.periodic_sync(self.spec)
+
     def zeros(self) -> torch.Tensor:
         return torch.zeros(self.grid.shape, dtype=self.dtype,
                            device=self.device)
@@ -57,10 +70,11 @@ class Level:
 class MultigridConfig:
     """Static solver configuration."""
 
-    cycle: str = "V"              # V (W and F: ROADMAP item 7)
+    cycle: str = "V"              # V | W | F
     pre_sweeps: int = 2
     post_sweeps: int = 2
-    smoother: str = "jacobi"      # jacobi | rbgs | sor
+    smoother: str = "jacobi"      # jacobi | rbgs | sor | line_x | line_y
+                                  # | adi | chebyshev
     omega: float = 0.8
     coarse_sweeps: int = 32
     max_levels: int = 32
@@ -71,6 +85,9 @@ class MultigridConfig:
     rtol: bool = True             # tolerance relative to max(||f||, ||r0||)
     backend: str = "auto"         # auto | torch (see ops/dispatch.py)
     coarsening: str = "rediscretize"  # galerkin: ROADMAP item 10
+    # W/F branching applies on the finest `w_depth` levels; below them the
+    # recursion is a V-cycle
+    w_depth: int = 4
     # symmetric=True reverses the RB-GS colour order in post-smoothing,
     # which makes the V-cycle a symmetric operator
     symmetric: bool = False
@@ -128,9 +145,8 @@ def _smooth(lev: Level, u, f, cfg: MultigridConfig, sweeps: int,
 
 def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
            cycle_type: str):
-    if cycle_type != "V":
-        raise NotImplementedError(
-            f"{cycle_type}-cycles are not ported yet (ROADMAP item 7)")
+    if cycle_type not in ("V", "W", "F"):
+        raise ValueError(f"unknown cycle {cycle_type!r}")
     lev = levels[lvl]
     if dispatch.tail_ok(levels, lvl, cfg, cycle_type):
         # the whole remaining V-recursion in one tail-kernel launch
@@ -152,14 +168,25 @@ def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
         boundary = "zero" if lev.spec.plain else "reflect"
         fc = transfer.restrict(r, nxt.grid.nx, nxt.grid.ny,
                                method=cfg.restriction, boundary=boundary,
-                               dtype=nxt.dtype)
+                               dtype=nxt.dtype, wrap=lev.spec.wrap)
         if boundary == "reflect":
             fc = torch.where(nxt.unknown, fc, torch.zeros(
                 (), dtype=fc.dtype, device=fc.device))
-    ec = _cycle(levels, nxt.zeros(), fc, lvl + 1, cfg, "V")
+    ec = nxt.zeros()
+    branch = cycle_type if lvl + 1 < cfg.w_depth else "V"
+    if branch == "V":
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "V")
+    elif branch == "W":
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "W")
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "W")
+    else:  # F: an F-recursion, then a V-recursion
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "F")
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "V")
     if fused:
         u = dispatch.prolong_correct(lev, nxt, ec, u)
     else:
+        if nxt.sync is not None:
+            nxt.sync(ec)  # the coarse duplicate enters the interpolation
         e = transfer.prolong(ec, lev.grid.nx, lev.grid.ny,
                              method=cfg.prolongation, dtype=lev.dtype)
         u = torch.where(lev.unknown, u + e, u)
@@ -186,6 +213,8 @@ def fmg(levels: Tuple[Level, ...], f, cfg: MultigridConfig = MultigridConfig(),
                "V")
     for lvl in range(len(levels) - 2, -1, -1):
         lev = levels[lvl]
+        if levels[lvl + 1].sync is not None:
+            levels[lvl + 1].sync(u)
         u = transfer.prolong(u, lev.grid.nx, lev.grid.ny,
                              method=cfg.prolongation, dtype=lev.dtype)
         for _ in range(cycles_per_level):
@@ -276,4 +305,6 @@ def mg_solve(levels: Tuple[Level, ...], f, u0=None,
         return norms.scaled_l2(r, hx, hy)
 
     info = outer_iterate(step, rnorm0, tol_eff, fnorm, cfg.max_iterations)
+    if lev0.sync is not None:
+        lev0.sync(state["u"])  # consistent duplicate nodes for the output
     return state["u"], info

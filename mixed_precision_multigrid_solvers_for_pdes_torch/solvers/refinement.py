@@ -6,6 +6,10 @@ solution, the residual and the norms live in float64 (native on the GPU,
 plain PyTorch), while each correction A e = r comes from low-precision
 multigrid cycles on the level hierarchy (fp32, through the CUDA kernels on
 the GPU). Converges to fp64 accuracy while kappa(A)*eps_low < 1.
+On a periodic level the residuals read the wrap neighbours, and the
+duplicate nodes of the solution are synced once at the end: the JAX
+package's ``_ir_jit`` updates unknowns only and never syncs, so its
+duplicates stay at the initial guess, which this port does not copy.
 Adaptive staging (``adaptive_solve``) is ROADMAP item 9.
 """
 
@@ -64,5 +68,7 @@ def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
 
     info = mg_mod.outer_iterate(step, norms.scaled_l2(r, hx, hy), tol_eff,
                                 fnorm, max_outer)
+    if lev0.sync is not None:
+        lev0.sync(state["u"])
     info["method"] = "iterative_refinement"
     return state["u"], info

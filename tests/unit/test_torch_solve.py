@@ -10,6 +10,7 @@ launches.
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -194,20 +195,25 @@ def test_dispatch_gates():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bc.BCSide(kind=bc.BCKind.PERIODIC)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Galerkin coarsening (ROADMAP item 10) and irregular domains (item 8)
+    still raise; periodic sides, W cycles and line smoothers, which raised
+    here before they were ported, now run (their tests hold them to the JAX
+    package in test_torch_cycles_smoothers.py and
+    test_torch_bc_segments_periodic.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         T.build_hierarchy(T.Grid(9, 9),
                           cfg=T.MultigridConfig(coarsening="galerkin"),
                           device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        interop.problem_from_jax(types.SimpleNamespace(domain=object()))
+    assert bc.BCSide(kind=bc.BCKind.PERIODIC).kind == bc.BCKind.PERIODIC
     levels = T.build_hierarchy(T.Grid(9, 9), device="cpu")
     u = torch.zeros(9, 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.mg_cycle(levels, u, u, T.MultigridConfig(cycle="W",
-                                                    backend="torch"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.mg_cycle(levels, u, u, T.MultigridConfig(smoother="line_x",
-                                                    backend="torch"))
+    for cfg in (T.MultigridConfig(cycle="W", backend="torch"),
+                T.MultigridConfig(smoother="line_x", backend="torch")):
+        assert torch.equal(T.mg_cycle(levels, u.clone(), u, cfg), u)
+    with pytest.raises(ValueError, match="cycle"):
+        T.mg_cycle(levels, u, u, T.MultigridConfig(cycle="X"))
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
@@ -220,6 +226,37 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="coarsening"):
         ktail.tail_vcycle_plain([st, st], u, u, shapes=[(9, 9), (4, 4)],
                                 pre=1, post=1, omega=1.0)
+    # a periodic stencil: the kernels take a rectangle of unknowns, so each
+    # wrapper refuses it on any device rather than solve a Dirichlet level
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth_planes as kplanes, smooth_var as ksvar
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import planes
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.stencil import \
+        Stencil
+
+    prob = T.periodic_helmholtz_mms(9)
+    wst = T.build_hierarchy(prob.grid, prob.spec, device="cpu")[0].stencil
+    assert wst.scalar and wst.wrap == (True, True)
+    vst = Stencil(*(torch.full((9, 9), float(x)) for x in wst.coefs),
+                    wrap=wst.wrap)
+    up = planes.split_field(u)
+    calls = {
+        "multisweep": lambda: ksmooth.multisweep(wst, u, u),
+        "multisweep_parity": lambda: ksmooth.multisweep_parity(wst, u, u),
+        "multisweep_planes": lambda: kplanes.multisweep_planes(
+            wst, up, up, nx=9, ny=9),
+        "residual_restrict": lambda: ktransfer.residual_restrict(wst, u, u),
+        "tail_vcycle": lambda: ktail.tail_vcycle(
+            [wst], u, u, shapes=[(9, 9)], pre=1, post=1, omega=1.0),
+        "multisweep_var": lambda: ksvar.multisweep_var(vst, u, u),
+        "residual_restrict_var": lambda: ktransfer.residual_restrict_var(
+            vst, u, u),
+        "tail_vcycle_var": lambda: ktail.tail_vcycle_var(
+            [vst], u, u, shapes=[(9, 9)], pre=1, post=1, omega=1.0),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=f"{name}: takes no periodic"):
+            call()
 
 
 ENTRY_POINTS = {

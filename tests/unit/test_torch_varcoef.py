@@ -528,14 +528,16 @@ def test_unported_varcoef_features_raise():
             T.solve_poisson(prob, precision=precision, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         T.solve_poisson(prob, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        bc.mixed(west="periodic")
     seg = jbc.BoundarySpec(east=jbc.BCSide(
         segments=(jbc.BCSegment(0.5, 1.0, kind=jbc.BCKind.NEUMANN),)))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        interop.spec_from_jax(seg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        bc.BCSide(segments=seg.east.segments)
+    # periodic sides and segments are ported: they validate as in JAX
+    assert interop.spec_from_jax(seg).east.kinds == {bc.BCKind.DIRICHLET,
+                                                     bc.BCKind.NEUMANN}
+    with pytest.raises(ValueError, match="periodic"):
+        bc.mixed(west="periodic").validate()
+    with pytest.raises(ValueError, match="periodic"):
+        bc.BCSide(kind=bc.BCKind.PERIODIC,
+                  segments=interop.spec_from_jax(seg).east.segments)
     with pytest.raises(ValueError, match="beta"):
         bc.BCSide(bc.BCKind.ROBIN, alpha=1.0, beta=0.0)
     st = T.build_hierarchy(T.Grid(9, 9), device="cpu")[0].stencil
