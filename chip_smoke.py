@@ -114,6 +114,25 @@ and l2 error and against the same solve with backend='torch':
      then ms per solve (minimum of 3, the checked solves the warm-up) of
      each, the plain path's too for Chebyshev, and profiles of the W,
      line_y and periodic solves.
+Precision staging and irregular domains (after phase 22), at 1025^2 on
+poisson_mms_sinsin, tol 1e-9, RB-GS omega 1, each solve from launch counts
+reset to zero and held to the JAX reference's count and l2 error:
+ 23. A (1025^2, 513^2, 257^2 and the coarsest 3^2 with 32 sweeps), B (bf16
+     and fp32 into bf16) and C between 1025^2 and 513^2, and D from 129^2
+     on an all-bf16 and on a mixed tail, on bf16 data from the seed,
+     against their twins bit for bit, with device ms per call on bf16
+     beside fp32; solve_poisson(precision='mixed') on both backends (5 +- 1
+     steps on the plain path, 5 +- 2 on the kernels, where A-C run only on
+     the fp32 levels above the tail and D once per V-cycle),
+     precision='adaptive' (15 +- 2, one switch to 'ir'),
+     refinement.adaptive_solve(start=BF16) on both backends (16 +- 3 on the
+     plain path, switches (5, 'fp32') then 'ir', A-D launched on bf16
+     storage on the kernel path), autotune over fp32, mixed and adaptive
+     (runs=1) and precision='auto' taking its cached choice; ms per solve and
+     profiles of the mixed and bf16-start solves;
+ 24. corner_singularity_problem (3 +- 1 steps, A-D as planned) and
+     l_shaped_problem (5 +- 1, no 2D kernel launch) on both backends, their
+     ms per solve and profiles, and every CATALOGUE problem built at 65^2.
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -238,6 +257,23 @@ OPERATOR_CASES = {
                   3.92174e-7, "rtol"),
 }
 OPERATOR_PATH_RTOL = 1e-8  # max|u_auto - u_torch| <= this * max|u|
+# Precision staging and domains at 1025^2 (phases 23-24). The references
+# are the JAX package's solve_poisson (and refinement.adaptive_solve with
+# start=BF16) with MultigridConfig(smoother='rbgs', omega=1.0, tol=1e-9)
+# on the CPU at 1025^2: outer steps (iterations for the adaptive solves)
+# and l2 error against the exact solution. 'mixed' with the kernels is
+# expected at 4 steps, the fp32 count: kernel D computes the bf16 levels
+# 33^2 and below in fp32.
+PRECISION_REF = {"mixed": (5, 3.921825e-7), "adaptive": (15, 3.920405e-7),
+                 "bf16_start": (16, 3.921676e-7)}
+BF16_CHUNK = 5  # adaptive_solve's chunk: the bf16 stage's cycles
+# The bf16-start solve through the kernels' twins, which round once per
+# call as the kernels do: iterations and switches of
+# benchmarking/bf16_start_witness.py (backend 'auto', CPU, 1025^2). The
+# kernel path is held to it, the plain path to PRECISION_REF.
+BF16_START_TWINS = (20, [(5, "fp32"), (15, "ir")])
+DOMAIN_REF = {"corner_singularity": (3, 1.382196e-7),
+              "l_shaped": (5, 9.045746e-6)}
 TAIL_ENTRY = 129           # dispatch.TAIL_MAX_ENTRY: D takes V entries <= it
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
@@ -273,6 +309,16 @@ def host_report() -> str:
     cutlass = "/usr/local/cutlass/include"
     print(f"cutlass headers: {cutlass if os.path.isdir(cutlass) else None}")
     return card
+
+
+def clocks(label: str) -> None:
+    """Print the card's SM and memory clocks and power draw now (nvidia-smi
+    reads them; it sets nothing), beside a group of device-time readings."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(f"clocks before {label}: {smi.stdout.strip()}")
 
 
 def compare(name, shape_label, kernel_fn, plain_fn, make_inputs, errs,
@@ -1694,6 +1740,411 @@ def operator_path(mg, card, dev):
     return errs
 
 
+def kernel_phase_bf16(mg, card, dev):
+    """Phase 23's kernel checks: A, B, C and D on bf16 storage against
+    their twins (which widen, run the fp32 twin and round once), bit for
+    bit, on data built from the seed, at the 1025^2 main path's shapes;
+    CUDA-event ms (kernel and twin) of the record's calls, and device ms per
+    call (torch.profiler) on bf16 beside the same call on fp32."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, tail as kt, transfer as kx
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(2323)
+
+    def field(shape, scale=1.0, dtype=bf):
+        a = np.zeros(shape, np.float32)
+        a[1:-1, 1:-1] = scale * rng.standard_normal(
+            (shape[0] - 2, shape[1] - 2))
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def widened(fn):  # the difference is taken in fp32
+        return lambda *a: fn(*a).float()
+
+    fp32 = mg.build_hierarchy(mg.Grid(N, N), device=dev)
+    bf16 = mg.build_hierarchy(mg.Grid(N, N), policy=mg.policy("bf16"),
+                              device=dev)
+    mixed = mg.build_hierarchy(mg.Grid(N, N), policy=mg.policy("mixed"),
+                               device=dev)
+    errs, times, dev_ms = {}, {}, {}
+    sm = dict(method="rbgs", sweeps=2, omega=1.0)
+    for lev, lev32 in zip(bf16[:3], fp32[:3]):
+        n, st = lev.grid.nx, lev.stencil
+        u, f = field((n, n)), field((n, n), st.c)
+        compare("smooth_multisweep_bf16", f"{n}^2 bf16", widened(
+            lambda a, b: ks.multisweep(st, a, b, **sm)), widened(
+            lambda a, b: ks.multisweep_plain(st, a, b, **sm)),
+            lambda: (u.clone(), f), errs, exact=True)
+        u32, f32 = u.float(), f.float()
+        bf_ms = dev_ms[("smooth_multisweep_bf16", n)] = device_ms_per_call(
+            lambda: ks.multisweep(st, u, f, **sm), 20)
+        fp32_ms = device_ms_per_call(
+            lambda: ks.multisweep(lev32.stencil, u32, f32, **sm), 20)
+        print(f"A {n}^2 2-sweep RB-GS call: device {bf_ms:.4f} ms per call "
+              f"on bf16, {fp32_ms:.4f} on fp32 [{card}]")
+        if n == N:
+            times[("smooth_multisweep_bf16", n)] = (
+                time_ms(lambda: ks.multisweep(st, u, f, **sm)),
+                time_ms(lambda: ks.multisweep_plain(st, u.clone(), f, **sm)))
+    st, shape = bf16[-1].stencil, bf16[-1].grid.shape
+    coarse = dict(method="rbgs", sweeps=32, omega=1.0)
+    u, f = field(shape), field(shape, st.c)
+    compare("smooth_multisweep_bf16", f"{shape[0]}^2 coarsest (32 sweeps, "
+            f"{len(ks.plan_passes(32))} launches) bf16", widened(
+            lambda a, b: ks.multisweep(st, a, b, **coarse)), widened(
+            lambda a, b: ks.multisweep_plain(st, a, b, **coarse)),
+            lambda: (u.clone(), f), errs, exact=True)
+
+    st, nc = bf16[0].stencil, bf16[1].grid.nx
+    u, f, ec = field((N, N)), field((N, N), st.c), field((nc, nc))
+    compare("residual_restrict_bf16", f"{N}->{nc} bf16->bf16",
+            widened(lambda a, b: kx.residual_restrict(st, a, b)),
+            widened(lambda a, b: kx.residual_restrict_plain(st, a, b)),
+            lambda: (u, f), errs, exact=True)
+    u32, f32 = field((N, N), dtype=torch.float32), field(
+        (N, N), st.c, torch.float32)
+    compare("residual_restrict_bf16", f"{N}->{nc} fp32->bf16",
+            widened(lambda a, b: kx.residual_restrict(st, a, b,
+                                                      out_dtype=bf)),
+            widened(lambda a, b: kx.residual_restrict_plain(st, a, b,
+                                                            out_dtype=bf)),
+            lambda: (u32, f32), errs, exact=True)
+    compare("prolong_correct_bf16", f"{nc}->{N} bf16", widened(
+        kx.prolong_correct), widened(kx.prolong_correct_plain),
+        lambda: (ec, u.clone()), errs, exact=True)
+    times[("residual_restrict_bf16", N)] = (
+        time_ms(lambda: kx.residual_restrict(st, u, f)),
+        time_ms(lambda: kx.residual_restrict_plain(st, u, f)))
+    times[("prolong_correct_bf16", N)] = (
+        time_ms(lambda: kx.prolong_correct(ec, u)),
+        time_ms(lambda: kx.prolong_correct_plain(ec, u.clone())))
+    for lev, lev32 in zip(bf16[:3], fp32[:3]):
+        n, st, nc = lev.grid.nx, lev.stencil, lev.grid.coarsen().nx
+        u, f, ec = field((n, n)), field((n, n), st.c), field((nc, nc))
+        u32, f32, ec32 = u.float(), f.float(), ec.float()
+        for name, call, call32 in (
+                ("residual_restrict_bf16",
+                 lambda: kx.residual_restrict(st, u, f),
+                 lambda: kx.residual_restrict(lev32.stencil, u32, f32)),
+                ("prolong_correct_bf16", lambda: kx.prolong_correct(ec, u),
+                 lambda: kx.prolong_correct(ec32, u32))):
+            bf_ms = dev_ms[(name, n)] = device_ms_per_call(call, 20)
+            print(f"{name} {n}<->{nc}: device {bf_ms:.4f} ms per call on "
+                  f"bf16, {device_ms_per_call(call32, 20):.4f} on fp32 "
+                  f"[{card}]")
+
+    kw = dict(pre=2, post=2, omega=1.0, method="rbgs", coarse_sweeps=32,
+              symmetric=False)
+    for label, levels in (("bf16", bf16), ("mixed", mixed)):
+        tail = [lev for lev in levels if lev.grid.nx <= TAIL_ENTRY]
+        sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
+                                                       for lev in tail]
+        dt = tail[0].dtype
+        print(f"D {label} tail: " + ", ".join(
+            f"{lev.grid.nx}^2 {lev.dtype}" for lev in tail))
+        u0, f = field(shapes[0], dtype=dt), field(shapes[0], sts[0].c, dt)
+        compare("tail_vcycle_bf16", f"{shapes[0][0]}^2 L={len(tail)} "
+                f"{label} tail", widened(lambda a, b: kt.tail_vcycle(
+                    sts, a, b, shapes=shapes, **kw)),
+                widened(lambda a, b: kt.tail_vcycle_plain(
+                    sts, a, b, shapes=shapes, **kw)),
+                lambda: (u0.clone(), f), errs, exact=True)
+        if label == "bf16":
+            times[("tail_vcycle_bf16", TAIL_ENTRY)] = (
+                time_ms(lambda: kt.tail_vcycle(sts, u0.clone(), f,
+                                               shapes=shapes, **kw)),
+                time_ms(lambda: kt.tail_vcycle_plain(
+                    sts, u0.clone(), f, shapes=shapes, **kw)))
+            dev_ms[("tail_vcycle_bf16", TAIL_ENTRY)] = device_ms(
+                lambda: kt.tail_vcycle(sts, u0, f, shapes=shapes, **kw),
+                "tail_vcycle", reps=20)
+            sts32 = [lev.stencil for lev in fp32 if lev.grid.nx <= TAIL_ENTRY]
+            u32, f32 = u0.float(), f.float()
+            d32 = device_ms(lambda: kt.tail_vcycle(
+                sts32, u32, f32, shapes=shapes, **kw), "tail_vcycle",
+                reps=20)
+            print(f"D from {TAIL_ENTRY}^2: device "
+                  f"{dev_ms[('tail_vcycle_bf16', TAIL_ENTRY)]:.4f} ms per "
+                  f"launch on a bf16 entry, {d32:.4f} on fp32 [{card}]")
+    for (name, n), (k_ms, p_ms) in times.items():
+        print(f"time {name} {n}^2: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+              f"ms")
+    return errs, times, dev_ms
+
+
+def check_solve(label, res, steps, slack, l2_ref, switches=None):
+    """A phase 23-24 solve: finite, converged in ``steps`` +- ``slack``
+    outer steps (or iterations), l2 within L2_RTOL of ``l2_ref``, and the
+    form of its precision switches."""
+    import torch
+
+    info = res.info
+    print(f"solve {label}: iterations {res.iterations} converged "
+          f"{res.converged} l2 {res.errors['l2']:.6e} switches "
+          f"{info.get('precision_switches')} solve "
+          f"{res.solve_time * 1e3:.3f} ms (first call) history "
+          f"{np.asarray(info['history']).tolist()}")
+    if tuple(res.u.shape) != (N, N) or not torch.isfinite(res.u).all():
+        fail(f"{label}: solution is misshapen or not finite")
+    if not res.converged or abs(res.iterations - steps) > slack:
+        fail(f"{label}: expected convergence in {steps} +- {slack} steps")
+    if abs(res.errors["l2"] / l2_ref - 1) > L2_RTOL:
+        fail(f"{label}: l2 error {res.errors['l2']:.4e} not within "
+             f"{L2_RTOL:.0%} of {l2_ref:.4e}")
+    got = [k for _, k in info.get("precision_switches", [])]
+    if switches is not None and got != switches:
+        fail(f"{label}: switches {info.get('precision_switches')} are not "
+             f"of the form {switches}")
+
+
+class _Solved:
+    """adaptive_solve's result in solve_poisson's shape."""
+
+    def __init__(self, u, info, prob, seconds):
+        self.u, self.info, self.solve_time = u, info, seconds
+        self.iterations, self.converged = info["iterations"], info["converged"]
+        self.errors = prob.error_norms(u)
+
+
+def precision_path(mg, card, dev):
+    """Phase 23: precision staging on poisson_mms_sinsin(1025), tol 1e-9,
+    RB-GS omega 1; returns the bf16 kernel checks' errors, times and device
+    ms, and the bf16 launches of the bf16-start solve on the kernels."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications \
+        import precision_analysis as pa
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_planes as kp, smooth_var as ksv, \
+        tail as kt, transfer as kx
+
+    start = time.perf_counter()
+    counted = {"smooth_multisweep": ks.multisweep,
+               "residual_restrict": kx.residual_restrict,
+               "prolong_correct": kx.prolong_correct,
+               "tail_vcycle": kt.tail_vcycle}
+    others = {"smooth_parity": ks.multisweep_parity,
+              "smooth_var": ksv.multisweep_var,
+              "residual_restrict_var": kx.residual_restrict_var,
+              "tail_vcycle_var": kt.tail_vcycle_var,
+              "smooth_planes": kp.multisweep_planes}
+
+    def reset():
+        for w in counted.values():
+            w.launches = w.launches_bf16 = 0
+        for w in others.values():
+            w.launches = 0
+
+    def read():
+        return ({k: (w.launches, w.launches_bf16)
+                 for k, w in counted.items()},
+                {k: w.launches for k, w in others.items()})
+
+    clocks("phase 23's device readings")
+    errs, times, dev_ms = kernel_phase_bf16(mg, card, dev)
+    prob = mg.poisson_mms_sinsin(N)
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    for backend, slack in (("torch", 1), ("auto", 2)):
+        reset()
+        res = mg.solve_poisson(prob, precision="mixed",
+                               cfg=cfg.replace(backend=backend), device=dev)
+        got, rest = read()
+        check_solve(f"mixed {N}^2 {backend}", res, PRECISION_REF["mixed"][0],
+                    slack, PRECISION_REF["mixed"][1])
+        print(f"solve mixed {backend} launches (all, bf16) {got}, others "
+              f"{rest}")
+        if backend == "auto":
+            levels = mg.build_hierarchy(prob.grid, policy=mg.policy("mixed"),
+                                        device=dev, cfg=cfg)
+            plan = cycle_launches(levels, cfg, res.iterations)
+            print(f"mixed auto: levels {[str(lev.dtype) for lev in levels]}; "
+                  f"launches {{A, B, C, D}} {[got[k][0] for k in counted]}, "
+                  f"planned {[plan[k] for k in counted]}")
+            if any(got[k] != (plan[k], 0) for k in counted) or any(
+                    rest.values()):
+                fail(f"mixed auto: launches {got} {rest} differ from the "
+                     f"plan {plan} (A-C on the fp32 levels above the tail, "
+                     f"D once per V-cycle, none on bf16)")
+    reset()
+    res = mg.solve_poisson(prob, precision="adaptive",
+                           cfg=cfg.replace(backend="auto"), device=dev)
+    check_solve(f"adaptive {N}^2 auto", res, PRECISION_REF["adaptive"][0], 2,
+                PRECISION_REF["adaptive"][1], switches=["ir"])
+    print(f"solve adaptive auto launches (all, bf16) {read()[0]}")
+
+    f64, u0 = prob.rhs(torch.float64, dev), prob.initial_guess(
+        torch.float64, dev)
+    bf16_launches = {}
+    for backend in ("torch", "auto"):
+        reset()
+        t0 = time.perf_counter()
+        u, info = mg.adaptive_solve(prob.grid, prob.spec, f64, u0,
+                                    cfg=cfg.replace(backend=backend),
+                                    start=mg.Precision.BF16, device=dev)
+        torch.cuda.synchronize()
+        res = _Solved(u, info, prob, time.perf_counter() - t0)
+        got, rest = read()
+        steps, l2 = PRECISION_REF["bf16_start"]
+        if backend == "auto":
+            # the kernels round once per call, the plain path after every
+            # op: the kernel path is held to its twins' count (PERF.md,
+            # phase 23)
+            steps = BF16_START_TWINS[0]
+            print(f"bf16 start auto: the twins' (iterations, switches) at "
+                  f"{N}^2: {BF16_START_TWINS}")
+        check_solve(f"adaptive bf16 start {N}^2 {backend}", res, steps, 3,
+                    l2, switches=["fp32", "ir"])
+        if info["precision_switches"][0] != (BF16_CHUNK, "fp32"):
+            fail(f"bf16 start {backend}: the first switch is "
+                 f"{info['precision_switches'][0]}, not (5, 'fp32')")
+        print(f"solve bf16 start {backend} launches (all, bf16) {got}, "
+              f"others {rest}")
+        if backend == "auto":
+            missing = [k for k in counted if got[k][1] <= 0]
+            if missing:
+                fail(f"bf16 start: no bf16 launch of {missing}")
+            bf16_launches = {f"{k}_bf16": got[k][1] for k in counted}
+    reset()
+    recorded = []
+    measure = pa.benchmark_function
+
+    def recording(fn, *a, **k):
+        stats = measure(fn, *a, **k)
+        recorded.append(stats["min_s"])
+        return stats
+
+    pa.benchmark_function = recording
+    try:
+        # autotune measures once (runs=1); precision='auto' then takes its
+        # cached choice (the cache key holds no run count)
+        auto_cfg = cfg.replace(backend="auto")
+        cands = ("fp32", "mixed", "adaptive")
+        chosen = pa.autotune(prob, cfg=auto_cfg, candidates=cands, runs=1,
+                             device=dev)
+        print("autotune wall s per candidate (runs=1): " + ", ".join(
+            f"{c} {t:.6f}" for c, t in zip(cands, recorded))
+            + f"; chosen {chosen} [{card}]")
+        if len(recorded) != len(cands):
+            fail(f"autotune timed {len(recorded)} candidates, not "
+                 f"{len(cands)}")
+        res = mg.solve_poisson(prob, precision="auto", cfg=auto_cfg,
+                               device=dev)
+        if len(recorded) != len(cands) or not res.converged:
+            fail("precision='auto' measured again, or did not converge")
+        print(f"precision='auto': cache hit ({chosen}), {res.iterations} "
+              f"iterations, l2 {res.errors['l2']:.6e}, "
+              f"{res.solve_time * 1e3:.3f} ms")
+    finally:
+        pa.benchmark_function = measure
+    times_ms = {}
+    for label, run in (
+            ("mixed", lambda: mg.solve_poisson(
+                prob, precision="mixed", cfg=cfg.replace(backend="auto"),
+                device=dev)),
+            ("bf16_start", lambda: mg.adaptive_solve(
+                prob.grid, prob.spec, f64, u0, cfg=cfg.replace(
+                    backend="auto"), start=mg.Precision.BF16, device=dev)),
+            ("fp32", lambda: mg.solve_poisson(
+                prob, precision="fp32", cfg=cfg.replace(backend="auto"),
+                device=dev))):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        times_ms[label] = best * 1e3
+        print(f"solve time {label} {N}^2 auto: {best * 1e3:.3f} ms per solve "
+              f"(set-up included, minimum of 3) [{card}]")
+    profile_solve(f"mixed {N}^2", lambda: mg.solve_poisson(
+        prob, precision="mixed", cfg=cfg.replace(backend="auto"),
+        device=dev), counted)
+    profile_solve(f"bf16-start adaptive {N}^2", lambda: mg.adaptive_solve(
+        prob.grid, prob.spec, f64, u0, cfg=cfg.replace(backend="auto"),
+        start=mg.Precision.BF16, device=dev), counted)
+    print(f"phase 23: {time.perf_counter() - start:.1f} s")
+    return errs, times, dev_ms, bf16_launches
+
+
+def domain_path(mg, card, dev):
+    """Phase 24: the corner and L-shaped problems at 1025^2 and the
+    catalogue at 65^2."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_planes as kp, smooth_var as ksv, \
+        tail as kt, transfer as kx
+
+    start = time.perf_counter()
+    counted = {"smooth_multisweep": ks.multisweep,
+               "residual_restrict": kx.residual_restrict,
+               "prolong_correct": kx.prolong_correct,
+               "tail_vcycle": kt.tail_vcycle}
+    every = {**counted, "smooth_parity": ks.multisweep_parity,
+             "smooth_var": ksv.multisweep_var,
+             "residual_restrict_var": kx.residual_restrict_var,
+             "tail_vcycle_var": kt.tail_vcycle_var,
+             "smooth_planes": kp.multisweep_planes}
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    for name in ("corner_singularity", "l_shaped"):
+        prob = mg.CATALOGUE[name](N)
+        steps, l2 = DOMAIN_REF[name]
+        solved = {}
+        for backend in ("auto", "torch"):
+            for w in every.values():
+                w.launches = 0
+            res = solved[backend] = mg.solve_poisson(
+                prob, precision="fp32", cfg=cfg.replace(backend=backend),
+                device=dev)
+            got = {k: w.launches for k, w in every.items()}
+            check_solve(f"{name} {N}^2 {backend}", res, steps, 1, l2)
+            print(f"solve {name} {backend} launches {got}")
+            if backend == "torch":
+                continue
+            if name == "l_shaped":
+                if any(got.values()):
+                    fail(f"l_shaped: 2D kernels launched on a domain level: "
+                         f"{got}")
+                continue
+            levels = mg.build_hierarchy(prob.grid, device=dev, cfg=cfg)
+            plan = cycle_launches(levels, cfg, res.iterations)
+            if any(got[k] != plan[k] for k in counted) or any(
+                    got[k] for k in every if k not in counted):
+                fail(f"{name}: launches {got} differ from the plan {plan}")
+        du = (solved["auto"].u - solved["torch"].u).abs().max().item()
+        print(f"solve {name}: max|u_auto - u_torch| {du:.3e}")
+        if solved["auto"].iterations != solved["torch"].iterations:
+            fail(f"{name}: the kernel and plain paths take "
+                 f"{solved['auto'].iterations} and "
+                 f"{solved['torch'].iterations} steps")
+        best = float("inf")
+        for _ in range(2):
+            best = min(best, mg.solve_poisson(
+                prob, precision="fp32", cfg=cfg.replace(backend="auto"),
+                device=dev).solve_time)
+        print(f"solve time {name} {N}^2 auto: {best * 1e3:.3f} ms per solve "
+              f"(set-up included, minimum of 2) [{card}]")
+        profile_solve(f"{name} {N}^2", lambda: mg.solve_poisson(
+            prob, precision="fp32", cfg=cfg.replace(backend="auto"),
+            device=dev), counted, cpu=False)
+    for name, make in mg.CATALOGUE.items():
+        prob = make(65)
+        levels = mg.build_hierarchy(prob.grid, prob.spec, a=prob.a,
+                                    lam=prob.lam, domain=prob.domain,
+                                    device=dev)
+        f, u0 = prob.rhs(torch.float32, dev), prob.initial_guess(
+            torch.float32, dev)
+        if f.shape != (65, 65) or not (torch.isfinite(f).all()
+                                       and torch.isfinite(u0).all()):
+            fail(f"catalogue {name}: data misshapen or not finite")
+        print(f"catalogue {name}: {prob.name}, {len(levels)} levels, "
+              f"domain {prob.domain}")
+    print(f"phase 24: {time.perf_counter() - start:.1f} s")
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -1735,6 +2186,12 @@ def work(name):
         "smooth_parity": (12 * n * n, 12 * 2 * (n - 2) ** 2),
         "probe": (12 * n * n, 5 * 2 * (n - 2) ** 2),
         "copy": (8 * n * n, n * n),
+        # kernels A-D on bf16 storage: 2 bytes a node
+        "smooth_multisweep_bf16": (6 * n * n, 12 * 2 * (n - 2) ** 2),
+        "residual_restrict_bf16": (4 * n * n + 2 * nc * nc,
+                                   10 * (n - 2) ** 2 + 12 * (nc - 2) ** 2),
+        "prolong_correct_bf16": (2 * nc * nc + 4 * n * n, 3 * (n - 2) ** 2),
+        "tail_vcycle_bf16": (6 * 129 ** 2, vcycle_flops(tail)),
     }[name]
 
 
@@ -2096,6 +2553,7 @@ def main(argv) -> int:
     profile_solve(f"main path {N}^2", lambda: mg.ir_solve(
         levels, f, u0, cfg, inner_cycles=2, max_outer=100, use_fmg=True),
         wrappers)
+    clocks("phase 6's device readings")
     dev_ms = main_path_device(levels, card)
 
     # ---- parity paths: kernels K, L and M -------------------------------
@@ -2196,6 +2654,15 @@ def main(argv) -> int:
     # ---- the rest of the 2D operator: phases 20-22 -----------------------
     for name, err in operator_path(mg, card, dev).items():
         errs[name] = max(errs.get(name, 0.0), err)
+    torch.cuda.empty_cache()
+
+    # ---- precision staging and domains: phases 23-24 ---------------------
+    errs_bf, times_bf, dev_ms_bf, launches_bf = precision_path(mg, card, dev)
+    errs.update(errs_bf)
+    times.update(times_bf)
+    dev_ms.update(dev_ms_bf)
+    launches.update(launches_bf)
+    domain_path(mg, card, dev)
 
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),
@@ -2215,13 +2682,21 @@ def main(argv) -> int:
                "smooth_parity": ("csrc/smooth_parity.cu", "smooth.py:119"),
                "probe": ("csrc/probes.cu",
                          "scripts/kernel_microbench.py:108"),
-               "copy": ("csrc/probes.cu", "scripts/kernel_microbench.py:123")}
+               "copy": ("csrc/probes.cu", "scripts/kernel_microbench.py:123"),
+               "smooth_multisweep_bf16": ("csrc/smooth.cu", "smooth.py:290"),
+               "residual_restrict_bf16": ("csrc/transfer.cu",
+                                          "transfer.py:262"),
+               "prolong_correct_bf16": ("csrc/transfer.cu",
+                                        "transfer.py:488"),
+               "tail_vcycle_bf16": ("csrc/tail.cu", "tail.py:170")}
     main_n = {"smooth_multisweep": 1025, "residual_restrict": 1025,
               "prolong_correct": 1025, "tail_vcycle": 129,
               "smooth_var": N_VAR, "residual_restrict_var": N_VAR,
               "tail_vcycle_var": 129, "rbgs3d": N3,
               "residual_restrict3d": N3, "prolong_correct3d": N3,
-              "smooth_planes": N, "smooth_parity": N, "probe": N, "copy": N}
+              "smooth_planes": N, "smooth_parity": N, "probe": N, "copy": N,
+              "smooth_multisweep_bf16": N, "residual_restrict_bf16": N,
+              "prolong_correct_bf16": N, "tail_vcycle_bf16": 129}
     timed = {"probe": "probe_roll"}  # the record times the 5-point probe
     record = []
     for name, (src, rep) in sources.items():

@@ -6,28 +6,42 @@ against. Plain tensor code is PyTorch; the hot operations of the 2D
 constant-coefficient, variable-coefficient and Neumann/Robin paths and of
 the 3D constant-coefficient Dirichlet path run in hand-written CUDA kernels
 for Hopper (``csrc/``, built with nvcc at first use, see
-``ops/cuda_kernels/_build.py``). Fields are stored at their logical shape
-(nx, ny) or (nx, ny, nz), and every function takes its dtype and device
-explicitly. This package never imports JAX.
+``ops/cuda_kernels/_build.py``); kernels A-D take bf16 storage too, so the
+mixed, bf16 and adaptive precisions run on them. Fields are stored at their
+logical shape (nx, ny) or (nx, ny, nz), and every function takes its dtype
+and device explicitly. This package never imports JAX.
 """
 
 __version__ = "0.1.0"
 
-from . import applications, core, models, ops, solvers  # noqa: F401
+from . import applications, core, models, ops, solvers, utils  # noqa: F401
 from .applications.poisson import (  # noqa: F401
     PoissonResult,
     convergence_study,
     solve_poisson,
 )
+from .applications.precision_analysis import (  # noqa: F401
+    MixedPrecisionAnalyzer,
+    autotune,
+)
 from .applications.poisson3d import solve_poisson3d  # noqa: F401
 from .core.grid import Grid  # noqa: F401
 from .core.grid3d import Grid3D  # noqa: F401
-from .core.precision import Precision, as_dtype  # noqa: F401
+from .core.domain import LShapedDomain  # noqa: F401
+from .core.precision import (  # noqa: F401
+    Precision,
+    PrecisionPolicy,
+    as_dtype,
+    policy,
+)
 from .models.problems import (  # noqa: F401
+    CATALOGUE,
     Problem,
     boundary_layer_problem,
+    corner_singularity_problem,
     helmholtz_mms,
     jump_coefficient_problem,
+    l_shaped_problem,
     mixed_segment_mms,
     mixed_segment_problem,
     neumann_test_problem,
@@ -58,4 +72,4 @@ from .solvers.multigrid3d import (  # noqa: F401
     mg_solve3d,
 )
 from .solvers.plane_solve import plane_ir_solve  # noqa: F401
-from .solvers.refinement import ir_solve  # noqa: F401
+from .solvers.refinement import adaptive_solve, ir_solve  # noqa: F401

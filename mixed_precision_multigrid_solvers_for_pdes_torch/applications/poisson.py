@@ -3,13 +3,16 @@ solution, and grid-convergence studies.
 
 Counterpart of ``PoissonResult``, ``solve_poisson``, ``observed_order``,
 ``convergence_study`` and ``fit_study`` in
-``mixed_precision_multigrid_solvers_for_pdes_tpu/applications/poisson.py``
-for uniform fp32 and fp64 solves. fp32 at a tolerance below 1e-6 wraps the
-fp32 cycles in float64 iterative refinement (``ir_solve``, two cycles per
-outer step), since an fp32 residual floors near 1e-7 relative. The 'mixed',
-'bf16', 'adaptive' and 'auto' precisions and ``PrecisionPolicy`` objects
-(per-level dtype policies, staged promotion, autotuning) are ROADMAP item 9;
-``mesh=`` (sharding) is item 14.
+``mixed_precision_multigrid_solvers_for_pdes_tpu/applications/poisson.py``,
+with every precision of the JAX package: uniform 'fp32', 'fp64' and 'bf16'
+hierarchies, where fp32 at a tolerance below 1e-6 wraps the fp32 cycles in
+float64 iterative refinement (``ir_solve``, two cycles per outer step),
+since an fp32 residual floors near 1e-7 relative; 'mixed' (fp32 fine and
+bf16 coarse levels under iterative refinement); 'adaptive' (staged
+promotion, ``refinement.adaptive_solve``); 'auto' (the measured choice of
+``precision_analysis.autotune``); or a ``PrecisionPolicy``. A problem's
+irregular domain goes to every hierarchy. ``mesh=`` (sharding) is ROADMAP
+item 14.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.precision import Precision
+from ..core.precision import Precision, PrecisionPolicy, \
+    policy as make_policy
 from ..models.problems import Problem
 from ..solvers import multigrid as mg_mod, refinement
 from ..solvers.multigrid import MultigridConfig
@@ -46,24 +50,23 @@ class PoissonResult:
         return self.info["converged"]
 
 
-def uniform_precision(precision: Any, mesh=None) -> Precision:
-    """The Precision of a uniform fp32 or fp64 solve; raises for what the
-    port does not have yet."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
-                                  "(ROADMAP item 14)")
-    mode = None
+def precision_policy(precision: Any, problem: Problem,
+                     cfg: MultigridConfig, device) -> PrecisionPolicy:
+    """The policy of a ``solve_poisson`` precision: a PrecisionPolicy as
+    given, 'auto' measured by ``autotune`` on ``problem``, else the named
+    mode (a string or a Precision)."""
+    if isinstance(precision, PrecisionPolicy):
+        return precision
     if isinstance(precision, Precision):
-        mode = precision
-    elif isinstance(precision, str) and precision in {p.value
-                                                      for p in Precision}:
-        mode = Precision(precision)
-    if mode not in (Precision.FP32, Precision.FP64):
-        name = getattr(precision, "value", precision)
-        raise NotImplementedError(
-            f"precision {name!r} (per-level dtype policies, staged promotion "
-            "and autotuning) is not ported yet (ROADMAP item 9)")
-    return mode
+        return make_policy(precision)
+    if precision == "auto":
+        from .precision_analysis import autotune
+
+        return make_policy(autotune(problem, cfg=cfg, device=device))
+    if isinstance(precision, str):
+        return make_policy(precision)
+    raise TypeError(f"precision must be a mode name, a Precision or a "
+                    f"PrecisionPolicy, got {precision!r}")
 
 
 def solve_poisson(problem: Problem, *, precision: Any = "fp32",
@@ -73,27 +76,48 @@ def solve_poisson(problem: Problem, *, precision: Any = "fp32",
                   device=None) -> PoissonResult:
     """Solve ``A u = f`` for a 2D Problem on ``device`` with one call.
 
-    precision: 'fp32' or 'fp64', a uniform hierarchy at that dtype (fp32
-    below tol 1e-6 under float64 iterative refinement, which takes no FMG
-    start; ``use_fmg`` applies to the plain cycle iteration).
+    precision: 'fp32', 'fp64' or 'bf16', a uniform hierarchy at that dtype
+    (fp32 below tol 1e-6 under float64 iterative refinement, which takes no
+    FMG start; ``use_fmg`` applies to the plain cycle iteration); 'mixed',
+    the policy's fp32/bf16 levels under iterative refinement (two cycles
+    per outer step); 'adaptive', staged promotion; 'auto', the fastest of
+    fp32, mixed and adaptive that holds accuracy on this problem, measured
+    once and cached; or a PrecisionPolicy, used as given.
     ``solve_time`` is the wall time of the solve, hierarchy set-up
     included, synchronized with the device."""
-    mode = uniform_precision(precision, mesh)
+    if mesh is not None:
+        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
+                                  "(ROADMAP item 14)")
     device = resolve_device(device)
+    pol = precision_policy(precision, problem, cfg, device)
 
     t0 = time.perf_counter()
-    levels = mg_mod.build_hierarchy(problem.grid, problem.spec, a=problem.a,
-                                    lam=problem.lam, dtype=mode.dtype,
-                                    device=device, cfg=cfg)
-    if mode == Precision.FP32 and cfg.tol < 1e-6:
+    f64 = torch.float64
+    if pol.mode == Precision.ADAPTIVE:
+        u, info = refinement.adaptive_solve(
+            problem.grid, problem.spec, problem.rhs(f64, device),
+            problem.initial_guess(f64, device), a=problem.a, lam=problem.lam,
+            domain=problem.domain, policy=pol, cfg=cfg, device=device)
+    elif pol.mode == Precision.MIXED:
+        levels = mg_mod.build_hierarchy(
+            problem.grid, problem.spec, a=problem.a, lam=problem.lam,
+            domain=problem.domain, policy=pol, device=device, cfg=cfg)
         u, info = refinement.ir_solve(
-            levels, problem.rhs(torch.float64, device),
-            problem.initial_guess(torch.float64, device), cfg,
-            inner_cycles=2)
+            levels, problem.rhs(f64, device),
+            problem.initial_guess(f64, device), cfg, inner_cycles=2)
     else:
-        u, info = mg_mod.mg_solve(levels, problem.rhs(mode.dtype, device),
-                                  problem.initial_guess(mode.dtype, device),
-                                  cfg, use_fmg=use_fmg)
+        dt = pol.mode.dtype
+        levels = mg_mod.build_hierarchy(
+            problem.grid, problem.spec, a=problem.a, lam=problem.lam,
+            domain=problem.domain, dtype=dt, device=device, cfg=cfg)
+        if dt == torch.float32 and cfg.tol < 1e-6:
+            u, info = refinement.ir_solve(
+                levels, problem.rhs(f64, device),
+                problem.initial_guess(f64, device), cfg, inner_cycles=2)
+        else:
+            u, info = mg_mod.mg_solve(levels, problem.rhs(dt, device),
+                                      problem.initial_guess(dt, device),
+                                      cfg, use_fmg=use_fmg)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_time = time.perf_counter() - t0

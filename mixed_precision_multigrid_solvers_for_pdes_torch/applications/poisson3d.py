@@ -5,9 +5,9 @@ Counterpart of ``solve_poisson3d`` in
 for uniform fp32 and fp64 solves. fp32 at a tolerance below 1e-6 wraps the
 fp32 cycles in float64 iterative refinement (``ir_solve3d``, two cycles per
 outer step), since an fp32 residual floors near 1e-7 relative. The 'mixed',
-'bf16' and 'adaptive' precisions (per-level dtype policies, staged
-promotion) are ROADMAP item 9; ``mesh=`` (sharding) is item 14;
-``convergence_study3d`` waits for the rest of the 3D catalogue (item 13).
+'bf16' and 'adaptive' precisions in 3D (per-level dtype policies, staged
+promotion) are ROADMAP item 13, as is ``convergence_study3d``; ``mesh=``
+(sharding) is item 14.
 """
 
 from __future__ import annotations
@@ -22,7 +22,27 @@ from ..core.precision import Precision
 from ..models.problems3d import Problem3D
 from ..solvers import multigrid3d as mg3
 from ..solvers.multigrid import MultigridConfig
-from .poisson import PoissonResult, uniform_precision
+from .poisson import PoissonResult
+
+
+def uniform_precision(precision: Any, mesh=None) -> Precision:
+    """The Precision of a uniform fp32 or fp64 3D solve; raises for what
+    the port does not have yet."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
+                                  "(ROADMAP item 14)")
+    mode = None
+    if isinstance(precision, Precision):
+        mode = precision
+    elif isinstance(precision, str) and precision in {p.value
+                                                      for p in Precision}:
+        mode = Precision(precision)
+    if mode not in (Precision.FP32, Precision.FP64):
+        name = getattr(precision, "value", precision)
+        raise NotImplementedError(
+            f"precision {name!r} in 3D (per-level dtype policies and staged "
+            "promotion) is not ported yet (ROADMAP item 13)")
+    return mode
 
 
 def solve_poisson3d(problem: Problem3D, *, precision: Any = "fp32",

@@ -88,7 +88,7 @@ def probe(u, f, *, mode: str = "roll", sweeps: int = 2):
                          f"{MODES}")
     if u.device.type == "cpu":
         return probe_plain(u, f, mode=mode, sweeps=sweeps)
-    _build.check_cuda_fp32("probe", u, f)
+    _build.check_cuda("probe", u, f)
     if f.shape != u.shape:
         raise ValueError(f"probe: f {tuple(f.shape)} != u {tuple(u.shape)}")
     nx, ny = u.shape
@@ -114,7 +114,7 @@ def copy2x(u):
     """o = 2 u (the copy kernel); returns a new tensor."""
     if u.device.type == "cpu":
         return copy2x_plain(u)
-    _build.check_cuda_fp32("copy2x", u, ndim=u.dim())
+    _build.check_cuda("copy2x", u, ndim=u.dim())
     out = torch.empty_like(u)
     if u.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("copy2x: the kernel moves 16-byte vectors and "

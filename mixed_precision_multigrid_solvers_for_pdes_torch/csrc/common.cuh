@@ -1,12 +1,27 @@
 // Shared pieces of the hand-written Hopper multigrid kernels.
 //
-// 2D fields are fp32, row-major (nx, ny) arrays with the boundary ring
-// included: node (i, j) lives at i * ny + j. Only interior nodes
-// 1..nx-2 x 1..ny-2 are ever updated, so no access wraps around. The 3D
+// 2D fields are row-major (nx, ny) arrays with the boundary ring included:
+// node (i, j) lives at i * ny + j. Only interior nodes 1..nx-2 x 1..ny-2 are
+// ever updated, so no access wraps around. Kernels A-D take fp32 or bf16
+// storage: they widen what they load to fp32 (load_f), compute in fp32 and
+// round once per call where they store (store_f, round to nearest even, as
+// torch's Tensor.to(torch.bfloat16)). The other kernels take fp32. The 3D
 // layout is given with the 3D helpers below.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // Make `device` current, skipping cudaSetDevice when it already is.
 inline cudaError_t use_device(int device) {
@@ -21,10 +36,11 @@ struct Stencil5 {
 
 // w*u[i-1,j] + e*u[i+1,j] + s*u[i,j-1] + n*u[i,j+1], summed left to right as
 // the plain PyTorch twin sums it.
-__device__ __forceinline__ float neighbor_sum(const float* u, long idx, int ny,
+template <class T>
+__device__ __forceinline__ float neighbor_sum(const T* u, long idx, int ny,
                                               const Stencil5& st) {
-  return st.w * u[idx - ny] + st.e * u[idx + ny] + st.s * u[idx - 1] +
-         st.n * u[idx + 1];
+  return st.w * load_f(u + idx - ny) + st.e * load_f(u + idx + ny) +
+         st.s * load_f(u + idx - 1) + st.n * load_f(u + idx + 1);
 }
 
 // Red-black Gauss-Seidel / SOR value of a node from its own value p, its
@@ -63,19 +79,20 @@ __device__ __forceinline__ float jacobi_scalar_update(float p, float f,
 }
 
 // f - A u at an interior node.
-__device__ __forceinline__ float residual_at(const float* u, const float* f,
-                                             long idx, int ny,
-                                             const Stencil5& st) {
-  return f[idx] - (st.c * u[idx] - neighbor_sum(u, idx, ny, st));
+template <class T>
+__device__ __forceinline__ float residual_at(const T* u, const T* f, long idx,
+                                             int ny, const Stencil5& st) {
+  return load_f(f + idx) -
+         (st.c * load_f(u + idx) - neighbor_sum(u, idx, ny, st));
 }
 
 // Full-weighting restriction of the residual onto coarse interior node
 // (I, J): [1 2 1; 2 4 2; 1 2 1]/16 over the nine fine residuals around
 // (2I, 2J), each computed in registers. Same summation order as the plain
 // twin (centre, edges, corners).
-__device__ __forceinline__ float restrict_residual_at(const float* u,
-                                                      const float* f, int I,
-                                                      int J, int nyf,
+template <class T>
+__device__ __forceinline__ float restrict_residual_at(const T* u, const T* f,
+                                                      int I, int J, int nyf,
                                                       const Stencil5& st) {
   const long c = (long)(2 * I) * nyf + 2 * J;
   const float r00 = residual_at(u, f, c, nyf, st);
@@ -94,14 +111,16 @@ __device__ __forceinline__ float restrict_residual_at(const float* u,
 
 // Bilinear interpolant of the coarse field ec (ncx, ncy) at fine node (i, j):
 // coincident nodes copy, edge nodes average two, centre nodes average four.
-__device__ __forceinline__ float prolong_at(const float* ec, int i, int j,
+template <class T>
+__device__ __forceinline__ float prolong_at(const T* ec, int i, int j,
                                             int ncy) {
-  const float* c = ec + (long)(i >> 1) * ncy + (j >> 1);
+  const T* c = ec + (long)(i >> 1) * ncy + (j >> 1);
   const bool oi = i & 1, oj = j & 1;
-  if (!oi && !oj) return c[0];
-  if (!oi) return 0.5f * (c[0] + c[1]);
-  if (!oj) return 0.5f * (c[0] + c[ncy]);
-  return 0.25f * (c[0] + c[ncy] + c[1] + c[ncy + 1]);
+  if (!oi && !oj) return load_f(c);
+  if (!oi) return 0.5f * (load_f(c) + load_f(c + 1));
+  if (!oj) return 0.5f * (load_f(c) + load_f(c + ncy));
+  return 0.25f *
+         (load_f(c) + load_f(c + ncy) + load_f(c + 1) + load_f(c + ncy + 1));
 }
 
 // ---------------------------------------------------------------------------
@@ -151,6 +170,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+// One node into a shared fp32 window (kernels A and D): a 4-byte cp.async
+// from fp32 storage; from bf16 storage a load widened to fp32 (cp.async
+// copies 4, 8 or 16 bytes, so a 2-byte node cannot go that way). Either is
+// visible to the block after cp_async_wait and a barrier.
+__device__ __forceinline__ void load_shared(float* dst, const float* src) {
+  cp_async4(dst, src, true);
+}
+__device__ __forceinline__ void load_shared(float* dst, const bf16* src) {
+  *dst = load_f(src);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -22,6 +22,13 @@
 //   number of phases of the launch: 2 per RB-GS sweep (one per colour), 1
 //   per Jacobi sweep. The loads are 4-byte cp.async (rows of unpadded
 //   levels are not 16-byte aligned), all in flight at once.
+// - Storage: u, f and out are each fp32 or bf16 (the storage flags of
+//   mg_smooth). The window is fp32 whatever the storage: bf16 nodes are
+//   loaded with 2-byte loads and widened (cp.async has no 2-byte copy), and
+//   the tile is rounded to bf16 once, where it is stored. A call of more
+//   sweeps than one launch takes keeps its passes before the last in fp32
+//   (the wrapper's scratch fields), so a bf16 call rounds once, as the
+//   Pallas kernel's one call does.
 // - The tile's size is the level's (tile_of): the largest of kTiles whose
 //   grid holds at least kMinBlocks blocks, about one per SM, else the
 //   smallest. This geometry is in smooth_tiles.cuh, shared with K and L.
@@ -77,10 +84,11 @@ __host__ __device__ constexpr int smem_bytes(int tx, int ty, int sweeps,
 
 // Every geometry value is a compile-time constant of the instantiation, so
 // a thread's index arithmetic is shifts and multiplies.
-template <int kTileX, int kTileY, int kSweeps, bool kJacobi>
+template <int kTileX, int kTileY, int kSweeps, bool kJacobi, class TU,
+          class TF, class TO>
 __global__ void __launch_bounds__(kThreads)
-    smooth_kernel(const float* __restrict__ u, const float* __restrict__ f,
-                  float* __restrict__ out, int nx, int ny, Stencil5 st,
+    smooth_kernel(const TU* __restrict__ u, const TF* __restrict__ f,
+                  TO* __restrict__ out, int nx, int ny, Stencil5 st,
                   float inv_c, float omega, int c0) {
   extern __shared__ float sm[];
   constexpr int halo = halo_of(kSweeps, kJacobi);
@@ -101,9 +109,9 @@ __global__ void __launch_bounds__(kThreads)
     const int li = t / wy, lj = t - li * wy;
     const long g = (long)(wi0 + li) * ny + (wj0 + lj);
     const int s = at(li, lj);
-    cp_async4(us + s, u + g, true);
-    if (kJacobi) cp_async4(vs + s, u + g, true);
-    cp_async4(fs + s, f + g, true);
+    load_shared(us + s, u + g);
+    if (kJacobi) load_shared(vs + s, u + g);
+    load_shared(fs + s, f + g);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -170,17 +178,19 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = hi_j - lo_j;
   for (int t = threadIdx.x; t < (hi_i - lo_i) * ty; t += kThreads) {
     const int i = t / ty, j = t - i * ty;
-    out[(long)(lo_i + i) * ny + lo_j + j] =
-        fin[at(lo_i + i - wi0, lo_j + j - wj0)];
+    store_f(out + (long)(lo_i + i) * ny + lo_j + j,
+            fin[at(lo_i + i - wi0, lo_j + j - wj0)]);
   }
 }
 
-template <int kTileX, int kTileY, int kSweeps, bool kJacobi>
-cudaError_t launch(const float* u, const float* f, float* out, int nx, int ny,
+template <int kTileX, int kTileY, int kSweeps, bool kJacobi, class TU,
+          class TF, class TO>
+cudaError_t launch(const TU* u, const TF* f, TO* out, int nx, int ny,
                    const Stencil5& st, float omega, int c0, int device,
                    cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const auto kernel = smooth_kernel<kTileX, kTileY, kSweeps, kJacobi>;
+  const auto kernel =
+      smooth_kernel<kTileX, kTileY, kSweeps, kJacobi, TU, TF, TO>;
   constexpr int bytes = smem_bytes(kTileX, kTileY, kSweeps, kJacobi);
   const cudaError_t err = allow_smem(kernel, bytes, device, done);
   if (err != cudaSuccess) return err;
@@ -189,6 +199,42 @@ cudaError_t launch(const float* u, const float* f, float* out, int nx, int ny,
   kernel<<<grid, kThreads, bytes, stream>>>(u, f, out, nx, ny, st,
                                             1.0f / st.c, omega, c0);
   return cudaGetLastError();
+}
+
+// The storage of one launch: the input u, f and the output, as the
+// wrapper's passes need them (bit 0: u is bf16, bit 1: f, bit 2: out).
+enum Storage : int {
+  kFp32 = 0,       // an fp32 level
+  kBf16 = 7,       // a bf16 level's call in one launch
+  kBf16First = 3,  // the first launch of a longer bf16 call: out fp32
+  kBf16Mid = 2,    // a launch between: u and out fp32
+  kBf16Last = 6,   // the last: u fp32, out bf16
+};
+
+// Every sweep count is compiled for the storage of one-launch calls (fp32,
+// bf16). A longer bf16 call's launches before the last take kMaxSweeps
+// sweeps each (plan_passes in ops/cuda_kernels/smooth.py), so kBf16First
+// and kBf16Mid are compiled for that count only (kAnySweeps false) and
+// refuse any other.
+template <class TU, class TF, class TO, bool kAnySweeps>
+cudaError_t smooth_typed(const void* u, const void* f, void* out, int nx,
+                         int ny, const Stencil5& st, float omega, int sweeps,
+                         int jacobi, int c0, int device, cudaStream_t t) {
+  const TU* tu = static_cast<const TU*>(u);
+  const TF* tf = static_cast<const TF*>(f);
+  TO* to = static_cast<TO*>(out);
+  return with_tile_and_sweeps(nx, ny, sweeps, [&](auto ti, auto sw) {
+    constexpr Tile tile = kTiles[decltype(ti)::value];
+    constexpr int kSweeps = decltype(sw)::value;
+    if constexpr (!kAnySweeps && kSweeps != kMaxSweeps) {
+      return cudaErrorInvalidValue;
+    } else {
+      return jacobi ? launch<tile.x, tile.y, kSweeps, true>(
+                          tu, tf, to, nx, ny, st, omega, 0, device, t)
+                    : launch<tile.x, tile.y, kSweeps, false>(
+                          tu, tf, to, nx, ny, st, omega, c0, device, t);
+    }
+  });
 }
 
 }  // namespace
@@ -203,10 +249,12 @@ const char* mg_error_string(int err) {
 // `sweeps` (1 .. kMaxSweeps) sweeps of u, written to out (every node of out
 // is written; u and f are only read, and out must not alias them): weighted
 // Jacobi when `jacobi`, else RB-GS/SOR, red first, black first when
-// `reverse`.
-int mg_smooth(const float* u, const float* f, float* out, int nx, int ny,
+// `reverse`. `storage` says which of u, f and out are bf16 (Storage); the
+// others are fp32.
+int mg_smooth(const void* u, const void* f, void* out, int nx, int ny,
               float c, float w, float e, float s, float n, float omega,
-              int sweeps, int jacobi, int reverse, int device, void* stream) {
+              int sweeps, int jacobi, int reverse, int storage, int device,
+              void* stream) {
   if (sweeps < 1 || sweeps > kMaxSweeps || nx < 3 || ny < 3)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
@@ -214,14 +262,25 @@ int mg_smooth(const float* u, const float* f, float* out, int nx, int ny,
   const Stencil5 st{c, w, e, s, n};
   const cudaStream_t t = (cudaStream_t)stream;
   const int c0 = reverse ? 1 : 0;
-  return (int)with_tile_and_sweeps(nx, ny, sweeps, [&](auto ti, auto sw) {
-    constexpr Tile tile = kTiles[decltype(ti)::value];
-    constexpr int kSweeps = decltype(sw)::value;
-    return jacobi ? launch<tile.x, tile.y, kSweeps, true>(
-                        u, f, out, nx, ny, st, omega, 0, device, t)
-                  : launch<tile.x, tile.y, kSweeps, false>(
-                        u, f, out, nx, ny, st, omega, c0, device, t);
-  });
+  switch (storage) {
+    case kFp32:
+      return (int)smooth_typed<float, float, float, true>(
+          u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
+    case kBf16:
+      return (int)smooth_typed<bf16, bf16, bf16, true>(
+          u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
+    case kBf16First:
+      return (int)smooth_typed<bf16, bf16, float, false>(
+          u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
+    case kBf16Mid:
+      return (int)smooth_typed<float, bf16, float, false>(
+          u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
+    case kBf16Last:
+      return (int)smooth_typed<float, bf16, bf16, true>(
+          u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // A's geometry for an (nx, ny) level into out[6]: its tile's rows (i) and

@@ -8,6 +8,11 @@
 // residual+restriction, the coarsest solve (coarse_sweeps RB-GS sweeps with
 // omega = 1), prolongation+correction and post-smoothing (colour order
 // reversed when `symmetric`), all in fp32, in place on the entry field.
+// The entry u and f are fp32 or bf16 (one dtype): bf16 ones are widened
+// where they are loaded and u is rounded back once where it is stored, as
+// the Pallas kernel casts its entry (:79-81). The levels below live only in
+// shared memory, in fp32, whatever their dtype in the hierarchy; their
+// stencils come as fp32 (the Pallas kernel's cast, :193).
 //
 // What bounds it: latency. A cycle from 129^2 moves ~0.2 MB (0.06 us at
 // 3.35 TB/s) through ~120 dependent phases, 64 of them on the coarsest
@@ -18,8 +23,9 @@
 // Design:
 // - One CTA of kThreads threads. u and f of every level live in dynamic
 //   shared memory (180,960 bytes from a 129^2 entry, of the 232,448 a block
-//   may take): the entry level's u and f are loaded once (4-byte cp.async:
-//   rows of odd length are not 16-byte aligned), the coarser levels start
+//   may take): the entry level's u and f are loaded once (4-byte cp.async
+//   from fp32: rows of odd length are not 16-byte aligned; 2-byte loads
+//   from bf16), the coarser levels start
 //   at zero, and the entry u is written back once. Nothing else touches
 //   device memory, and the wrapper allocates no workspace.
 // - A level's rows are padded to an even stride. A colour phase gives each
@@ -306,8 +312,9 @@ __device__ void coarse_solve(const TailParams& p, G g) {
   smooth(level(p, p.levels - 1), p.coarse_sweeps, false, 1.0f, false, g);
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
-    tail_vcycle_kernel(float* __restrict__ u0, const float* __restrict__ f0,
+    tail_vcycle_kernel(T* __restrict__ u0, const T* __restrict__ f0,
                        TailParams p) {
   const int L = p.levels;
 
@@ -315,8 +322,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Level top = level(p, 0);
   for (int t = threadIdx.x; t < top.nx * top.ny; t += kThreads) {
     const int i = t / top.ny, x = i * top.rs + t - i * top.ny;
-    cp_async4(sm + top.u + x, u0 + t, true);
-    cp_async4(sm + top.f + x, f0 + t, true);
+    load_shared(sm + top.u + x, u0 + t);
+    load_shared(sm + top.f + x, f0 + t);
   }
   cp_async_commit();
   if (L > 1) {
@@ -348,8 +355,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the entry u back (its ring as loaded)
   for (int t = threadIdx.x; t < top.nx * top.ny; t += kThreads) {
     const int i = t / top.ny;
-    u0[t] = sm[top.u + i * top.rs + t - i * top.ny];
+    store_f(u0 + t, sm[top.u + i * top.rs + t - i * top.ny]);
   }
+}
+
+template <class T>
+cudaError_t launch(void* u, const void* f, const TailParams& p, int bytes,
+                   int device, cudaStream_t stream) {
+  static bool done[kMaxDevices] = {};
+  const auto kernel = tail_vcycle_kernel<T>;
+  const cudaError_t err = allow_smem(kernel, kMaxSmemBytes, device, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kThreads, bytes, stream>>>(static_cast<T*>(u),
+                                         static_cast<const T*>(f), p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -357,19 +376,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 extern "C" {
 
 // One V(pre, post) cycle over `levels` levels, in place on the entry field
-// u, on `stream`. coefs holds (c, w, e, s, n) per level, finest first.
-int mg_tail_vcycle(float* u, const float* f, int levels, const int* nx,
+// u, on `stream`. coefs holds (c, w, e, s, n) per level, finest first. u and
+// f are bf16 when `entry_bf16`, else fp32.
+int mg_tail_vcycle(void* u, const void* f, int levels, const int* nx,
                    const int* ny, const float* coefs, int pre, int post,
                    float omega, int jacobi, int coarse_sweeps, int symmetric,
-                   int device, void* stream) {
+                   int entry_bf16, int device, void* stream) {
   if (levels < 1 || levels > kTailMaxLevels)
     return (int)cudaErrorInvalidValue;
   const Plan q = plan(levels, nx, ny);
   if (!q.fits) return (int)cudaErrorInvalidValue;
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  static bool done[kMaxDevices] = {};
-  err = allow_smem(tail_vcycle_kernel, kMaxSmemBytes, device, done);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   TailParams p{};
   p.levels = levels;
@@ -390,8 +407,9 @@ int mg_tail_vcycle(float* u, const float* f, int levels, const int* nx,
   p.jacobi = jacobi;
   p.symmetric = symmetric;
   p.omega = omega;
-  tail_vcycle_kernel<<<1, kThreads, q.bytes, (cudaStream_t)stream>>>(u, f, p);
-  return (int)cudaGetLastError();
+  const cudaStream_t t = (cudaStream_t)stream;
+  return (int)(entry_bf16 ? launch<bf16>(u, f, p, q.bytes, device, t)
+                          : launch<float>(u, f, p, q.bytes, device, t));
 }
 
 // D's plan for a tail of `levels` levels into out[8 + 2 * levels]:

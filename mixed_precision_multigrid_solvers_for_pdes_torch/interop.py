@@ -6,18 +6,23 @@ with the logical region at the origin, and each 2D parity plane padded to
 (8, 128) tiles; this port stores the logical region only.
 These helpers read JAX objects through their attributes and ``numpy`` (JAX
 arrays convert with ``np.asarray``), so this module never imports JAX.
+numpy has no bf16 of its own: bf16 data come across through float32, which
+holds every bf16 value exactly.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .core.bc import SIDES, BCKind, BCSegment, BCSide, BoundarySpec
 from .core.bc3d import BoundarySpec3D
+from .core.domain import LShapedDomain
 from .core.grid import Grid
 from .core.grid3d import Grid3D
-from .core.precision import as_dtype
+from .core.precision import Precision, PrecisionPolicy, as_dtype
 from .models.problems import Problem
 from .models.problems3d import Problem3D
 from .ops.planes import plane_shape
@@ -70,28 +75,51 @@ def spec_from_jax(spec) -> BoundarySpec:
     return BoundarySpec(**sides)
 
 
+def domain_from_jax(domain):
+    """Port domain from a JAX one (None stays None)."""
+    if domain is None:
+        return None
+    if type(domain).__name__ != "LShapedDomain":
+        raise ValueError(f"unknown domain {domain!r}")
+    return LShapedDomain(float(domain.x_cut), float(domain.y_cut))
+
+
+def policy_from_jax(pol) -> PrecisionPolicy:
+    """Port PrecisionPolicy from a JAX one, thresholds included."""
+    fields = {f.name: getattr(pol, f.name)
+              for f in dataclasses.fields(PrecisionPolicy)}
+    for name in ("mode", "fine", "coarse"):
+        fields[name] = Precision(fields[name].value)
+    return PrecisionPolicy(**fields)
+
+
 def levels_from_jax(levels, *, device="cpu"):
-    """Port hierarchy from a tuple of JAX Levels on rectangles."""
+    """Port hierarchy from a tuple of JAX Levels, with their domains and
+    per-level dtypes (bf16 included)."""
     out = []
     for lev in levels:
-        if getattr(lev, "domain", None):
-            raise NotImplementedError("irregular domains are not ported yet "
-                                      "(ROADMAP item 8)")
         spec = spec_from_jax(lev.spec)
         out.append(Level(stencil=stencil_from_jax(lev.stencil, lev.grid,
                                                   device=device,
                                                   wrap=spec.wrap),
                          grid=grid_from_jax(lev.grid),
                          spec=spec,
-                         dtype=as_dtype(np.dtype(lev.dtype)),
-                         device=torch.device(device)))
+                         dtype=as_dtype(np.dtype(lev.dtype).name),
+                         device=torch.device(device),
+                         domain=domain_from_jax(getattr(lev, "domain",
+                                                        None))))
     return tuple(out)
 
 
 def field_from_jax(arr, grid, *, dtype=None, device="cpu") -> torch.Tensor:
     """(nx, ny) tensor from a padded JAX field (or any array whose logical
-    region sits at the origin)."""
+    region sits at the origin); a bf16 field stays bf16 unless ``dtype``
+    says otherwise."""
     a = np.asarray(arr)[: grid.nx, : grid.ny]
+    if a.dtype.name == "bfloat16":
+        t = torch.as_tensor(np.ascontiguousarray(a.astype(np.float32)),
+                            device=device)
+        return t.to(dtype or torch.bfloat16)
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                            device=device)
 
@@ -137,13 +165,10 @@ def planes_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
 
 def problem_from_jax(prob) -> Problem:
     """Port Problem (f, a, lam, Dirichlet values, Neumann/Robin data g,
-    exact solution) from a JAX one on a rectangle, with segmented or
-    periodic sides. Array data are sliced to the logical region (which
+    exact solution, domain, expected order) from a JAX one, with segmented
+    or periodic sides. Array data are sliced to the logical region (which
     drops a periodic field's wrap line in the padding); scalars stay
     scalars."""
-    if prob.domain is not None:
-        raise NotImplementedError("irregular domains are not ported yet "
-                                  "(ROADMAP item 8)")
     g = grid_from_jax(prob.grid)
 
     def host(a):
@@ -156,7 +181,9 @@ def problem_from_jax(prob) -> Problem:
     return Problem(name=prob.name, grid=g, spec=spec_from_jax(prob.spec),
                    f=host(prob.f), a=host(prob.a), lam=host(prob.lam),
                    dirichlet_values=host(prob.dirichlet_values),
-                   bc_values=bc_values, exact=host(prob.exact))
+                   bc_values=bc_values, exact=host(prob.exact),
+                   domain=domain_from_jax(prob.domain),
+                   expected_order=float(prob.expected_order))
 
 
 # ---------------------------------------------------------------------------

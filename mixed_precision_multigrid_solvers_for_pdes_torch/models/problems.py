@@ -1,14 +1,16 @@
 """Problem definitions and the 2D problems of the port.
 
 Counterpart of ``Problem``, ``from_callables`` and the problems of
-``mixed_precision_multigrid_solvers_for_pdes_tpu/models/problems.py`` on
-rectangles: the Poisson MMS problems (sinsin, polynomial, high frequency,
-inhomogeneous, exponential, anisotropic), Helmholtz, Neumann and Robin
-sides, per-segment mixed sides, the periodic Helmholtz problem, variable
-and jump coefficients and the boundary layer. Field data are host (numpy
-float64) arrays of the logical shape (nx, ny); ``rhs`` and
-``initial_guess`` put them on a device in a given dtype. Irregular domains,
-the corner and L-shaped problems and ``CATALOGUE`` are ROADMAP item 8.
+``mixed_precision_multigrid_solvers_for_pdes_tpu/models/problems.py``: the
+Poisson MMS problems (sinsin, polynomial, high frequency, inhomogeneous,
+exponential, anisotropic), Helmholtz, Neumann and Robin sides, per-segment
+mixed sides, the periodic Helmholtz problem, variable and jump
+coefficients, the boundary layer, the corner singularity and the L-shaped
+domain, and ``CATALOGUE`` of all of them by name. Field data are host
+(numpy float64) arrays of the logical shape (nx, ny); ``rhs`` and
+``initial_guess`` put them on a device in a given dtype. A problem on an
+irregular domain (``core/domain.py``) fixes the removed nodes at their
+Dirichlet values and measures its error on the domain's nodes only.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from ..core import bc as bc_mod
 from ..core.bc import BCKind, BoundarySpec
+from ..core.domain import LShapedDomain
 from ..core.grid import Grid
 from ..ops import norms
 from ..ops import stencil as st_mod
@@ -47,6 +50,8 @@ class Problem:
     dirichlet_values: Any = None  # (nx, ny) array holding g on the ring
     bc_values: Optional[Dict[str, Any]] = None  # Neumann/Robin g per side
     exact: Any = None             # (nx, ny) exact solution, or None
+    domain: Any = None            # irregular domain (core/domain.py)
+    expected_order: float = 2.0   # MMS order (lower for singular solutions)
 
     def rhs(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
         """The right-hand side with the Neumann/Robin terms added."""
@@ -58,12 +63,16 @@ class Problem:
 
     def initial_guess(self, dtype=torch.float32, device="cpu") -> torch.Tensor:
         """Zero on unknowns, Dirichlet values on every fixed node (the
-        duplicate nodes of a periodic axis included) when any side or
-        segment is Dirichlet; zero everywhere otherwise."""
+        duplicate nodes of a periodic axis and the nodes an irregular domain
+        removes included) when any side or segment is Dirichlet; zero
+        everywhere otherwise."""
         g = self.grid
         u0 = torch.zeros(g.shape, dtype=dtype, device=device)
         if self.dirichlet_values is not None and not _no_dirichlet(self.spec):
-            fixed = ~bc_mod.unknown_mask(g.nx, g.ny, self.spec, device=device)
+            unknown = bc_mod.unknown_mask(g.nx, g.ny, self.spec, device=device)
+            if self.domain is not None:
+                unknown = unknown & self.domain.interior_mask(g, device)
+            fixed = ~unknown
             vals = torch.as_tensor(self.dirichlet_values, dtype=dtype,
                                    device=device)
             u0 = torch.where(fixed, vals, u0)
@@ -71,17 +80,20 @@ class Problem:
 
     def error_norms(self, u: torch.Tensor) -> Dict[str, float]:
         """Grid-scaled L2, max-norm and discrete H1-seminorm error against
-        the exact solution, in float64."""
+        the exact solution, in float64; on an irregular domain over the
+        domain's nodes only."""
         if self.exact is None:
             raise ValueError(f"problem {self.name!r} has no exact solution")
         g = self.grid
-        diff = u.to(torch.float64) - torch.as_tensor(
-            self.exact, dtype=torch.float64, device=u.device)
-        every = bc_mod.logical_mask(g.nx, g.ny, device=u.device)
+        mask = bc_mod.logical_mask(g.nx, g.ny, device=u.device)
+        if self.domain is not None:
+            mask = mask & self.domain.interior_mask(g, u.device)
+        diff = torch.where(mask, u.to(torch.float64) - torch.as_tensor(
+            self.exact, dtype=torch.float64, device=u.device), 0.0)
         return {
             "l2": norms.scaled_l2(diff, g.hx, g.hy).item(),
             "linf": diff.abs().max().item(),
-            "h1": norms.h1_seminorm(diff, every, g.hx, g.hy).item(),
+            "h1": norms.h1_seminorm(diff, mask, g.hx, g.hy).item(),
         }
 
 
@@ -327,3 +339,72 @@ def boundary_layer_problem(n: int, eps: float = 0.05) -> Problem:
 
     return from_callables(f"boundary_layer_eps{eps:g}", Grid(n, n),
                           u_exact=lambda X, Y: g(X) * np.sin(pi * Y), f=f)
+
+
+def _corner_uexact(xc: float, yc: float, clockwise: bool):
+    """r^(2/3) sin(2 theta / 3) around (xc, yc)."""
+
+    def u(X, Y):
+        dx = X - xc
+        dy = Y - yc
+        r = np.sqrt(dx * dx + dy * dy)
+        if clockwise:  # re-entrant corner: theta in [0, 3 pi/2], cw from +x
+            phi = np.arctan2(-dy, dx)
+            theta = np.where(phi >= 0.0, phi, phi + 2.0 * np.pi)
+        else:          # convex corner at the origin: theta in [0, pi/2]
+            theta = np.arctan2(dy, dx)
+        return r ** (2.0 / 3.0) * np.sin(2.0 * theta / 3.0)
+
+    return u
+
+
+def corner_singularity_problem(n: int) -> Problem:
+    """Harmonic u = r^(2/3) sin(2 theta/3) around the (0, 0) corner of the
+    unit square: f = 0, inhomogeneous Dirichlet data from u. The gradient's
+    singularity at the corner (u is only in H^(1+2/3)) lowers the expected
+    L2 order to 4/3."""
+    prob = from_callables(
+        "corner_singularity", Grid(n, n),
+        u_exact=_corner_uexact(0.0, 0.0, clockwise=False),
+        f=lambda X, Y: 0.0 * X)
+    return dataclasses.replace(prob, expected_order=4.0 / 3.0)
+
+
+def l_shaped_problem(n: int) -> Problem:
+    """The L-shaped domain: the unit square minus the [1/2, 1]^2 quadrant,
+    u = r^(2/3) sin(2 theta/3) around the re-entrant corner, theta measured
+    clockwise from the cut edge {y = 1/2, x > 1/2}, so that u vanishes on
+    both cut edges (theta = 0 and 3 pi/2); f = 0 and the outer Dirichlet
+    data come from u. Expected L2 order ~4/3."""
+    domain = LShapedDomain(0.5, 0.5)
+    u_fn = _corner_uexact(0.5, 0.5, clockwise=True)
+
+    def u_masked(X, Y):
+        # zero strictly inside the removed quadrant, which no solve reads
+        removed_open = (X > 0.5 + 1e-12) & (Y > 0.5 + 1e-12)
+        return np.where(removed_open, 0.0, u_fn(X, Y))
+
+    prob = from_callables("l_shaped", Grid(n, n), u_exact=u_masked,
+                          f=lambda X, Y: 0.0 * X)
+    return dataclasses.replace(prob, domain=domain, expected_order=4.0 / 3.0)
+
+
+CATALOGUE = {
+    "trigonometric": poisson_mms_sinsin,
+    "polynomial": poisson_mms_polynomial,
+    "high_frequency": poisson_mms_high_frequency,
+    "mixed": poisson_mms_inhomogeneous,
+    "exponential": poisson_mms_exponential,
+    "anisotropic": poisson_mms_anisotropic,
+    "neumann_test": neumann_test_problem,
+    "helmholtz": helmholtz_mms,
+    "variable_coefficient": variable_coefficient_mms,
+    "jump_coefficient": jump_coefficient_problem,
+    "periodic_helmholtz": periodic_helmholtz_mms,
+    "robin_test": robin_test_problem,
+    "mixed_segments": mixed_segment_problem,
+    "mixed_segments_mms": mixed_segment_mms,
+    "boundary_layer": boundary_layer_problem,
+    "corner_singularity": corner_singularity_problem,
+    "l_shaped": l_shaped_problem,
+}

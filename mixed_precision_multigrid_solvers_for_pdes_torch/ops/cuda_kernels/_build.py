@@ -40,16 +40,17 @@ _IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "mg_smooth": ([_P, _P, _P, _I, _I] + [_F] * 6 + [_I] * 4 + [_P], _I),
+    "mg_smooth": ([_P, _P, _P, _I, _I] + [_F] * 6 + [_I] * 4 + [_I, _P],
+                  _I),
     "mg_smooth_geometry": ([_I, _I, _IP], _I),
     "mg_smooth_var": ([_P] * 8 + [_I, _I, _F] + [_I] * 4 + [_P], _I),
     "mg_smooth_var_geometry": ([_I, _I, _IP], _I),
-    "mg_residual_restrict": ([_P, _P, _P, _I, _I, _I] + [_F] * 5 + [_I, _P],
-                             _I),
+    "mg_residual_restrict": ([_P, _P, _P, _I, _I, _I] + [_F] * 5
+                             + [_I, _I, _I, _P], _I),
     "mg_residual_restrict_var": ([_P] * 8 + [_I] * 5 + [_I, _P], _I),
-    "mg_prolong_correct": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "mg_prolong_correct": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "mg_tail_vcycle": ([_P, _P, _I, _IP, _IP, _FP, _I, _I, _F, _I, _I,
-                        _I, _I, _P], _I),
+                        _I, _I, _I, _P], _I),
     "mg_tail_geometry": ([_I, _IP, _IP, _IP], _I),
     "mg_tail_var_vcycle": ([_P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
                             _I, _I, _I, _P], _I),
@@ -177,6 +178,26 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# Storage dtypes of kernels A-D: each loads them, computes in fp32 and
+# stores once per call. The C entries take a flag per tensor: 1 = bf16.
+STORAGE = (torch.float32, torch.bfloat16)
+
+
+def bf16(t: torch.Tensor) -> int:
+    """A C entry's storage flag of ``t``: 1 for bf16, 0 for fp32."""
+    return int(t.dtype == torch.bfloat16)
+
+
+def round_once(twin, out, *args, **kwargs):
+    """A plain twin on bf16 storage, rounding where kernels A-D do: ``twin``
+    run on ``args`` with every tensor widened to fp32, its fp32 result
+    rounded once into ``out``, a tensor updated in place or the dtype of a
+    new one."""
+    w = twin(*(a.float() if torch.is_tensor(a) else a for a in args),
+             **kwargs)
+    return out.copy_(w) if torch.is_tensor(out) else w.to(out)
+
+
 def check_unwrapped(name: str, *stencils) -> None:
     """Raise on a stencil with a periodic axis: the 2D kernels take a
     rectangle of unknowns and would solve a periodic level as a Dirichlet
@@ -186,17 +207,20 @@ def check_unwrapped(name: str, *stencils) -> None:
                          f"wraps)")
 
 
-def check_cuda_fp32(name: str, *tensors: torch.Tensor,
-                    ndim: int = 2) -> None:
-    """Raise unless every tensor is a contiguous ``ndim``-D float32 CUDA
-    tensor on one device, at least 3 nodes along each axis."""
+def check_cuda(name: str, *tensors: torch.Tensor, ndim: int = 2,
+                    dtypes=(torch.float32,)) -> None:
+    """Raise unless every tensor is a contiguous ``ndim``-D CUDA tensor of
+    one of ``dtypes`` (float32 unless given) on one device, at least 3
+    nodes along each axis."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA "
                              f"device, got {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d) for d in dtypes)
+            raise TypeError(f"{name}: the kernel takes {names}, got "
+                            f"{t.dtype}")
         if t.dim() != ndim or not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous {ndim}-D "
                              f"tensors, got shape {tuple(t.shape)} "

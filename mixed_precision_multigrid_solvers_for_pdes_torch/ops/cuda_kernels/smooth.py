@@ -4,8 +4,11 @@
 Kernel A replaces the Pallas ``multisweep`` and ``multisweep_strips`` of
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth.py``
 (:290, :507) for constant-coefficient 5-point stencils on all-Dirichlet
-rectangles in fp32. Kernel L replaces their ``layout="parity"`` body
-(``_parity_sweeps`` :119): split into parity planes on chip, sweep, merge.
+rectangles, on fp32 or bf16 storage: as the Pallas kernels (:207-228,
+:438-458), A loads bf16, sweeps in fp32 and stores bf16 once per call, so
+a call of several launches keeps its passes before the last in fp32 scratch
+fields. Kernel L replaces their ``layout="parity"`` body (``_parity_sweeps``
+:119), in fp32: split into parity planes on chip, sweep, merge.
 The source notes in ``csrc/smooth.cu`` and ``csrc/smooth_parity.cu`` give
 the designs and what bounds them.
 
@@ -19,8 +22,8 @@ On a CPU tensor each wrapper runs its plain twin in place and returns
 kernel K, ``smooth_planes.py``) run up to ``MAX_SWEEPS`` sweeps per launch
 into a separate output and return that output, leaving ``u`` untouched;
 longer calls take several launches (``plan_passes``, ``launch_passes``).
-``multisweep.launches`` counts A's launches, ``multisweep_parity.launches``
-L's.
+``multisweep.launches`` counts A's launches (``launches_bf16`` those on
+bf16 storage), ``multisweep_parity.launches`` L's.
 
 A, K and L share one launch geometry (``csrc/smooth_tiles.cuh``): a level
 takes the largest tile of ``TILES`` whose grid holds at least
@@ -94,30 +97,50 @@ def check_geometry(nx: int, ny: int) -> None:
                            f"{geometry(nx, ny)}")
 
 
+def takes(dtype, method: str) -> bool:
+    """True when ``multisweep`` launches a kernel on ``dtype`` storage: A
+    takes fp32 and bf16, L fp32 only."""
+    return dtype == torch.float32 or (
+        dtype == torch.bfloat16 and not _resolve_parity("auto", method))
+
+
+def _pass_outputs(u, passes: int) -> list:
+    """The output of each launch of a ``passes``-launch call: the passes
+    before the last alternate between two fp32 scratch fields, so that a
+    call on bf16 storage rounds to bf16 once, as the Pallas kernel's one
+    call does; the last writes a new field of u's dtype."""
+    mids = [torch.empty(u.shape, dtype=torch.float32, device=u.device)
+            for _ in range(min(passes - 1, 2))]
+    return [mids[i % 2] for i in range(passes - 1)] + [torch.empty_like(u)]
+
+
 def launch_passes(entry: str, wrapper, u, f, nx: int, ny: int, coefs,
-                  omega: float, sweeps: int, *flags):
+                  omega: float, sweeps: int, *flags, storage: bool = False):
     """Launch C entry ``entry`` (A's, K's or L's) once per pass of
     ``plan_passes(sweeps)``, each on the last one's output, and count the
-    launches on ``wrapper``; returns the last output, a new tensor (``u``
-    itself when there is no pass). The kernels write a separate output:
-    neighbouring blocks load a block's nodes as their halo, so no kernel
-    writes its input in place."""
+    launches on ``wrapper`` (bf16 ones on ``wrapper.launches_bf16`` too);
+    returns the last output, a new tensor (``u`` itself when there is no
+    pass). The kernels write a separate output: neighbouring blocks load a
+    block's nodes as their halo, so no kernel writes its input in place.
+    ``storage``: the entry takes A's storage flags (bit 0 the input u, bit 1
+    f, bit 2 the output is bf16)."""
     passes = plan_passes(sweeps)
     if not passes:
         return u
     check_geometry(nx, ny)
     dev, stream = u.device.index, _build.stream_of(u)
-    out = torch.empty_like(u)
-    scratch = torch.empty_like(u) if len(passes) > 1 else None
+    outputs = _pass_outputs(u, len(passes))
     src = u
-    for i, k in enumerate(passes):
-        # the last pass writes out: earlier ones alternate before it
-        dst = out if (len(passes) - 1 - i) % 2 == 0 else scratch
+    for k, dst in zip(passes, outputs):
+        types = ((_build.bf16(src) | _build.bf16(f) << 1
+                  | _build.bf16(dst) << 2),) if storage else ()
         _build.launch(entry, src.data_ptr(), f.data_ptr(), dst.data_ptr(),
-                      nx, ny, *coefs, omega, k, *flags, dev, stream)
+                      nx, ny, *coefs, omega, k, *flags, *types, dev, stream)
         wrapper.launches += 1
+        if u.dtype == torch.bfloat16:
+            wrapper.launches_bf16 += 1
         src = dst
-    return out
+    return outputs[-1]
 
 
 def _resolve_parity(layout: str, method: str) -> bool:
@@ -135,10 +158,15 @@ def _resolve_parity(layout: str, method: str) -> bool:
 def multisweep_plain(st: Stencil, u, f, *, method: str = "rbgs",
                      sweeps: int = 2, omega: float = 1.0):
     """Plain twin of A and H: ``ops.smooth.smooth`` on the interior of an
-    all-Dirichlet level, in place on u."""
+    all-Dirichlet level, in place on u. On bf16 storage it rounds where A
+    does: u and f widened to fp32, every sweep in fp32, one rounding back
+    into u."""
+    if u.dtype == torch.bfloat16:
+        return _build.round_once(multisweep_plain, u, st, u, f,
+                                 method=method, sweeps=sweeps, omega=omega)
     unknown = bc.unknown_mask(*u.shape, device=u.device)
-    return smooth_mod.smooth(st, u, f, unknown, method=method, sweeps=sweeps,
-                             omega=omega)
+    return smooth_mod.smooth(st, u, f, unknown, method=method,
+                             sweeps=sweeps, omega=omega)
 
 
 def multisweep_parity_plain(st: Stencil, u, f, *, sweeps: int = 2,
@@ -163,7 +191,7 @@ def multisweep_parity(st: Stencil, u, f, *, sweeps: int = 2,
     _build.check_unwrapped("multisweep_parity", st)
     if u.device.type == "cpu":
         return multisweep_parity_plain(st, u, f, sweeps=sweeps, omega=omega)
-    _build.check_cuda_fp32("multisweep_parity", u, f)
+    _build.check_cuda("multisweep_parity", u, f)
     if f.shape != u.shape:
         raise ValueError(f"multisweep_parity: f {tuple(f.shape)} != u "
                          f"{tuple(u.shape)}")
@@ -188,14 +216,14 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
     if u.device.type == "cpu":
         return multisweep_plain(st, u, f, method=method, sweeps=sweeps,
                                 omega=omega)
-    _build.check_cuda_fp32("multisweep", u, f)
-    if f.shape != u.shape:
-        raise ValueError(f"multisweep: f {tuple(f.shape)} != u "
-                         f"{tuple(u.shape)}")
+    _build.check_cuda("multisweep", u, f, dtypes=_build.STORAGE)
+    if f.shape != u.shape or f.dtype != u.dtype:
+        raise ValueError(f"multisweep: f {tuple(f.shape)} {f.dtype} != u "
+                         f"{tuple(u.shape)} {u.dtype}")
     return launch_passes("mg_smooth", multisweep, u, f, *u.shape, st.coefs,
                          omega, sweeps, int(method == "jacobi"),
-                         int(method == "rbgs_rev"))
+                         int(method == "rbgs_rev"), storage=True)
 
 
-multisweep.launches = 0
+multisweep.launches = multisweep.launches_bf16 = 0
 multisweep_parity.launches = 0

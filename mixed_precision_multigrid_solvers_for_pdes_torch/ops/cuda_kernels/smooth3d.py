@@ -130,7 +130,7 @@ def rbgs3d(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
     if u.device.type == "cpu":
         return rbgs3d_plain(st, u.clone(), f, sweeps=sweeps, omega=omega,
                             reverse=reverse)
-    _build.check_cuda_fp32("rbgs3d", u, f, ndim=3)
+    _build.check_cuda("rbgs3d", u, f, ndim=3)
     check_geometry()
     if f.shape != u.shape:
         raise ValueError(f"rbgs3d: f {tuple(f.shape)} != u {tuple(u.shape)}")

@@ -49,7 +49,7 @@ def multisweep_planes(st: Stencil, up, fp, *, nx: int, ny: int,
     if up.device.type == "cpu":
         return multisweep_planes_plain(st, up, fp, nx=nx, ny=ny,
                                        sweeps=sweeps, omega=omega)
-    _build.check_cuda_fp32("multisweep_planes", up, fp, ndim=3)
+    _build.check_cuda("multisweep_planes", up, fp, ndim=3)
     if fp.shape != up.shape:
         raise ValueError(f"multisweep_planes: fp {tuple(fp.shape)} != up "
                          f"{tuple(up.shape)}")

@@ -97,7 +97,7 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
     if u.device.type == "cpu":
         return multisweep_plain(st, u, f, method=method, sweeps=sweeps,
                                 omega=omega)
-    _build.check_cuda_fp32("multisweep_var", u, f, *st.coefs)
+    _build.check_cuda("multisweep_var", u, f, *st.coefs)
     if any(t.shape != u.shape for t in (f, *st.coefs)):
         raise ValueError(f"multisweep_var: f and the planes must have u's "
                          f"shape {tuple(u.shape)}")

@@ -4,17 +4,22 @@ V-cycle.
 
 D replaces the Pallas ``tail_vcycle`` and J the Pallas ``tail_vcycle_var`` of
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/tail.py``
-(:170, :122) for all-Dirichlet hierarchies in fp32: D for
-constant-coefficient stencils, J for stencils with (nx, ny) coefficient
-planes on every level. The source notes in ``csrc/`` give the design and
-what bounds each kernel. D walks the tail in the shared memory of one CTA,
-laid out by ``plan``; J in the shared memory of one thread-block cluster,
-laid out by ``var_plan``. ``check_plan`` and ``check_var_plan`` hold these
-against the library's own plans before a tail shape's first launch.
+(:170, :122) for all-Dirichlet hierarchies: D for constant-coefficient
+stencils, J for stencils with (nx, ny) coefficient planes on every level.
+D computes every level in fp32 from an entry u and f of fp32 or bf16
+storage (``STORAGE``), whatever the dtypes of the levels below, whose
+stencils it takes as fp32, and stores u once, as the Pallas kernel does
+(:79-81, :193); J takes fp32 levels only. The source notes in ``csrc/``
+give the design and what bounds each kernel. D walks the tail in the
+shared memory of one CTA, laid out by ``plan``; J in the shared memory of
+one thread-block cluster, laid out by ``var_plan``. ``check_plan`` and
+``check_var_plan`` hold these against the library's own plans before a
+tail shape's first launch.
 
 On a CPU tensor ``tail_vcycle`` and ``tail_vcycle_var`` run the plain twin;
 on a CUDA tensor they launch their kernel or raise. ``tail_vcycle.launches``
-and ``tail_vcycle_var.launches`` count launches.
+and ``tail_vcycle_var.launches`` count launches, and
+``tail_vcycle.launches_bf16`` D's launches on a bf16 entry.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from .transfer import coarse_shape, prolong_correct_plain, \
     residual_restrict_plain
 
 MAX_LEVELS = 16  # kTailMaxLevels in csrc/tail.cu and csrc/tail_var.cu
+STORAGE = _build.STORAGE  # D's entry
 # kThreads, kWarpMaxNodes and kMaxSmemBytes of both sources (the shared
 # memory a CTA may use); kJacobiItems of csrc/tail.cu; kCluster and
 # kMinBandRows of csrc/tail_var.cu. check_plan and check_var_plan hold them,
@@ -65,11 +71,13 @@ def _check_method(name: str, method: str) -> None:
         raise ValueError(f"{name}: unsupported method {method!r}")
 
 
-def _check_cuda(name: str, stencils, u, f, shapes) -> None:
-    _build.check_cuda_fp32(name, u, f)
+def _check_cuda(name: str, stencils, u, f, shapes,
+                storage=(torch.float32,)) -> None:
+    _build.check_cuda(name, u, f, dtypes=storage)
     _check_shapes(shapes, stencils, u)
-    if f.shape != u.shape:
-        raise ValueError(f"{name}: f {tuple(f.shape)} != u {tuple(u.shape)}")
+    if f.shape != u.shape or f.dtype != u.dtype:
+        raise ValueError(f"{name}: f {tuple(f.shape)} {f.dtype} != u "
+                         f"{tuple(u.shape)} {u.dtype}")
 
 
 def _shape_arrays(shapes):
@@ -155,8 +163,16 @@ def tail_vcycle_plain(stencils: Sequence[Stencil], u, f, *,
     """Plain twin of D and J: the recursive V(pre, post) cycle over the tail
     levels, composed of the plain smoother and the plain transfer twins; the
     coarsest level takes ``coarse_sweeps`` RB-GS sweeps with omega = 1.
+    Every level runs in the entry's dtype; a bf16 entry rounds where D
+    does: u and f widened to fp32, the cycle in fp32, one rounding back.
     Updates ``u`` in place and returns it."""
     _check_shapes(shapes, stencils, u)
+    if u.dtype == torch.bfloat16:
+        return _build.round_once(tail_vcycle_plain, u, stencils, u, f,
+                                 shapes=shapes, pre=pre, post=post,
+                                 omega=omega, method=method,
+                                 coarse_sweeps=coarse_sweeps,
+                                 symmetric=symmetric)
     post_method = ("rbgs_rev" if symmetric and method != "jacobi"
                    else method)
 
@@ -194,20 +210,22 @@ def tail_vcycle(stencils: Sequence[Stencil], u, f, *,
                                  post=post, omega=omega, method=method,
                                  coarse_sweeps=coarse_sweeps,
                                  symmetric=symmetric)
-    _check_cuda("tail_vcycle", stencils, u, f, shapes)
+    _check_cuda("tail_vcycle", stencils, u, f, shapes, storage=STORAGE)
     shapes = tuple(tuple(s) for s in shapes)
     check_plan(shapes)
     nx, ny, coefs = _launch_arrays(shapes, tuple(x for st in stencils
                                                  for x in st.coefs))
     _build.launch("mg_tail_vcycle", u.data_ptr(), f.data_ptr(), len(shapes),
                   nx, ny, coefs, pre, post, omega, int(method == "jacobi"),
-                  coarse_sweeps, int(symmetric), u.device.index,
-                  _build.stream_of(u))
+                  coarse_sweeps, int(symmetric), _build.bf16(u),
+                  u.device.index, _build.stream_of(u))
     tail_vcycle.launches += 1
+    if u.dtype == torch.bfloat16:
+        tail_vcycle.launches_bf16 += 1
     return u
 
 
-tail_vcycle.launches = 0
+tail_vcycle.launches = tail_vcycle.launches_bf16 = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,7 +352,7 @@ def tail_vcycle_var(stencils: Sequence[Stencil], u, f, *,
                                  symmetric=symmetric)
     _check_cuda("tail_vcycle_var", stencils, u, f, shapes)
     for st, shape in zip(stencils, shapes):
-        _build.check_cuda_fp32("tail_vcycle_var", u, *st.coefs)
+        _build.check_cuda("tail_vcycle_var", u, *st.coefs)
         if any(tuple(x.shape) != tuple(shape) for x in st.coefs):
             raise ValueError(f"tail_vcycle_var: planes must have their "
                              f"level's shape {tuple(shape)}")

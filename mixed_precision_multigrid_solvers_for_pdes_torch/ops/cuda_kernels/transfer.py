@@ -4,10 +4,13 @@
 B and I replace the Pallas ``residual_restrict`` and C the Pallas
 ``prolong_correct`` of
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/transfer.py``
-(:262, :488), in fp32. B takes a constant-coefficient stencil on an
-all-Dirichlet rectangle; I takes the (nx, ny) coefficient planes of a
-tensor-leaf stencil and per-side boundary kinds; C takes the same side flags.
-The source notes in ``csrc/`` give the design and what bounds each kernel.
+(:262, :488). B takes a constant-coefficient stencil on an all-Dirichlet
+rectangle; I takes the (nx, ny) coefficient planes of a tensor-leaf stencil
+and per-side boundary kinds; C takes the same side flags. B and C take
+fp32 or bf16 storage on each side (``STORAGE``) and compute in fp32, as the
+Pallas kernels do (:193-249, :431-476): B writes the coarse dtype asked
+for, C stores into u's dtype, each rounding once. I takes fp32 only. The
+source notes in ``csrc/`` give the design and what bounds each kernel.
 
 ``sides`` is a (west, east, south, north) tuple of Dirichlet flags, as the
 Pallas kernels take it (``BoundarySpec.dirichlet_sides``): a Dirichlet
@@ -16,7 +19,7 @@ side's ring is fixed, a Neumann/Robin side's ring holds unknowns.
 On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
 launches its kernel or raises. ``residual_restrict.launches``,
 ``residual_restrict_var.launches`` and ``prolong_correct.launches`` count
-kernel launches.
+kernel launches, and ``launches_bf16`` of B and C those with a bf16 side.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..stencil import Stencil
 from . import _build
 
 DIRICHLET = (True, True, True, True)
+STORAGE = _build.STORAGE
 
 
 def coarse_shape(nxf: int, nyf: int):
@@ -49,11 +53,16 @@ def residual_restrict_plain(st: Stencil, u, f, *, sides=DIRICHLET,
                             out_dtype=None):
     """Plain twin of B and I: the fine residual on the unknowns, restricted
     with the 'zero' boundary when every side is Dirichlet, else with the
-    'reflect' boundary and zeroed off the coarse unknowns."""
+    'reflect' boundary and zeroed off the coarse unknowns. With a bf16 side
+    it rounds where B does: u and f widened to fp32, the residual and its
+    restriction in fp32, one rounding into ``out_dtype``."""
+    dtype = out_dtype or u.dtype
+    if torch.bfloat16 in (u.dtype, dtype):
+        return _build.round_once(residual_restrict_plain, dtype, st, u, f,
+                                 sides=sides)
     ncx, ncy = coarse_shape(*u.shape)
     r = st_mod.residual(st, u, f, bc.rect_mask(*u.shape, sides,
                                                device=u.device))
-    dtype = out_dtype or u.dtype
     if all(sides):
         return transfer_mod.restrict(r, ncx, ncy, boundary="zero",
                                      dtype=dtype)
@@ -62,33 +71,41 @@ def residual_restrict_plain(st: Stencil, u, f, *, sides=DIRICHLET,
                        torch.zeros((), dtype=dtype, device=u.device))
 
 
-def _check_restrict(name, u, f, out_dtype, *planes):
-    _build.check_cuda_fp32(name, u, f, *planes)
-    if any(t.shape != u.shape for t in (f, *planes)):
+def _check_restrict(name, u, f, out_dtype, *planes,
+                    storage=(torch.float32,)):
+    """Check B's or I's operands; returns the coarse shape and dtype."""
+    _build.check_cuda(name, u, f, *planes, dtypes=storage)
+    if any(t.shape != u.shape for t in (f, *planes)) or f.dtype != u.dtype:
         raise ValueError(f"{name}: f and the planes must have u's shape "
-                         f"{tuple(u.shape)}")
-    if out_dtype not in (None, torch.float32):
-        raise TypeError(f"{name}: the kernel writes float32, asked for "
-                        f"{out_dtype}")
-    return coarse_shape(*u.shape)
+                         f"{tuple(u.shape)} (and f its dtype {u.dtype})")
+    dtype = out_dtype or u.dtype
+    if dtype not in storage:
+        raise TypeError(f"{name}: the kernel writes {storage}, asked for "
+                        f"{dtype}")
+    return coarse_shape(*u.shape), dtype
 
 
 def residual_restrict(st: Stencil, u, f, *, out_dtype=None):
     """B: fc = R_fw(f - A u) on the coarse grid of an all-Dirichlet level
-    with a constant stencil; coarse ring zero."""
+    with a constant stencil; coarse ring zero. u and f fp32 or bf16, fc in
+    ``out_dtype`` (u's by default), fp32 or bf16."""
     _build.check_unwrapped("residual_restrict", st)
     if u.device.type == "cpu":
         return residual_restrict_plain(st, u, f, out_dtype=out_dtype)
-    ncx, ncy = _check_restrict("residual_restrict", u, f, out_dtype)
-    fc = torch.empty((ncx, ncy), dtype=torch.float32, device=u.device)
+    (ncx, ncy), dtype = _check_restrict("residual_restrict", u, f, out_dtype,
+                                        storage=STORAGE)
+    fc = torch.empty((ncx, ncy), dtype=dtype, device=u.device)
     _build.launch("mg_residual_restrict", u.data_ptr(), f.data_ptr(),
                   fc.data_ptr(), u.shape[1], ncx, ncy, *st.coefs,
-                  u.device.index, _build.stream_of(u))
+                  _build.bf16(u), _build.bf16(fc), u.device.index,
+                  _build.stream_of(u))
     residual_restrict.launches += 1
+    if torch.bfloat16 in (u.dtype, dtype):
+        residual_restrict.launches_bf16 += 1
     return fc
 
 
-residual_restrict.launches = 0
+residual_restrict.launches = residual_restrict.launches_bf16 = 0
 
 
 def residual_restrict_var(st: Stencil, u, f, *, sides=DIRICHLET,
@@ -103,8 +120,8 @@ def residual_restrict_var(st: Stencil, u, f, *, sides=DIRICHLET,
     if u.device.type == "cpu":
         return residual_restrict_plain(st, u, f, sides=sides,
                                        out_dtype=out_dtype)
-    ncx, ncy = _check_restrict("residual_restrict_var", u, f, out_dtype,
-                               *st.coefs)
+    (ncx, ncy), _ = _check_restrict("residual_restrict_var", u, f,
+                                    out_dtype, *st.coefs)
     fc = torch.empty((ncx, ncy), dtype=torch.float32, device=u.device)
     _build.launch("mg_residual_restrict_var", u.data_ptr(), f.data_ptr(),
                   *(x.data_ptr() for x in st.coefs), fc.data_ptr(),
@@ -118,7 +135,12 @@ residual_restrict_var.launches = 0
 
 
 def prolong_correct_plain(ec, u, *, sides=DIRICHLET):
-    """Plain twin of C: u += prolong(ec) on the unknowns, in place."""
+    """Plain twin of C: u += prolong(ec) on the unknowns, in place. With a
+    bf16 side it rounds where C does: ec and u widened to fp32, the
+    interpolation and the sum in fp32, one rounding back into u."""
+    if torch.bfloat16 in (ec.dtype, u.dtype):
+        return _build.round_once(prolong_correct_plain, u, ec, u,
+                                 sides=sides)
     e = transfer_mod.prolong(ec, *u.shape, dtype=u.dtype)
     i0, i1, j0, j1 = bc.unknown_rect(*u.shape, sides)
     u[i0:i1, j0:j1] += e[i0:i1, j0:j1]
@@ -126,18 +148,22 @@ def prolong_correct_plain(ec, u, *, sides=DIRICHLET):
 
 
 def prolong_correct(ec, u, *, sides=DIRICHLET):
-    """C: u <- u + P_bilinear(ec) on fine unknowns, in place; returns u."""
+    """C: u <- u + P_bilinear(ec) on fine unknowns, in place; returns u.
+    ec and u each fp32 or bf16."""
     if u.device.type == "cpu":
         return prolong_correct_plain(ec, u, sides=sides)
-    _build.check_cuda_fp32("prolong_correct", ec, u)
+    _build.check_cuda("prolong_correct", ec, u, dtypes=STORAGE)
     if tuple(ec.shape) != coarse_shape(*u.shape):
         raise ValueError(f"prolong_correct: ec {tuple(ec.shape)} is not the "
                          f"coarse grid of u {tuple(u.shape)}")
     _build.launch("mg_prolong_correct", ec.data_ptr(), u.data_ptr(),
                   ec.shape[1], u.shape[0], u.shape[1], side_bits(sides),
-                  u.device.index, _build.stream_of(u))
+                  _build.bf16(ec), _build.bf16(u), u.device.index,
+                  _build.stream_of(u))
     prolong_correct.launches += 1
+    if torch.bfloat16 in (ec.dtype, u.dtype):
+        prolong_correct.launches_bf16 += 1
     return u
 
 
-prolong_correct.launches = 0
+prolong_correct.launches = prolong_correct.launches_bf16 = 0

@@ -49,7 +49,7 @@ def residual_restrict3d(st: Stencil3D, u, f, *, out_dtype=None):
     """fc = R_fw(f - A u) on the coarse grid; coarse shell zero."""
     if u.device.type == "cpu":
         return residual_restrict3d_plain(st, u, f, out_dtype=out_dtype)
-    _build.check_cuda_fp32("residual_restrict3d", u, f, ndim=3)
+    _build.check_cuda("residual_restrict3d", u, f, ndim=3)
     if f.shape != u.shape:
         raise ValueError(f"residual_restrict3d: f {tuple(f.shape)} != u "
                          f"{tuple(u.shape)}")
@@ -80,7 +80,7 @@ def prolong_correct3d(ec, u):
     u."""
     if u.device.type == "cpu":
         return prolong_correct3d_plain(ec, u)
-    _build.check_cuda_fp32("prolong_correct3d", ec, u, ndim=3)
+    _build.check_cuda("prolong_correct3d", ec, u, ndim=3)
     if tuple(ec.shape) != coarse_shape3d(*u.shape):
         raise ValueError(f"prolong_correct3d: ec {tuple(ec.shape)} is not the "
                          f"coarse grid of u {tuple(u.shape)}")

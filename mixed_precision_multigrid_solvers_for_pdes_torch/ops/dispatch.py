@@ -5,8 +5,9 @@ Counterpart of ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/dispatch.py`
 ``prolong_correct``, ``tail_ok``, ``tail_vcycle``), with the TPU byte gates
 dropped. ``backend`` is 'auto' or 'torch':
 
-- 'auto' routes every configuration the kernels take (fp32, 5-point
-  stencil, default transfers, Jacobi or RB-GS smoothing) to the kernel
+- 'auto' routes every configuration the kernels take (5-point stencil,
+  default transfers, Jacobi or RB-GS smoothing, the storage dtypes below)
+  to the kernel
   wrappers in ``ops/cuda_kernels``. A wrapper launches its kernel on a CUDA
   tensor and runs its plain twin on a CPU tensor, so 'auto' means kernels on
   the GPU and plain code on the CPU.
@@ -37,6 +38,18 @@ more levels from such an entry; a one-level tail of more than 7264 nodes
 (``cuda_kernels.tail.var_fits``).
 Kernel A's wrapper picks the direct body (A) or the parity body (kernel L)
 by ``layout``, as the Pallas kernels do (``ops/cuda_kernels/smooth.py``).
+
+Storage dtypes, as the JAX package's gates take them (its ``ops/dispatch.py``
+:87, :236-240 and :316-320): A takes an fp32 or a bf16 level; B and C
+take each of their two levels in fp32 or bf16 (a fine fp32 level over a
+coarse bf16 one restricts into bf16); D takes a tail whose entry level is
+fp32 or bf16, whatever the dtypes below it, and computes every level in
+fp32. Each loads its storage, computes in fp32 and stores once per call.
+H, I, J, K, L and E-G take fp32 only (bf16 storage for them is still to
+port), so a bf16 level on their paths runs plain torch. A level with an
+irregular domain (``Level.domain``) takes no kernel: every 2D kernel
+builds its unknowns from the rectangle, as in the JAX package's gates
+(:83, :229, :326).
 
 Parity planes (``smooth_planes``, the route of ``plane_solve``): fp32
 level-0 planes take kernel K, others its plain twin. The JAX package's
@@ -74,10 +87,16 @@ def _kernels(backend: str) -> bool:
 
 
 def kernel_smooth_ok(u, lev, backend: str, method: str) -> bool:
-    return (_kernels(backend)
+    """True when kernel A, H or L smooths ``u`` on ``lev``: a point
+    smoother on an all-Dirichlet rectangle; bf16 storage on A only."""
+    if not (_kernels(backend)
             and (method in _SMOOTHERS or method == "rbgs_rev")
-            and lev.spec.all_dirichlet
-            and u.dtype == torch.float32)
+            and lev.domain is None
+            and lev.spec.all_dirichlet):
+        return False
+    if not lev.stencil.scalar:
+        return u.dtype == torch.float32  # H
+    return k_smooth.takes(u.dtype, method)
 
 
 def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
@@ -118,12 +137,17 @@ def smooth_planes(lev0, up, fp, cfg, sweeps: int):
 def transfer_fused_ok(lev, nxt, cfg) -> bool:
     """True when kernels B or I and C replace the plain residual -> restrict
     and prolong -> correct chain between ``lev`` and ``nxt``: any spec
-    without periodic sides or segments (Dirichlet, Neumann, Robin)."""
-    return (_kernels(cfg.backend)
+    without periodic sides or segments (Dirichlet, Neumann, Robin), on
+    rectangles; each level fp32, or fp32 or bf16 with a constant stencil
+    (B and C)."""
+    if not (_kernels(cfg.backend)
             and not (lev.spec.any_periodic or lev.spec.any_segments)
+            and lev.domain is None and nxt.domain is None
             and cfg.restriction == "full_weighting"
-            and cfg.prolongation == "bilinear"
-            and lev.dtype == torch.float32 and nxt.dtype == torch.float32)
+            and cfg.prolongation == "bilinear"):
+        return False
+    storage = k_transfer.STORAGE if lev.stencil.scalar else (torch.float32,)
+    return lev.dtype in storage and nxt.dtype in storage
 
 
 def residual_restrict(lev, nxt, u, f):
@@ -145,7 +169,9 @@ def prolong_correct(lev, nxt, ec, u):
 
 def tail_ok(levels, lvl, cfg, cycle_type) -> bool:
     """True when the whole V-recursion from ``lvl`` down may run as one
-    tail-kernel launch."""
+    tail-kernel launch: D with an fp32 or bf16 entry level (the levels
+    below in any dtype, computed in fp32), J on fp32 levels; every level
+    an all-Dirichlet rectangle."""
     if cycle_type != "V" or not _kernels(cfg.backend):
         return False
     if cfg.smoother not in _SMOOTHERS:
@@ -158,11 +184,14 @@ def tail_ok(levels, lvl, cfg, cycle_type) -> bool:
         return False
     if len(tail) > k_tail.MAX_LEVELS:
         return False
-    if not tail[0].stencil.scalar and not k_tail.var_fits(
-            tuple(lev.grid.shape for lev in tail)):
+    if any(lev.domain is not None or not lev.spec.all_dirichlet
+           for lev in tail):
+        return False
+    if tail[0].stencil.scalar:
+        return tail[0].dtype in k_tail.STORAGE  # D: the entry's storage
+    if not k_tail.var_fits(tuple(lev.grid.shape for lev in tail)):
         return False  # J holds a tail in shared memory: too large a level
-    return all(lev.dtype == torch.float32 and lev.spec.all_dirichlet
-               for lev in tail)
+    return all(lev.dtype == torch.float32 for lev in tail)
 
 
 def tail_vcycle(levels, lvl, u, f, cfg):

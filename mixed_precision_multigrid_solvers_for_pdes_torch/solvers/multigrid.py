@@ -17,7 +17,11 @@ is handed out (the end of ``mg_solve``); its operators and smoothers read
 the wrap neighbours directly. The JAX package's FMG prolongs a duplicate
 one update stale (its smoothers sync before each update, not
 after); the port's prolongs it fresh.
-Galerkin coarsening is ROADMAP item 10.
+A level may carry an irregular domain (``core/domain.py``), ANDed into its
+unknowns; such a level takes no kernel. A hierarchy's levels may differ in
+dtype (``PrecisionPolicy.level_dtypes``): the residual is restricted into
+the coarse level's dtype and the correction prolonged into the fine
+level's. Galerkin coarsening is ROADMAP item 10.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from ..core import bc as bc_mod
 from ..core.bc import BoundarySpec
 from ..core.device import resolve_device
 from ..core.grid import Grid
-from ..core.precision import as_dtype
+from ..core.precision import PrecisionPolicy, as_dtype
 from ..ops import dispatch, norms, smooth as smooth_mod, stencil as st_mod, \
     transfer
 from ..ops.stencil import Stencil
@@ -41,19 +45,25 @@ from ..ops.stencil import Stencil
 
 @dataclasses.dataclass(frozen=True)
 class Level:
-    """One grid level: stencil, geometry, BCs, dtype and device."""
+    """One grid level: stencil, geometry, BCs, dtype and device, and an
+    optional irregular domain (``core/domain.py``; None is the whole
+    rectangle)."""
 
     stencil: Stencil
     grid: Grid
     spec: BoundarySpec
     dtype: torch.dtype
     device: torch.device
+    domain: Any = None
 
     @functools.cached_property
     def unknown(self) -> torch.Tensor:
         """Bool (nx, ny) mask of the nodes the solver owns (built once)."""
-        return bc_mod.unknown_mask(self.grid.nx, self.grid.ny, self.spec,
+        mask = bc_mod.unknown_mask(self.grid.nx, self.grid.ny, self.spec,
                                    device=self.device)
+        if self.domain is not None:
+            mask = mask & self.domain.interior_mask(self.grid, self.device)
+        return mask
 
     @functools.cached_property
     def sync(self):
@@ -105,28 +115,35 @@ def _sample_coarse(field):
 
 
 def build_hierarchy(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
-                    a=None, lam=0.0, dtype=torch.float32, device=None,
+                    a=None, lam=0.0, policy: PrecisionPolicy = None,
+                    dtype=None, domain=None, device=None,
                     cfg: MultigridConfig = MultigridConfig()
                     ) -> Tuple[Level, ...]:
     """Levels by repeated 2:1 coarsening and rediscretization, finest
     first. The coefficient field ``a`` and an array ``lam`` ((nx, ny), any
     array type) are injection-sampled onto each coarse grid and the operator
-    is rebuilt there."""
+    is rebuilt there. The levels' dtypes come from ``policy`` when it is
+    given (``PrecisionPolicy.level_dtypes``), else every level takes
+    ``dtype`` (float32 by default); every level carries ``domain``."""
     if cfg.coarsening != "rediscretize":
         raise NotImplementedError(
             f"coarsening {cfg.coarsening!r} is not ported yet (ROADMAP item "
             "10, ops/galerkin.py)")
-    dtype = as_dtype(dtype)
     device = resolve_device(device)
     grids = [grid]
     while grids[-1].can_coarsen() and len(grids) < cfg.max_levels:
         grids.append(grids[-1].coarsen())
+    if policy is not None:
+        dtypes = policy.level_dtypes(len(grids))
+    else:
+        dtypes = (as_dtype(torch.float32 if dtype is None else dtype),) \
+            * len(grids)
     levels = []
-    for g in grids:
+    for g, dt in zip(grids, dtypes):
         levels.append(Level(
-            stencil=st_mod.make_stencil(g, spec, a=a, lam=lam, dtype=dtype,
+            stencil=st_mod.make_stencil(g, spec, a=a, lam=lam, dtype=dt,
                                         device=device),
-            grid=g, spec=spec, dtype=dtype, device=device))
+            grid=g, spec=spec, dtype=dt, device=device, domain=domain))
         a, lam = _sample_coarse(a), _sample_coarse(lam)
     return tuple(levels)
 

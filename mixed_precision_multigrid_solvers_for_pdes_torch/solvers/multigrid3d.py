@@ -76,7 +76,7 @@ def build_hierarchy3d(grid: Grid3D, spec: BoundarySpec3D = BoundarySpec3D(),
     """Levels by repeated 2:1 coarsening and rediscretization, finest first,
     all in ``dtype``."""
     if policy is not None:
-        raise _not_ported("policy= (per-level dtypes)", "item 9")
+        raise _not_ported("policy= (per-level dtypes in 3D)", "item 13")
     if cfg.coarsening != "rediscretize":
         raise _not_ported(f"3D coarsening {cfg.coarsening!r}",
                           "items 10 and 13")

@@ -13,8 +13,9 @@ without FMG: an fp64 residual and norm in plane space, ``inner_cycles`` fp32
 plane cycles per step, a masked update, one host readback per step.
 
 Scope (``plane_solve_ok``): at least two levels, a V-cycle, an fp32 level 0
-with a constant-coefficient all-Dirichlet 5-point stencil, full-weighting
-restriction, bilinear prolongation and an RB-GS-family smoother. As in the
+with a constant-coefficient all-Dirichlet 5-point stencil on the whole
+rectangle (no irregular domain), full-weighting restriction, bilinear
+prolongation and an RB-GS-family smoother. As in the
 JAX package, level-0 post-smoothing sweeps red then black even when
 ``cfg.symmetric`` reverses the colours on the levels below.
 """
@@ -37,6 +38,8 @@ def plane_solve_ok(levels, cfg: MultigridConfig) -> bool:
     lev0 = levels[0]
     if not lev0.stencil.scalar or not lev0.spec.all_dirichlet:
         return False
+    if lev0.domain is not None:
+        return False  # K builds its unknowns from the rectangle
     if cfg.restriction != "full_weighting" or cfg.prolongation != "bilinear":
         return False
     if cfg.smoother not in smooth_mod.RBGS_METHODS:

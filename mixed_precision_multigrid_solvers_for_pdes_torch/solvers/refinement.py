@@ -10,7 +10,12 @@ On a periodic level the residuals read the wrap neighbours, and the
 duplicate nodes of the solution are synced once at the end: the JAX
 package's ``_ir_jit`` updates unknowns only and never syncs, so its
 duplicates stay at the initial guess, which this port does not copy.
-Adaptive staging (``adaptive_solve``) is ROADMAP item 9.
+
+Adaptive staging (``adaptive_solve``, ``_adaptive_core``): a host loop that
+runs chunks of cycles at one precision and moves up (bf16, fp32, then
+iterative refinement at the current precision) when the chunk reached its
+precision's floor or the ``PrecisionPolicy`` sees stagnation or
+near-convergence, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -19,9 +24,12 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+import numpy as np
+
+from ..core.precision import Precision, PrecisionPolicy
 from ..ops import norms, stencil as st_mod
 from . import multigrid as mg_mod
-from .multigrid import MultigridConfig
+from .multigrid import MultigridConfig, convergence_factor
 
 
 def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
@@ -29,10 +37,11 @@ def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
              use_fmg: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Solve A u = f to fp64 accuracy with low-precision multigrid cycles.
 
-    ``levels`` is a low-precision hierarchy; the fine-level stencil is
-    widened to float64 for the outer residual. Each outer step starts the
-    correction from zero, runs ``inner_cycles`` cycles on the residual cast
-    to the hierarchy's dtype, and adds the correction on unknowns only.
+    ``levels`` is a low-precision hierarchy (fp32, bf16, or per-level
+    dtypes); the fine-level stencil is widened to float64 for the outer
+    residual. Each outer step starts the correction from zero, runs
+    ``inner_cycles`` cycles on the residual cast to level 0's dtype, and adds
+    the correction on unknowns only.
     ``use_fmg`` starts from a full-multigrid guess. The tolerance scale
     max(||f||, ||r(u0)||) is taken before that start. The stopping test reads
     the norm back once per outer step.
@@ -72,3 +81,107 @@ def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
         lev0.sync(state["u"])
     info["method"] = "iterative_refinement"
     return state["u"], info
+
+
+_STAGE_ORDER = [Precision.BF16, Precision.FP32, Precision.FP64]
+
+
+def adaptive_solve(grid, spec, f, u0=None, *, a=None, lam=0.0, domain=None,
+                   policy: PrecisionPolicy = PrecisionPolicy(
+                       mode=Precision.ADAPTIVE),
+                   cfg: MultigridConfig = MultigridConfig(),
+                   start: Precision = Precision.FP32, chunk: int = 5,
+                   mesh=None, device=None
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Adaptive-precision solve: chunks of ``chunk`` cycles from the
+    ``start`` precision, promoted on the policy's triggers, finished by
+    iterative refinement when ``cfg.tol`` is below what the working
+    precision can reach. Each stage's hierarchy is built once, on
+    ``device`` (the card when None)."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
+                                  "(ROADMAP item 14)")
+    hierarchies: Dict[Precision, Any] = {}
+
+    def get_levels(p: Precision):
+        if p not in hierarchies:
+            hierarchies[p] = mg_mod.build_hierarchy(
+                grid, spec, a=a, lam=lam, domain=domain, dtype=p.dtype,
+                device=device, cfg=cfg)
+        return hierarchies[p]
+
+    return _adaptive_core(f, u0, get_levels=get_levels, solve=mg_mod.mg_solve,
+                          ir=ir_solve, policy=policy, cfg=cfg, start=start,
+                          chunk=chunk)
+
+
+def adaptive_solve3d(*args, **kwargs):
+    """The 3D adaptive solve is not ported yet."""
+    raise NotImplementedError("adaptive_solve3d is not ported yet (ROADMAP "
+                              "item 13)")
+
+
+def _adaptive_core(f, u0, *, get_levels, solve, ir, policy, cfg, start,
+                   chunk):
+    """The staged promotion loop: each stage runs ``solve`` for at most
+    ``chunk`` cycles at tolerance max(cfg.tol, 20 eps) of its precision;
+    a stage that converged, stagnates (``should_promote``) or is near
+    convergence (``should_upgrade``) moves to the next precision, and the
+    move to fp64 becomes ``ir`` at the current stage's precision. Reports
+    each stage's convergence factor, since one over a history that spans
+    stages means nothing."""
+    stage_idx = _STAGE_ORDER.index(start)
+    history: list = []
+    switches: list = []
+    segments: list = []
+    u = u0
+    total_iters = 0
+    while True:
+        p = _STAGE_ORDER[stage_idx]
+        stage_tol = max(cfg.tol, 20.0 * torch.finfo(p.dtype).eps)
+        levels = get_levels(p)
+        stage_cfg = cfg.replace(tol=stage_tol, max_iterations=chunk)
+        u, info = solve(levels, f, u, stage_cfg)
+        history.extend(info["history"][1:].tolist())
+        segments.append((p.value, "cycle", info["history"]))
+        total_iters += info["iterations"]
+
+        rel = info["residual_norm"] / max(info["rhs_norm"], 1e-300)
+        done = info["converged"] and stage_tol <= cfg.tol
+        if done or total_iters >= cfg.max_iterations:
+            break
+        promote = (info["converged"]  # the stage's floor: more precision
+                   or policy.should_promote(info["history"])
+                   or policy.should_upgrade(rel))
+        if promote and stage_idx + 1 < len(_STAGE_ORDER):
+            if _STAGE_ORDER[stage_idx + 1] == Precision.FP64:
+                # refinement at the current (cheap) precision, not fp64
+                # cycles
+                switches.append((total_iters, "ir"))
+                u, info = ir(levels, f, u, cfg,
+                             max_outer=max(1, cfg.max_iterations
+                                           - total_iters))
+                history.extend(info["history"][1:].tolist())
+                segments.append(("ir", "ir_outer", info["history"]))
+                total_iters += info["iterations"]
+                break
+            stage_idx += 1
+            switches.append((total_iters, _STAGE_ORDER[stage_idx].value))
+
+    hist = np.asarray([h for h in history if np.isfinite(h)])
+    stage_factors = [{"stage": label, "rho_kind": kind,
+                      "factor": convergence_factor(seg_hist)}
+                     for label, kind, seg_hist in segments]
+    return u, {
+        "iterations": total_iters,
+        "residual_norm": float(hist[-1]) if hist.size else float("nan"),
+        "rhs_norm": info["rhs_norm"],
+        "history": hist,
+        "converged": bool(info["converged"]),
+        # the final stage's factor; every stage's in 'stage_factors'
+        "convergence_factor": (stage_factors[-1]["factor"]
+                               if stage_factors else float("nan")),
+        "stage_factors": stage_factors,
+        "precision_switches": switches,
+        "method": "adaptive",
+    }

@@ -465,7 +465,7 @@ def test_unported_3d_features_raise():
         stencil3d.make_stencil3d(g, a=np.ones(g.shape))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         stencil3d.Stencil27()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         T.build_hierarchy3d(g, policy="mixed", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP items 10"):
         T.build_hierarchy3d(g, cfg=T.MultigridConfig(coarsening="galerkin"),
@@ -481,7 +481,7 @@ def test_unported_3d_features_raise():
         T.ir_solve3d(levels, u, constrain=lambda v, lev: v)
     prob = T.poisson3d_mms_sinsinsin(9)
     for precision in ("mixed", "bf16", "adaptive"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
             T.solve_poisson3d(prob, precision=precision, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         T.solve_poisson3d(prob, mesh=object(), device="cpu")
@@ -490,7 +490,7 @@ def test_unported_3d_features_raise():
 def test_kernel_wrappers_3d_reject_what_the_kernels_do_not_take():
     u = torch.zeros(9, 9, 9)
     with pytest.raises(ValueError, match="CUDA"):
-        _build.check_cuda_fp32("k", u, ndim=3)
+        _build.check_cuda("k", u, ndim=3)
     with pytest.raises(ValueError, match="coarsen"):
         ktransfer3d.coarse_shape3d(9, 8, 9)
     with pytest.raises(ValueError, match="refine"):

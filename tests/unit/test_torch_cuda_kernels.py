@@ -22,6 +22,12 @@ the microbenchmark's probe and copy kernels M, whose twins multiply by the
 same fp32 1/c; A's red-then-black sweeps and L agree with L's twin bit for
 bit as well, and the tail kernel D with the same V-cycle run through A, B
 and C launches.
+
+On bf16 storage A, B, C and D widen what they load, compute in fp32 and
+round once per call; their twins widen, run the fp32 twin and round once.
+On the unit square (powers of two in every coefficient) the fp32 bodies
+equal their twins bit for bit, so the bf16 ones are held to them bit for
+bit too.
 """
 
 import numpy as np
@@ -725,3 +731,95 @@ def test_parity_default_main_path_takes_kernel_l(dev, monkeypatch):
         assert (counts[0] == 0) == parity and (counts[1] > 0) == parity
     assert out[True][1]["iterations"] == out[False][1]["iterations"]
     _exact(out[True][0], out[False][0])
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("method,sweeps", [("rbgs", 2), ("rbgs_rev", 2),
+                                           ("jacobi", 3), ("rbgs", 9)])
+@pytest.mark.parametrize("n", [1025, 513, 257, 3])
+def test_multisweep_bf16_equals_twin(dev, n, method, sweeps):
+    """A on bf16 storage: one rounding per call, the passes of a call longer
+    than one launch kept in fp32 scratch."""
+    g, st = _stencil(n, "unit")
+    u = _field(g.shape, 61, dev, ring=True).to(BF16)
+    f = _field(g.shape, 62, dev, st.c).to(BF16)
+    omega = 0.8 if method == "jacobi" else 1.0
+    before = ksmooth.multisweep.launches_bf16
+    got = ksmooth.multisweep(st, u, f, method=method, sweeps=sweeps,
+                             omega=omega)
+    assert ksmooth.multisweep.launches_bf16 - before == len(
+        ksmooth.plan_passes(sweeps))
+    assert got.dtype == BF16 and got is not u
+    _exact(got, ksmooth.multisweep_plain(st, u.clone(), f, method=method,
+                                         sweeps=sweeps, omega=omega))
+
+
+@pytest.mark.parametrize("tin,tout", [(BF16, BF16), (torch.float32, BF16),
+                                      (BF16, torch.float32)])
+@pytest.mark.parametrize("n", [1025, 65, 5])
+def test_residual_restrict_bf16_equals_twin(dev, n, tin, tout):
+    g, st = _stencil(n, "unit")
+    u = _field(g.shape, 63, dev).to(tin)
+    f = _field(g.shape, 64, dev, st.c).to(tin)
+    before = ktransfer.residual_restrict.launches_bf16
+    got = ktransfer.residual_restrict(st, u, f, out_dtype=tout)
+    assert ktransfer.residual_restrict.launches_bf16 == before + 1
+    assert got.dtype == tout
+    _exact(got, ktransfer.residual_restrict_plain(st, u, f, out_dtype=tout))
+
+
+@pytest.mark.parametrize("tec,tu", [(BF16, BF16), (BF16, torch.float32),
+                                    (torch.float32, BF16)])
+@pytest.mark.parametrize("n", [1025, 65, 5])
+def test_prolong_correct_bf16_equals_twin(dev, n, tec, tu):
+    nc = (n - 1) // 2 + 1
+    u = _field((n, n), 65, dev, ring=True).to(tu)
+    ec = _field((nc, nc), 66, dev, ring=True).to(tec)
+    got = ktransfer.prolong_correct(ec, u.clone())
+    assert got.dtype == tu
+    _exact(got, ktransfer.prolong_correct_plain(ec, u.clone()))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "mixed"])
+@pytest.mark.parametrize("entry,method", [(129, "rbgs"), (65, "jacobi"),
+                                          (3, "rbgs")])
+def test_tail_vcycle_bf16_equals_twin(dev, entry, method, mode):
+    """D on a bf16 tail, and on a mixed one (an fp32 entry, bf16 levels
+    below it, as the 'mixed' policy builds them at 1025^2), computes every
+    level in fp32."""
+    pol = T.policy(mode)
+    hier = T.build_hierarchy(T.Grid(1025, 1025), policy=pol, device=dev)
+    tail = [lev for lev in hier if lev.grid.nx <= entry]
+    if mode == "mixed" and entry == 129:
+        assert tail[0].dtype == torch.float32 and tail[2].dtype == BF16
+    sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
+                                                  for lev in tail]
+    u = _field(shapes[0], 67, dev).to(tail[0].dtype)
+    f = _field(shapes[0], 68, dev, sts[0].c).to(tail[0].dtype)
+    kw = dict(shapes=shapes, pre=2, post=2, omega=0.8 if method == "jacobi"
+              else 1.0, method=method, coarse_sweeps=32, symmetric=False)
+    got = ktail.tail_vcycle(sts, u.clone(), f, **kw)
+    assert got.dtype == tail[0].dtype
+    _exact(got, ktail.tail_vcycle_plain(sts, u.clone(), f, **kw))
+
+
+def test_bf16_levels_take_kernels_a_to_d(dev):
+    """A cycle on a bf16 hierarchy launches A, B, C and D on bf16 storage,
+    and a mixed one D on its fp32 entry."""
+    wrappers = (ksmooth.multisweep, ktransfer.residual_restrict,
+                ktransfer.prolong_correct, ktail.tail_vcycle)
+    cfg = T.MultigridConfig(smoother="rbgs", omega=1.0)
+    for mode in ("bf16", "mixed"):
+        hier = T.build_hierarchy(T.Grid(1025, 1025), policy=T.policy(mode),
+                                 device=dev, cfg=cfg)
+        for w in wrappers:
+            w.launches = w.launches_bf16 = 0
+        f = _field((1025, 1025), 69, dev, hier[0].stencil.c).to(hier[0].dtype)
+        T.mg_cycle(hier, hier[0].zeros(), f, cfg)
+        got = [(w.launches, w.launches_bf16) for w in wrappers]
+        if mode == "bf16":
+            assert all(n == nb > 0 for n, nb in got), got
+        else:  # fp32 above 129^2 and at it: D's entry is fp32
+            assert got[3] == (1, 0) and all(n > 0 for n, _ in got), got

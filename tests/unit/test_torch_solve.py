@@ -195,17 +195,18 @@ def test_dispatch_gates():
 
 
 def test_unported_features_raise():
-    """Galerkin coarsening (ROADMAP item 10) and irregular domains (item 8)
-    still raise; periodic sides, W cycles and line smoothers, which raised
-    here before they were ported, now run (their tests hold them to the JAX
-    package in test_torch_cycles_smoothers.py and
-    test_torch_bc_segments_periodic.py)."""
+    """Galerkin coarsening (ROADMAP item 10) still raises; periodic sides,
+    W cycles, line smoothers and irregular domains, which raised here
+    before they were ported, now run (their tests hold them to the JAX
+    package in test_torch_cycles_smoothers.py,
+    test_torch_bc_segments_periodic.py and test_torch_domain.py), and a
+    domain of a kind the port does not know is refused."""
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         T.build_hierarchy(T.Grid(9, 9),
                           cfg=T.MultigridConfig(coarsening="galerkin"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        interop.problem_from_jax(types.SimpleNamespace(domain=object()))
+    with pytest.raises(ValueError, match="unknown domain"):
+        interop.domain_from_jax(types.SimpleNamespace(x_cut=0.5))
     assert bc.BCSide(kind=bc.BCKind.PERIODIC).kind == bc.BCKind.PERIODIC
     levels = T.build_hierarchy(T.Grid(9, 9), device="cpu")
     u = torch.zeros(9, 9)
@@ -219,7 +220,7 @@ def test_unported_features_raise():
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     u = torch.zeros(9, 9)
     with pytest.raises(ValueError, match="CUDA"):
-        _build.check_cuda_fp32("k", u)
+        _build.check_cuda("k", u)
     st = T.build_hierarchy(T.Grid(9, 9), device="cpu")[0].stencil
     with pytest.raises(ValueError, match="unsupported method"):
         ksmooth.multisweep(st, u, u, method="line_x")
