@@ -133,6 +133,26 @@ reset to zero and held to the JAX reference's count and l2 error:
  24. corner_singularity_problem (3 +- 1 steps, A-D as planned) and
      l_shaped_problem (5 +- 1, no 2D kernel launch) on both backends, their
      ms per solve and profiles, and every CATALOGUE problem built at 65^2.
+Galerkin coarsening and the Krylov solvers (after phase 24), each run from
+launch counts reset to zero and held to the JAX reference's count:
+ 25. solve_poisson(precision='fp32', tol 1e-9, coarsening='galerkin') on
+     the jump (5 steps, final relative residual below 1e-9) and Poisson (4,
+     l2 within 2% of 3.92183e-7) problems at 1025^2 on both backends: level
+     0 alone takes a kernel (H on the jump problem, A on Poisson, one
+     launch per 2-sweep call), the Stencil9 levels none; 'auto' = 'torch'
+     within 1e-8 relative; the fp64 RAP chain built on the card equals the
+     CPU's within 1e-12; set-up ms, ms per solve and a profile of each;
+ 26. the Krylov solvers: pcg, fcg and gmres(restart=30) with the multigrid
+     preconditioner (symmetric V-cycles over fp32 levels, fp64 vectors) on
+     the exponential problem at 1025^2 (7, 7, 30 iterations at tol 1e-10,
+     1e-10 and 1e-9; A, B, C, D
+     4, 2, 2, 1 launches per application, level 0 plain fp64; pcg 'auto' =
+     'torch'), pcg over a Galerkin hierarchy on the jump problem (8, no
+     kernel), bicgstab with the diagonal and pcg with the Chebyshev and the
+     line preconditioners at 257^2 (500, 231, 500: plain torch), and pcg
+     with the 3D multigrid preconditioner at 257^3 (8; E, F and G on every
+     level below level 0); ms per solve and profiles of the three
+     multigrid-preconditioned solves.
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -274,6 +294,44 @@ BF16_CHUNK = 5  # adaptive_solve's chunk: the bf16 stage's cycles
 BF16_START_TWINS = (20, [(5, "fp32"), (15, "ir")])
 DOMAIN_REF = {"corner_singularity": (3, 1.382196e-7),
               "l_shaped": (5, 9.045746e-6)}
+# Galerkin coarsening and the Krylov solvers (phases 25-26). The references
+# are the JAX package's runs on the CPU at the same size and configuration:
+# phase 25, solve_poisson(P.<problem>(1025), precision='fp32',
+# cfg=MultigridConfig(smoother='rbgs', omega=1.0, tol=1e-9,
+# coarsening='galerkin')): outer steps and, with an exact solution, its l2.
+GALERKIN_REF = {"jump_coefficient_problem": (5, None),
+                "poisson_mms_sinsin": (4, 3.92183e-7)}
+# Phase 26: krylov.<solver>(stencil_matvec(make_stencil(grid, spec, a=a,
+# dtype=float64), unknown), where(unknown, rhs, 0), precond=<M>, tol=<tol>)
+# with default maxiter (500; gmres 300, restart 30): iterations, converged
+# and l2 against the exact solution. FGMRES tests the true residual
+# b - A x, whose fp64 floor at 1025^2 (1.4e-6 in the JAX run, 2.8e-6 in the
+# port's on the CPU, above 3.5e-6 on the card) lies at tol 1e-10 (3.5e-6):
+# it is held at 1e-9, where both references take 30. 'mg' is multigrid_preconditioner over
+# build_hierarchy(dtype='float32', cfg=MultigridConfig(smoother='rbgs',
+# omega=1.0, symmetric=True)) on poisson_mms_exponential(1025); 'galerkin'
+# the same with coarsening='galerkin' on jump_coefficient_problem(1025);
+# the plain ones on poisson_mms_exponential(257): diagonal(st, unknown),
+# chebyshev(st, unknown, degree=4, grid=grid), block_line(st, unknown,
+# axis=0); 'mg3d' pcg with stencil_matvec3d(make_stencil3d(grid, spec,
+# dtype=float64), unknown) and multigrid_preconditioner3d over
+# build_hierarchy3d(dtype='float32', cfg as 'mg') on
+# poisson3d_mms_sinsinsin(257).
+KRYLOV_REF = {
+    # name: (solver, preconditioner, n, tol, iterations, converged, l2)
+    "mg_pcg": ("pcg", "mg", 1025, 1e-10, 7, True, 7.455375e-7),
+    "mg_fcg": ("fcg", "mg", 1025, 1e-10, 7, True, 7.455375e-7),
+    "mg_gmres": ("gmres", "mg", 1025, 1e-9, 30, True, 7.455375e-7),
+    "galerkin_pcg": ("pcg", "galerkin", 1025, 1e-10, 8, True, None),
+    "bicgstab_diagonal": ("bicgstab", "diagonal", 257, 1e-10, 500, False,
+                          1.192845e-5),
+    "pcg_chebyshev": ("pcg", "chebyshev", 257, 1e-10, 231, True,
+                      1.192859e-5),
+    "pcg_block_line": ("pcg", "block_line", 257, 1e-10, 500, False,
+                       1.192859e-5),
+    "mg3d_pcg": ("pcg", "mg3d", 257, 1e-10, 8, True, 4.437076e-6),
+}
+RAP_RTOL = 1e-12          # the card's RAP chain against the CPU's (fp64)
 TAIL_ENTRY = 129           # dispatch.TAIL_MAX_ENTRY: D takes V entries <= it
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
@@ -2145,6 +2203,310 @@ def domain_path(mg, card, dev):
     print(f"phase 24: {time.perf_counter() - start:.1f} s")
 
 
+def all_wrappers():
+    """Every launch-counting kernel wrapper, by the record's names."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth3d as ks3, smooth_planes as kp, \
+        smooth_var as ksv, tail as kt, transfer as kx, transfer3d as kx3
+
+    return {"smooth_multisweep": ks.multisweep,
+            "residual_restrict": kx.residual_restrict,
+            "prolong_correct": kx.prolong_correct,
+            "tail_vcycle": kt.tail_vcycle,
+            "smooth_var": ksv.multisweep_var,
+            "residual_restrict_var": kx.residual_restrict_var,
+            "tail_vcycle_var": kt.tail_vcycle_var,
+            "smooth_parity": ks.multisweep_parity,
+            "smooth_planes": kp.multisweep_planes,
+            "rbgs3d": ks3.rbgs3d,
+            "residual_restrict3d": kx3.residual_restrict3d,
+            "prolong_correct3d": kx3.prolong_correct3d}
+
+
+def counted_run(run):
+    """``run()`` from every launch count reset to zero; returns its result
+    and the counts just after it (synchronized)."""
+    import torch
+
+    every = all_wrappers()
+    for w in every.values():
+        w.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in every.items()}
+
+
+def check_launches(label, got, plan):
+    """Fail unless the counts equal ``plan`` (missing names: zero)."""
+    want = {k: plan.get(k, 0) for k in got}
+    print(f"{label}: launches {({k: v for k, v in got.items() if v})}, "
+          f"plan {({k: v for k, v in want.items() if v})}")
+    if got != want:
+        fail(f"{label}: launches {got} differ from the plan {want}")
+
+
+def best_ms(run, reps: int = 3) -> float:
+    """Minimum wall ms of ``reps`` synchronized calls of ``run``."""
+    import torch
+
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def galerkin_path(mg, card, dev):
+    """Phase 25: solve_poisson(precision='fp32') with Galerkin coarsening
+    at 1025^2 on the jump and Poisson problems: the JAX reference's counts,
+    the launch plans (level 0 alone takes a kernel: H on the jump
+    problem, A on Poisson, two 2-sweep calls per V-cycle), 'auto' = 'torch',
+    and the RAP chain built on the card against the CPU's."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_var as ksv
+
+    start = time.perf_counter()
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                             coarsening="galerkin")
+    for name, (steps, l2_ref) in GALERKIN_REF.items():
+        prob = getattr(mg, name)(N)
+        solved = {}
+        for backend in ("auto", "torch"):
+            res, got = counted_run(lambda: mg.solve_poisson(
+                prob, precision="fp32", cfg=cfg.replace(backend=backend),
+                device=dev))
+            solved[backend] = res
+            info = res.info
+            rel = info["residual_norm"] / max(info["rhs_norm"],
+                                              info["initial_residual_norm"])
+            print(f"solve galerkin {name} {N}^2 {backend}: iterations "
+                  f"{res.iterations} converged {res.converged} final "
+                  f"relative residual {rel:.4e} errors {res.errors} history "
+                  f"{info['history'].tolist()}")
+            if tuple(res.u.shape) != (N, N) or not torch.isfinite(
+                    res.u).all():
+                fail(f"galerkin {name}: solution misshapen or not finite")
+            if not res.converged or res.iterations != steps or rel > 1e-9:
+                fail(f"galerkin {name} {backend}: expected convergence in "
+                     f"{steps} outer steps below 1e-9 relative residual")
+            if l2_ref is not None and abs(
+                    res.errors["l2"] / l2_ref - 1) > L2_RTOL:
+                fail(f"galerkin {name}: l2 {res.errors['l2']:.4e} not "
+                     f"within {L2_RTOL:.0%} of {l2_ref:.4e}")
+            cycles = res.iterations * IR_INNER_CYCLES
+            if backend == "torch":
+                check_launches(f"galerkin {name} torch", got, {})
+            elif prob.a is None:
+                check_launches(f"galerkin {name} auto", got, {
+                    "smooth_multisweep": 2 * cycles * len(ks.plan_passes(2))})
+            else:
+                check_launches(f"galerkin {name} auto", got, {
+                    "smooth_var": 2 * cycles * len(ksv.plan_passes(2))})
+        du = (solved["auto"].u - solved["torch"].u).abs().max().item()
+        scale = solved["torch"].u.abs().max().item()
+        print(f"galerkin {name}: max|u_auto - u_torch| {du:.3e} (max|u| "
+              f"{scale:.3e})")
+        if du > OPERATOR_PATH_RTOL * scale:
+            fail(f"galerkin {name}: kernel and plain paths differ by "
+                 f"{du:.3e} > {OPERATOR_PATH_RTOL} * {scale:.3e}")
+
+        def setup():
+            return mg.build_hierarchy(prob.grid, prob.spec, a=prob.a,
+                                      dtype="float32", device=dev, cfg=cfg)
+
+        setup_ms = best_ms(setup)
+        solve_ms = best_ms(lambda: mg.solve_poisson(
+            prob, precision="fp32", cfg=cfg, device=dev))
+        print(f"galerkin {name} {N}^2: set-up (build_hierarchy, the RAP "
+              f"chain) {setup_ms:.3f} ms, solve_poisson {solve_ms:.3f} ms "
+              f"per solve (set-up included), minimum of 3 [{card}]")
+        profile_solve(f"galerkin {name} {N}^2", lambda: mg.solve_poisson(
+            prob, precision="fp32", cfg=cfg, device=dev), all_wrappers(),
+            cpu=False)
+    # the RAP chain on the card against the same chain on the CPU (fp64)
+    prob = mg.jump_coefficient_problem(N)
+    chains = [mg.build_hierarchy(prob.grid, prob.spec, a=prob.a,
+                                 dtype="float64", device=d, cfg=cfg)
+              for d in (dev, "cpu")]
+    worst = 0.0
+    for lev_d, lev_c in zip(*chains):
+        ref = [x.cpu() for x in lev_c.stencil.coefs] \
+            if not lev_c.stencil.scalar else []
+        got = [x.cpu() for x in lev_d.stencil.coefs] \
+            if not lev_d.stencil.scalar else []
+        scale = max((x.abs().max().item() for x in ref), default=1.0)
+        for a, b in zip(got, ref):
+            worst = max(worst, (a - b).abs().max().item() / scale)
+    print(f"galerkin RAP chain at {N}^2, card against CPU: largest "
+          f"difference {worst:.3e} of the level's largest coefficient")
+    if worst > RAP_RTOL:
+        fail(f"the card's RAP chain differs from the CPU's by {worst:.3e}")
+    del chains
+    torch.cuda.empty_cache()
+    print(f"phase 25: {time.perf_counter() - start:.1f} s")
+
+
+def mg_application_plan(levels, cfg):
+    """A's, B's, C's and D's launches in one multigrid-preconditioner
+    application under an fp64 Krylov vector: level 0 runs plain (its
+    fields are fp64); each level below it down to the tail entry smooths
+    through A twice and transfers through B and C once; the tail takes one
+    D launch."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks
+
+    plan = dict.fromkeys(("smooth_multisweep", "residual_restrict",
+                          "prolong_correct", "tail_vcycle"), 0)
+    for lev in levels[1:]:
+        if lev.grid.nx <= TAIL_ENTRY:
+            plan["tail_vcycle"] += 1
+            break
+        plan["smooth_multisweep"] += len(ks.plan_passes(
+            cfg.pre_sweeps)) + len(ks.plan_passes(cfg.post_sweeps))
+        plan["residual_restrict"] += 1
+        plan["prolong_correct"] += 1
+    return plan
+
+
+def mg3d_application_plan(levels, cfg):
+    """E's, F's and G's launches in one 3D multigrid-preconditioner
+    application under an fp64 vector: none on level 0, E's planned passes
+    for every smoothing call below it and one F and one G per transfer
+    below it."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth3d as ks3
+
+    *upper, coarsest = levels[1:]
+    calls = [(lev.grid.shape, s) for lev in upper
+             for s in (cfg.pre_sweeps, cfg.post_sweeps)]
+    calls.append((coarsest.grid.shape, cfg.coarse_sweeps))
+    return {"rbgs3d": sum(len(ks3.plan_passes(shape, s))
+                          for shape, s in calls),
+            "residual_restrict3d": len(upper),
+            "prolong_correct3d": len(upper)}
+
+
+def krylov_setup(mg, name, backend, dev):
+    """(solver, matvec, b, precond, problem, levels, cfg) of one case of
+    KRYLOV_REF."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch import \
+        preconditioning as pc
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
+        stencil as st_mod, stencil3d as st3
+    from mixed_precision_multigrid_solvers_for_pdes_torch.solvers import \
+        krylov
+
+    solver, kind, n, tol = KRYLOV_REF[name][:4]
+    f64 = torch.float64
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, symmetric=True,
+                             backend=backend)
+    if kind == "mg3d":
+        prob = mg.poisson3d_mms_sinsinsin(n)
+        levels = mg.build_hierarchy3d(prob.grid, dtype="float32",
+                                      device=dev, cfg=cfg)
+        unk = levels[0].unknown
+        mv = krylov.stencil_matvec3d(st3.make_stencil3d(prob.grid,
+                                                        dtype=f64), unk)
+        M = pc.multigrid_preconditioner3d(levels, cfg)
+    else:
+        prob = (mg.jump_coefficient_problem(n) if kind == "galerkin"
+                else mg.poisson_mms_exponential(n))
+        if kind == "galerkin":
+            cfg = cfg.replace(coarsening="galerkin")
+        levels = mg.build_hierarchy(prob.grid, prob.spec, a=prob.a,
+                                    dtype="float32", device=dev, cfg=cfg)
+        unk = levels[0].unknown
+        st = st_mod.make_stencil(prob.grid, prob.spec, a=prob.a, dtype=f64,
+                                 device=dev)
+        mv = krylov.stencil_matvec(st, unk)
+        M = {"mg": lambda: pc.multigrid_preconditioner(levels, cfg),
+             "galerkin": lambda: pc.multigrid_preconditioner(levels, cfg),
+             "diagonal": lambda: pc.diagonal(st, unk),
+             "chebyshev": lambda: pc.chebyshev(st, unk, degree=4,
+                                               grid=prob.grid),
+             "block_line": lambda: pc.block_line(st, unk, axis=0)}[kind]()
+    b = torch.where(unk, prob.rhs(f64, dev), 0.0)
+    kw = dict(restart=30) if solver == "gmres" else {}
+
+    def run():
+        return getattr(krylov, solver)(mv, b, precond=M, tol=tol, **kw)
+
+    return run, prob, levels, cfg
+
+
+def krylov_path(mg, card, dev):
+    """Phase 26: the Krylov solvers and their preconditioners; every case
+    of KRYLOV_REF against the JAX reference's count (and l2), the launch
+    plans of the multigrid preconditioner, 'auto' = 'torch' on MG-PCG, and
+    ms per solve, device ops and busy share of MG-PCG, the Galerkin MG-PCG
+    and the 3D MG-PCG."""
+    import torch
+
+    start = time.perf_counter()
+    results = {}
+    for name, (solver, kind, n, tol, steps, conv,
+               l2_ref) in KRYLOV_REF.items():
+        run, prob, levels, cfg = krylov_setup(mg, name, "auto", dev)
+        (u, info), got = counted_run(run)
+        results[name] = u
+        l2 = None if prob.exact is None else prob.error_norms(u)["l2"]
+        print(f"krylov {name} ({solver}, {kind}, tol {tol}) {n}: iterations "
+              f"{info['iterations']} converged {info['converged']} "
+              f"residual {info['residual_norm']:.6e} l2 {l2} history {info['history'][:12].tolist()}"
+              f"{' ...' if len(info['history']) > 12 else ''}")
+        if tuple(u.shape) != tuple(prob.grid.shape) or \
+                not torch.isfinite(u).all():
+            fail(f"krylov {name}: solution misshapen or not finite")
+        if info["iterations"] != steps or info["converged"] != conv:
+            fail(f"krylov {name}: {info['iterations']} iterations "
+                 f"(converged {info['converged']}), the JAX reference "
+                 f"{steps} ({conv})")
+        if l2_ref is not None and abs(l2 / l2_ref - 1) > L2_RTOL:
+            fail(f"krylov {name}: l2 {l2:.4e} not within {L2_RTOL:.0%} of "
+                 f"{l2_ref:.4e}")
+        applications = (info["iterations"] if solver == "gmres"
+                        else info["iterations"] + 1)
+        if kind == "mg":
+            plan = {k: v * applications
+                    for k, v in mg_application_plan(levels, cfg).items()}
+        elif kind == "mg3d":
+            plan = {k: v * applications
+                    for k, v in mg3d_application_plan(levels, cfg).items()}
+        else:
+            plan = {}  # Stencil9 levels, fp64 level 0, or no multigrid
+        check_launches(f"krylov {name}", got, plan)
+        del levels
+    run_p, *_ = krylov_setup(mg, "mg_pcg", "torch", dev)
+    u_p, info_p = run_p()
+    du = (results["mg_pcg"] - u_p).abs().max().item()
+    scale = u_p.abs().max().item()
+    print(f"krylov mg_pcg: max|u_auto - u_torch| {du:.3e} (max|u| "
+          f"{scale:.3e}), torch iterations {info_p['iterations']}")
+    if info_p["iterations"] != KRYLOV_REF["mg_pcg"][4] or \
+            du > OPERATOR_PATH_RTOL * scale:
+        fail(f"krylov mg_pcg: kernel and plain paths differ ({du:.3e})")
+    del results, u_p
+    torch.cuda.empty_cache()
+    for name in ("mg_pcg", "galerkin_pcg", "mg3d_pcg"):
+        run, prob, levels, cfg = krylov_setup(mg, name, "auto", dev)
+        ms = best_ms(run)
+        k = KRYLOV_REF[name][4]
+        print(f"krylov {name} {KRYLOV_REF[name][2]}: {ms:.3f} ms per solve "
+              f"({ms / k:.3f} ms per iteration, {k} iterations), minimum of "
+              f"3, set-up excluded [{card}]")
+        profile_solve(f"krylov {name}", run, all_wrappers(), cpu=False)
+        del levels
+        torch.cuda.empty_cache()
+    print(f"phase 26: {time.perf_counter() - start:.1f} s")
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -2663,6 +3025,11 @@ def main(argv) -> int:
     dev_ms.update(dev_ms_bf)
     launches.update(launches_bf)
     domain_path(mg, card, dev)
+    torch.cuda.empty_cache()
+
+    # ---- Galerkin coarsening and the Krylov solvers: phases 25-26 --------
+    galerkin_path(mg, card, dev)
+    krylov_path(mg, card, dev)
 
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),

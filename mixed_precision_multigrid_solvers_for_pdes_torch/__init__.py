@@ -7,7 +7,10 @@ constant-coefficient, variable-coefficient and Neumann/Robin paths and of
 the 3D constant-coefficient Dirichlet path run in hand-written CUDA kernels
 for Hopper (``csrc/``, built with nvcc at first use, see
 ``ops/cuda_kernels/_build.py``); kernels A-D take bf16 storage too, so the
-mixed, bf16 and adaptive precisions run on them. Fields are stored at their
+mixed, bf16 and adaptive precisions run on them. Galerkin coarsening
+(``coarsening='galerkin'``, 9-point coarse levels on the plain path), the
+Krylov solvers (``solvers.krylov``) and their preconditioners
+(``preconditioning``) run on top of the same cycles. Fields are stored at their
 logical shape (nx, ny) or (nx, ny, nz), and every function takes its dtype
 and device explicitly. This package never imports JAX.
 """
@@ -15,6 +18,7 @@ and device explicitly. This package never imports JAX.
 __version__ = "0.1.0"
 
 from . import applications, core, models, ops, solvers, utils  # noqa: F401
+from . import preconditioning  # noqa: F401
 from .applications.poisson import (  # noqa: F401
     PoissonResult,
     convergence_study,

@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from . import bc as bc_mod
 from .grid import Grid
 
 _TOL = 1e-9
@@ -49,3 +50,13 @@ class LShapedDomain:
         Y = y0 + grid.hy * j.to(torch.float64)
         removed = (X >= self.x_cut - _TOL) & (Y >= self.y_cut - _TOL)
         return ~removed
+
+
+def unknown_mask(grid: Grid, spec, domain=None, *,
+                 device="cpu") -> torch.Tensor:
+    """Bool (nx, ny) mask of a level's unknowns: the boundary spec's,
+    ANDed with the domain's interior when there is a domain."""
+    mask = bc_mod.unknown_mask(grid.nx, grid.ny, spec, device=device)
+    if domain is not None:
+        mask = mask & domain.interior_mask(grid, device)
+    return mask

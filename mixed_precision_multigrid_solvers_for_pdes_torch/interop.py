@@ -26,7 +26,7 @@ from .core.precision import Precision, PrecisionPolicy, as_dtype
 from .models.problems import Problem
 from .models.problems3d import Problem3D
 from .ops.planes import plane_shape
-from .ops.stencil import Stencil
+from .ops.stencil import _S9_FIELDS, Stencil, Stencil9
 from .ops.stencil3d import Stencil3D
 from .solvers.multigrid import Level
 from .solvers.multigrid3d import Level3D
@@ -45,14 +45,20 @@ def grid_from_jax(g) -> Grid:
 
 
 def stencil_from_jax(st, grid=None, *, device="cpu",
-                     wrap=(False, False)) -> Stencil:
-    """Port Stencil from a JAX Stencil: 0-d leaves become floats; padded
-    2-d leaves (coefficient planes) become (nx, ny) tensors of their dtype
-    on ``device``, which needs the ``grid``. ``wrap`` holds the periodic
-    axes of the level's spec (JAX stencils carry them in their padding)."""
+                     wrap=(False, False)):
+    """Port Stencil or Stencil9 from a JAX one: 0-d leaves become floats;
+    padded 2-d leaves (coefficient planes) become (nx, ny) tensors of their
+    dtype on ``device``, which needs the ``grid``. ``wrap`` holds the
+    periodic axes of the level's spec (JAX stencils carry them in their
+    padding); a Stencil9 never wraps."""
+    if type(st).__name__ == "Stencil9":
+        if any(wrap):
+            raise ValueError("a 9-point stencil takes no periodic axis")
+        return Stencil9(*(field_from_jax(np.asarray(getattr(st, k)), grid,
+                                         device=device)
+                          for k in _S9_FIELDS))
     if type(st).__name__ != "Stencil":
-        raise NotImplementedError("the 9-point Galerkin stencil is not "
-                                  "ported yet (ROADMAP item 10)")
+        raise ValueError(f"unknown stencil {type(st).__name__!r}")
     vals = [np.asarray(getattr(st, k)) for k in ("c", "w", "e", "s", "n")]
     if not any(v.ndim for v in vals):
         return Stencil(*(float(v) for v in vals), wrap=tuple(wrap))
@@ -206,7 +212,7 @@ def stencil3d_from_jax(st) -> Stencil3D:
     if any(v.ndim for v in vals):
         raise NotImplementedError("variable-coefficient and 27-point 3D "
                                   "stencils are not ported yet (ROADMAP "
-                                  "items 10 and 13)")
+                                  "item 13)")
     return Stencil3D(*(float(v) for v in vals))
 
 

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from ..stencil import Stencil9
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build"
@@ -205,6 +207,14 @@ def check_unwrapped(name: str, *stencils) -> None:
     if any(any(st.wrap) for st in stencils):
         raise ValueError(f"{name}: takes no periodic axis (the stencil "
                          f"wraps)")
+
+
+def check_five_point(name: str, *stencils) -> None:
+    """Raise on a 9-point stencil (a Galerkin level): the 2D kernels read
+    five coefficients and would drop its corner couplings."""
+    if any(isinstance(st, Stencil9) for st in stencils):
+        raise ValueError(f"{name}: takes a 5-point stencil, got a "
+                         f"Stencil9")
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, ndim: int = 2,

@@ -185,6 +185,7 @@ def multisweep_parity(st: Stencil, u, f, *, sweeps: int = 2,
     """``sweeps`` red-then-black RB-GS/SOR sweeps through parity planes;
     returns the smoothed field: ``u`` itself, updated in place, on the CPU,
     a new tensor from kernel L (``u`` untouched)."""
+    _build.check_five_point("multisweep_parity", st)
     if not st.scalar:
         raise ValueError("multisweep_parity: takes a constant-coefficient "
                          "stencil")
@@ -211,6 +212,7 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
     if method != "jacobi" and method not in RBGS:
         raise ValueError(f"multisweep: unsupported method {method!r}")
     _build.check_unwrapped("multisweep", st)
+    _build.check_five_point("multisweep", st)
     if _resolve_parity(layout, method):
         return multisweep_parity(st, u, f, sweeps=sweeps, omega=omega)
     if u.device.type == "cpu":

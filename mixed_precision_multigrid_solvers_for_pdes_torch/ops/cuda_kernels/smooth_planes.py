@@ -39,6 +39,7 @@ def multisweep_planes(st: Stencil, up, fp, *, nx: int, ny: int,
     parity planes ``up`` of an (nx, ny) all-Dirichlet grid; returns the
     smoothed planes: ``up`` itself, updated in place, on the CPU, new
     planes from kernel K (``up`` untouched)."""
+    _build.check_five_point("multisweep_planes", st)
     if not st.scalar:
         raise ValueError("multisweep_planes: takes a constant-coefficient "
                          "stencil")

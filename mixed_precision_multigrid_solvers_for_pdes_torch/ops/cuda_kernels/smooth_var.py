@@ -88,6 +88,7 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
 
     ``method``: 'jacobi', an RB-GS name ('rbgs', 'gauss_seidel', 'red_black',
     'sor'), or 'rbgs_rev' (black before red)."""
+    _build.check_five_point("multisweep_var", st)
     if method != "jacobi" and method not in RBGS:
         raise ValueError(f"multisweep_var: unsupported method {method!r}")
     if st.scalar:

@@ -205,6 +205,7 @@ def tail_vcycle(stencils: Sequence[Stencil], u, f, *,
     runs only the coarsest-level sweeps."""
     _check_method("tail_vcycle", method)
     _build.check_unwrapped("tail_vcycle", *stencils)
+    _build.check_five_point("tail_vcycle", *stencils)
     if u.device.type == "cpu":
         return tail_vcycle_plain(stencils, u, f, shapes=shapes, pre=pre,
                                  post=post, omega=omega, method=method,
@@ -340,6 +341,7 @@ def tail_vcycle_var(stencils: Sequence[Stencil], u, f, *,
     """J: ``tail_vcycle`` for stencils whose leaves are (nx, ny) coefficient
     planes on every level, in place on ``u``; returns ``u``. One launch of
     one thread-block cluster (``var_plan``)."""
+    _build.check_five_point("tail_vcycle_var", *stencils)
     _check_method("tail_vcycle_var", method)
     if any(st.scalar for st in stencils):
         raise ValueError("tail_vcycle_var: every level needs a stencil with "

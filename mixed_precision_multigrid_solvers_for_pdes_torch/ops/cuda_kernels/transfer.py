@@ -90,6 +90,7 @@ def residual_restrict(st: Stencil, u, f, *, out_dtype=None):
     with a constant stencil; coarse ring zero. u and f fp32 or bf16, fc in
     ``out_dtype`` (u's by default), fp32 or bf16."""
     _build.check_unwrapped("residual_restrict", st)
+    _build.check_five_point("residual_restrict", st)
     if u.device.type == "cpu":
         return residual_restrict_plain(st, u, f, out_dtype=out_dtype)
     (ncx, ncy), dtype = _check_restrict("residual_restrict", u, f, out_dtype,
@@ -113,6 +114,7 @@ def residual_restrict_var(st: Stencil, u, f, *, sides=DIRICHLET,
     """I: fc = R_fw(f - A u) with the (nx, ny) coefficient planes of ``st``;
     Neumann/Robin rings are unknowns and restrict with the reflect fold;
     coarse nodes off the coarse unknowns are zero."""
+    _build.check_five_point("residual_restrict_var", st)
     if st.scalar:
         raise ValueError("residual_restrict_var: takes a stencil with "
                          "(nx, ny) coefficient planes")

@@ -49,7 +49,14 @@ H, I, J, K, L and E-G take fp32 only (bf16 storage for them is still to
 port), so a bf16 level on their paths runs plain torch. A level with an
 irregular domain (``Level.domain``) takes no kernel: every 2D kernel
 builds its unknowns from the rectangle, as in the JAX package's gates
-(:83, :229, :326).
+(:83, :229, :326). A ``Stencil9`` level (Galerkin coarsening) takes no 2D
+kernel either, as in the JAX package's gates (:68, :218 for either level,
+:324 for any tail level): the kernels read five coefficients. Every gate
+also looks at the fields it would hand a kernel, not only at the level: a
+multigrid preconditioner under an fp64 Krylov loop starts level 0's iterate
+in the Krylov vector's dtype on an fp32 level, and that level then smooths,
+restricts and prolongs on the plain path in fp64, as the JAX package's XLA
+path computes it, while the fp32 levels below it take their kernels.
 
 Parity planes (``smooth_planes``, the route of ``plane_solve``): fp32
 level-0 planes take kernel K, others its plain twin. The JAX package's
@@ -70,6 +77,7 @@ from __future__ import annotations
 import torch
 
 from . import smooth as smooth_mod, smooth3d as smooth3d_mod
+from .stencil import Stencil9
 from .cuda_kernels import smooth as k_smooth, smooth3d as k_smooth3d, \
     smooth_planes as k_planes, smooth_var as k_smooth_var, tail as k_tail, \
     transfer as k_transfer, transfer3d as k_transfer3d
@@ -86,12 +94,19 @@ def _kernels(backend: str) -> bool:
     return backend == "auto"
 
 
+def _fields_ok(lev, fields) -> bool:
+    """True when every field has ``lev``'s dtype."""
+    return all(x.dtype == lev.dtype for x in fields)
+
+
 def kernel_smooth_ok(u, lev, backend: str, method: str) -> bool:
     """True when kernel A, H or L smooths ``u`` on ``lev``: a point
-    smoother on an all-Dirichlet rectangle; bf16 storage on A only."""
+    smoother on a 5-point all-Dirichlet rectangle; bf16 storage on A
+    only."""
     if not (_kernels(backend)
             and (method in _SMOOTHERS or method == "rbgs_rev")
             and lev.domain is None
+            and not isinstance(lev.stencil, Stencil9)
             and lev.spec.all_dirichlet):
         return False
     if not lev.stencil.scalar:
@@ -134,17 +149,21 @@ def smooth_planes(lev0, up, fp, cfg, sweeps: int):
                   sweeps=sweeps, omega=cfg.omega)
 
 
-def transfer_fused_ok(lev, nxt, cfg) -> bool:
+def transfer_fused_ok(lev, nxt, cfg, *fields) -> bool:
     """True when kernels B or I and C replace the plain residual -> restrict
     and prolong -> correct chain between ``lev`` and ``nxt``: any spec
     without periodic sides or segments (Dirichlet, Neumann, Robin), on
-    rectangles; each level fp32, or fp32 or bf16 with a constant stencil
-    (B and C)."""
+    rectangles of 5-point levels; each level fp32, or fp32 or bf16 with a
+    constant stencil (B and C); ``fields`` (the cycle passes the level's
+    u and f) of ``lev``'s dtype."""
     if not (_kernels(cfg.backend)
             and not (lev.spec.any_periodic or lev.spec.any_segments)
             and lev.domain is None and nxt.domain is None
+            and not isinstance(lev.stencil, Stencil9)
+            and not isinstance(nxt.stencil, Stencil9)
             and cfg.restriction == "full_weighting"
-            and cfg.prolongation == "bilinear"):
+            and cfg.prolongation == "bilinear"
+            and _fields_ok(lev, fields)):
         return False
     storage = k_transfer.STORAGE if lev.stencil.scalar else (torch.float32,)
     return lev.dtype in storage and nxt.dtype in storage
@@ -167,12 +186,15 @@ def prolong_correct(lev, nxt, ec, u):
     return k_transfer.prolong_correct(ec, u, sides=lev.spec.dirichlet_sides)
 
 
-def tail_ok(levels, lvl, cfg, cycle_type) -> bool:
+def tail_ok(levels, lvl, cfg, cycle_type, *fields) -> bool:
     """True when the whole V-recursion from ``lvl`` down may run as one
     tail-kernel launch: D with an fp32 or bf16 entry level (the levels
     below in any dtype, computed in fp32), J on fp32 levels; every level
-    an all-Dirichlet rectangle."""
+    a 5-point all-Dirichlet rectangle; ``fields`` (the cycle passes the
+    entry's u and f) of the entry level's dtype."""
     if cycle_type != "V" or not _kernels(cfg.backend):
+        return False
+    if not _fields_ok(levels[lvl], fields):
         return False
     if cfg.smoother not in _SMOOTHERS:
         return False
@@ -185,7 +207,7 @@ def tail_ok(levels, lvl, cfg, cycle_type) -> bool:
     if len(tail) > k_tail.MAX_LEVELS:
         return False
     if any(lev.domain is not None or not lev.spec.all_dirichlet
-           for lev in tail):
+           or isinstance(lev.stencil, Stencil9) for lev in tail):
         return False
     if tail[0].stencil.scalar:
         return tail[0].dtype in k_tail.STORAGE  # D: the entry's storage
@@ -233,13 +255,15 @@ def smooth3d(lev, u, f, *, method: str, sweeps: int, omega: float,
                                  reverse=reverse)
 
 
-def transfer_fused3d_ok(lev, nxt, cfg) -> bool:
+def transfer_fused3d_ok(lev, nxt, cfg, *fields) -> bool:
     """True when kernels F/G replace the plain 3D residual -> restrict and
-    prolong -> correct chain between ``lev`` and ``nxt``."""
+    prolong -> correct chain between ``lev`` and ``nxt``: fp32 levels, and
+    ``fields`` (the cycle passes the level's u and f) fp32 too."""
     return (_kernels(cfg.backend)
             and cfg.restriction == "full_weighting"
             and lev.spec.all_dirichlet
-            and lev.dtype == torch.float32 and nxt.dtype == torch.float32)
+            and lev.dtype == torch.float32 and nxt.dtype == torch.float32
+            and _fields_ok(lev, fields))
 
 
 def residual_restrict3d(lev, nxt, u, f):

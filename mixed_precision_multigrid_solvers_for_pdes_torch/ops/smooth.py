@@ -21,10 +21,17 @@ at their end. The JAX smoothers take ``sync`` and ``cyclic_axes``
 arguments because its stencils read the duplicates and do not know their
 periodic axes; the port's stencils know their axes. Updates divide by
 ``c`` as the JAX package's XLA smoothers do. The colour of node (i, j) is
-that of its global index: red where (i + j) is even.
+that of its global index: red where (i + j) is even. A ``Stencil9`` (a
+Galerkin level) smooths through the same code: its neighbour sum has the
+corners, so a colour update reads the pre-colour field at all eight
+neighbours, as the JAX package's whole-array update does, and the line
+smoothers keep the line pair in the tridiagonal and lag the rest, corners
+included.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,6 +43,12 @@ from .tridiag import _zshift
 RBGS_METHODS = ("rbgs", "gauss_seidel", "red_black", "sor")
 LINE_METHODS = ("line_x", "line_y", "adi")
 METHODS = ("jacobi", "rbgs_rev", "chebyshev") + RBGS_METHODS + LINE_METHODS
+
+
+def optimal_sor_omega(nx: int, ny: int) -> float:
+    """omega* = 2 / (1 + sin(pi h)) for the 5-point Laplacian."""
+    h = 1.0 / (max(nx, ny) - 1)
+    return 2.0 / (1.0 + math.sin(math.pi * h))
 
 
 def _red(st: Stencil, u: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,14 @@ interior 1..n-2 and a tensor stencil on every node, because a Neumann/Robin
 ring holds unknowns: the neighbour outside the domain reads an explicit zero
 halo, as the JAX package reads its zero padding, and its coupling is zero
 there anyway. Sums run in the JAX package's order (w, e, s, n), so fp32
-planes and residuals agree bit for bit. The 9-point stencil is ROADMAP
-item 10.
+planes and residuals agree bit for bit.
+
+``Stencil9`` adds the four corner couplings; Galerkin coarsening
+(``ops/galerkin.py``) produces it. Its leaves are always (nx, ny) tensors
+and it never wraps (Galerkin refuses periodic specs), so it acts on every
+node and reads zero outside the array. Its neighbour sum keeps the JAX
+package's order, (w, e, s, n) first and then the corners, so fp32
+residuals agree bit for bit too.
 """
 
 from __future__ import annotations
@@ -72,6 +78,37 @@ class Stencil:
         return (self.c, self.w, self.e, self.s, self.n)
 
 
+_S9_FIELDS = ("c", "w", "e", "s", "n", "sw", "se", "nw", "ne")
+
+
+@dataclasses.dataclass(frozen=True)
+class Stencil9:
+    """9-point stencil, the same sign convention with corner couplings:
+    ``A u = c*u - sum(coef_d * u_{+d})``. Leaves are (nx, ny) tensors of the
+    level's dtype and device."""
+
+    c: Any   # centre (diagonal)
+    w: Any   # coupling to u[i-1, j]
+    e: Any   # coupling to u[i+1, j]
+    s: Any   # coupling to u[i, j-1]
+    n: Any   # coupling to u[i, j+1]
+    sw: Any  # coupling to u[i-1, j-1]
+    se: Any  # coupling to u[i+1, j-1]
+    nw: Any  # coupling to u[i-1, j+1]
+    ne: Any  # coupling to u[i+1, j+1]
+
+    wrap = (False, False)
+    scalar = False
+
+    def astype(self, dtype) -> "Stencil9":
+        dtype = as_dtype(dtype)
+        return Stencil9(*(x.to(dtype) for x in self.coefs))
+
+    @property
+    def coefs(self):
+        return tuple(getattr(self, k) for k in _S9_FIELDS)
+
+
 def region(st: Stencil, x: torch.Tensor) -> torch.Tensor:
     """The nodes ``st`` acts on, as a view of ``x``: per axis 0..n-2 when
     periodic, else the interior for a scalar stencil and every node for a
@@ -103,12 +140,17 @@ def _halo(st: Stencil, u: torch.Tensor) -> torch.Tensor:
 
 def neighbor_sum(st: Stencil, u: torch.Tensor) -> torch.Tensor:
     """w*u[i-1,j] + e*u[i+1,j] + s*u[i,j-1] + n*u[i,j+1] over
-    ``region(st, u)``; a tensor stencil reads zero outside the array, and a
-    periodic axis wraps."""
+    ``region(st, u)``, plus sw*u[i-1,j-1] + se*u[i+1,j-1] + nw*u[i-1,j+1]
+    + ne*u[i+1,j+1] for a ``Stencil9``; a tensor stencil reads zero outside
+    the array, and a periodic axis wraps."""
     p = _halo(st, u)
     w, e, s, n = (coef(st, x) for x in (st.w, st.e, st.s, st.n))
-    return (w * p[:-2, 1:-1] + e * p[2:, 1:-1]
-            + s * p[1:-1, :-2] + n * p[1:-1, 2:])
+    out = (w * p[:-2, 1:-1] + e * p[2:, 1:-1]
+           + s * p[1:-1, :-2] + n * p[1:-1, 2:])
+    if isinstance(st, Stencil9):
+        out = out + (st.sw * p[:-2, :-2] + st.se * p[2:, :-2]
+                     + st.nw * p[:-2, 2:] + st.ne * p[2:, 2:])
+    return out
 
 
 def apply(st: Stencil, u: torch.Tensor) -> torch.Tensor:

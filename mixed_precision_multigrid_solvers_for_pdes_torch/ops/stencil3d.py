@@ -10,7 +10,7 @@ branch on a Dirichlet box), ``neighbor_sum``, ``apply`` and ``residual`` in
 with 1/h^2 folded into the coefficients. Fields have the logical shape
 (nx, ny, nz); neighbour reads are slices of the interior, so nothing wraps.
 Variable coefficients, array ``lam``, the Neumann/Robin ghost folds and the
-27-point Galerkin stencil are ROADMAP items 10 and 13.
+27-point Galerkin stencil are ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ class Stencil27:
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError("the 27-point Galerkin stencil is ROADMAP "
-                                  "items 10 and 13 (ops/galerkin.py)")
+                                  "item 13 (ops/galerkin.py)")
 
 
 def interior(u: torch.Tensor, dx: int = 0, dy: int = 0, dz: int = 0):

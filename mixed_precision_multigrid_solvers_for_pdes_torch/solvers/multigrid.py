@@ -4,7 +4,8 @@ cycle-iteration solve.
 Counterpart of ``Level``, ``MultigridConfig``, ``build_hierarchy``
 (rediscretization), ``_cycle``, ``mg_cycle``, ``fmg``, ``mg_solve``,
 ``_unpack_info``, ``_sample_coarse`` and ``convergence_factor`` in
-``mixed_precision_multigrid_solvers_for_pdes_tpu/solvers/multigrid.py``.
+``mixed_precision_multigrid_solvers_for_pdes_tpu/solvers/multigrid.py``,
+Galerkin coarsening included.
 
 PyTorch runs eagerly, so the cycle recursion runs in Python and each level
 step goes through ``ops/dispatch.py``, which picks the CUDA kernels or the
@@ -21,7 +22,15 @@ A level may carry an irregular domain (``core/domain.py``), ANDed into its
 unknowns; such a level takes no kernel. A hierarchy's levels may differ in
 dtype (``PrecisionPolicy.level_dtypes``): the residual is restricted into
 the coarse level's dtype and the correction prolonged into the fine
-level's. Galerkin coarsening is ROADMAP item 10.
+level's. The fields of a level may be wider than the level (a multigrid
+preconditioner under an fp64 Krylov loop hands level 0 an fp64 iterate):
+they then stay wide through that level's smoothing, residual and
+correction, as PyTorch's type promotion and the JAX package's agree, and
+the kernel gates send that level to the plain path.
+With ``coarsening='galerkin'`` every level below the finest holds the RAP
+operator of the level above (``ops/galerkin.py``), a ``Stencil9``, built
+in ``galerkin_dtype`` down the chain and cast to each level's dtype; such
+levels take no 2D kernel.
 """
 
 from __future__ import annotations
@@ -33,13 +42,13 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from ..core import bc as bc_mod
+from ..core import bc as bc_mod, domain as domain_mod
 from ..core.bc import BoundarySpec
 from ..core.device import resolve_device
 from ..core.grid import Grid
 from ..core.precision import PrecisionPolicy, as_dtype
-from ..ops import dispatch, norms, smooth as smooth_mod, stencil as st_mod, \
-    transfer
+from ..ops import dispatch, galerkin as galerkin_mod, norms, \
+    smooth as smooth_mod, stencil as st_mod, transfer
 from ..ops.stencil import Stencil
 
 
@@ -59,11 +68,8 @@ class Level:
     @functools.cached_property
     def unknown(self) -> torch.Tensor:
         """Bool (nx, ny) mask of the nodes the solver owns (built once)."""
-        mask = bc_mod.unknown_mask(self.grid.nx, self.grid.ny, self.spec,
-                                   device=self.device)
-        if self.domain is not None:
-            mask = mask & self.domain.interior_mask(self.grid, self.device)
-        return mask
+        return domain_mod.unknown_mask(self.grid, self.spec, self.domain,
+                                       device=self.device)
 
     @functools.cached_property
     def sync(self):
@@ -94,7 +100,11 @@ class MultigridConfig:
     tol: float = 1e-10
     rtol: bool = True             # tolerance relative to max(||f||, ||r0||)
     backend: str = "auto"         # auto | torch (see ops/dispatch.py)
-    coarsening: str = "rediscretize"  # galerkin: ROADMAP item 10
+    # 'rediscretize' rebuilds the operator on each coarse grid; 'galerkin'
+    # forms A_c = R A P (ops/galerkin.py), 9-point below the finest level
+    coarsening: str = "rediscretize"
+    # the RAP chain's dtype for coarsening='galerkin'
+    galerkin_dtype: str = "float64"
     # W/F branching applies on the finest `w_depth` levels; below them the
     # recursion is a V-cycle
     w_depth: int = 4
@@ -119,16 +129,17 @@ def build_hierarchy(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
                     dtype=None, domain=None, device=None,
                     cfg: MultigridConfig = MultigridConfig()
                     ) -> Tuple[Level, ...]:
-    """Levels by repeated 2:1 coarsening and rediscretization, finest
-    first. The coefficient field ``a`` and an array ``lam`` ((nx, ny), any
-    array type) are injection-sampled onto each coarse grid and the operator
-    is rebuilt there. The levels' dtypes come from ``policy`` when it is
-    given (``PrecisionPolicy.level_dtypes``), else every level takes
+    """Levels by repeated 2:1 coarsening, finest first. With
+    ``cfg.coarsening='rediscretize'`` the coefficient field ``a`` and an
+    array ``lam`` ((nx, ny), any array type) are injection-sampled onto each
+    coarse grid and the operator is rebuilt there; with 'galerkin' each
+    coarse operator is the RAP of the one above, computed in
+    ``cfg.galerkin_dtype`` from the finest level's operator in that dtype
+    and cast to the level's. The levels' dtypes come from ``policy`` when
+    it is given (``PrecisionPolicy.level_dtypes``), else every level takes
     ``dtype`` (float32 by default); every level carries ``domain``."""
-    if cfg.coarsening != "rediscretize":
-        raise NotImplementedError(
-            f"coarsening {cfg.coarsening!r} is not ported yet (ROADMAP item "
-            "10, ops/galerkin.py)")
+    if cfg.coarsening not in ("rediscretize", "galerkin"):
+        raise ValueError(f"unknown coarsening {cfg.coarsening!r}")
     device = resolve_device(device)
     grids = [grid]
     while grids[-1].can_coarsen() and len(grids) < cfg.max_levels:
@@ -138,12 +149,24 @@ def build_hierarchy(grid: Grid, spec: BoundarySpec = BoundarySpec(), *,
     else:
         dtypes = (as_dtype(torch.float32 if dtype is None else dtype),) \
             * len(grids)
+    galerkin = cfg.coarsening == "galerkin"
+    rap_dt = as_dtype(cfg.galerkin_dtype)
     levels = []
-    for g, dt in zip(grids, dtypes):
-        levels.append(Level(
-            stencil=st_mod.make_stencil(g, spec, a=a, lam=lam, dtype=dt,
-                                        device=device),
-            grid=g, spec=spec, dtype=dt, device=device, domain=domain))
+    for i, (g, dt) in enumerate(zip(grids, dtypes)):
+        if i == 0 or not galerkin:
+            st = st_mod.make_stencil(g, spec, a=a, lam=lam, dtype=dt,
+                                     device=device)
+            if galerkin:
+                st_hi = st_mod.make_stencil(g, spec, a=a, lam=lam,
+                                            dtype=rap_dt, device=device)
+        else:
+            st_hi = galerkin_mod.galerkin_coarse_stencil(
+                st_hi, grids[i - 1], g, spec, domain=domain, dtype=rap_dt,
+                restriction=cfg.restriction, prolongation=cfg.prolongation,
+                device=device)
+            st = st_hi.astype(dt)
+        levels.append(Level(stencil=st, grid=g, spec=spec, dtype=dt,
+                            device=device, domain=domain))
         a, lam = _sample_coarse(a), _sample_coarse(lam)
     return tuple(levels)
 
@@ -165,7 +188,7 @@ def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
     if cycle_type not in ("V", "W", "F"):
         raise ValueError(f"unknown cycle {cycle_type!r}")
     lev = levels[lvl]
-    if dispatch.tail_ok(levels, lvl, cfg, cycle_type):
+    if dispatch.tail_ok(levels, lvl, cfg, cycle_type, u, f):
         # the whole remaining V-recursion in one tail-kernel launch
         return dispatch.tail_vcycle(levels, lvl, u, f, cfg)
     if lvl == len(levels) - 1:
@@ -176,7 +199,7 @@ def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
 
     u = _smooth(lev, u, f, cfg, cfg.pre_sweeps)
     nxt = levels[lvl + 1]
-    fused = dispatch.transfer_fused_ok(lev, nxt, cfg)
+    fused = dispatch.transfer_fused_ok(lev, nxt, cfg, u, f)
     if fused:
         fc = dispatch.residual_restrict(lev, nxt, u, f)
     else:

@@ -78,8 +78,7 @@ def build_hierarchy3d(grid: Grid3D, spec: BoundarySpec3D = BoundarySpec3D(),
     if policy is not None:
         raise _not_ported("policy= (per-level dtypes in 3D)", "item 13")
     if cfg.coarsening != "rediscretize":
-        raise _not_ported(f"3D coarsening {cfg.coarsening!r}",
-                          "items 10 and 13")
+        raise _not_ported(f"3D coarsening {cfg.coarsening!r}", "item 13")
     dtype = as_dtype(dtype)
     device = resolve_device(device)
     grids = [grid]
@@ -114,7 +113,7 @@ def _cycle3(levels: Tuple[Level3D, ...], u, f, lvl: int,
     u = _smooth3(lev, u, f, cfg, method=cfg.smoother, sweeps=cfg.pre_sweeps,
                  omega=cfg.omega)
     nxt = levels[lvl + 1]
-    fused = dispatch.transfer_fused3d_ok(lev, nxt, cfg)
+    fused = dispatch.transfer_fused3d_ok(lev, nxt, cfg, u, f)
     if fused:
         fc = dispatch.residual_restrict3d(lev, nxt, u, f)
     else:

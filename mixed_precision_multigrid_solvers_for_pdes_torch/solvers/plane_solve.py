@@ -13,7 +13,8 @@ without FMG: an fp64 residual and norm in plane space, ``inner_cycles`` fp32
 plane cycles per step, a masked update, one host readback per step.
 
 Scope (``plane_solve_ok``): at least two levels, a V-cycle, an fp32 level 0
-with a constant-coefficient all-Dirichlet 5-point stencil on the whole
+with a constant-coefficient all-Dirichlet 5-point stencil (never a
+``Stencil9``) on the whole
 rectangle (no irregular domain), full-weighting restriction, bilinear
 prolongation and an RB-GS-family smoother. As in the
 JAX package, level-0 post-smoothing sweeps red then black even when
@@ -27,6 +28,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..ops import dispatch, planes as pln, smooth as smooth_mod
+from ..ops.stencil import Stencil9
 from . import multigrid as mg_mod
 from .multigrid import Level, MultigridConfig
 
@@ -36,6 +38,8 @@ def plane_solve_ok(levels, cfg: MultigridConfig) -> bool:
     if len(levels) < 2 or cfg.cycle != "V":
         return False
     lev0 = levels[0]
+    if isinstance(lev0.stencil, Stencil9):
+        return False  # K reads five coefficients
     if not lev0.stencil.scalar or not lev0.spec.all_dirichlet:
         return False
     if lev0.domain is not None:

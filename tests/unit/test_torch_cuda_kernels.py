@@ -248,6 +248,45 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ktransfer.residual_restrict(st, u, u, out_dtype=torch.float64)
 
 
+def test_2d_wrappers_refuse_a_stencil9(dev):
+    """A Galerkin level's 9-point stencil reaches no 2D kernel: every 2D
+    wrapper that takes a stencil raises on one and launches nothing."""
+    prob = T.jump_coefficient_problem(65)
+    cfg = T.MultigridConfig(coarsening="galerkin")
+    levels = T.build_hierarchy(prob.grid, prob.spec, a=prob.a,
+                               dtype="float32", device=dev, cfg=cfg)
+    st9, lev = levels[1].stencil, levels[1]
+    assert isinstance(st9, stencil.Stencil9)
+    u, f = lev.zeros(), lev.zeros()
+    shapes = [x.grid.shape for x in levels[1:]]
+    calls = {
+        "multisweep": lambda: ksmooth.multisweep(st9, u, f),
+        "multisweep_parity": lambda: ksmooth.multisweep_parity(st9, u, f),
+        "multisweep_var": lambda: ksmooth_var.multisweep_var(st9, u, f),
+        "multisweep_planes": lambda: ksmooth_planes.multisweep_planes(
+            st9, planes.split_field(u), planes.split_field(f), nx=33, ny=33,
+            sweeps=2, omega=1.0),
+        "residual_restrict": lambda: ktransfer.residual_restrict(st9, u, f),
+        "residual_restrict_var": lambda: ktransfer.residual_restrict_var(
+            st9, u, f),
+        "tail_vcycle": lambda: ktail.tail_vcycle(
+            [x.stencil for x in levels[1:]], u, f, shapes=shapes, pre=2,
+            post=2, omega=1.0),
+        "tail_vcycle_var": lambda: ktail.tail_vcycle_var(
+            [x.stencil for x in levels[1:]], u, f, shapes=shapes, pre=2,
+            post=2, omega=1.0),
+    }
+    before = {name: w.launches for name, w in (
+        ("A", ksmooth.multisweep), ("H", ksmooth_var.multisweep_var),
+        ("B", ktransfer.residual_restrict), ("D", ktail.tail_vcycle))}
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="Stencil9"):
+            call()
+    assert before == {name: w.launches for name, w in (
+        ("A", ksmooth.multisweep), ("H", ksmooth_var.multisweep_var),
+        ("B", ktransfer.residual_restrict), ("D", ktail.tail_vcycle))}
+
+
 def _stencil3d(shape, domain):
     g = T.Grid3D(*shape, DOMAINS3D[domain])
     return g, stencil3d.make_stencil3d(g)

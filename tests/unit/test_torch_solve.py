@@ -195,15 +195,25 @@ def test_dispatch_gates():
 
 
 def test_unported_features_raise():
-    """Galerkin coarsening (ROADMAP item 10) still raises; periodic sides,
-    W cycles, line smoothers and irregular domains, which raised here
-    before they were ported, now run (their tests hold them to the JAX
-    package in test_torch_cycles_smoothers.py,
-    test_torch_bc_segments_periodic.py and test_torch_domain.py), and a
-    domain of a kind the port does not know is refused."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    """3D Galerkin coarsening (ROADMAP item 13) still raises; 2D Galerkin
+    coarsening, periodic sides, W cycles, line smoothers and irregular
+    domains, which raised here before they were ported, now run (their
+    tests hold them to the JAX package in test_torch_galerkin.py,
+    test_torch_cycles_smoothers.py, test_torch_bc_segments_periodic.py and
+    test_torch_domain.py), and a coarsening or a domain of a kind the port
+    does not know is refused."""
+    with pytest.raises(NotImplementedError, match="item"):
+        T.build_hierarchy3d(T.Grid3D(9, 9, 9),
+                            cfg=T.MultigridConfig(coarsening="galerkin"),
+                            device="cpu")
+    galerkin = T.build_hierarchy(T.Grid(9, 9),
+                                 cfg=T.MultigridConfig(coarsening="galerkin"),
+                                 device="cpu")
+    assert [type(lev.stencil).__name__ for lev in galerkin] == \
+        ["Stencil", "Stencil9", "Stencil9"]
+    with pytest.raises(ValueError, match="coarsening"):
         T.build_hierarchy(T.Grid(9, 9),
-                          cfg=T.MultigridConfig(coarsening="galerkin"),
+                          cfg=T.MultigridConfig(coarsening="algebraic"),
                           device="cpu")
     with pytest.raises(ValueError, match="unknown domain"):
         interop.domain_from_jax(types.SimpleNamespace(x_cut=0.5))
