@@ -153,6 +153,34 @@ launch counts reset to zero and held to the JAX reference's count:
      with the 3D multigrid preconditioner at 257^3 (8; E, F and G on every
      level below level 0); ms per solve and profiles of the three
      multigrid-preconditioned solves.
+The heat equations (after phase 26; HEAT_RUNS, HEAT3D_RUNS), every
+implicit step a shifted-operator V-cycle (c + lam on every level):
+ 27. first A, B, C and D on the shifted hierarchy of a 1025^2 CN step (lam
+     = 1/(0.5 dt) in fp32), H, I, C and J on the shifted levels of the
+     a = 1 + x + y problem, I and C on those of neumann_heat, and E, F and
+     G on a shifted 513^3 level against their twins (H-J, C with sides and
+     E-G bit for bit; A-D reported); then solve_heat at 1025^2 with the
+     default HeatConfig: pure diffusion by CN (10 steps, dt 1e-4), BDF2
+     (10, its CN bootstrap included), backward Euler (5) and explicit Euler
+     (10 at 0.9 x the stability limit), all fp32; CN on neumann_heat and
+     on the a = 1 + x + y problem (5 each, fp32); CN in fp64 (10 steps, dt
+     2e-3) and adaptive CN in fp64 on pure_diffusion(257) (t_final 0.05,
+     dt0 0.005, dt_tol 1e-5). Each run from launch counts reset to zero:
+     launches equal to the plan per V-cycle times the cycles counted (A,
+     B, C three times and D once per cycle, 12 cycles per fp32 step; H, I,
+     C, J; I and C on every level), none on fp64 or explicit runs; fp64
+     runs at the JAX reference's steps and l2 (HEAT_REF, +-2%), fp32 runs
+     under HEAT_L2_BOUND and equal to backend='torch' on the card (bit for
+     bit without A-D, else within HEAT_PATH_RTOL); a 5 + 5 step checkpoint
+     resume equal to the uninterrupted CN run bit for bit; ms per step
+     (minimum of 3) and a profile of one CN step;
+ 28. solve_heat3d on oscillating3d in fp32 (cycles_per_step 2): CN at 513^3
+     and 257^3 and BDF2 at 257^3, 10 steps of dt 1e-3 each (the 513^3 CN
+     run also in fp64 and with 8 cycles, l2 printed): E, F and G make their
+     planned launches per cycle (2 cycles per step), l2 under
+     HEAT3D_L2_BOUND, backend='torch' on the card equal bit for bit, peak
+     memory, ms per step (minimum of 2) and a profile of a one-step 513^3
+     run.
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -333,6 +361,61 @@ KRYLOV_REF = {
 }
 RAP_RTOL = 1e-12          # the card's RAP chain against the CPU's (fp64)
 TAIL_ENTRY = 129           # dispatch.TAIL_MAX_ENTRY: D takes V entries <= it
+# The heat equations (phases 27-28). Runs (the same table as
+# scripts/heat_reference.py): problem, n, scheme, dtype, t_final, dt,
+# n_steps, config changes; the default HeatConfig otherwise (rbgs, omega 1,
+# cycles_per_step 2, step_rtol 1e-9, max_cycles_per_step 12). 'explicit'
+# takes 10 steps at 0.9 x the stability limit.
+HEAT_RUNS = {
+    "cn": ("pure_diffusion", N, "crank_nicolson", "float32", 1e-3, 1e-4,
+           None, {}),
+    "bdf2": ("pure_diffusion", N, "bdf2", "float32", 1e-3, 1e-4, None, {}),
+    "be": ("pure_diffusion", N, "backward_euler", "float32", 5e-4, 1e-4,
+           None, {}),
+    "explicit": ("pure_diffusion", N, "explicit", "float32", None, None, 10,
+                 {}),
+    "neumann": ("neumann_heat", N, "crank_nicolson", "float32", 5e-4, 1e-4,
+                None, {}),
+    "varcoef": ("varcoef", N, "crank_nicolson", "float32", 5e-4, 1e-4,
+                None, {}),
+    "cn_fp64": ("pure_diffusion", N, "crank_nicolson", "float64", 2e-2,
+                2e-3, None, {}),
+    "adaptive_fp64": ("pure_diffusion", 257, "crank_nicolson", "float64",
+                      0.05, 0.005, None, {"adaptive_dt": True,
+                                          "dt_tol": 1e-5}),
+}
+# fp64 runs: the JAX package's steps and l2 on the CPU at the same size
+# (scripts/heat_reference.py); the card is held to the steps and to the l2
+# within L2_RTOL.
+HEAT_REF = {"cn_fp64": (10, 1.717379e-5), "adaptive_fp64": (13, 2.370413e-5)}
+# fp32 runs: l2 at most this, 1.5 x the larger of the JAX package's and the
+# port's plain path's l2 on the CPU (scripts/heat_reference.py): an fp32
+# step sits on its rounding noise, and XLA's FMAs and torch's roundings
+# give different noise (the port's CN l2 is 2.05x JAX's).
+HEAT_L2_BOUND = {"cn": 1.6159e-6, "bdf2": 1.6220e-6, "be": 7.9350e-6,
+                 "explicit": 1.4495e-7, "neumann": 9.2146e-7,
+                 "varcoef": 2.3047e-6}
+# kernel path against plain path, max|du| <= this * max|u|, on runs through
+# A-D (A-D multiply by 1/c where their twins divide; the port's plain path
+# on the CPU differs from JAX's by up to 4.0e-6 at 1025^2); runs through
+# H-J, I and C alone, or no kernel are held bit for bit
+HEAT_PATH_RTOL = 2e-5
+HEAT_CYCLES_FP32 = 12     # a default fp32 step runs max_cycles_per_step
+# 3D (phase 28): oscillating3d, fp32, cycles_per_step 2: name: (n, scheme,
+# t_final, dt). The 257^3 l2 bounds are 1.5 x the larger of the JAX
+# package's and the port's plain l2 on the CPU (scripts/heat_reference.py
+# 3d: CN 2.154719e-7 and 5.073197e-7, BDF2 2.228723e-6 and 2.869290e-6).
+# No reference reaches 513^3 (a CPU run of that size is out of reach), and
+# the 257^3 bound does not carry over: two fp32 V-cycles per step leave an
+# error that grows with n (the residual's rounding, ~2^-24 * 6/h^2 * |u|,
+# against F ~ lam * u), 1.275619e-5 at 513^3 on both paths of the card
+# against 4.945241e-7 at 257^3 (fp64: 1.122877e-6). The 513^3 bound is 1.5 x
+# that plain-path value, a tripwire for regressions; the kernel path is
+# held to the plain path bit for bit beside it.
+HEAT3D_RUNS = {"cn": (N3, "crank_nicolson", 1e-2, 1e-3),
+               "cn_257": (N3_REF, "crank_nicolson", 1e-2, 1e-3),
+               "bdf2": (N3_REF, "bdf2", 1e-2, 1e-3)}
+HEAT3D_L2_BOUND = {"cn": 1.9134e-5, "cn_257": 7.6098e-7, "bdf2": 4.3039e-6}
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
 
@@ -2507,6 +2590,405 @@ def krylov_path(mg, card, dev):
     print(f"phase 26: {time.perf_counter() - start:.1f} s")
 
 
+def varcoef_heat(n):
+    """a = 1 + x + y, u = sin(pi x) sin(pi y) e^{-t} on the unit square,
+    all sides Dirichlet: q = u_t - div(a grad u) = e^{-t} [(2 pi^2 a - 1)
+    sin sin - pi (cos(pi x) sin(pi y) + sin(pi x) cos(pi y))] (the same
+    problem as scripts/heat_reference.py's)."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch import Grid
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications \
+        import heat, heat_problems
+
+    pi = np.pi
+
+    def exact(X, Y, t):
+        e = torch.exp(-t)
+        return heat_problems._up(torch.sin(pi * X) * torch.sin(pi * Y), e) * e
+
+    def q(X, Y, t):
+        e = torch.exp(-t)
+        s = ((2 * pi**2 * (1.0 + X + Y) - 1.0) * torch.sin(pi * X)
+             * torch.sin(pi * Y)
+             - pi * (torch.cos(pi * X) * torch.sin(pi * Y)
+                     + torch.sin(pi * X) * torch.cos(pi * Y)))
+        return heat_problems._up(s, e) * e
+
+    return heat.heat_problem_from_callables(
+        "heat_varcoef", Grid(n, n), exact=exact, q=q,
+        a=lambda X, Y: 1.0 + X + Y)
+
+
+def heat_setup(mg, key, backend):
+    """(problem, t_final, dt, n_steps, HeatConfig) of HEAT_RUNS[key]."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications \
+        import heat, heat_problems
+
+    name, n, scheme, dtype, t_final, dt, n_steps, extra = HEAT_RUNS[key]
+    prob = (varcoef_heat(n) if name == "varcoef"
+            else heat_problems.CATALOGUE[name](n))
+    if scheme == "explicit":
+        t_final = 10 * 0.9 * heat.stability_limit_dt(prob.grid, prob.alpha)
+    cfg = heat.HeatConfig(scheme=scheme, dtype=dtype, mg=mg.MultigridConfig(
+        smoother="rbgs", omega=1.0, backend=backend), **extra)
+    return prob, t_final, dt, n_steps, cfg
+
+
+def counted_cycles(run, module, name):
+    """``run()`` with ``module.name`` (a cycle function) counting its
+    calls; returns (result, calls)."""
+    real, calls = getattr(module, name), [0]
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    setattr(module, name, counting)
+    try:
+        return run(), calls[0]
+    finally:
+        setattr(module, name, real)
+
+
+def heat_cycle_plan(levels, cfg):
+    """The kernel launches of one shifted V-cycle over 2D heat levels, from
+    dispatch's gates: an all-Dirichlet level above the tail entry smooths
+    twice through A (constant coefficients) or H (coefficient planes),
+    restricts through B or I and prolongs through C; the tail from
+    TAIL_ENTRY is one D or J launch. A level with Neumann sides smooths
+    plain and takes no tail: I and C on every level above the coarsest."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_var as ksv
+
+    scalar = levels[0].stencil.scalar
+    dirichlet = levels[0].spec.all_dirichlet
+    passes = ks if scalar else ksv
+    plan = {}
+
+    def add(name, k=1):
+        plan[name] = plan.get(name, 0) + k
+
+    for lev in levels[:-1]:
+        if dirichlet and lev.grid.nx <= TAIL_ENTRY:
+            add("tail_vcycle" if scalar else "tail_vcycle_var")
+            return plan
+        if dirichlet:
+            add("smooth_multisweep" if scalar else "smooth_var",
+                len(passes.plan_passes(cfg.pre_sweeps))
+                + len(passes.plan_passes(cfg.post_sweeps)))
+        add("residual_restrict" if scalar else "residual_restrict_var")
+        add("prolong_correct")
+    return plan
+
+
+def heat_kernel_checks(mg, dev):
+    """A, B, C and D on the shifted hierarchy of a 1025^2 CN step (lam =
+    1/(0.5 dt) in fp32), H, I, C and J on the shifted levels of the
+    varcoef run, I and C on those of neumann_heat, and E, F and G on a
+    shifted 513^3 level, against their twins (seeded inputs on the card).
+    H, I, J, C and E-G are held bit for bit, as on unshifted stencils; A-D
+    to KERNEL_RTOL, each reported."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications \
+        import heat, heat3d, heat_problems
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth3d as ks3, smooth_var as ksv, \
+        tail as kt, transfer as kx, transfer3d as kx3
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+
+    def field(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    lam = heat.theta_shift(1.0, 0.5, 1e-4, torch.float32)
+    print(f"heat shift lam = 1/(0.5 * 1e-4) in fp32: {lam.item()!r}")
+    errs = {}
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0)
+    sm = dict(method="rbgs", sweeps=cfg.pre_sweeps, omega=cfg.omega)
+    tail_kw = dict(pre=cfg.pre_sweeps, post=cfg.post_sweeps, omega=cfg.omega,
+                   method=cfg.smoother, coarse_sweeps=cfg.coarse_sweeps,
+                   symmetric=cfg.symmetric)
+
+    def check(name, label, kernel, plain, inputs, exact):
+        one = {}
+        compare(name, f"shifted {label}", kernel, plain, inputs, one,
+                exact=exact)
+        print(f"  {name} shifted {label}: "
+              f"{'bit for bit' if one[name] == 0 else 'NOT bit for bit'}")
+        errs[name] = max(errs.get(name, 0.0), one[name])
+
+    hier = {
+        "pure_diffusion": mg.build_hierarchy(mg.Grid(N, N), device=dev,
+                                             cfg=cfg),
+        "varcoef": mg.build_hierarchy(
+            mg.Grid(N, N), a=varcoef_heat(N).a, device=dev, cfg=cfg),
+        "neumann": mg.build_hierarchy(
+            mg.Grid(N, N), heat_problems.neumann_heat(3).spec, device=dev,
+            cfg=cfg)}
+    for name, levels in hier.items():
+        levels = heat.shift_hierarchy(levels, lam)
+        sides = levels[0].spec.dirichlet_sides
+        for lev in levels[:3]:
+            n, st, nc = lev.grid.nx, lev.stencil, (lev.grid.nx - 1) // 2 + 1
+            u, f = field((n, n)), field((n, n), 1e3)
+            ec = field((nc, nc))
+            if name == "pure_diffusion":
+                check("smooth_multisweep", f"{n}^2",
+                      lambda a, b: ks.multisweep(st, a, b, **sm),
+                      lambda a, b: ks.multisweep_plain(st, a, b, **sm),
+                      lambda: (u.clone(), f), False)
+                check("residual_restrict", f"{n}->{nc}",
+                      lambda a, b: kx.residual_restrict(st, a, b),
+                      lambda a, b: kx.residual_restrict_plain(st, a, b),
+                      lambda: (u, f), False)
+            else:
+                if name == "varcoef":
+                    check("smooth_var", f"varcoef {n}^2",
+                          lambda a, b: ksv.multisweep_var(st, a, b, **sm),
+                          lambda a, b: ks.multisweep_plain(st, a, b, **sm),
+                          lambda: (u.clone(), f), True)
+                check("residual_restrict_var", f"{name} {n}->{nc}",
+                      lambda a, b: kx.residual_restrict_var(st, a, b,
+                                                            sides=sides),
+                      lambda a, b: kx.residual_restrict_plain(st, a, b,
+                                                              sides=sides),
+                      lambda: (u, f), True)
+            check("prolong_correct", f"{name} {nc}->{n}",
+                  lambda a, b: kx.prolong_correct(a, b, sides=sides),
+                  lambda a, b: kx.prolong_correct_plain(a, b, sides=sides),
+                  lambda: (ec, u.clone()), name != "pure_diffusion")
+        if name != "neumann":
+            tail = [lev for lev in levels if lev.grid.nx <= TAIL_ENTRY]
+            sts = [lev.stencil for lev in tail]
+            shapes = [lev.grid.shape for lev in tail]
+            f = field(shapes[0], 1e3)
+            u0 = torch.zeros(shapes[0], device=dev)
+            kernel = kt.tail_vcycle if name == "pure_diffusion" \
+                else kt.tail_vcycle_var
+            check("tail_vcycle" if name == "pure_diffusion"
+                  else "tail_vcycle_var", f"{name} {TAIL_ENTRY}^2",
+                  lambda a, b: kernel(sts, a, b, shapes=shapes, **tail_kw),
+                  lambda a, b: kt.tail_vcycle_plain(sts, a, b, shapes=shapes,
+                                                    **tail_kw),
+                  lambda: (u0.clone(), f), name != "pure_diffusion")
+    del hier
+    levels3 = heat3d.shift_hierarchy3d(mg.build_hierarchy3d(
+        mg.Grid3D(N3, N3, N3), dtype="float32", device=dev, cfg=cfg)[:2],
+        lam)
+    st = levels3[0].stencil
+    u, f = torch.zeros((N3,) * 3, device=dev), field((N3,) * 3, 1e3)
+    u[1:-1, 1:-1, 1:-1] = field((N3 - 2,) * 3)  # a zero Dirichlet shell
+    nc = levels3[1].grid.nx
+    check("rbgs3d", f"{N3}^3",
+          lambda a, b: ks3.rbgs3d(st, a, b, sweeps=2),
+          lambda a, b: ks3.rbgs3d_plain(st, a, b, sweeps=2),
+          lambda: (u.clone(), f), True)
+    check("residual_restrict3d", f"{N3}->{nc}",
+          lambda a, b: kx3.residual_restrict3d(st, a, b),
+          lambda a, b: kx3.residual_restrict3d_plain(st, a, b),
+          lambda: (u, f), True)
+    ec = field((nc,) * 3)
+    check("prolong_correct3d", f"{nc}->{N3}", kx3.prolong_correct3d,
+          kx3.prolong_correct3d_plain, lambda: (ec, u.clone()), True)
+    del u, f, ec
+    torch.cuda.empty_cache()
+    return errs
+
+
+def heat_path(mg, card, dev):
+    """Phase 27: the 2D heat equations at 1025^2 (HEAT_RUNS): each run's
+    launches per cycle and cycles per step; fp64 runs against the JAX
+    package's steps and l2, fp32 runs against their l2 bound and the plain
+    path on the card; a checkpoint resume; ms per step and a profile of one
+    CN step."""
+    import shutil as _shutil
+
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications \
+        import heat
+    from mixed_precision_multigrid_solvers_for_pdes_torch.solvers import \
+        multigrid
+
+    start = time.perf_counter()
+    solved = {}
+    for key, (name, n, scheme, dtype, *_) in HEAT_RUNS.items():
+        prob, t_final, dt, n_steps, cfg = heat_setup(mg, key, "auto")
+        (res, got), cycles = counted_cycles(lambda: counted_run(
+            lambda: mg.solve_heat(prob, t_final, dt, cfg, n_steps=n_steps,
+                                  device=dev)), multigrid, "mg_cycle")
+        solved[key] = res
+        print(f"heat {key}: {name} {n}^2 {scheme} {dtype}: steps "
+              f"{res.steps} t {res.t:.6g} errors {res.errors} cycles "
+              f"{cycles}")
+        if tuple(res.u.shape) != (n, n) or not torch.isfinite(res.u).all():
+            fail(f"heat {key}: state misshapen or not finite")
+        levels = mg.build_hierarchy(prob.grid, prob.spec, a=prob.a,
+                                    device=dev, cfg=cfg.mg)
+        implicit = 0 if scheme == "explicit" else res.steps
+        if dtype == "float32" and implicit:
+            per_cycle = heat_cycle_plan(levels, cfg.mg)
+            check_launches(f"heat {key}", got,
+                           {k: v * cycles for k, v in per_cycle.items()})
+            if "tail_vcycle" in per_cycle and cycles != \
+                    HEAT_CYCLES_FP32 * implicit:
+                fail(f"heat {key}: {cycles} cycles in {implicit} fp32 "
+                     f"steps, not {HEAT_CYCLES_FP32} per step")
+        else:
+            check_launches(f"heat {key}", got, {})  # fp64, explicit
+        del levels
+        if key in HEAT_REF:
+            steps, l2_ref = HEAT_REF[key]
+            if res.steps != steps or abs(
+                    res.errors["l2"] / l2_ref - 1) > L2_RTOL:
+                fail(f"heat {key}: {res.steps} steps, l2 "
+                     f"{res.errors['l2']:.6e}; the JAX reference {steps}, "
+                     f"{l2_ref:.6e} (+-{L2_RTOL:.0%})")
+            if key == "adaptive_fp64":
+                print(f"heat {key}: dt_history {res.dt_history.tolist()}")
+            continue
+        if res.errors["l2"] > HEAT_L2_BOUND[key]:
+            fail(f"heat {key}: l2 {res.errors['l2']:.6e} above its bound "
+                 f"{HEAT_L2_BOUND[key]:.6e}")
+        prob_p, *_, cfg_p = heat_setup(mg, key, "torch")
+        t0 = time.perf_counter()
+        res_p, got_p = counted_run(lambda: mg.solve_heat(
+            prob_p, t_final, dt, cfg_p, n_steps=n_steps, device=dev))
+        plain_s = time.perf_counter() - t0
+        check_launches(f"heat {key} torch", got_p, {})
+        du = (res.u - res_p.u).abs().max().item()
+        scale = res_p.u.abs().max().item()
+        exact = key in ("neumann", "varcoef", "explicit")
+        print(f"heat {key}: max|u_auto - u_torch| {du:.3e} (max|u| "
+              f"{scale:.3e}; {'bit for bit' if du == 0 else 'not bit for bit'}"
+              f"); torch l2 {res_p.errors['l2']:.6e}, first call "
+              f"{plain_s * 1e3:.1f} ms")
+        if (exact and du != 0) or du > HEAT_PATH_RTOL * scale:
+            fail(f"heat {key}: kernel and plain paths differ by {du:.3e}")
+        del res_p, prob_p
+    # a checkpoint resume on the card: 5 steps, then 5 more, against the
+    # uninterrupted CN run
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "heat_checkpoint")
+    _shutil.rmtree(ck_dir, ignore_errors=True)
+    try:
+        prob, t_final, dt, _, cfg = heat_setup(mg, "cn", "auto")
+        ck = mg.CheckpointManager(ck_dir)
+        mg.solve_heat(prob, t_final / 2, dt, cfg, checkpoint=ck,
+                      checkpoint_every=5, device=dev)
+        res = mg.solve_heat(prob, t_final, dt, cfg, checkpoint=ck,
+                            checkpoint_every=5, device=dev)
+        same = torch.equal(res.u, solved["cn"].u)
+        print(f"heat checkpoint resume (5 + 5 CN steps): latest step "
+              f"{ck.latest_step()}, equal to the uninterrupted run bit for "
+              f"bit: {same}")
+        if not same or ck.latest_step() != 10:
+            fail("heat: the resumed run differs from the uninterrupted one")
+    finally:
+        _shutil.rmtree(ck_dir, ignore_errors=True)
+    # ms per step, and one CN step profiled
+    for key in ("cn", "bdf2", "varcoef"):
+        prob, t_final, dt, n_steps, cfg = heat_setup(mg, key, "auto")
+        steps = solved[key].steps
+        ms = best_ms(lambda: mg.solve_heat(prob, t_final, dt, cfg,
+                                           n_steps=n_steps, device=dev))
+        print(f"heat {key} {N}^2: {ms / steps:.3f} ms per step ({ms:.3f} ms "
+              f"per {steps}-step run, minimum of 3, initial state and error "
+              f"norms included) [{card}]")
+    prob, t_final, dt, _, cfg = heat_setup(mg, "cn", "auto")
+    levels = mg.build_hierarchy(prob.grid, device=dev, cfg=cfg.mg)
+    step = heat.make_step_fn(prob, levels, cfg)
+    u = prob.initial_state(torch.float32, dev)
+    profile_solve(f"heat CN step {N}^2", lambda: step(u, u, 0.0, dt),
+                  all_wrappers())
+    del solved, levels, u, step
+    torch.cuda.empty_cache()
+    print(f"phase 27: {time.perf_counter() - start:.1f} s")
+
+
+def heat3d_path(mg, card, dev):
+    """Phase 28: solve_heat3d on oscillating3d in fp32 (HEAT3D_RUNS): E, F
+    and G make their planned launches per cycle, l2 within its bound, the
+    plain path on the card bit for bit; ms per step, busy share of one
+    step, peak memory."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications \
+        import heat, heat3d
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth3d as ks3
+    from mixed_precision_multigrid_solvers_for_pdes_torch.solvers import \
+        multigrid3d
+
+    start = time.perf_counter()
+    for key, (n, scheme, t_final, dt) in HEAT3D_RUNS.items():
+        def run(backend, **kw):
+            cfg = heat.HeatConfig(scheme=scheme, mg=mg.MultigridConfig(
+                smoother="rbgs", omega=1.0, backend=backend), **kw)
+            return mg.solve_heat3d(heat3d.oscillating3d(n), t_final, dt,
+                                   cfg, device=dev)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        (res, got), cycles = counted_cycles(lambda: counted_run(
+            lambda: run("auto")), multigrid3d, "mg_cycle3d")
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"heat3d {key}: oscillating3d {n}^3 {scheme} fp32: steps "
+              f"{res['steps']} t {res['t']:.6g} errors {res['errors']} "
+              f"cycles {cycles}; peak memory {peak / 2**30:.3f} GiB")
+        if tuple(res["u"].shape) != (n,) * 3 or \
+                not torch.isfinite(res["u"]).all():
+            fail(f"heat3d {key}: state misshapen or not finite")
+        e_cycle, transfers = launches_per_cycle(mg, ks3, n, dev)
+        if cycles != 2 * res["steps"]:
+            fail(f"heat3d {key}: {cycles} cycles in {res['steps']} steps")
+        check_launches(f"heat3d {key}", got, {
+            "rbgs3d": e_cycle * cycles,
+            "residual_restrict3d": transfers * cycles,
+            "prolong_correct3d": transfers * cycles})
+        if res["errors"]["l2"] > HEAT3D_L2_BOUND[key]:
+            fail(f"heat3d {key}: l2 {res['errors']['l2']:.6e} above its "
+                 f"bound {HEAT3D_L2_BOUND[key]:.6e}")
+        u_k = res["u"]
+        del res
+        t0 = time.perf_counter()
+        res_p = run("torch")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        du = (u_k - res_p["u"]).abs().max().item()
+        print(f"heat3d {key}: max|u_auto - u_torch| {du:.3e} (plain "
+              f"{plain_s * 1e3:.1f} ms per {res_p['steps']}-step run, first "
+              "call)")
+        if du != 0:
+            fail(f"heat3d {key}: kernel and plain paths differ ({du:.3e})")
+        del res_p, u_k
+        torch.cuda.empty_cache()
+        if key == "cn":
+            # where the fp32 error comes from: fp64 (plain) and 8 cycles
+            for label, backend, kw in (("fp64", "torch",
+                                        dict(dtype="float64")),
+                                       ("fp32, 8 cycles", "auto",
+                                        dict(cycles_per_step=8))):
+                err = run(backend, **kw)["errors"]["l2"]
+                print(f"heat3d {key} {n}^3 {label}: l2 {err:.6e}")
+                torch.cuda.empty_cache()
+        ms = best_ms(lambda: run("auto"), reps=2)
+        steps = round(t_final / dt)
+        print(f"heat3d {key} {n}^3: {ms / steps:.3f} ms per step ({ms:.3f} "
+              f"ms per {steps}-step run, set-up included, minimum of 2) "
+              f"[{card}]")
+        torch.cuda.empty_cache()
+    # one CN step at 513^3 profiled, through the solver's own step: a
+    # one-step run (set-up, initial state and error norms included)
+    n, scheme, _, dt = HEAT3D_RUNS["cn"]
+    cfg = heat.HeatConfig(mg=mg.MultigridConfig(smoother="rbgs", omega=1.0))
+    profile_solve(f"heat3d CN one-step run {n}^3", lambda: mg.solve_heat3d(
+        heat3d.oscillating3d(n), dt, dt, cfg, device=dev), all_wrappers())
+    torch.cuda.empty_cache()
+    print(f"phase 28: {time.perf_counter() - start:.1f} s")
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -3030,6 +3512,12 @@ def main(argv) -> int:
     # ---- Galerkin coarsening and the Krylov solvers: phases 25-26 --------
     galerkin_path(mg, card, dev)
     krylov_path(mg, card, dev)
+
+    # ---- the heat equations: phases 27-28 --------------------------------
+    for name, err in heat_kernel_checks(mg, dev).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    heat_path(mg, card, dev)
+    heat3d_path(mg, card, dev)
 
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),

@@ -10,9 +10,12 @@ for Hopper (``csrc/``, built with nvcc at first use, see
 mixed, bf16 and adaptive precisions run on them. Galerkin coarsening
 (``coarsening='galerkin'``, 9-point coarse levels on the plain path), the
 Krylov solvers (``solvers.krylov``) and their preconditioners
-(``preconditioning``) run on top of the same cycles. Fields are stored at their
-logical shape (nx, ny) or (nx, ny, nz), and every function takes its dtype
-and device explicitly. This package never imports JAX.
+(``preconditioning``) run on top of the same cycles, and so do the heat
+equations' implicit steps in 2D and 3D (``applications.heat``,
+``applications.heat3d``, shifted-operator V-cycles per step, with
+checkpoint/resume through ``utils.CheckpointManager``). Fields are stored
+at their logical shape (nx, ny) or (nx, ny, nz), and every function takes
+its dtype and device explicitly. This package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -29,6 +32,14 @@ from .applications.precision_analysis import (  # noqa: F401
     autotune,
 )
 from .applications.poisson3d import solve_poisson3d  # noqa: F401
+from .applications.heat import (  # noqa: F401
+    HeatConfig,
+    HeatProblem,
+    HeatResult,
+    heat_problem_from_callables,
+    solve_heat,
+)
+from .applications.heat3d import HeatProblem3D, solve_heat3d  # noqa: F401
 from .core.grid import Grid  # noqa: F401
 from .core.grid3d import Grid3D  # noqa: F401
 from .core.domain import LShapedDomain  # noqa: F401
@@ -77,3 +88,4 @@ from .solvers.multigrid3d import (  # noqa: F401
 )
 from .solvers.plane_solve import plane_ir_solve  # noqa: F401
 from .solvers.refinement import adaptive_solve, ir_solve  # noqa: F401
+from .utils.checkpoint import CheckpointManager  # noqa: F401

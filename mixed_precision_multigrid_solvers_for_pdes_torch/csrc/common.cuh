@@ -12,6 +12,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -43,39 +45,64 @@ __device__ __forceinline__ float neighbor_sum(const T* u, long idx, int ny,
          st.s * load_f(u + idx - 1) + st.n * load_f(u + idx + 1);
 }
 
+// True when c > 0 is a normal power of two, so that 1/c is exact in fp32:
+// every level of the 2D Poisson paths (c = 4/h^2 on the unit square), no
+// shifted heat diagonal (c = 4/h^2 + lam).
+__host__ __device__ __forceinline__ bool is_pow2(float c) {
+  unsigned b;
+  memcpy(&b, &c, sizeof b);
+  const unsigned exponent = b >> 23;  // c > 0: no sign bit
+  return (b & 0x7FFFFFu) == 0u && exponent >= 1u && exponent <= 253u;
+}
+
+// x / c, correctly rounded. With kPow2 (is_pow2(c)) it multiplies by the
+// exact 1/c = 2^-e, which equals the quotient bit for bit and costs a
+// multiply; without, it divides. Kernels A, D, K and L choose kPow2 per
+// launch, so the 2D Poisson paths pay no division.
+template <bool kPow2>
+__device__ __forceinline__ float div_c(float x, float c) {
+  if constexpr (kPow2)
+    return __fmul_rn(x, __uint_as_float(0x7F000000u - __float_as_uint(c)));
+  else
+    return __fdiv_rn(x, c);
+}
+
 // Red-black Gauss-Seidel / SOR value of a node from its own value p, its
 // right-hand side f and its neighbours W, E, S, N (the nodes at i-1, i+1,
-// j-1, j+1): p + omega*((f + (w*W + e*E + s*S + n*N))*inv_c - p), every
+// j-1, j+1): p + omega*((f + (w*W + e*E + s*S + n*N))/c - p), every
 // operation rounded explicitly in the Pallas sweep bodies' operand order
-// (kernels A, K and L).
+// (kernels A, D, K and L). It divides by c (div_c) where the Pallas bodies
+// multiply by 1/c rounded to fp32: that reciprocal is inexact unless c is a
+// power of two, and its error, one sign for every node, biases the
+// converged solution (ops/stencil.divide).
+template <bool kPow2>
 __device__ __forceinline__ float rbgs_scalar_update(float p, float f, float W,
                                                     float E, float S, float N,
                                                     const Stencil5& st,
-                                                    float inv_c, float omega) {
+                                                    float omega) {
   float acc = __fmul_rn(st.w, W);
   acc = __fadd_rn(acc, __fmul_rn(st.e, E));
   acc = __fadd_rn(acc, __fmul_rn(st.s, S));
   acc = __fadd_rn(acc, __fmul_rn(st.n, N));
-  const float gs = __fmul_rn(__fadd_rn(f, acc), inv_c);
+  const float gs = div_c<kPow2>(__fadd_rn(f, acc), st.c);
   return __fadd_rn(p, __fmul_rn(omega, __fsub_rn(gs, p)));
 }
 
 // Weighted-Jacobi value of a node from the same operands:
-// p + (omega*(f - (c*p - (w*W + e*E + s*S + n*N))))*inv_c, every operation
-// rounded explicitly in the plain twin's order, which divides by c where
-// this multiplies by inv_c (kernels A and D).
+// p + (omega*(f - (c*p - (w*W + e*E + s*S + n*N))))/c, every operation
+// rounded explicitly in the plain twin's order (kernels A and D).
+template <bool kPow2>
 __device__ __forceinline__ float jacobi_scalar_update(float p, float f,
                                                       float W, float E,
                                                       float S, float N,
                                                       const Stencil5& st,
-                                                      float inv_c,
                                                       float omega) {
   float acc = __fmul_rn(st.w, W);
   acc = __fadd_rn(acc, __fmul_rn(st.e, E));
   acc = __fadd_rn(acc, __fmul_rn(st.s, S));
   acc = __fadd_rn(acc, __fmul_rn(st.n, N));
   const float r = __fsub_rn(f, __fsub_rn(__fmul_rn(st.c, p), acc));
-  return __fadd_rn(p, __fmul_rn(__fmul_rn(omega, r), inv_c));
+  return __fadd_rn(p, div_c<kPow2>(__fmul_rn(omega, r), st.c));
 }
 
 // f - A u at an interior node.

@@ -50,11 +50,10 @@
 // - A launch takes at most kMaxSweeps sweeps; the wrapper splits longer
 //   runs.
 //
-// Arithmetic: the Pallas sweep bodies' per-node updates with 1/c computed
-// once in fp32 on the host and every operation rounded explicitly
-// (common.cuh: rbgs_scalar_update, jacobi_scalar_update), as kernels K and
-// L do, so the direct and the parity layouts agree bit for bit; the plain
-// twin divides by c, one rounding apart per update.
+// Arithmetic: the Pallas sweep bodies' per-node updates, dividing by c, with
+// every operation rounded explicitly (common.cuh: rbgs_scalar_update,
+// jacobi_scalar_update), as kernels K and L do, so the direct and the parity
+// layouts and the plain twin agree bit for bit.
 #include "common.cuh"
 #include "smooth_tiles.cuh"
 
@@ -89,7 +88,7 @@ template <int kTileX, int kTileY, int kSweeps, bool kJacobi, class TU,
 __global__ void __launch_bounds__(kThreads)
     smooth_kernel(const TU* __restrict__ u, const TF* __restrict__ f,
                   TO* __restrict__ out, int nx, int ny, Stencil5 st,
-                  float inv_c, float omega, int c0) {
+                  float omega, int c0) {
   extern __shared__ float sm[];
   constexpr int halo = halo_of(kSweeps, kJacobi);
   constexpr int RS = kTileY + 2 * halo;  // row stride: two halves of HP
@@ -117,6 +116,7 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 
   const float* fin = us;
+  const bool p2 = is_pow2(st.c);  // the same for every thread
   if (!kJacobi) {
     // phase ph updates colour (c0 + ph) & 1; item (row li, m) is the node
     // of that colour among columns 2m, 2m + 1 of the row
@@ -137,9 +137,12 @@ __global__ void __launch_bounds__(kThreads)
         const int self = li * RS + b * HP + m;
         const int sj = b ? self - HP : self + HP - 1;  // (li, lj - 1)
         const int nj = b ? self - HP + 1 : self + HP;  // (li, lj + 1)
-        nv[r] = rbgs_scalar_update(us[self], fs[self], us[self - RS],
-                                   us[self + RS], us[sj], us[nj], st, inv_c,
-                                   omega);
+        nv[r] = p2 ? rbgs_scalar_update<true>(us[self], fs[self],
+                                              us[self - RS], us[self + RS],
+                                              us[sj], us[nj], st, omega)
+                   : rbgs_scalar_update<false>(us[self], fs[self],
+                                               us[self - RS], us[self + RS],
+                                               us[sj], us[nj], st, omega);
         at_self[r] = self;
       }
 #pragma unroll
@@ -159,9 +162,13 @@ __global__ void __launch_bounds__(kThreads)
         const int self = li * RS + rem;
         const int sj = b ? self - HP : self + HP - 1;
         const int nj = b ? self - HP + 1 : self + HP;
-        dst[self] = jacobi_scalar_update(src[self], fs[self], src[self - RS],
-                                         src[self + RS], src[sj], src[nj],
-                                         st, inv_c, omega);
+        dst[self] =
+            p2 ? jacobi_scalar_update<true>(src[self], fs[self],
+                                            src[self - RS], src[self + RS],
+                                            src[sj], src[nj], st, omega)
+               : jacobi_scalar_update<false>(src[self], fs[self],
+                                             src[self - RS], src[self + RS],
+                                             src[sj], src[nj], st, omega);
       }
       float* tmp = src;
       src = dst;
@@ -196,8 +203,8 @@ cudaError_t launch(const TU* u, const TF* f, TO* out, int nx, int ny,
   if (err != cudaSuccess) return err;
   const dim3 grid((ny - 2 + kTileY - 1) / kTileY,
                   (nx - 2 + kTileX - 1) / kTileX);
-  kernel<<<grid, kThreads, bytes, stream>>>(u, f, out, nx, ny, st,
-                                            1.0f / st.c, omega, c0);
+  kernel<<<grid, kThreads, bytes, stream>>>(u, f, out, nx, ny, st, omega,
+                                            c0);
   return cudaGetLastError();
 }
 

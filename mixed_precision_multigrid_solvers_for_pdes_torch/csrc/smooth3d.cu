@@ -63,11 +63,12 @@
 // f in shared memory, with a barrier per colour phase: the 32-sweep coarsest
 // solve is one launch.
 //
-// Arithmetic: u + omega*((f + nb) * (1/c) - u), multiplying by 1/c (computed
-// once in fp32) as the Pallas kernel does and as PyTorch's CUDA division by a
-// scalar does, with every product and sum rounded explicitly in the plain
-// twin's order (neighbour sum w, e, s, n, b, t), so the kernel equals its
-// twin on the card bit for bit.
+// Arithmetic: u + omega*((f + nb) / c - u), dividing by c where the Pallas
+// kernel multiplies by 1/c rounded to fp32 (an inexact reciprocal biases the
+// converged solution, and c = 6/h^2 is no power of two), with every product,
+// sum and quotient rounded explicitly in the plain twin's order (neighbour
+// sum w, e, s, n, b, t), so the kernel equals its twin (ops/stencil.divide)
+// on the card bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -113,15 +114,14 @@ struct Wave {
 template <bool kUnitOmega = false>
 __device__ __forceinline__ float rbgs7(float uc, float fv, float W, float E,
                                        float S, float N, float B, float T,
-                                       const Stencil7& st, float inv_c,
-                                       float omega) {
+                                       const Stencil7& st, float omega) {
   float acc = __fmul_rn(st.w, W);
   acc = __fadd_rn(acc, __fmul_rn(st.e, E));
   acc = __fadd_rn(acc, __fmul_rn(st.s, S));
   acc = __fadd_rn(acc, __fmul_rn(st.n, N));
   acc = __fadd_rn(acc, __fmul_rn(st.b, B));
   acc = __fadd_rn(acc, __fmul_rn(st.t, T));
-  const float gs = __fmul_rn(__fadd_rn(fv, acc), inv_c);
+  const float gs = __fdiv_rn(__fadd_rn(fv, acc), st.c);
   const float d = __fsub_rn(gs, uc);
   return __fadd_rn(uc, kUnitOmega ? d : __fmul_rn(omega, d));
 }
@@ -131,7 +131,7 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
     rbgs3d_wave_kernel(const float* __restrict__ u,
                        const float* __restrict__ f, float* __restrict__ out,
                        int nx, int ny, int nz, int chunk, Stencil7 st,
-                       float inv_c, float omega, int c0) {
+                       float omega, int c0) {
   using W = Wave<S>;
   constexpr int P = 2 * S;  // phases per step
   extern __shared__ float sm[];
@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
         col[P + 1 - p] = rbgs7<kUnitOmega>(col[P + 1 - p], fv[p - 1],
                                            col[P - p], col[P + 2 - p],
                                            ys[p - 1], yn[p - 1], zb[p - 1],
-                                           zt[p - 1], st, inv_c, omega);
+                                           zt[p - 1], st, omega);
       }
 #pragma unroll
       for (int p = 1; p <= P; ++p)
@@ -287,8 +287,8 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
 __global__ void __launch_bounds__(kOneBlockThreads)
     rbgs3d_block_kernel(const float* __restrict__ u,
                         const float* __restrict__ f, float* __restrict__ out,
-                        int nx, int ny, int nz, Stencil7 st, float inv_c,
-                        float omega, int c0, int sweeps) {
+                        int nx, int ny, int nz, Stencil7 st, float omega,
+                        int c0, int sweeps) {
   extern __shared__ float sm[];
   const int n = nx * ny * nz, sx = ny * nz;
   float* us = sm;
@@ -308,7 +308,7 @@ __global__ void __launch_bounds__(kOneBlockThreads)
       if (k > nz - 2) continue;
       const int x = i * sx + j * nz + k;
       us[x] = rbgs7(us[x], fs[x], us[x - sx], us[x + sx], us[x - nz],
-                    us[x + nz], us[x - 1], us[x + 1], st, inv_c, omega);
+                    us[x + nz], us[x - 1], us[x + 1], st, omega);
     }
   }
   __syncthreads();
@@ -329,7 +329,7 @@ cudaError_t launch_wave(const float* u, const float* f, float* out, int nx,
   const dim3 grid((nz - 2 + kTileK - 1) / kTileK,
                   (ny - 2 + kTileJ - 1) / kTileJ, (nx + chunk - 1) / chunk);
   kernel<<<grid, kWaveThreads, Wave<S>::BYTES, stream>>>(
-      u, f, out, nx, ny, nz, chunk, st, 1.0f / st.c, omega, c0);
+      u, f, out, nx, ny, nz, chunk, st, omega, c0);
   return cudaGetLastError();
 }
 
@@ -359,7 +359,7 @@ int mg_rbgs3d(const float* u, const float* f, float* out, int nx, int ny,
     if (err != cudaSuccess) return (int)err;
     rbgs3d_block_kernel<<<1, kOneBlockThreads, (int)bytes,
                           (cudaStream_t)stream>>>(
-        u, f, out, nx, ny, nz, st, 1.0f / c, omega, c0, sweeps);
+        u, f, out, nx, ny, nz, st, omega, c0, sweeps);
     return (int)cudaGetLastError();
   }
   if (chunk < 1) return (int)cudaErrorInvalidValue;

@@ -51,8 +51,8 @@
 //   block's nodes as their halo, so writing u in place would race. The
 //   wrappers return that output; u is left as it was.
 //
-// Arithmetic: rbgs_scalar_update (common.cuh), 1/c computed once in fp32 on
-// the host, every operation rounded explicitly, red then black. So K and L
+// Arithmetic: rbgs_scalar_update (common.cuh), dividing by c, every
+// operation rounded explicitly, red then black. So K and L
 // equal their plain twin (the parity body ops/planes.plane_sweeps) and
 // kernel A bit for bit.
 //
@@ -91,13 +91,13 @@ __device__ __forceinline__ long node_at(int gi, int gj, int ny, int hx,
 
 // The body of K and L, on the block's dynamic shared memory sm; every
 // geometry value is a compile-time constant of the instantiation.
-template <int kTileX, int kTileY, int kSweeps, bool kPlanes>
+template <int kTileX, int kTileY, int kSweeps, bool kPlanes, bool kPow2>
 __device__ __forceinline__ void parity_sweeps(float* sm,
                                               const float* __restrict__ u,
                                               const float* __restrict__ f,
                                               float* __restrict__ out, int nx,
                                               int ny, const Stencil5& st,
-                                              float inv_c, float omega) {
+                                              float omega) {
   constexpr int halo = 2 * kSweeps;
   constexpr int PR = plane_rows(kTileX, kSweeps);
   constexpr int PC = plane_rows(kTileY, kSweeps);
@@ -163,8 +163,8 @@ __device__ __forceinline__ void parity_sweeps(float* sm,
       // (li, lj + 1) in plane (a, b ^ 1), (li, lj - 1) one cell before
       const float* xn = us + (2 * (a ^ 1) + b) * PS + (pi + a) * PC + pj;
       const float* yn = us + (2 * a + (b ^ 1)) * PS + pi * PC + pj + b;
-      nv[k] = rbgs_scalar_update(us[s], fs[s], xn[-PC], xn[0], yn[-1], yn[0],
-                                 st, inv_c, omega);
+      nv[k] = rbgs_scalar_update<kPow2>(us[s], fs[s], xn[-PC], xn[0],
+                                        yn[-1], yn[0], st, omega);
       self[k] = s;
     }
 #pragma unroll
@@ -199,40 +199,39 @@ __device__ __forceinline__ void parity_sweeps(float* sm,
   }
 }
 
-template <int kTileX, int kTileY, int kSweeps>
+template <int kTileX, int kTileY, int kSweeps, bool kPow2>
 __global__ void __launch_bounds__(kThreads, 2)
     parity_kernel(const float* __restrict__ u, const float* __restrict__ f,
                   float* __restrict__ out, int nx, int ny, Stencil5 st,
-                  float inv_c, float omega) {
+                  float omega) {
   extern __shared__ float sm[];
-  parity_sweeps<kTileX, kTileY, kSweeps, false>(sm, u, f, out, nx, ny, st,
-                                                inv_c, omega);
+  parity_sweeps<kTileX, kTileY, kSweeps, false, kPow2>(sm, u, f, out, nx, ny,
+                                                       st, omega);
 }
 
-template <int kTileX, int kTileY, int kSweeps>
+template <int kTileX, int kTileY, int kSweeps, bool kPow2>
 __global__ void __launch_bounds__(kThreads, 2)
     planes_kernel(const float* __restrict__ up, const float* __restrict__ fp,
                   float* __restrict__ out, int nx, int ny, Stencil5 st,
-                  float inv_c, float omega) {
+                  float omega) {
   extern __shared__ float sm[];
-  parity_sweeps<kTileX, kTileY, kSweeps, true>(sm, up, fp, out, nx, ny, st,
-                                               inv_c, omega);
+  parity_sweeps<kTileX, kTileY, kSweeps, true, kPow2>(sm, up, fp, out, nx, ny,
+                                                      st, omega);
 }
 
-template <int kTileX, int kTileY, int kSweeps, bool kPlanes>
+template <int kTileX, int kTileY, int kSweeps, bool kPlanes, bool kPow2>
 cudaError_t launch(const float* u, const float* f, float* out, int nx, int ny,
                    const Stencil5& st, float omega, int device,
                    cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const auto kernel = kPlanes ? planes_kernel<kTileX, kTileY, kSweeps>
-                              : parity_kernel<kTileX, kTileY, kSweeps>;
+  const auto kernel = kPlanes ? planes_kernel<kTileX, kTileY, kSweeps, kPow2>
+                              : parity_kernel<kTileX, kTileY, kSweeps, kPow2>;
   constexpr int bytes = smem_bytes(kTileX, kTileY, kSweeps);
   const cudaError_t err = allow_smem(kernel, bytes, device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((ny - 2 + kTileY - 1) / kTileY,
                   (nx - 2 + kTileX - 1) / kTileX);
-  kernel<<<grid, kThreads, bytes, stream>>>(u, f, out, nx, ny, st,
-                                            1.0f / st.c, omega);
+  kernel<<<grid, kThreads, bytes, stream>>>(u, f, out, nx, ny, st, omega);
   return cudaGetLastError();
 }
 
@@ -247,8 +246,12 @@ int run(const float* u, const float* f, float* out, int nx, int ny, float c,
   const Stencil5 st{c, w, e, s, n};
   return (int)with_tile_and_sweeps(nx, ny, sweeps, [&](auto ti, auto sw) {
     constexpr Tile tile = kTiles[decltype(ti)::value];
-    return launch<tile.x, tile.y, decltype(sw)::value, kPlanes>(
-        u, f, out, nx, ny, st, omega, device, (cudaStream_t)stream);
+    constexpr int sweeps_ = decltype(sw)::value;
+    const auto go = [&](auto p2) {
+      return launch<tile.x, tile.y, sweeps_, kPlanes, decltype(p2)::value>(
+          u, f, out, nx, ny, st, omega, device, (cudaStream_t)stream);
+    };
+    return is_pow2(c) ? go(std::true_type{}) : go(std::false_type{});
   });
 }
 

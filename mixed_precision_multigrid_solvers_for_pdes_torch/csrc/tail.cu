@@ -49,8 +49,8 @@
 // it, and ops/cuda_kernels/tail.py holds its own copy against that report.
 //
 // Arithmetic: the updates are kernel A's (rbgs_scalar_update,
-// jacobi_scalar_update: every operation rounded explicitly, times 1/c
-// computed on the host in fp32), restriction and prolongation kernels B's
+// jacobi_scalar_update: every operation rounded explicitly, dividing by
+// c), restriction and prolongation kernels B's
 // and C's device functions (restrict_residual_at, prolong_at), so a cycle
 // of D equals the same cycle run through A, B and C launches.
 #include "common.cuh"
@@ -103,7 +103,6 @@ struct TailParams {
   int off[kTailMaxLevels];
   int rs[kTailMaxLevels];
   Stencil5 st[kTailMaxLevels];
-  float inv_c[kTailMaxLevels];
   int pre, post, coarse_sweeps;
   int jacobi;     // 1: weighted Jacobi pre/post smoothing, 0: RB-GS/SOR
   int symmetric;  // 1: post-smoothing runs black before red
@@ -117,28 +116,31 @@ struct Level {
   int u, f;
   int nx, ny, rs;
   Stencil5 st;
-  float inv_c;
 };
 
 __device__ Level level(const TailParams& p, int l) {
   const int u = p.off[l];
-  return Level{u, u + p.nx[l] * p.rs[l], p.nx[l], p.ny[l], p.rs[l], p.st[l],
-               p.inv_c[l]};
+  return Level{u, u + p.nx[l] * p.rs[l], p.nx[l], p.ny[l], p.rs[l],
+               p.st[l]};
 }
 
 // The threads that run a phase and the barrier that ends it. The block
 // hands out rows to its warps (kRows); the warp, alone on a small level,
 // hands out nodes to its lanes, so that it takes one pass where it can.
+template <bool P>
 struct BlockGroup {
   static constexpr bool kRows = true;
+  static constexpr bool kPow2 = P;  // every level's c a power of two
   __device__ int rank() const { return threadIdx.x; }
   __device__ int size() const { return kThreads; }
   __device__ int warp() const { return threadIdx.x >> 5; }
   __device__ int warps() const { return kThreads / 32; }
   __device__ void sync() const { __syncthreads(); }
 };
+template <bool P>
 struct WarpGroup {
   static constexpr bool kRows = false;
+  static constexpr bool kPow2 = P;
   __device__ int rank() const { return threadIdx.x & 31; }
   __device__ int size() const { return 32; }
   __device__ int warp() const { return 0; }
@@ -146,12 +148,13 @@ struct WarpGroup {
   __device__ void sync() const { __syncwarp(); }
 };
 
+template <bool kPow2>
 __device__ __forceinline__ void rbgs_node(const Level& v, int i, int j,
                                           float omega) {
   const int x = v.u + i * v.rs + j;
-  sm[x] = rbgs_scalar_update(sm[x], sm[x - v.u + v.f], sm[x - v.rs],
-                             sm[x + v.rs], sm[x - 1], sm[x + 1], v.st,
-                             v.inv_c, omega);
+  sm[x] = rbgs_scalar_update<kPow2>(sm[x], sm[x - v.u + v.f], sm[x - v.rs],
+                                    sm[x + v.rs], sm[x - 1], sm[x + 1], v.st,
+                                    omega);
 }
 
 // One colour phase. In the block a warp takes the interior rows 2q + 1 and
@@ -168,7 +171,8 @@ __device__ void rbgs_phase(const Level& v, int color, float omega, G g) {
       const int j0 = 1 + ((i + 1 + color) & 1) + 2 * (lane & 15);
       for (int c = 0; c < chunks; ++c) {
         const int j = j0 + 32 * c;
-        if (i <= v.nx - 2 && j <= v.ny - 2) rbgs_node(v, i, j, omega);
+        if (i <= v.nx - 2 && j <= v.ny - 2)
+          rbgs_node<G::kPow2>(v, i, j, omega);
       }
     }
   } else {
@@ -176,7 +180,7 @@ __device__ void rbgs_phase(const Level& v, int color, float omega, G g) {
     for (int t = g.rank(); t < (v.nx - 2) * hc; t += g.size()) {
       const int i = 1 + t / hc;
       const int j = 1 + ((i + 1 + color) & 1) + 2 * (t - (i - 1) * hc);
-      if (j <= v.ny - 2) rbgs_node(v, i, j, omega);
+      if (j <= v.ny - 2) rbgs_node<G::kPow2>(v, i, j, omega);
     }
   }
   g.sync();
@@ -192,9 +196,9 @@ __device__ void jacobi_sweep(const Level& v, float omega, G g) {
     const int t = g.rank() + r * g.size();
     if (t < total) {
       const int x = v.u + (1 + t / m) * v.rs + 1 + t % m;
-      nv[r] = jacobi_scalar_update(sm[x], sm[x - v.u + v.f], sm[x - v.rs],
-                                   sm[x + v.rs], sm[x - 1], sm[x + 1], v.st,
-                                   v.inv_c, omega);
+      nv[r] = jacobi_scalar_update<G::kPow2>(
+          sm[x], sm[x - v.u + v.f], sm[x - v.rs], sm[x + v.rs], sm[x - 1],
+          sm[x + 1], v.st, omega);
     }
   }
   g.sync();
@@ -276,6 +280,7 @@ __device__ void walk_up(const TailParams& p, int from, int to, G g) {
 // a colour phase is four neighbour loads, the update, one store and
 // __syncwarp(). A level of one unknown has only fixed neighbours: its lane
 // runs its red updates back to back (the black phases update nothing).
+template <bool kPow2>
 __device__ void coarse_solve_lanes(const TailParams& p) {
   const Level v = level(p, p.levels - 1);
   const int lane = threadIdx.x & 31, m = v.ny - 2;
@@ -291,7 +296,7 @@ __device__ void coarse_solve_lanes(const TailParams& p) {
       const float W = sm[x - v.rs], E = sm[x + v.rs], S = sm[x - 1],
                   N = sm[x + 1];
       for (int k = 0; k < p.coarse_sweeps; ++k)
-        uc = rbgs_scalar_update(uc, fv, W, E, S, N, v.st, v.inv_c, 1.0f);
+        uc = rbgs_scalar_update<kPow2>(uc, fv, W, E, S, N, v.st, 1.0f);
       sm[x] = uc;
     }
     __syncwarp();
@@ -299,8 +304,8 @@ __device__ void coarse_solve_lanes(const TailParams& p) {
   }
   for (int k = 0; k < 2 * p.coarse_sweeps; ++k) {
     if (mine && (k & 1) == color) {
-      uc = rbgs_scalar_update(uc, fv, sm[x - v.rs], sm[x + v.rs], sm[x - 1],
-                              sm[x + 1], v.st, v.inv_c, 1.0f);
+      uc = rbgs_scalar_update<kPow2>(uc, fv, sm[x - v.rs], sm[x + v.rs],
+                                     sm[x - 1], sm[x + 1], v.st, 1.0f);
       sm[x] = uc;
     }
     __syncwarp();
@@ -312,7 +317,7 @@ __device__ void coarse_solve(const TailParams& p, G g) {
   smooth(level(p, p.levels - 1), p.coarse_sweeps, false, 1.0f, false, g);
 }
 
-template <class T>
+template <class T, bool kPow2>
 __global__ void __launch_bounds__(kThreads, 1)
     tail_vcycle_kernel(T* __restrict__ u0, const T* __restrict__ f0,
                        TailParams p) {
@@ -333,15 +338,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_wait<0>();
   __syncthreads();
 
-  const BlockGroup block{};
+  const BlockGroup<kPow2> block{};
   const int down_end = min(p.warp_from, L - 1);
   walk_down(p, 0, down_end, block);
   if (p.warp_from <= L - 1) {
     if (threadIdx.x < 32) {
-      const WarpGroup warp{};
+      const WarpGroup<kPow2> warp{};
       walk_down(p, p.warp_from, L - 1, warp);
       if (p.lanes)
-        coarse_solve_lanes(p);
+        coarse_solve_lanes<kPow2>(p);
       else
         coarse_solve(p, warp);
       walk_up(p, p.warp_from, L - 1, warp);
@@ -359,11 +364,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <class T>
+template <class T, bool kPow2>
 cudaError_t launch(void* u, const void* f, const TailParams& p, int bytes,
                    int device, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const auto kernel = tail_vcycle_kernel<T>;
+  const auto kernel = tail_vcycle_kernel<T, kPow2>;
   const cudaError_t err = allow_smem(kernel, kMaxSmemBytes, device, done);
   if (err != cudaSuccess) return err;
   kernel<<<1, kThreads, bytes, stream>>>(static_cast<T*>(u),
@@ -399,7 +404,6 @@ int mg_tail_vcycle(void* u, const void* f, int levels, const int* nx,
     p.rs[l] = q.rs[l];
     p.st[l] = Stencil5{coefs[5 * l], coefs[5 * l + 1], coefs[5 * l + 2],
                        coefs[5 * l + 3], coefs[5 * l + 4]};
-    p.inv_c[l] = 1.0f / coefs[5 * l];
   }
   p.pre = pre;
   p.post = post;
@@ -407,9 +411,14 @@ int mg_tail_vcycle(void* u, const void* f, int levels, const int* nx,
   p.jacobi = jacobi;
   p.symmetric = symmetric;
   p.omega = omega;
+  bool p2 = true;  // every level's c a power of two: no division
+  for (int l = 0; l < levels; ++l) p2 = p2 && is_pow2(coefs[5 * l]);
   const cudaStream_t t = (cudaStream_t)stream;
-  return (int)(entry_bf16 ? launch<bf16>(u, f, p, q.bytes, device, t)
-                          : launch<float>(u, f, p, q.bytes, device, t));
+  if (entry_bf16)
+    return (int)(p2 ? launch<bf16, true>(u, f, p, q.bytes, device, t)
+                    : launch<bf16, false>(u, f, p, q.bytes, device, t));
+  return (int)(p2 ? launch<float, true>(u, f, p, q.bytes, device, t)
+                  : launch<float, false>(u, f, p, q.bytes, device, t));
 }
 
 // D's plan for a tail of `levels` levels into out[8 + 2 * levels]:

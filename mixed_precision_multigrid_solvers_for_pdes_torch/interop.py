@@ -23,12 +23,15 @@ from .core.domain import LShapedDomain
 from .core.grid import Grid
 from .core.grid3d import Grid3D
 from .core.precision import Precision, PrecisionPolicy, as_dtype
+from .applications import heat3d as heat3d_mod, heat_problems
+from .applications.heat import HeatConfig, HeatProblem
+from .applications.heat3d import HeatProblem3D
 from .models.problems import Problem
 from .models.problems3d import Problem3D
 from .ops.planes import plane_shape
 from .ops.stencil import _S9_FIELDS, Stencil, Stencil9
 from .ops.stencil3d import Stencil3D
-from .solvers.multigrid import Level
+from .solvers.multigrid import Level, MultigridConfig
 from .solvers.multigrid3d import Level3D
 
 JAX_TILE = (16, 128)  # the JAX package's storage tile (sublane, lane)
@@ -268,3 +271,83 @@ def problem3d_from_jax(prob) -> Problem3D:
     return Problem3D(name=prob.name, grid=g, f=host(prob.f),
                      lam=float(prob.lam), exact=host(prob.exact),
                      dirichlet_values=host(prob.dirichlet_values))
+
+
+# ---------------------------------------------------------------------------
+# heat equations
+
+
+# the JAX package's backends -> the port's: its XLA path is the plain one
+BACKEND_FROM_JAX = {"auto": "auto", "pallas": "auto", "xla": "torch"}
+
+
+def mg_config_from_jax(cfg) -> MultigridConfig:
+    """Port MultigridConfig from a JAX one: the fields both have, the
+    backend mapped by ``BACKEND_FROM_JAX``."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(MultigridConfig)
+              if hasattr(cfg, f.name)}
+    fields["backend"] = BACKEND_FROM_JAX[cfg.backend]
+    return MultigridConfig(**fields)
+
+
+def heat_config_from_jax(cfg) -> HeatConfig:
+    """Port HeatConfig from a JAX one, its MultigridConfig included; the
+    dtype goes across by name."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(HeatConfig)}
+    fields["mg"] = mg_config_from_jax(cfg.mg)
+    fields["dtype"] = as_dtype(np.dtype(cfg.dtype).name)
+    return HeatConfig(**fields)
+
+
+def _catalogue_factory(name: str, catalogue: dict, by_name: dict):
+    if name not in by_name:
+        raise ValueError(f"no port problem for the JAX heat problem "
+                         f"{name!r}; known: {sorted(by_name)}")
+    return catalogue[by_name[name]]
+
+
+def heat_problem_from_jax(prob) -> HeatProblem:
+    """Port HeatProblem from a JAX catalogue problem: grid, alpha, spec,
+    ``u0`` and ``a`` (padded -> logical, host float64) come across; the
+    callables (written in jnp) are the port's own, from
+    ``heat_problems.CATALOGUE`` by the problem's name at the same alpha
+    (a factory's other parameters take their defaults). Raises for a name
+    the catalogue does not hold."""
+    make = _catalogue_factory(prob.name, heat_problems.CATALOGUE,
+                              heat_problems.BY_NAME)
+    g = grid_from_jax(prob.grid)
+    if g.nx != g.ny or g.domain != (0.0, 1.0, 0.0, 1.0):
+        raise ValueError(f"the heat catalogue builds unit squares, not "
+                         f"{g}")
+
+    def host(a):
+        return None if a is None else np.asarray(
+            a, np.float64)[: g.nx, : g.ny].copy()
+
+    port = make(g.nx, alpha=float(prob.alpha))
+    return dataclasses.replace(port, spec=spec_from_jax(prob.spec),
+                               u0=host(prob.u0), a=host(prob.a))
+
+
+HEAT3D_BY_NAME = {"heat3d_source": "heat_source3d",
+                  "heat3d_oscillating": "oscillating3d",
+                  "heat3d_pure_diffusion": "pure_diffusion3d"}
+
+
+def heat_problem3d_from_jax(prob) -> HeatProblem3D:
+    """Port HeatProblem3D from one of the JAX package's three 3D heat
+    problems, as ``heat_problem_from_jax`` does in 2D."""
+    make = _catalogue_factory(
+        prob.name, {v: getattr(heat3d_mod, v)
+                    for v in HEAT3D_BY_NAME.values()}, HEAT3D_BY_NAME)
+    g = grid3d_from_jax(prob.grid)
+    if not g.nx == g.ny == g.nz or g.domain != (0.0, 1.0) * 3:
+        raise ValueError(f"the 3D heat problems are unit cubes, not {g}")
+    port = make(g.nx, alpha=float(prob.alpha))
+    u0 = None if prob.u0 is None else np.asarray(
+        prob.u0, np.float64)[: g.nx, : g.ny, : g.nz].copy()
+    a = None if prob.a is None else np.asarray(
+        prob.a, np.float64)[: g.nx, : g.ny, : g.nz].copy()
+    return dataclasses.replace(port, u0=u0, a=a)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..core.grid import Grid
+from . import stencil as st_mod
 
 PLANE_ORDER = ((0, 0), (0, 1), (1, 0), (1, 1))  # ee, eo, oe, oo
 
@@ -149,27 +150,22 @@ def plane_norm_scaled_l2(rp: torch.Tensor, hx_grid: float,
     return torch.sqrt(hx_grid * hy_grid * acc)
 
 
-def fp32_reciprocal(c: float) -> float:
-    """1/c computed in fp32, as the Pallas kernels and the CUDA kernels
-    compute it."""
-    one = torch.tensor(1.0, dtype=torch.float32)
-    return (one / torch.tensor(c, dtype=torch.float32)).item()
-
-
 def plane_sweeps(stp, up: torch.Tensor, fp: torch.Tensor,
                  masks: torch.Tensor, *, sweeps: int,
                  omega: float) -> torch.Tensor:
     """``sweeps`` red-then-black RB-GS/SOR sweeps in place on the planes
-    ``up`` for the scalar stencil ``stp = (c, w, e, s, n)``: the per-node
-    arithmetic and operand order of the Pallas ``_parity_sweeps`` and
-    ``_plane_sweeps`` bodies,
+    ``up`` for the scalar stencil ``stp = (c, w, e, s, n)``: the operand
+    order of the Pallas ``_parity_sweeps`` and ``_plane_sweeps`` bodies,
 
-      p + omega * ((f + (w*W + e*E + s*S + n*N)) * inv_c - p),
+      p + omega * ((f + (w*W + e*E + s*S + n*N)) / c - p),
 
-    with inv_c = 1/c in fp32. The plain twin of kernels K and L."""
+    divided by c where the Pallas bodies multiply by 1/c in fp32 (one
+    rounding apart per update; equal where 1/c is a power of two, as on
+    the unit square; ``stencil.divide``). The plain twin of kernels K and
+    L."""
     c, w, e, s, n = stp
-    inv_c = fp32_reciprocal(c)
     roll = torch.roll
+    div = st_mod.divide
     fee, feo, foe, foo = fp.unbind(0)
     m_ee, m_eo, m_oe, m_oo = masks.unbind(0)
     ee, eo, oe, oo = up.unbind(0)   # views: the updates land in up
@@ -179,12 +175,12 @@ def plane_sweeps(stp, up: torch.Tensor, fp: torch.Tensor,
 
     for _ in range(sweeps):
         # red = {ee, oo}, then black = {oe, eo} reads the fresh red planes
-        upd(ee, m_ee, (fee + (w * roll(oe, 1, 0) + e * oe
-                              + s * roll(eo, 1, 1) + n * eo)) * inv_c)
-        upd(oo, m_oo, (foo + (w * eo + e * roll(eo, -1, 0)
-                              + s * oe + n * roll(oe, -1, 1))) * inv_c)
-        upd(oe, m_oe, (foe + (w * ee + e * roll(ee, -1, 0)
-                              + s * roll(oo, 1, 1) + n * oo)) * inv_c)
-        upd(eo, m_eo, (feo + (w * roll(oo, 1, 0) + e * oo
-                              + s * ee + n * roll(ee, -1, 1))) * inv_c)
+        upd(ee, m_ee, div(fee + (w * roll(oe, 1, 0) + e * oe
+                                 + s * roll(eo, 1, 1) + n * eo), c))
+        upd(oo, m_oo, div(foo + (w * eo + e * roll(eo, -1, 0)
+                                 + s * oe + n * roll(oe, -1, 1)), c))
+        upd(oe, m_oe, div(foe + (w * ee + e * roll(ee, -1, 0)
+                                 + s * roll(oo, 1, 1) + n * oo), c))
+        upd(eo, m_eo, div(feo + (w * roll(oo, 1, 0) + e * oo
+                                 + s * ee + n * roll(ee, -1, 1)), c))
     return up

@@ -63,7 +63,7 @@ def jacobi_sweep(st: Stencil, u, f, unknown, omega):
     """One weighted-Jacobi sweep, u += omega * (f - A u) / c on unknowns."""
     ui, c = region(st, u), coef(st, st.c)
     r = region(st, f) - (c * ui - st_mod.neighbor_sum(st, u))
-    new = ui + omega * r / c
+    new = ui + st_mod.divide(omega * r, c)
     ui[...] = torch.where(region(st, unknown), new, ui)
     return u
 
@@ -73,7 +73,8 @@ def rb_color_update(st: Stencil, u, f, unknown, color_mask, omega):
 
     ``color_mask`` covers ``region(st, u)``."""
     ui = region(st, u)
-    u_gs = (region(st, f) + st_mod.neighbor_sum(st, u)) / coef(st, st.c)
+    u_gs = st_mod.divide(region(st, f) + st_mod.neighbor_sum(st, u),
+                         coef(st, st.c))
     new = ui + omega * (u_gs - ui)
     ui[...] = torch.where(color_mask & region(st, unknown), new, ui)
     return u

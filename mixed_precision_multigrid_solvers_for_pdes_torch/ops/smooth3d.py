@@ -19,6 +19,7 @@ import torch
 
 from . import stencil3d as st3
 from .smooth import RBGS_METHODS
+from .stencil import divide
 from .stencil3d import Stencil3D, interior
 
 
@@ -33,7 +34,7 @@ def jacobi_sweep3d(st: Stencil3D, u, f, unknown, omega):
     """One weighted-Jacobi sweep, u += omega * (f - A u) / c on unknowns."""
     ui = interior(u)
     r = interior(f) - (st.c * ui - st3.neighbor_sum(st, u))
-    new = ui + omega * r / st.c
+    new = ui + divide(omega * r, st.c)
     ui.copy_(torch.where(interior(unknown), new, ui))
     return u
 
@@ -43,7 +44,7 @@ def rb_color_update3d(st: Stencil3D, u, f, unknown, color_mask, omega):
 
     ``color_mask`` covers the interior nodes, shape (nx-2, ny-2, nz-2)."""
     ui = interior(u)
-    u_gs = (interior(f) + st3.neighbor_sum(st, u)) / st.c
+    u_gs = divide(interior(f) + st3.neighbor_sum(st, u), st.c)
     new = ui + omega * (u_gs - ui)
     ui.copy_(torch.where(color_mask & interior(unknown), new, ui))
     return u

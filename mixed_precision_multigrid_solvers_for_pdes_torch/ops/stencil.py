@@ -32,6 +32,7 @@ residuals agree bit for bit too.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -46,6 +47,22 @@ from ..core.precision import as_dtype
 
 def _round(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=dtype).item()
+
+
+def divide(x: torch.Tensor, c) -> torch.Tensor:
+    """x / c, correctly rounded on every device. PyTorch's CUDA division by
+    a Python number multiplies by the number's reciprocal rounded to x's
+    dtype, which moves the quotient by up to an ulp, always the same way
+    for one c: a Gauss-Seidel update (f + nb) / c then converges to the
+    solution of a diagonal scaled by (1 + delta), a bias that an fp32 heat
+    step (c = 4/h^2 + lam) shows as an l2 error 8x its rounding noise.
+    Where c is a power of two (the 2D Poisson levels) the reciprocal is
+    exact and the product is the quotient; elsewhere a 0-d tensor on x's
+    device divides."""
+    if (isinstance(c, torch.Tensor) or x.device.type == "cpu"
+            or math.frexp(c)[0] == 0.5):
+        return x / c
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 @dataclasses.dataclass(frozen=True)

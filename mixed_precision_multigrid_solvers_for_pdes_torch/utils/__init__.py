@@ -1,3 +1,4 @@
-"""Support utilities (timing)."""
+"""Support utilities (timing, checkpoints)."""
 
-from . import timing  # noqa: F401
+from . import checkpoint, timing  # noqa: F401
+from .checkpoint import CheckpointManager  # noqa: F401

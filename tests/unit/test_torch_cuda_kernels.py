@@ -5,23 +5,24 @@ Imports no JAX, so it runs on a machine with a GPU and no JAX:
     python -m pytest tests/unit/test_torch_cuda_kernels.py -m cuda
 
 Every test needs a CUDA device and skips without one. Tolerance: 1e-5
-relative to the largest twin value. Both sides compute in fp32, but the
-kernels multiply by 1/c where the twins divide, nvcc contracts multiply-adds
-into FMAs, and the tail chains about a hundred dependent phases. The
-non-power-of-two domain below makes those roundings differ for real: on the
-unit square the coefficients are powers of two and the two agree bit for bit.
-The 3D kernels E, F and G round every product and sum explicitly in their
-twins' order; E multiplies by 1/c, as PyTorch's CUDA division by a scalar
-does, so E, F and G are held to their twins bit for bit on the card, at
-shapes where their tiles and x-chunks do not divide the grid too.
+relative to the largest twin value. Both sides compute in fp32, but nvcc
+contracts multiply-adds into FMAs in B and D, and the tail chains about a
+hundred dependent phases. The non-power-of-two domain below makes those
+roundings differ for real: on the unit square the coefficients are powers
+of two and the two agree bit for bit. The smoothing kernels A, D, E, K and
+L divide by c, as their twins do on every device (``stencil.divide``: a
+CUDA division by a Python number would multiply by its reciprocal). The 3D
+kernels E, F and G round every product, sum and quotient explicitly in
+their twins' order, so they are held to their twins bit for bit on the
+card, at shapes where their tiles and x-chunks do not divide the grid too.
 
 The coefficient-plane kernels H, I and J and kernel C round every operation
 in their twins' order and divide as the twins do, so they are held to their
-twins bit for bit. So are the parity-plane kernel K, the parity layout L and
-the microbenchmark's probe and copy kernels M, whose twins multiply by the
-same fp32 1/c; A's red-then-black sweeps and L agree with L's twin bit for
-bit as well, and the tail kernel D with the same V-cycle run through A, B
-and C launches.
+twins bit for bit. So are the parity-plane kernel K and the parity layout
+L, and the microbenchmark's probe and copy kernels M, whose twins multiply
+by the same fp32 1/c as M; A's red-then-black sweeps and L agree with L's
+twin bit for bit as well, and the tail kernel D with the same V-cycle run
+through A, B and C launches.
 
 On bf16 storage A, B, C and D widen what they load, compute in fp32 and
 round once per call; their twins widen, run the fp32 twin and round once.
@@ -862,3 +863,44 @@ def test_bf16_levels_take_kernels_a_to_d(dev):
             assert all(n == nb > 0 for n, nb in got), got
         else:  # fp32 above 129^2 and at it: D's entry is fp32
             assert got[3] == (1, 0) and all(n > 0 for n, _ in got), got
+
+
+@pytest.mark.parametrize("name", ["pure_diffusion", "neumann_heat"])
+def test_heat_kernels_match_plain(dev, name):
+    """A float32 Crank-Nicolson run at 257^2 on the shifted hierarchy
+    (c + lam on every level): through A-D (pure diffusion) within TOL of
+    the plain path on the card, through I and C (Neumann sides) bit for
+    bit."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications import (
+        heat,
+        heat_problems,
+    )
+
+    def run(backend):
+        cfg = heat.HeatConfig(mg=T.MultigridConfig(
+            smoother="rbgs", omega=1.0, backend=backend))
+        return heat.solve_heat(heat_problems.CATALOGUE[name](257), 5e-4,
+                               1e-4, cfg, device=dev).u
+
+    got, ref = run("auto"), run("torch")
+    if name == "neumann_heat":
+        _exact(got, ref)
+    else:
+        _close(got, ref)
+
+
+def test_heat3d_kernels_match_plain(dev):
+    """A float32 Crank-Nicolson run at 33^3 through E, F and G equals the
+    plain path on the card bit for bit."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications import (
+        heat,
+        heat3d,
+    )
+
+    def run(backend):
+        cfg = heat.HeatConfig(mg=T.MultigridConfig(
+            smoother="rbgs", omega=1.0, backend=backend))
+        return heat3d.solve_heat3d(heat3d.oscillating3d(33), 5e-3, 1e-3,
+                                   cfg, device=dev)["u"]
+
+    _exact(run("auto"), run("torch"))

@@ -12,8 +12,8 @@ stores the tile into a separate output. L reads and writes an (nx, ny)
 field, K the (4, hx, hy) planes of one, copying their padding through. The
 emulation below repeats that with torch ops on each window's planes: the
 plane shapes, the walk's bounds and the neighbour rows and columns of the
-source. Every cell is the kernel's arithmetic (p + omega*((f + nb)*inv_c -
-p), inv_c = 1/c in fp32, each operation rounded), so a call equals
+source. Every cell is the kernel's arithmetic (p + omega*((f + nb)/c - p),
+each operation rounded in fp32), so a call equals
 ``multisweep_parity_plain`` and ``multisweep_planes_plain`` bit for bit; a
 halo one plane cell (two nodes) short breaks it.
 """
@@ -93,12 +93,11 @@ def _at(layout, gi, gj):
 def _update(st, omega, p, fv, W, E, S, N):
     """rbgs_scalar_update: every operation rounded in fp32."""
     c, w, e, s, n = st.coefs
-    inv_c = planes.fp32_reciprocal(c)
     acc = w * W
     acc = acc + e * E
     acc = acc + s * S
     acc = acc + n * N
-    return p + omega * ((fv + acc) * inv_c - p)
+    return p + omega * ((fv + acc) / c - p)
 
 
 def _split(win, pr, pc):

@@ -9,8 +9,8 @@ and stores the tile into a separate output; a level takes the largest of
 the kernel's tiles whose grid holds enough blocks. The emulation below
 repeats that with torch ops on each window, colours taken from the global
 node index, at tiny tiles and at the kernel's own, on shapes the tiles do
-not divide. Every node is the kernel's arithmetic (p + omega*((f + nb)*inv_c - p), inv_c
-= 1/c in fp32, each operation rounded): red-then-black equals
+not divide. Every node is the kernel's arithmetic (p + omega*((f + nb)/c
+- p), each operation rounded in fp32): red-then-black equals
 ``multisweep_parity_plain`` bit for bit, and every method equals the same
 sweeps over the whole field in that arithmetic; a halo one node short
 breaks it.
@@ -25,10 +25,7 @@ import pytest
 import torch
 
 import mixed_precision_multigrid_solvers_for_pdes_torch as T
-from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
-    planes,
-    stencil,
-)
+from mixed_precision_multigrid_solvers_for_pdes_torch.ops import stencil
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
     smooth as ks,
 )
@@ -58,14 +55,13 @@ def _update(st, omega, method, p, fv, W, E, S, N):
     """The kernel's update of the nodes p (rbgs_scalar_update,
     jacobi_scalar_update): every operation rounded in fp32."""
     c, w, e, s, n = st.coefs
-    inv_c = planes.fp32_reciprocal(c)
     acc = w * W
     acc = acc + e * E
     acc = acc + s * S
     acc = acc + n * N
     if method == "jacobi":
-        return p + (omega * (fv - (c * p - acc))) * inv_c
-    return p + omega * ((fv + acc) * inv_c - p)
+        return p + (omega * (fv - (c * p - acc))) / c
+    return p + omega * ((fv + acc) / c - p)
 
 
 def _whole_field(st, u, f, *, method, sweeps, omega, parity=0):
