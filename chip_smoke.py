@@ -181,6 +181,34 @@ implicit step a shifted-operator V-cycle (c + lam on every level):
      HEAT3D_L2_BOUND, backend='torch' on the card equal bit for bit, peak
      memory, ms per step (minimum of 2) and a profile of a one-step 513^3
      run.
+The rest of 3D (after phase 28): bf16 storage in E, F and G, the 3D
+precisions and the 3D operator, each run from launch counts reset to zero:
+ 29. E (the bf16 levels of the 513^3 'bf16' and 'mixed' hierarchies: 513^3
+     with both colour orders and omega 1.3, 257^3 with 3 sweeps, an fp32
+     pass then a bf16 one, 33^3 to 5^3, and the coarsest 3^3 with 32
+     sweeps), F and G (513 <-> 257 all bf16, the mixed crossing 65 <-> 33
+     with an fp32 fine level and a bf16 coarse one, 33 <-> 17 all bf16)
+     against their twins bit for bit; CUDA-event ms of kernel and twin at
+     513^3 and device ms per launch on bf16 beside fp32 with the 2-byte
+     bound;
+ 30. solve_poisson3d(precision='mixed') at 513^3: the twins' outer-step
+     count (MIXED3D_TWINS), l2 within 2% of 1.1093e-6, E, F and G launches
+     (all, and bf16 apart) equal to the plan of the mixed levels, ms per
+     solve, peak memory and a profile; precision='bf16' at 513^3 for
+     BF16_3D_ITERS cycles: every level on E-G in bf16 as planned, the same
+     solve with every kernel call replaced by its twin on the card equal
+     bit for bit, the l2 at most the plain path's (bf16 after every op);
+     precision='adaptive' at 257^3: the JAX package's iterations, switch
+     to 'ir' and l2;
+ 31. the 3D operator, each solve held to the JAX package's count and l2
+     (OPERATOR3D_REF): jump_coefficient3d at 513^3 and, at 257^3,
+     neumann3d_test, periodic3d_helmholtz (duplicate nodes equal to node
+     0), anisotropic3d_z with line_z (F and G on every transfer, E on the
+     coarsest solve), a W-cycle Poisson solve (E-G per the recursion's
+     plan), coarsening='galerkin' on jump_coefficient3d, and solve_heat3d
+     CN in fp64 with a = 1 + x + y + z (5 steps); no E-G launch on a
+     coefficient, Neumann, periodic or Stencil27 level; convergence_study3d
+     at 33^3 and 65^3 (observed l2 order 2).
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -416,6 +444,41 @@ HEAT3D_RUNS = {"cn": (N3, "crank_nicolson", 1e-2, 1e-3),
                "cn_257": (N3_REF, "crank_nicolson", 1e-2, 1e-3),
                "bdf2": (N3_REF, "bdf2", 1e-2, 1e-3)}
 HEAT3D_L2_BOUND = {"cn": 1.9134e-5, "cn_257": 7.6098e-7, "bdf2": 4.3039e-6}
+# The rest of 3D (phases 29-31). Phase 30: solve_poisson3d(
+# poisson3d_mms_sinsinsin(n), precision=..., cfg=MultigridConfig(
+# smoother='rbgs', omega=1.0, tol=1e-9)). 'mixed' (fp32 levels 513^3-65^3,
+# bf16 33^3-3^3) is held to the count of its kernels' twins on the CPU at
+# 513^3 (benchmarking/mixed3d_witness.py, backend 'auto'), which is the JAX
+# package's count at 129^3 and 257^3 (scripts/reference3d.py), and to the
+# fp32 path's l2; 'bf16' runs BF16_3D_ITERS cycles; 'adaptive' at 257^3 is
+# held to the JAX package's iterations, l2 and switches.
+MIXED3D_TWINS = 5
+MIXED3D_L2 = L2_3D_EXPECTED[N3]
+BF16_3D_ITERS = 8
+PRECISION3D_REF = {"adaptive": (13, 4.437066e-6, [[10, "ir"]])}
+# Phase 31: solve_poisson3d(P.<problem>(n), precision='fp32', the config
+# above with the case's changes): name: (problem, n, changes); references
+# (outer steps, l2 or None) from the JAX package on the CPU
+# (scripts/reference3d.py). The 513^3 jump solve has no reference of its
+# size (a CPU run of it is out of reach); the JAX package's count grows
+# with n (10, 11, 13 at 65^3, 129^3, 257^3), and the card is held to its
+# own first reading, 15 (a tripwire). The Galerkin reference runs the JAX
+# package's solver on RAP levels the port computed (the script's note).
+OPERATOR3D_CASES = {
+    "jump": ("jump_coefficient3d", N3, {}),
+    "neumann": ("neumann3d_test", N3_REF, {}),
+    "periodic": ("periodic3d_helmholtz", N3_REF, {}),
+    "line_z": ("anisotropic3d_z", N3_REF, {"smoother": "line_z"}),
+    "w": ("poisson3d_mms_sinsinsin", N3_REF, {"cycle": "W"}),
+    "galerkin": ("jump_coefficient3d", N3_REF, {"coarsening": "galerkin"}),
+}
+OPERATOR3D_REF = {"jump": (15, None), "neumann": (5, 4.454200e-6),
+                  "periodic": (5, 1.759993e-5), "line_z": (4, 1.403126e-6),
+                  "w": (4, 4.437076e-6), "galerkin": (5, None),
+                  "heat_a": (5, 6.182821e-2)}
+# solve_heat3d CN, fp64, on pure_diffusion3d(257) with a = 1 + x + y + z
+HEAT3D_A_STEPS, HEAT3D_A_DT = 5, 1e-3
+
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
 
@@ -2989,6 +3052,432 @@ def heat3d_path(mg, card, dev):
     print(f"phase 28: {time.perf_counter() - start:.1f} s")
 
 
+def kernel_phase3d_bf16(mg, card, dev):
+    """Phase 29: E, F and G on bf16 storage against their twins (which
+    widen, run the fp32 twin and round once), bit for bit, at the levels and
+    dtype combinations of the 513^3 'mixed' and 'bf16' hierarchies, on data
+    from a seeded generator on the card; CUDA-event ms (kernel and twin) of
+    the record's calls at 513^3, and device ms per launch (torch.profiler)
+    on bf16 beside the same call on fp32, with the 2-byte bound."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth3d as ks3, transfer3d as kx3
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2929)
+
+    def field(shape, scale=1.0, dtype=bf, shell=False):
+        a = scale * torch.randn(shape, generator=gen, device=dev)
+        if not shell:
+            inner = a[1:-1, 1:-1, 1:-1].clone()
+            a.zero_()
+            a[1:-1, 1:-1, 1:-1] = inner
+        return a.to(dtype)
+
+    def widened(fn):  # the difference is taken in fp32
+        return lambda *a: fn(*a).float()
+
+    g = mg.Grid3D(N3, N3, N3)
+    fp32 = mg.build_hierarchy3d(g, device=dev)
+    bf16 = mg.build_hierarchy3d(g, policy=mg.policy("bf16"), device=dev)
+    mixed = mg.build_hierarchy3d(g, policy=mg.policy("mixed"), device=dev)
+    print("phase 29: mixed levels " + ", ".join(
+        f"{lev.grid.nx}^3 {str(lev.dtype).split('.')[-1]}" for lev in mixed))
+    errs, times, dev_ms = {}, {}, {}
+    # E: the bf16 levels of both hierarchies (the coarsest's 32 sweeps in
+    # one launch), 3 sweeps (an fp32 pass, then a bf16 one) at 257^3
+    for lev in [bf16[0], bf16[1]] + [m for m in mixed if m.dtype == bf]:
+        n, st = lev.grid.nx, lev.stencil
+        u, f = field((n,) * 3), field((n,) * 3, st.c)
+        cases = [(2, 1.0, False)]
+        if n == N3:
+            cases += [(2, 1.0, True), (1, 1.3, False)]
+        if n == N3_REF:
+            cases.append((3, 1.3, True))
+        if n == 3:
+            cases = [(32, 1.0, False)]
+        for sweeps, omega, reverse in cases:
+            kw = dict(sweeps=sweeps, omega=omega, reverse=reverse)
+            compare("rbgs3d_bf16", f"{n}^3 bf16 {kw} "
+                    f"({len(ks3.plan_passes(u.shape, sweeps))} launches)",
+                    widened(lambda a, b: ks3.rbgs3d(st, a, b, **kw)),
+                    widened(lambda a, b: ks3.rbgs3d_plain(st, a, b, **kw)),
+                    lambda: (u.clone(), f), errs, exact=True)
+        if n == N3:
+            times[("rbgs3d_bf16", n)] = (
+                time_ms(lambda: ks3.rbgs3d(st, u, f), reps=10),
+                time_ms(lambda: ks3.rbgs3d_plain(st, u.clone(), f), reps=3))
+            u32, f32 = u.float(), f.float()
+            st32 = fp32[0].stencil
+            e_bf = dev_ms[("rbgs3d_bf16", n)] = device_ms(
+                lambda: ks3.rbgs3d(st, u, f), "rbgs3d")
+            e_32 = device_ms(lambda: ks3.rbgs3d(st32, u32, f32), "rbgs3d")
+            print(f"E {n}^3 2-sweep call: device {e_bf:.4f} ms per launch "
+                  f"on bf16, {e_32:.4f} on fp32; bound "
+                  f"{bound('rbgs3d_bf16')[0]:.4f} ms (2 bytes a node) and "
+                  f"{bound('rbgs3d')[0]:.4f} (4 bytes) [{card}]")
+            del u32, f32
+        del u, f
+    torch.cuda.empty_cache()
+    # F and G: uniform bf16 at 513 <-> 257, the mixed crossing 65 <-> 33
+    # (fp32 fine level, bf16 coarse), and all-bf16 33 <-> 17
+    cross = [i for i, m in enumerate(mixed) if m.dtype == bf][0] - 1
+    for label, fine, coarse in (("bf16", bf16[0], bf16[1]),
+                                ("mixed", mixed[cross], mixed[cross + 1]),
+                                ("mixed", mixed[cross + 1],
+                                 mixed[cross + 2])):
+        n, nc, st = fine.grid.nx, coarse.grid.nx, fine.stencil
+        u = field((n,) * 3, dtype=fine.dtype)
+        f = field((n,) * 3, st.c, dtype=fine.dtype)
+        ec = field((nc,) * 3, dtype=coarse.dtype, shell=True)
+        kinds = f"{str(fine.dtype)[6:]}->{str(coarse.dtype)[6:]}"
+        compare("residual_restrict3d_bf16", f"{n}->{nc} {label} {kinds}",
+                widened(lambda a, b: kx3.residual_restrict3d(
+                    st, a, b, out_dtype=coarse.dtype)),
+                widened(lambda a, b: kx3.residual_restrict3d_plain(
+                    st, a, b, out_dtype=coarse.dtype)),
+                lambda: (u, f), errs, exact=True)
+        compare("prolong_correct3d_bf16", f"{nc}->{n} {label} ec "
+                f"{str(coarse.dtype)[6:]}, u {str(fine.dtype)[6:]}",
+                widened(kx3.prolong_correct3d),
+                widened(kx3.prolong_correct3d_plain),
+                lambda: (ec, u.clone()), errs, exact=True)
+        if n == N3:
+            times[("residual_restrict3d_bf16", n)] = (
+                time_ms(lambda: kx3.residual_restrict3d(st, u, f), reps=10),
+                time_ms(lambda: kx3.residual_restrict3d_plain(st, u, f),
+                        reps=3))
+            times[("prolong_correct3d_bf16", n)] = (
+                time_ms(lambda: kx3.prolong_correct3d(ec, u), reps=10),
+                time_ms(lambda: kx3.prolong_correct3d_plain(ec, u.clone()),
+                        reps=3))
+            u32, f32, ec32 = u.float(), f.float(), ec.float()
+            st32 = fp32[0].stencil
+            for name, call, call32 in (
+                    ("residual_restrict3d",
+                     lambda: kx3.residual_restrict3d(st, u, f),
+                     lambda: kx3.residual_restrict3d(st32, u32, f32)),
+                    ("prolong_correct3d", lambda: kx3.prolong_correct3d(ec, u),
+                     lambda: kx3.prolong_correct3d(ec32, u32))):
+                d_bf = dev_ms[(f"{name}_bf16", n)] = device_ms(call, name)
+                d_32 = device_ms(call32, name)
+                print(f"{name} {n}<->{nc}: device {d_bf:.4f} ms per launch "
+                      f"on bf16, {d_32:.4f} on fp32; bound "
+                      f"{bound(name + '_bf16')[0]:.4f} ms (2 bytes a node) "
+                      f"and {bound(name)[0]:.4f} (4 bytes) [{card}]")
+            del u32, f32, ec32
+        del u, f, ec
+        torch.cuda.empty_cache()
+    for (name, n), (k_ms, p_ms) in times.items():
+        print(f"time {name} {n}^3: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"[{card}]")
+    return errs, times, dev_ms
+
+
+def cycle_visits3d(num_levels, cfg):
+    """How often one 3D cycle of ``cfg`` visits each level, as
+    solvers/multigrid3d._cycle3 recurses: a 'W' level below w_depth visits
+    its coarse level twice, 'V' and 'F' once (the JAX package's 3D F-cycle
+    is a V-cycle)."""
+    visits, kind = [1], cfg.cycle
+    for lvl in range(num_levels - 1):
+        branch = kind if lvl + 1 < cfg.w_depth else "V"
+        visits.append(visits[-1] * (2 if kind == "W" and branch == "W"
+                                    else 1))
+        kind = branch
+    return visits
+
+
+def cycle_plan3d(levels, cfg, cycles, ks3, smooth=True):
+    """E, F and G launches (all, bf16) of ``cycles`` cycles over
+    ``levels`` of scalar 7-point all-Dirichlet levels: E plans its passes
+    per smoothing call (none when ``smooth`` is False, a smoother E does
+    not run, but the coarsest RB-GS), F and G one call per transfer; a
+    launch counts as bf16 when one of its levels is bf16."""
+    import torch
+
+    bf = torch.bfloat16
+    visits = cycle_visits3d(len(levels), cfg)
+    e = [0, 0]
+    fg = [0, 0]
+    for lvl, (lev, v) in enumerate(zip(levels, visits)):
+        if lvl == len(levels) - 1:
+            calls = [cfg.coarse_sweeps]
+        else:
+            calls = [cfg.pre_sweeps, cfg.post_sweeps] if smooth else []
+            fg[0] += v
+            fg[1] += v * (bf in (lev.dtype, levels[lvl + 1].dtype))
+        n = v * sum(len(ks3.plan_passes(lev.grid.shape, s)) for s in calls)
+        e[0] += n
+        e[1] += n * (lev.dtype == bf)
+    return {"rbgs3d": (e[0] * cycles, e[1] * cycles),
+            "residual_restrict3d": (fg[0] * cycles, fg[1] * cycles),
+            "prolong_correct3d": (fg[0] * cycles, fg[1] * cycles)}
+
+
+def check_solve3d(label, res, steps, l2_ref, n, switches=None):
+    """A phase 30-31 solve: finite, of shape n^3, converged in ``steps``
+    outer steps (or iterations), l2 within L2_RTOL of ``l2_ref`` (when
+    there is an exact solution), and its precision switches."""
+    import torch
+
+    info = res.info
+    print(f"solve {label}: iterations {res.iterations} converged "
+          f"{res.converged} errors {res.errors} switches "
+          f"{info.get('precision_switches')} solve "
+          f"{res.solve_time * 1e3:.3f} ms (first call, set-up included) "
+          f"history {np.asarray(info['history']).tolist()}")
+    if tuple(res.u.shape) != (n,) * 3 or not torch.isfinite(res.u).all():
+        fail(f"{label}: solution is misshapen or not finite")
+    if not res.converged or res.iterations != steps:
+        fail(f"{label}: expected convergence in {steps} steps")
+    if l2_ref is not None and abs(res.errors["l2"] / l2_ref - 1) > L2_RTOL:
+        fail(f"{label}: l2 error {res.errors['l2']:.6e} not within "
+             f"{L2_RTOL:.0%} of {l2_ref:.6e}")
+    got = [list(s) for s in info.get("precision_switches", [])]
+    if switches is not None and got != switches:
+        fail(f"{label}: switches {got}, expected {switches}")
+
+
+def counted3d(run, ks3, kx3):
+    """``run()`` from every launch count reset to zero (the bf16 counts of
+    E, F and G too); returns its result, the counts of every wrapper and
+    E's, F's and G's (all, bf16) counts."""
+    wrappers = (ks3.rbgs3d, kx3.residual_restrict3d, kx3.prolong_correct3d)
+    for w in wrappers:
+        w.launches_bf16 = 0
+    out, got = counted_run(run)
+    return out, got, {w.__name__: (w.launches, w.launches_bf16)
+                      for w in wrappers}
+
+
+def precision3d_path(mg, card, dev):
+    """Phase 30: the 3D precisions on poisson3d_mms_sinsinsin: 'mixed' at
+    513^3 (the twins' count, l2, E-G launches per plan with the bf16 ones
+    apart, ms per solve, busy share, peak memory), 'bf16' at 513^3 with
+    BF16_3D_ITERS cycles (every level on E-G in bf16; the kernel path equal
+    to the twin path bit for bit, its l2 at most the plain path's) and
+    'adaptive' at 257^3 (the JAX package's iterations, switches and l2);
+    returns the mixed solve's bf16 launches of E, F and G."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth3d as ks3, transfer3d as kx3
+
+    start = time.perf_counter()
+    bf = torch.bfloat16
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    prob = mg.poisson3d_mms_sinsinsin(N3)
+
+    def mixed():
+        return mg.solve_poisson3d(prob, precision="mixed", cfg=cfg,
+                                  device=dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, got, got3 = counted3d(mixed, ks3, kx3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_solve3d(f"mixed {N3}^3 auto", res, MIXED3D_TWINS, MIXED3D_L2, N3)
+    levels = mg.build_hierarchy3d(prob.grid, policy=mg.policy("mixed"),
+                                  device=dev, cfg=cfg)
+    plan = cycle_plan3d(levels, cfg, res.iterations * IR_INNER_CYCLES, ks3)
+    print(f"mixed {N3}^3: levels " + ", ".join(
+        f"{lev.grid.nx}^3 {str(lev.dtype)[6:]}" for lev in levels)
+        + f"; E-G launches (all, bf16) {got3}, plan {plan}; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    check_launches(f"mixed {N3}^3", got,
+                   {k: v[0] for k, v in plan.items()})
+    if got3 != plan:
+        fail(f"mixed {N3}^3: bf16 launches {got3} differ from the plan "
+             f"{plan}")
+    mixed_bf16 = {f"{k}_bf16": v[1] for k, v in got3.items()}
+    del res
+    # ms per solve: ir_solve3d with the right-hand side built on the card,
+    # the mixed levels and the fp32 ones in turns (solve_poisson3d also
+    # copies the problem's 1.08 GB host fields to the card on every call)
+    fp32 = mg.build_hierarchy3d(prob.grid, device=dev, cfg=cfg)
+    f3 = rhs3d(fp32, 0, 0, 1, dev)
+    u03 = torch.zeros_like(f3)
+    runs = {label: (lambda lv=lv: mg.ir_solve3d(lv, f3, u03, cfg,
+                                                 inner_cycles=2))
+            for label, lv in (("fp32", fp32), ("mixed", levels))}
+    ms = {label: [] for label in runs}
+    for label in ("fp32", "mixed", "mixed", "fp32"):
+        ms[label].append(best_ms(runs[label], reps=2))
+    for label, t in ms.items():
+        print(f"solve time {label} {N3}^3 ir_solve3d: {min(t):.3f} ms per "
+              f"solve ({t[0]:.3f}, {t[1]:.3f}; minimum of 2 in each turn) "
+              f"[{card}]")
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs["mixed"]()
+    print(f"mixed {N3}^3 ir_solve3d: peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    profile_solve(f"mixed {N3}^3", runs["mixed"], {
+        "rbgs3d": ks3.rbgs3d, "residual_restrict3d": kx3.residual_restrict3d,
+        "prolong_correct3d": kx3.prolong_correct3d})
+    del runs, f3, u03
+    torch.cuda.empty_cache()
+
+    # 'bf16': every level bf16; kernels, their twins on the card, plain
+    bcfg = cfg.replace(max_iterations=BF16_3D_ITERS)
+
+    def uniform(backend="auto"):
+        return mg.solve_poisson3d(prob, precision="bf16", cfg=bcfg.replace(
+            backend=backend), device=dev)
+
+    res, got, got3 = counted3d(uniform, ks3, kx3)
+    levels = mg.build_hierarchy3d(prob.grid, policy=mg.policy("bf16"),
+                                  device=dev, cfg=cfg)
+    plan = cycle_plan3d(levels, cfg, res.iterations, ks3)
+    print(f"bf16 {N3}^3 auto: iterations {res.iterations} errors "
+          f"{res.errors} history {res.info['history'].tolist()}; E-G "
+          f"launches (all, bf16) {got3}, plan {plan}")
+    if res.iterations != BF16_3D_ITERS or res.u.dtype != bf or \
+            not torch.isfinite(res.u).all():
+        fail(f"bf16 {N3}^3: {res.iterations} cycles of {res.u.dtype}, "
+             f"expected {BF16_3D_ITERS} of bf16, finite")
+    check_launches(f"bf16 {N3}^3", got, {k: v[0] for k, v in plan.items()})
+    if got3 != plan:
+        fail(f"bf16 {N3}^3: bf16 launches {got3} differ from {plan}")
+    # the twin path: each kernel call replaced by its twin on the card
+    saved = (ks3.rbgs3d, kx3.residual_restrict3d, kx3.prolong_correct3d)
+    ks3.rbgs3d = lambda st, u, f, **kw: ks3.rbgs3d_plain(st, u.clone(), f,
+                                                         **kw)
+    kx3.residual_restrict3d = kx3.residual_restrict3d_plain
+    kx3.prolong_correct3d = kx3.prolong_correct3d_plain
+    try:
+        twin = uniform()
+    finally:
+        ks3.rbgs3d, kx3.residual_restrict3d, kx3.prolong_correct3d = saved
+    same = torch.equal(res.u, twin.u) and \
+        res.info["history"].tolist() == twin.info["history"].tolist()
+    print(f"bf16 {N3}^3: kernel path = twin path call by call: {same} "
+          f"(max|du| {(res.u.float() - twin.u.float()).abs().max().item():.3e})")
+    if not same:
+        fail(f"bf16 {N3}^3: the kernel path differs from the twin path")
+    del twin
+    plain = uniform("torch")
+    print(f"bf16 {N3}^3 torch (every op rounded to bf16): iterations "
+          f"{plain.iterations} errors {plain.errors} history "
+          f"{plain.info['history'].tolist()}")
+    if res.errors["l2"] > plain.errors["l2"]:
+        fail(f"bf16 {N3}^3: kernel l2 {res.errors['l2']:.6e} above the "
+             f"plain path's {plain.errors['l2']:.6e}")
+    del res, plain
+    f3 = rhs3d(levels, 0, 0, 1, dev).to(bf)
+    u03 = torch.zeros_like(f3)
+    ms = best_ms(lambda: mg.mg_solve3d(levels, f3, u03, bcfg), reps=2)
+    print(f"solve time bf16 {N3}^3 mg_solve3d ({BF16_3D_ITERS} cycles): "
+          f"{ms:.3f} ms per solve (right-hand side on the card, minimum of "
+          f"2) [{card}]")
+    del f3, u03
+    torch.cuda.empty_cache()
+
+    # 'adaptive' at 257^3
+    steps, l2, switches = PRECISION3D_REF["adaptive"]
+    prob = mg.poisson3d_mms_sinsinsin(N3_REF)
+    res, got, got3 = counted3d(lambda: mg.solve_poisson3d(
+        prob, precision="adaptive", cfg=cfg, device=dev), ks3, kx3)
+    check_solve3d(f"adaptive {N3_REF}^3 auto", res, steps, l2, N3_REF,
+                  switches)
+    print(f"adaptive {N3_REF}^3: stage factors {res.info['stage_factors']}; "
+          f"E-G launches (all, bf16) {got3}")
+    if not all(got3[k][0] > 0 for k in got3) or any(
+            v[1] for v in got3.values()):
+        fail(f"adaptive {N3_REF}^3: E-G launches {got3} (fp32 stages: "
+             "launches, none on bf16)")
+    del res, levels
+    torch.cuda.empty_cache()
+    print(f"phase 30: {time.perf_counter() - start:.1f} s")
+    return mixed_bf16
+
+
+def operator3d_path(mg, card, dev):
+    """Phase 31: the 3D operator. jump_coefficient3d at 513^3 (fp32 under
+    fp64 IR; coefficient levels: no E-G launch); at 257^3 neumann3d_test
+    (reflect), periodic3d_helmholtz (wrap), anisotropic3d_z with line_z, a
+    W-cycle Poisson solve (E-G per plan), coarsening='galerkin' on
+    jump_coefficient3d (no E-G launch) and solve_heat3d CN with a
+    coefficient field (5 steps, fp64; no E-G launch); each held to the JAX
+    package's count and l2 (OPERATOR3D_REF); convergence_study3d at 33^3
+    and 65^3."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.applications \
+        import heat, heat3d
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth3d as ks3, transfer3d as kx3
+
+    start = time.perf_counter()
+    base = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    for key, (problem, n, changes) in OPERATOR3D_CASES.items():
+        cfg = base.replace(**changes)
+        prob = getattr(mg, problem)(n)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, got = counted_run(lambda: mg.solve_poisson3d(
+            prob, precision="fp32", cfg=cfg, device=dev))
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps, l2 = OPERATOR3D_REF[key]
+        check_solve3d(f"{key} {problem}({n}) {changes}", res, steps, l2, n)
+        if key == "w":
+            levels = mg.build_hierarchy3d(prob.grid, device=dev, cfg=cfg)
+            plan = cycle_plan3d(levels, cfg,
+                                res.iterations * IR_INNER_CYCLES, ks3)
+            plan = {k: v[0] for k, v in plan.items()}
+        elif key == "line_z":
+            # line_z smooths plain; F and G on every transfer, E the
+            # coarsest RB-GS
+            levels = mg.build_hierarchy3d(prob.grid, device=dev, cfg=cfg)
+            plan = cycle_plan3d(levels, cfg,
+                                res.iterations * IR_INNER_CYCLES, ks3,
+                                smooth=False)
+            plan = {k: v[0] for k, v in plan.items()}
+        else:  # coefficient, Neumann, periodic or Stencil27 levels
+            plan = {}
+        check_launches(f"{key} {n}^3", got, plan)
+        if key == "periodic":
+            u = res.u
+            dup = max((u[-1] - u[0]).abs().max().item(),
+                      (u[:, -1] - u[:, 0]).abs().max().item(),
+                      (u[..., -1] - u[..., 0]).abs().max().item())
+            if dup != 0:
+                fail(f"periodic {n}^3: duplicate nodes differ from node 0 "
+                     f"({dup:.3e})")
+        print(f"{key} {n}^3: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+              f"(first call), peak memory {peak / 2**30:.3f} GiB [{card}]")
+        del res
+        torch.cuda.empty_cache()
+    # solve_heat3d CN with a = 1 + x + y + z, fp64 (scripts/reference3d.py)
+    n = N3_REF
+    prob = heat3d.pure_diffusion3d(n)
+    x, y, z = prob.grid.axes()
+    prob.a = 1.0 + x[:, None, None] + y[None, :, None] + z[None, None, :]
+    hcfg = heat.HeatConfig(dtype="float64", mg=base)
+    t0 = time.perf_counter()
+    out, got = counted_run(lambda: mg.solve_heat3d(
+        prob, HEAT3D_A_STEPS * HEAT3D_A_DT, HEAT3D_A_DT, hcfg, device=dev))
+    steps, l2 = OPERATOR3D_REF["heat_a"]
+    print(f"heat3d CN with a {n}^3 fp64: steps {out['steps']} errors "
+          f"{out['errors']} ({(time.perf_counter() - t0) * 1e3:.1f} ms, "
+          f"first call) [{card}]")
+    check_launches(f"heat3d with a {n}^3", got, {})
+    if out["steps"] != steps or not torch.isfinite(out["u"]).all() or \
+            abs(out["errors"]["l2"] / l2 - 1) > L2_RTOL:
+        fail(f"heat3d with a: steps {out['steps']} l2 "
+             f"{out['errors']['l2']:.6e}, the JAX package's {steps}, "
+             f"{l2:.6e}")
+    del out
+    torch.cuda.empty_cache()
+    study = mg.convergence_study3d(mg.poisson3d_mms_sinsinsin, [33, 65],
+                                   device=dev)
+    print(f"convergence_study3d (33^3, 65^3, fp64): {study}")
+    if not study["converged"] or abs(study["order_l2"] - 2.0) > 0.1:
+        fail(f"convergence_study3d: observed l2 order "
+             f"{study['order_l2']:.4f}, not 2")
+    print(f"phase 31: {time.perf_counter() - start:.1f} s")
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -3036,6 +3525,12 @@ def work(name):
                                    10 * (n - 2) ** 2 + 12 * (nc - 2) ** 2),
         "prolong_correct_bf16": (2 * nc * nc + 4 * n * n, 3 * (n - 2) ** 2),
         "tail_vcycle_bf16": (6 * 129 ** 2, vcycle_flops(tail)),
+        # kernels E-G on bf16 storage: 2 bytes a node
+        "rbgs3d_bf16": (6 * m ** 3, 16 * 2 * (m - 2) ** 3),
+        "residual_restrict3d_bf16": (4 * m ** 3 + 2 * mc ** 3,
+                                     14 * (m - 2) ** 3 + 30 * (mc - 2) ** 3),
+        "prolong_correct3d_bf16": (2 * mc ** 3 + 4 * m ** 3,
+                                   4 * (m - 2) ** 3),
     }[name]
 
 
@@ -3519,6 +4014,14 @@ def main(argv) -> int:
     heat_path(mg, card, dev)
     heat3d_path(mg, card, dev)
 
+    # ---- the rest of 3D: phases 29-31 ------------------------------------
+    errs_b3, times_b3, dev_ms_b3 = kernel_phase3d_bf16(mg, card, dev)
+    errs.update(errs_b3)
+    times.update(times_b3)
+    dev_ms.update(dev_ms_b3)
+    launches.update(precision3d_path(mg, card, dev))
+    operator3d_path(mg, card, dev)
+
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),
                "prolong_correct": ("csrc/transfer.cu", "transfer.py:488"),
@@ -3543,7 +4046,12 @@ def main(argv) -> int:
                                           "transfer.py:262"),
                "prolong_correct_bf16": ("csrc/transfer.cu",
                                         "transfer.py:488"),
-               "tail_vcycle_bf16": ("csrc/tail.cu", "tail.py:170")}
+               "tail_vcycle_bf16": ("csrc/tail.cu", "tail.py:170"),
+               "rbgs3d_bf16": ("csrc/smooth3d.cu", "smooth3d.py:178"),
+               "residual_restrict3d_bf16": ("csrc/transfer3d.cu",
+                                            "transfer3d.py:194"),
+               "prolong_correct3d_bf16": ("csrc/transfer3d.cu",
+                                          "transfer3d.py:342")}
     main_n = {"smooth_multisweep": 1025, "residual_restrict": 1025,
               "prolong_correct": 1025, "tail_vcycle": 129,
               "smooth_var": N_VAR, "residual_restrict_var": N_VAR,
@@ -3551,7 +4059,9 @@ def main(argv) -> int:
               "residual_restrict3d": N3, "prolong_correct3d": N3,
               "smooth_planes": N, "smooth_parity": N, "probe": N, "copy": N,
               "smooth_multisweep_bf16": N, "residual_restrict_bf16": N,
-              "prolong_correct_bf16": N, "tail_vcycle_bf16": 129}
+              "prolong_correct_bf16": N, "tail_vcycle_bf16": 129,
+              "rbgs3d_bf16": N3, "residual_restrict3d_bf16": N3,
+              "prolong_correct3d_bf16": N3}
     timed = {"probe": "probe_roll"}  # the record times the 5-point probe
     record = []
     for name, (src, rep) in sources.items():

@@ -6,8 +6,8 @@ against. Plain tensor code is PyTorch; the hot operations of the 2D
 constant-coefficient, variable-coefficient and Neumann/Robin paths and of
 the 3D constant-coefficient Dirichlet path run in hand-written CUDA kernels
 for Hopper (``csrc/``, built with nvcc at first use, see
-``ops/cuda_kernels/_build.py``); kernels A-D take bf16 storage too, so the
-mixed, bf16 and adaptive precisions run on them. Galerkin coarsening
+``ops/cuda_kernels/_build.py``); kernels A-G take bf16 storage too, so the
+mixed, bf16 and adaptive precisions run on them in 2D and 3D. Galerkin coarsening
 (``coarsening='galerkin'``, 9-point coarse levels on the plain path), the
 Krylov solvers (``solvers.krylov``) and their preconditioners
 (``preconditioning``) run on top of the same cycles, and so do the heat
@@ -31,7 +31,10 @@ from .applications.precision_analysis import (  # noqa: F401
     MixedPrecisionAnalyzer,
     autotune,
 )
-from .applications.poisson3d import solve_poisson3d  # noqa: F401
+from .applications.poisson3d import (  # noqa: F401
+    convergence_study3d,
+    solve_poisson3d,
+)
 from .applications.heat import (  # noqa: F401
     HeatConfig,
     HeatProblem,
@@ -70,7 +73,18 @@ from .models.problems import (  # noqa: F401
     robin_test_problem,
     variable_coefficient_mms,
 )
-from .models.problems3d import Problem3D, poisson3d_mms_sinsinsin  # noqa: F401
+from .models.problems3d import (  # noqa: F401
+    CATALOGUE3D,
+    Problem3D,
+    anisotropic3d_z,
+    helmholtz3d_mms,
+    jump_coefficient3d,
+    neumann3d_test,
+    periodic3d_helmholtz,
+    poisson3d_mms_polynomial,
+    poisson3d_mms_sinsinsin,
+    varcoef3d_mms,
+)
 from .solvers.multigrid import (  # noqa: F401
     Level,
     MultigridConfig,
@@ -87,5 +101,9 @@ from .solvers.multigrid3d import (  # noqa: F401
     mg_solve3d,
 )
 from .solvers.plane_solve import plane_ir_solve  # noqa: F401
-from .solvers.refinement import adaptive_solve, ir_solve  # noqa: F401
+from .solvers.refinement import (  # noqa: F401
+    adaptive_solve,
+    adaptive_solve3d,
+    ir_solve,
+)
 from .utils.checkpoint import CheckpointManager  # noqa: F401

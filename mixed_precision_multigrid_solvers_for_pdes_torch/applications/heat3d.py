@@ -15,8 +15,11 @@ The callables take broadcastable coordinate tensors (nx,1,1), (1,ny,1),
 (1,1,nz) and a 0-d float64 host tensor ``t``: torch computes each node's
 value with the same operations as on full meshes, and a 513^3 evaluation
 builds no mesh of its own. They promote as the JAX package does (see
-``heat_problems.py``). A coefficient field ``a`` is ROADMAP item 13 (the 3D
-operator) and ``mesh=`` item 14.
+``heat_problems.py``). A coefficient field ``a`` makes the operator
+-div(a grad u): its levels hold coefficient fields (``ops/stencil3d.py``)
+and run the plain path, as in the JAX package, and the shift adds lam to
+each level's diagonal field; a ``Stencil27`` level (Galerkin coarsening in
+``HeatConfig.mg``) is shifted the same way. ``mesh=`` is ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ class HeatProblem3D:
     u0: Any = None                     # (nx, ny, nz) initial condition
     q: Optional[Callable] = None       # q(X, Y, Z, t), torch ops
     exact: Optional[Callable] = None   # exact(X, Y, Z, t), torch ops
-    a: Any = None                      # not ported (ROADMAP item 13)
+    a: Any = None                      # (nx, ny, nz) coefficient field
 
     def mesh(self, dtype=torch.float64, device="cpu"):
         """Broadcastable coordinates (nx,1,1), (1,ny,1), (1,1,nz)."""
@@ -74,7 +77,8 @@ class HeatProblem3D:
 
 def shift_hierarchy3d(levels, lam):
     """Add a scalar shift to every 3D level's diagonal (c + lam, rounded
-    once in the level's dtype)."""
+    once in the level's dtype): a float for a scalar stencil, a field for a
+    coefficient or ``Stencil27`` level."""
     return tuple(
         _carry_cache(lev, dataclasses.replace(
             lev, stencil=dataclasses.replace(
@@ -105,16 +109,13 @@ def solve_heat3d(
     history preserved). checkpoint_every=0 saves once at the end."""
     if mesh is not None:
         raise _not_ported("mesh= (sharded time stepping)", "item 14")
-    if problem.a is not None:
-        raise _not_ported("a coefficient field in 3D heat (heat3d with a)",
-                          "item 13")
     if cfg.adaptive_dt:
         raise ValueError("solve_heat3d is fixed-dt (adaptive_dt is 2D-only)")
     device = resolve_device(device)
     dtype = as_dtype(cfg.dtype)
     grid = problem.grid
     alpha = problem.alpha
-    levels0 = mg3.build_hierarchy3d(grid, lam=0.0, dtype=dtype,
+    levels0 = mg3.build_hierarchy3d(grid, a=problem.a, lam=0.0, dtype=dtype,
                                     device=device, cfg=cfg.mg)
     lev0 = levels0[0]
     unknown = lev0.unknown

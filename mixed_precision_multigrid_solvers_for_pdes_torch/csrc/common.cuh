@@ -210,6 +210,17 @@ __device__ __forceinline__ void load_shared(float* dst, const bf16* src) {
   *dst = load_f(src);
 }
 
+// A bf16 node widened to fp32 from a load issued here and now: an asm
+// volatile load keeps its place before the step's barrier, where the
+// compiler would sink a plain load to the value's first use (kernels E and
+// F hold such loads in registers across a step's compute, in place of the
+// 4-byte cp.async that a 2-byte node cannot take).
+__device__ __forceinline__ float load_bf16_now(const bf16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

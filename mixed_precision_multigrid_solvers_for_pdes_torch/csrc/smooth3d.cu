@@ -58,6 +58,17 @@
 //   reads 2S + 2 + 5 * 2S words and writes 2S), more than DRAM. The window's
 //   halo costs 1.41x the tile's loads and 15% more updates at S = 2.
 //
+// Storage: u, f and out are each fp32 or bf16 (mg_rbgs3d's storage flags,
+// kernel A's encoding). The rings and the one-block buffers are fp32
+// whatever the storage, so the shared-memory plan (mg_rbgs3d_geometry) is
+// the same for 2-byte planes. An fp32 field's planes come in by cp.async as
+// above; a bf16 field's by 2-byte loads into registers, issued kAhead steps
+// ahead like the copies, widened and written into the ring at the end of
+// the step (cp.async has no 2-byte copy, and the rows of a bf16 field are
+// 2-byte aligned). The tile is rounded to bf16 once, where it is stored. A
+// call of more sweeps than one launch takes keeps its passes before the
+// last in fp32 (the wrapper's scratch field), so a bf16 call rounds once.
+//
 // Small levels (both fields within kOneBlockMaxBytes, 17^3 and below) run
 // every sweep of a call in one launch of a one-block kernel that holds u and
 // f in shared memory, with a barrier per colour phase: the 32-sweep coarsest
@@ -69,6 +80,8 @@
 // sum and quotient rounded explicitly in the plain twin's order (neighbour
 // sum w, e, s, n, b, t), so the kernel equals its twin (ops/stencil.divide)
 // on the card bit for bit.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -126,12 +139,35 @@ __device__ __forceinline__ float rbgs7(float uc, float fv, float W, float E,
   return __fadd_rn(uc, kUnitOmega ? d : __fmul_rn(omega, d));
 }
 
-template <int S, bool kUnitOmega>
+// One node of a plane into a shared fp32 ring: a 4-byte cp.async from fp32
+// storage (`held` unused); from bf16 storage a 2-byte load into `held`,
+// widened, which `settle` writes into the ring later.
+__device__ __forceinline__ void fetch(float* dst, const float* src,
+                                      bool valid, float&) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void fetch(float*, const bf16* src, bool valid,
+                                      float& held) {
+  const float v = load_bf16_now(src);  // src is in the field when !valid
+  held = valid ? v : 0.0f;
+}
+
+// A tile node to the output, streaming (evict-first) for fp32; rounded once
+// for bf16.
+__device__ __forceinline__ void store_stream(float* p, float v) {
+  __stcs(p, v);
+}
+__device__ __forceinline__ void store_stream(bf16* p, float v) {
+  store_f(p, v);
+}
+
+template <int S, bool kUnitOmega, class TU, class TF, class TO>
 __global__ void __launch_bounds__(kWaveThreads, 1)
-    rbgs3d_wave_kernel(const float* __restrict__ u,
-                       const float* __restrict__ f, float* __restrict__ out,
-                       int nx, int ny, int nz, int chunk, Stencil7 st,
-                       float omega, int c0) {
+    rbgs3d_wave_kernel(const TU* __restrict__ u, const TF* __restrict__ f,
+                       TO* __restrict__ out, int nx, int ny, int nz,
+                       int chunk, Stencil7 st, float omega, int c0) {
+  constexpr bool kHeldU = std::is_same_v<TU, bf16>;
+  constexpr bool kHeldF = std::is_same_v<TF, bf16>;
   using W = Wave<S>;
   constexpr int P = 2 * S;  // phases per step
   extern __shared__ float sm[];
@@ -158,22 +194,37 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
     lo_s[r] = t < W::PLANE ? lj * W::RK + (lk & 1) * W::HP + (lk >> 1) : -1;
     lo_g[r] = j >= 0 && j < ny && k >= 0 && k < nz ? j * nz + k : -1;
   }
-  // plane q of u and f -> the rings (one commit group, empty past plane b)
+  // plane q of u and f -> the rings (one commit group, empty past plane b);
+  // a bf16 field's nodes wait in held_u / held_f for settle(q)
+  float held_u[W::LOADS], held_f[W::LOADS];
   auto issue = [&](int q) {
     if (q <= b) {
       float* ud = us + (q % W::NU) * W::PLANE;
       float* fd = fs + (q % W::NF) * W::PLANE;
-      const float* ug = u + (long)q * sx;
-      const float* fg = f + (long)q * sx;
+      const TU* ug = u + (long)q * sx;
+      const TF* fg = f + (long)q * sx;
 #pragma unroll
       for (int r = 0; r < W::LOADS; ++r) {
         if (lo_s[r] < 0) continue;
         const int g = max(lo_g[r], 0);
-        cp_async4(ud + lo_s[r], ug + g, lo_g[r] >= 0);
-        cp_async4(fd + lo_s[r], fg + g, lo_g[r] >= 0);
+        fetch(ud + lo_s[r], ug + g, lo_g[r] >= 0, held_u[r]);
+        fetch(fd + lo_s[r], fg + g, lo_g[r] >= 0, held_f[r]);
       }
     }
     cp_async_commit();
+  };
+  // the held bf16 nodes of plane q into the rings; no thread reads those
+  // slots before the next step's barrier
+  auto settle = [&](int q) {
+    if (!(kHeldU || kHeldF) || q > b) return;
+    float* ud = us + (q % W::NU) * W::PLANE;
+    float* fd = fs + (q % W::NF) * W::PLANE;
+#pragma unroll
+    for (int r = 0; r < W::LOADS; ++r) {
+      if (lo_s[r] < 0) continue;
+      if (kHeldU) ud[lo_s[r]] = held_u[r];
+      if (kHeldF) fd[lo_s[r]] = held_f[r];
+    }
   };
 
   // This thread's columns: row, parity-half index and, for either parity
@@ -220,24 +271,8 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
     }
   }
 
-  for (int d = 0; d < kAhead; ++d) issue(a + d);
-  for (int s = a; s <= last + 1; ++s) {
-    issue(s + kAhead);
-    cp_async_wait<kAhead>();  // plane s has landed
-    __syncthreads();
-
-    const int q_done = s - P - 1;  // finished in the previous step
-    if (q_done >= x0 && q_done < x1) {
-      const float* pl = us + (q_done % W::NU) * W::PLANE;
-      float* og = out + (long)q_done * sx;
-#pragma unroll
-      for (int r = 0; r < W::STORES; ++r)
-        if (st_g[r] >= 0) __stcs(og + st_g[r], pl[st_s[r]]);
-    }
-
-    // phases p in [plo, phi] touch planes a < s - p < b
-    const int plo = max(1, s - b + 1), phi = min(P, s - a - 1);
-    if (s > last || plo > phi) continue;
+  // step s's compute: phases plo .. phi, phase p on plane s - p
+  auto step = [&](int s, int plo, int phi) {
     const int par = (c0 + 1 + s + jw0 + kw0) & 1;
     int slot[P + 2];  // ring offsets of planes s - P - 1 .. s
 #pragma unroll
@@ -280,22 +315,46 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
       for (int p = 1; p <= P; ++p)
         if (p >= plo && p <= p1) us[slot[P + 1 - p] + own] = col[P + 1 - p];
     }
+  };
+
+  for (int d = 0; d < kAhead; ++d) {
+    issue(a + d);
+    settle(a + d);
+  }
+  for (int s = a; s <= last + 1; ++s) {
+    issue(s + kAhead);
+    cp_async_wait<kAhead>();  // plane s has landed
+    __syncthreads();
+
+    const int q_done = s - P - 1;  // finished in the previous step
+    if (q_done >= x0 && q_done < x1) {
+      const float* pl = us + (q_done % W::NU) * W::PLANE;
+      TO* og = out + (long)q_done * sx;
+#pragma unroll
+      for (int r = 0; r < W::STORES; ++r)
+        if (st_g[r] >= 0) store_stream(og + st_g[r], pl[st_s[r]]);
+    }
+
+    // phases p in [plo, phi] touch planes a < s - p < b
+    const int plo = max(1, s - b + 1), phi = min(P, s - a - 1);
+    if (s <= last && plo <= phi) step(s, plo, phi);
+    settle(s + kAhead);
   }
   cp_async_wait<0>();
 }
 
+template <class TU, class TF, class TO>
 __global__ void __launch_bounds__(kOneBlockThreads)
-    rbgs3d_block_kernel(const float* __restrict__ u,
-                        const float* __restrict__ f, float* __restrict__ out,
-                        int nx, int ny, int nz, Stencil7 st, float omega,
-                        int c0, int sweeps) {
+    rbgs3d_block_kernel(const TU* __restrict__ u, const TF* __restrict__ f,
+                        TO* __restrict__ out, int nx, int ny, int nz,
+                        Stencil7 st, float omega, int c0, int sweeps) {
   extern __shared__ float sm[];
   const int n = nx * ny * nz, sx = ny * nz;
   float* us = sm;
   float* fs = sm + n;
   for (int t = threadIdx.x; t < n; t += kOneBlockThreads) {
-    us[t] = u[t];
-    fs[t] = f[t];
+    us[t] = load_f(u + t);
+    fs[t] = load_f(f + t);
   }
   const int rows = (nx - 2) * (ny - 2), per_row = (nz - 1) / 2;
   for (int ph = 0; ph < 2 * sweeps; ++ph) {
@@ -312,17 +371,18 @@ __global__ void __launch_bounds__(kOneBlockThreads)
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < n; t += kOneBlockThreads) out[t] = us[t];
+  for (int t = threadIdx.x; t < n; t += kOneBlockThreads)
+    store_f(out + t, us[t]);
 }
 
-template <int S>
-cudaError_t launch_wave(const float* u, const float* f, float* out, int nx,
-                        int ny, int nz, int chunk, const Stencil7& st,
-                        float omega, int c0, int device, cudaStream_t stream) {
+template <int S, class TU, class TF, class TO>
+cudaError_t launch_wave(const TU* u, const TF* f, TO* out, int nx, int ny,
+                        int nz, int chunk, const Stencil7& st, float omega,
+                        int c0, int device, cudaStream_t stream) {
   static bool done[2][kMaxDevices] = {};
   const bool unit = omega == 1.0f;
-  const auto kernel =
-      unit ? rbgs3d_wave_kernel<S, true> : rbgs3d_wave_kernel<S, false>;
+  const auto kernel = unit ? rbgs3d_wave_kernel<S, true, TU, TF, TO>
+                           : rbgs3d_wave_kernel<S, false, TU, TF, TO>;
   const cudaError_t err =
       allow_smem(kernel, Wave<S>::BYTES, device, done[unit]);
   if (err != cudaSuccess) return err;
@@ -333,6 +393,53 @@ cudaError_t launch_wave(const float* u, const float* f, float* out, int nx,
   return cudaGetLastError();
 }
 
+// The storage of one launch: the input u, f and the output, as the
+// wrapper's passes need them (bit 0: u is bf16, bit 1: f, bit 2: out), as
+// kernel A encodes it (smooth.cu).
+enum Storage : int {
+  kFp32 = 0,       // an fp32 level
+  kBf16 = 7,       // a bf16 level's call in one launch
+  kBf16First = 3,  // the first launch of a longer bf16 call: out fp32
+  kBf16Mid = 2,    // a launch between: u and out fp32
+  kBf16Last = 6,   // the last: u fp32, out bf16
+};
+
+// One launch on typed storage: the one-block kernel for fields within
+// kOneBlockMaxBytes (any sweep count), else the wave kernel. A longer
+// call's launches before its last take kMaxWaveSweeps sweeps each
+// (plan_passes in ops/cuda_kernels/smooth3d.py), so kBf16First and
+// kBf16Mid compile the wave kernel for that count only (kAnySweeps false).
+template <class TU, class TF, class TO, bool kAnySweeps>
+cudaError_t rbgs3d_typed(const void* u, const void* f, void* out, int nx,
+                         int ny, int nz, const Stencil7& st, float omega,
+                         int sweeps, int c0, int chunk, int device,
+                         cudaStream_t stream) {
+  const TU* tu = static_cast<const TU*>(u);
+  const TF* tf = static_cast<const TF*>(f);
+  TO* to = static_cast<TO*>(out);
+  const long bytes = 2L * nx * ny * nz * (long)sizeof(float);
+  if (bytes <= kOneBlockMaxBytes) {
+    static bool done[kMaxDevices] = {};
+    const cudaError_t err = allow_smem(rbgs3d_block_kernel<TU, TF, TO>,
+                                       kOneBlockMaxBytes, device, done);
+    if (err != cudaSuccess) return err;
+    rbgs3d_block_kernel<TU, TF, TO><<<1, kOneBlockThreads, (int)bytes,
+                                      stream>>>(tu, tf, to, nx, ny, nz, st,
+                                                omega, c0, sweeps);
+    return cudaGetLastError();
+  }
+  if (chunk < 1) return cudaErrorInvalidValue;
+  if (sweeps == kMaxWaveSweeps)
+    return launch_wave<2>(tu, tf, to, nx, ny, nz, chunk, st, omega, c0,
+                          device, stream);
+  if constexpr (kAnySweeps) {
+    if (sweeps == 1)
+      return launch_wave<1>(tu, tf, to, nx, ny, nz, chunk, st, omega, c0,
+                            device, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -341,35 +448,35 @@ extern "C" {
 // `reverse`) of u, written to out (every node of out is written; u and f
 // are only read, and out must not alias them). Fields whose u and f fit in
 // kOneBlockMaxBytes take any sweep count in one block; larger ones take at
-// most kMaxWaveSweeps, in x-chunks of `chunk` planes.
-int mg_rbgs3d(const float* u, const float* f, float* out, int nx, int ny,
+// most kMaxWaveSweeps, in x-chunks of `chunk` planes. `storage` says which
+// of u, f and out are bf16 (Storage); the others are fp32.
+int mg_rbgs3d(const void* u, const void* f, void* out, int nx, int ny,
               int nz, float c, float w, float e, float s, float n, float b,
               float t, float omega, int sweeps, int reverse, int chunk,
-              int device, void* stream) {
+              int storage, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const Stencil7 st{c, w, e, s, n, b, t};
-  const int c0 = reverse ? 1 : 0;
-  const long bytes = 2L * nx * ny * nz * (long)sizeof(float);
   if (sweeps < 1 || nx < 3 || ny < 3 || nz < 3)
     return (int)cudaErrorInvalidValue;
-  if (bytes <= kOneBlockMaxBytes) {
-    static bool done[kMaxDevices] = {};
-    err = allow_smem(rbgs3d_block_kernel, kOneBlockMaxBytes, device, done);
-    if (err != cudaSuccess) return (int)err;
-    rbgs3d_block_kernel<<<1, kOneBlockThreads, (int)bytes,
-                          (cudaStream_t)stream>>>(
-        u, f, out, nx, ny, nz, st, omega, c0, sweeps);
-    return (int)cudaGetLastError();
-  }
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
-  switch (sweeps) {
-    case 1:
-      return (int)launch_wave<1>(u, f, out, nx, ny, nz, chunk, st, omega, c0,
-                                 device, (cudaStream_t)stream);
-    case 2:
-      return (int)launch_wave<2>(u, f, out, nx, ny, nz, chunk, st, omega, c0,
-                                 device, (cudaStream_t)stream);
+  const Stencil7 st{c, w, e, s, n, b, t};
+  const int c0 = reverse ? 1 : 0;
+  const cudaStream_t q = (cudaStream_t)stream;
+  switch (storage) {
+    case kFp32:
+      return (int)rbgs3d_typed<float, float, float, true>(
+          u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
+    case kBf16:
+      return (int)rbgs3d_typed<bf16, bf16, bf16, true>(
+          u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
+    case kBf16First:
+      return (int)rbgs3d_typed<bf16, bf16, float, false>(
+          u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
+    case kBf16Mid:
+      return (int)rbgs3d_typed<float, bf16, float, false>(
+          u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
+    case kBf16Last:
+      return (int)rbgs3d_typed<float, bf16, bf16, true>(
+          u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -62,6 +62,14 @@
 //   behind. Short x-chunks keep the blocks of a wave within a few planes of
 //   each other, which the loads gain by (PERF.md §6).
 //
+// Storage of F: u and f are fp32 or bf16 (one type for both, the level's)
+// and fc is written fp32 or bf16 (the coarse level's), each selected by a
+// flag of mg_residual_restrict3d. The rings are fp32 whatever the storage.
+// A bf16 field's planes come in by 2-byte loads into registers, issued
+// where the copies are, widened and written into the rings at the end of
+// the step (cp.async has no 2-byte copy); the residuals and
+// the restriction are fp32, and fc is rounded once, where it is stored.
+//
 // Design of G, a stream of fine row pairs:
 // - A thread takes one interior k of fine rows 2J and 2J+1 and kPcSteps
 //   coarse x-steps I (fine planes 2I and 2I+1 each); blockIdx.y is J,
@@ -77,7 +85,11 @@
 //   4-byte u load in flight per thread. Here a fine node costs ~1.1 ec
 //   loads, coarse rows are not re-read across fine rows, and a thread has
 //   eight u loads in flight (PERF.md §6).
+// - Storage: ec and u are each fp32 or bf16 (mg_prolong_correct3d's
+//   flags); both are widened on load, the interpolation and the sum are
+//   fp32, and a bf16 u is rounded once per node, where it is stored.
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -184,12 +196,27 @@ __device__ __forceinline__ void restrict_pattern(float& acc, const float* r1,
   }
 }
 
+// One node of a plane into a shared fp32 ring: a 4-byte cp.async from fp32
+// storage (`held` unused); from bf16 storage a 2-byte load into `held`,
+// widened, which the kernel writes into the ring later.
+__device__ __forceinline__ void fetch(float* dst, const float* src,
+                                      bool valid, float&) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void fetch(float*, const bf16* src, bool valid,
+                                      float& held) {
+  const float v = load_bf16_now(src);  // src is in the field when !valid
+  held = valid ? v : 0.0f;
+}
+
+template <class T, class TO>
 __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
-    residual_restrict3d_kernel(const float* __restrict__ u,
-                               const float* __restrict__ f,
-                               float* __restrict__ fc, int nyf, int nzf,
+    residual_restrict3d_kernel(const T* __restrict__ u,
+                               const T* __restrict__ f,
+                               TO* __restrict__ fc, int nyf, int nzf,
                                int ncx, int ncy, int ncz, int chunk,
                                Stencil7 st) {
+  constexpr bool kHeld = std::is_same_v<T, bf16>;
   constexpr int R = kRrStripRows, nj = 2 * kRrHalf;
   extern __shared__ float sm[];
   float* us = sm;                              // kRrRingU u planes
@@ -221,31 +248,51 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
     lf_s[r] = t < kRrResRows * (kRrCols - 2) ? rr_word(lj, lk) : -1;
     lf_g[r] = j < nyf && k < nzf ? j * nzf + k : -1;
   }
-  auto load_u = [&](int q) {
+  // a bf16 field's nodes of the planes in flight wait here for settle
+  float held_u[2][kRrLoadsU], held_f[2][kRrLoadsF];
+  auto load_u = [&](int q, int h) {
     float* d = us + (q % kRrRingU) * kRrPlane;
-    const float* g = u + q * sx;
+    const T* g = u + q * sx;
 #pragma unroll
     for (int r = 0; r < kRrLoadsU; ++r)
-      if (lu_s[r] >= 0) cp_async4(d + lu_s[r], g + max(lu_g[r], 0),
-                                  lu_g[r] >= 0);
+      if (lu_s[r] >= 0) fetch(d + lu_s[r], g + max(lu_g[r], 0),
+                              lu_g[r] >= 0, held_u[h][r]);
   };
-  auto load_f = [&](int q) {
+  auto load_f = [&](int q, int h) {
     float* d = fs + (q % kRrRingF) * kRrPlane;
-    const float* g = f + q * sx;
+    const T* g = f + q * sx;
 #pragma unroll
     for (int r = 0; r < kRrLoadsF; ++r)
-      if (lf_s[r] >= 0) cp_async4(d + lf_s[r], g + max(lf_g[r], 0),
-                                  lf_g[r] >= 0);
+      if (lf_s[r] >= 0) fetch(d + lf_s[r], g + max(lf_g[r], 0),
+                              lf_g[r] >= 0, held_f[h][r]);
   };
   // step I's planes (one commit group; empty past the chunk's last step)
   auto issue = [&](int I) {
     if (I < I1) {
-      load_u(2 * I + 1);
-      load_u(2 * I + 2);
-      load_f(2 * I);
-      load_f(2 * I + 1);
+      load_u(2 * I + 1, 0);
+      load_u(2 * I + 2, 1);
+      load_f(2 * I, 0);
+      load_f(2 * I + 1, 1);
     }
     cp_async_commit();
+  };
+  // the held bf16 nodes of step I's planes into the rings, at the end of
+  // the step before it (the loads' latency hides behind its residuals and
+  // restriction); no thread reads those slots before step I's first
+  // barrier
+  auto settle = [&](int I) {
+    if (!kHeld || I >= I1) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* du = us + ((2 * I + 1 + h) % kRrRingU) * kRrPlane;
+      float* df = fs + ((2 * I + h) % kRrRingF) * kRrPlane;
+#pragma unroll
+      for (int r = 0; r < kRrLoadsU; ++r)
+        if (lu_s[r] >= 0) du[lu_s[r]] = held_u[h][r];
+#pragma unroll
+      for (int r = 0; r < kRrLoadsF; ++r)
+        if (lf_s[r] >= 0) df[lf_s[r]] = held_f[h][r];
+    }
   };
 
   // This thread's residual strip: n rows from window row `top` of one
@@ -289,13 +336,22 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
     for (int t = tid; t < nodes; t += kRrThreads) {
       const int j = jlo + t / cols, k = klo + t % cols;
       if (all || j == 0 || j == ncy - 1 || k == 0 || k == ncz - 1)
-        fc[((long)I * ncy + j) * ncz + k] = 0.0f;
+        store_f(fc + ((long)I * ncy + j) * ncz + k, 0.0f);
     }
   };
   if (I0 == 1) zero_span(0, true);
 
-  load_u(2 * I0 - 2);  // the lead-in's west plane, in the first group
-  for (int d = 0; d < kRrAhead; ++d) issue(I0 - 1 + d);
+  load_u(2 * I0 - 2, 0);  // the lead-in's west plane, in the first group
+  if (kHeld) {
+    float* d = us + ((2 * I0 - 2) % kRrRingU) * kRrPlane;
+#pragma unroll
+    for (int r = 0; r < kRrLoadsU; ++r)
+      if (lu_s[r] >= 0) d[lu_s[r]] = held_u[0][r];
+  }
+  for (int d = 0; d < kRrAhead; ++d) {
+    issue(I0 - 1 + d);
+    settle(I0 - 1 + d);
+  }
   for (int I = I0 - 1; I < I1; ++I) {
     cp_async_wait<kRrAhead - 1>();  // step I's planes have landed
     __syncthreads();
@@ -344,6 +400,7 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
                 r2[centre + dy * nj + (dz == 0 ? 0 : kRrHalf) -
                    (dz < 0 ? 1 : 0)];
       }
+      settle(I + kRrAhead);
       continue;
     }
     if (mine) {
@@ -356,25 +413,29 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
       restrict_pattern<5>(acc, r1, r2, centre, rw, rn);
       restrict_pattern<6>(acc, r1, r2, centre, rw, rn);
       restrict_pattern<7>(acc, r1, r2, centre, rw, rn);
-      fc[((long)I * ncy + J) * ncz + K] = __fmul_rn(acc, 1.0f / 64.0f);
+      store_f(fc + ((long)I * ncy + J) * ncz + K,
+              __fmul_rn(acc, 1.0f / 64.0f));
 #pragma unroll
       for (int i = 0; i < 9; ++i) rw[i] = rn[i];
     }
     if (edge) zero_span(I, false);
+    settle(I + kRrAhead);
   }
   if (I1 == ncx - 1) zero_span(ncx - 1, true);
   cp_async_wait<0>();
 }
 
 // F's blocks the card holds at once (resident blocks per multiprocessor
-// times multiprocessors), read once per device; 0 if it cannot be read.
+// times multiprocessors), read once per device and storage; 0 if it cannot
+// be read.
+template <class T, class TO>
 int rr_block_slots(int device) {
   static int slots[kMaxDevices] = {};
   if (slots[device] == 0) {
     int per_sm = 0, sms = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, residual_restrict3d_kernel, kRrThreads, kRrBytes) ==
-            cudaSuccess &&
+            &per_sm, residual_restrict3d_kernel<T, TO>, kRrThreads,
+            kRrBytes) == cudaSuccess &&
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                device) == cudaSuccess)
       slots[device] = per_sm * sms;
@@ -382,15 +443,15 @@ int rr_block_slots(int device) {
   return slots[device];
 }
 
+template <class TE, class TU>
 __global__ void __launch_bounds__(kPcThreads)
-    prolong_correct3d_kernel(const float* __restrict__ ec,
-                             float* __restrict__ u, int ncy, int ncz,
-                             int nyf, int nzf, int steps) {
+    prolong_correct3d_kernel(const TE* __restrict__ ec, TU* __restrict__ u,
+                             int ncy, int ncz, int nyf, int nzf, int steps) {
   const int I0 = blockIdx.z * kPcSteps, J = blockIdx.y;
   const int k = 1 + blockIdx.x * kPcThreads + threadIdx.x;
   if (k > nzf - 2) return;
   const long sx = (long)nyf * nzf, csx = (long)ncy * ncz;
-  float* w = u + (long)(2 * I0) * sx + (long)(2 * J) * nzf + k;
+  TU* w = u + (long)(2 * I0) * sx + (long)(2 * J) * nzf + k;
   const int ns = min(kPcSteps, steps - I0);
   // u at rows 2J + r of planes 2(I0 + s) + p, all loaded first
   float v[kPcSteps][2][2];
@@ -401,31 +462,69 @@ __global__ void __launch_bounds__(kPcThreads)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const bool in = s < ns && (I0 + s > 0 || p == 1) && (J > 0 || r == 1);
-        v[s][p][r] = in ? w[(2 * s + p) * sx + r * nzf] : 0.0f;
+        v[s][p][r] = in ? load_f(w + (2 * s + p) * sx + r * nzf) : 0.0f;
       }
   const bool kodd = k & 1;
-  auto along_z = [&](const float* q) {
-    return kodd ? half_sum(q[0], q[1]) : q[0];
+  auto along_z = [&](const TE* q) {
+    return kodd ? half_sum(load_f(q), load_f(q + 1)) : load_f(q);
   };
   // Pyz at rows 2J (e) and 2J + 1 (o) of coarse plane I0 + s
-  const float* q = ec + (long)I0 * csx + (long)J * ncz + (k >> 1);
+  const TE* q = ec + (long)I0 * csx + (long)J * ncz + (k >> 1);
   float e0 = along_z(q), o0 = half_sum(e0, along_z(q + ncz));
 #pragma unroll
   for (int s = 0; s < kPcSteps; ++s) {
     if (s >= ns) break;
     q += csx;
     const float e1 = along_z(q), o1 = half_sum(e1, along_z(q + ncz));
-    float* w0 = w + 2 * s * sx;  // plane 2I, row 2J
-    float* w1 = w0 + sx;         // plane 2I + 1
+    TU* w0 = w + 2 * s * sx;  // plane 2I, row 2J
+    TU* w1 = w0 + sx;         // plane 2I + 1
     if (I0 + s > 0) {
-      if (J > 0) w0[0] = __fadd_rn(v[s][0][0], e0);
-      w0[nzf] = __fadd_rn(v[s][0][1], o0);
+      if (J > 0) store_f(w0, __fadd_rn(v[s][0][0], e0));
+      store_f(w0 + nzf, __fadd_rn(v[s][0][1], o0));
     }
-    if (J > 0) w1[0] = __fadd_rn(v[s][1][0], half_sum(e0, e1));
-    w1[nzf] = __fadd_rn(v[s][1][1], half_sum(o0, o1));
+    if (J > 0) store_f(w1, __fadd_rn(v[s][1][0], half_sum(e0, e1)));
+    store_f(w1 + nzf, __fadd_rn(v[s][1][1], half_sum(o0, o1)));
     e0 = e1;
     o0 = o1;
   }
+}
+
+template <class T, class TO>
+cudaError_t residual_restrict3d_typed(const void* u, const void* f, void* fc,
+                                      int nyf, int nzf, int ncx, int ncy,
+                                      int ncz, const Stencil7& st, int device,
+                                      cudaStream_t stream) {
+  static bool done[kMaxDevices] = {};
+  const auto kernel = residual_restrict3d_kernel<T, TO>;
+  const cudaError_t err = allow_smem(kernel, kRrBytes, device, done);
+  if (err != cudaSuccess) return err;
+  const int tj = (ncy - 2 + kRrTileJ - 1) / kRrTileJ;
+  const int tk = (ncz - 2 + kRrTileK - 1) / kRrTileK;
+  const int planes = ncx - 2;
+  // as many chunks as fill the card, none over kRrMaxChunk planes (but
+  // none under kRrMinChunk where filling the card asks for more)
+  const int fill = std::max(
+      1, std::min(rr_block_slots<T, TO>(device) / (tj * tk),
+                  planes / kRrMinChunk));
+  const int chunk = std::min((planes + fill - 1) / fill, kRrMaxChunk);
+  const dim3 grid(tk, tj, (planes + chunk - 1) / chunk);
+  kernel<<<grid, kRrThreads, kRrBytes, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(f),
+      static_cast<TO*>(fc), nyf, nzf, ncx, ncy, ncz, chunk, st);
+  return cudaGetLastError();
+}
+
+template <class TE, class TU>
+cudaError_t prolong_correct3d_typed(const void* ec, void* u, int ncy,
+                                    int ncz, int nxf, int nyf, int nzf,
+                                    cudaStream_t stream) {
+  const int steps = (nxf - 1) / 2;  // fine plane pairs (2I, 2I + 1)
+  const dim3 grid((nzf - 2 + kPcThreads - 1) / kPcThreads, ncy - 1,
+                  (steps + kPcSteps - 1) / kPcSteps);
+  prolong_correct3d_kernel<TE, TU><<<grid, kPcThreads, 0, stream>>>(
+      static_cast<const TE*>(ec), static_cast<TU*>(u), ncy, ncz, nyf, nzf,
+      steps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -433,46 +532,51 @@ __global__ void __launch_bounds__(kPcThreads)
 extern "C" {
 
 // fc (ncx, ncy, ncz) = R_fw(f - A u) from fine fields of row lengths
-// (nyf, nzf).
-int mg_residual_restrict3d(const float* u, const float* f, float* fc, int nyf,
+// (nyf, nzf); u and f are bf16 when `in_bf16`, else fp32, and fc is bf16
+// when `out_bf16`, else fp32.
+int mg_residual_restrict3d(const void* u, const void* f, void* fc, int nyf,
                            int nzf, int ncx, int ncy, int ncz, float c,
                            float w, float e, float s, float n, float b,
-                           float t, int device, void* stream) {
-  cudaError_t err = use_device(device);
+                           float t, int in_bf16, int out_bf16, int device,
+                           void* stream) {
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (ncx < 3 || ncy < 3 || ncz < 3) return (int)cudaErrorInvalidValue;
-  static bool done[kMaxDevices] = {};
-  err = allow_smem(residual_restrict3d_kernel, kRrBytes, device, done);
-  if (err != cudaSuccess) return (int)err;
   const Stencil7 st{c, w, e, s, n, b, t};
-  const int tj = (ncy - 2 + kRrTileJ - 1) / kRrTileJ;
-  const int tk = (ncz - 2 + kRrTileK - 1) / kRrTileK;
-  const int planes = ncx - 2;
-  // as many chunks as fill the card, none over kRrMaxChunk planes (but
-  // none under kRrMinChunk where filling the card asks for more)
-  const int fill = std::max(
-      1, std::min(rr_block_slots(device) / (tj * tk), planes / kRrMinChunk));
-  const int chunk = std::min((planes + fill - 1) / fill, kRrMaxChunk);
-  const dim3 grid(tk, tj, (planes + chunk - 1) / chunk);
-  residual_restrict3d_kernel<<<grid, kRrThreads, kRrBytes,
-                               (cudaStream_t)stream>>>(
-      u, f, fc, nyf, nzf, ncx, ncy, ncz, chunk, st);
-  return (int)cudaGetLastError();
+  const cudaStream_t q = (cudaStream_t)stream;
+  if (in_bf16)
+    return (int)(out_bf16
+                     ? residual_restrict3d_typed<bf16, bf16>(
+                           u, f, fc, nyf, nzf, ncx, ncy, ncz, st, device, q)
+                     : residual_restrict3d_typed<bf16, float>(
+                           u, f, fc, nyf, nzf, ncx, ncy, ncz, st, device,
+                           q));
+  return (int)(out_bf16
+                   ? residual_restrict3d_typed<float, bf16>(
+                         u, f, fc, nyf, nzf, ncx, ncy, ncz, st, device, q)
+                   : residual_restrict3d_typed<float, float>(
+                         u, f, fc, nyf, nzf, ncx, ncy, ncz, st, device, q));
 }
 
 // u (nxf, nyf, nzf) += P_trilinear(ec) on interior nodes; ec has row
-// lengths (ncy, ncz).
-int mg_prolong_correct3d(const float* ec, float* u, int ncy, int ncz, int nxf,
-                         int nyf, int nzf, int device, void* stream) {
-  cudaError_t err = use_device(device);
+// lengths (ncy, ncz). ec is bf16 when `ec_bf16`, u when `u_bf16`, else
+// fp32.
+int mg_prolong_correct3d(const void* ec, void* u, int ncy, int ncz, int nxf,
+                         int nyf, int nzf, int ec_bf16, int u_bf16,
+                         int device, void* stream) {
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (nxf < 5 || nyf < 5 || nzf < 5) return (int)cudaErrorInvalidValue;
-  const int steps = (nxf - 1) / 2;  // fine plane pairs (2I, 2I + 1)
-  const dim3 grid((nzf - 2 + kPcThreads - 1) / kPcThreads, ncy - 1,
-                  (steps + kPcSteps - 1) / kPcSteps);
-  prolong_correct3d_kernel<<<grid, kPcThreads, 0, (cudaStream_t)stream>>>(
-      ec, u, ncy, ncz, nyf, nzf, steps);
-  return (int)cudaGetLastError();
+  const cudaStream_t q = (cudaStream_t)stream;
+  if (ec_bf16)
+    return (int)(u_bf16 ? prolong_correct3d_typed<bf16, bf16>(
+                              ec, u, ncy, ncz, nxf, nyf, nzf, q)
+                        : prolong_correct3d_typed<bf16, float>(
+                              ec, u, ncy, ncz, nxf, nyf, nzf, q));
+  return (int)(u_bf16 ? prolong_correct3d_typed<float, bf16>(
+                            ec, u, ncy, ncz, nxf, nyf, nzf, q)
+                      : prolong_correct3d_typed<float, float>(
+                            ec, u, ncy, ncz, nxf, nyf, nzf, q));
 }
 
 }  // extern "C"

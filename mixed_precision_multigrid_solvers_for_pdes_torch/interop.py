@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .core.bc import SIDES, BCKind, BCSegment, BCSide, BoundarySpec
-from .core.bc3d import BoundarySpec3D
+from .core.bc3d import SIDES3D, BoundarySpec3D
 from .core.domain import LShapedDomain
 from .core.grid import Grid
 from .core.grid3d import Grid3D
@@ -30,7 +30,7 @@ from .models.problems import Problem
 from .models.problems3d import Problem3D
 from .ops.planes import plane_shape
 from .ops.stencil import _S9_FIELDS, Stencil, Stencil9
-from .ops.stencil3d import Stencil3D
+from .ops.stencil3d import Stencil27, Stencil3D
 from .solvers.multigrid import Level, MultigridConfig
 from .solvers.multigrid3d import Level3D
 
@@ -125,12 +125,7 @@ def field_from_jax(arr, grid, *, dtype=None, device="cpu") -> torch.Tensor:
     region sits at the origin); a bf16 field stays bf16 unless ``dtype``
     says otherwise."""
     a = np.asarray(arr)[: grid.nx, : grid.ny]
-    if a.dtype.name == "bfloat16":
-        t = torch.as_tensor(np.ascontiguousarray(a.astype(np.float32)),
-                            device=device)
-        return t.to(dtype or torch.bfloat16)
-    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                           device=device)
+    return _host_tensor(np.ascontiguousarray(a), device, dtype)
 
 
 def field_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
@@ -209,38 +204,70 @@ def grid3d_from_jax(g) -> Grid3D:
                   tuple(float(x) for x in g.domain))
 
 
-def stencil3d_from_jax(st) -> Stencil3D:
-    """Port Stencil3D from a JAX Stencil3D with 0-d leaves."""
-    vals = [np.asarray(getattr(st, k, None)) for k in "cwesnbt"]
-    if any(v.ndim for v in vals):
-        raise NotImplementedError("variable-coefficient and 27-point 3D "
-                                  "stencils are not ported yet (ROADMAP "
-                                  "item 13)")
-    return Stencil3D(*(float(v) for v in vals))
+def stencil3d_from_jax(st, grid=None, *, device="cpu",
+                       wrap=(False, False, False)):
+    """Port Stencil3D or Stencil27 from a JAX one: 0-d leaves become
+    floats; padded 3-d leaves (coefficient fields) become (nx, ny, nz)
+    tensors of their dtype on ``device``, which needs the ``grid``; a
+    Stencil27's ``off`` becomes (26, nx, ny, nz). ``wrap`` holds the
+    periodic axes of the level's spec; a Stencil27 never wraps."""
+    if type(st).__name__ == "Stencil27":
+        if any(wrap):
+            raise ValueError("a 27-point stencil takes no periodic axis")
+        off = np.asarray(st.off)[:, : grid.nx, : grid.ny, : grid.nz]
+        return Stencil27(field3d_from_jax(np.asarray(st.c), grid,
+                                          device=device),
+                         _host_tensor(np.ascontiguousarray(off), device))
+    if type(st).__name__ != "Stencil3D":
+        raise ValueError(f"unknown 3D stencil {type(st).__name__!r}")
+    vals = [np.asarray(getattr(st, k)) for k in "cwesnbt"]
+    if not any(v.ndim for v in vals):
+        return Stencil3D(*(float(v) for v in vals), wrap=tuple(wrap))
+    return Stencil3D(*(field3d_from_jax(
+        np.broadcast_to(v, grid.shape_padded), grid, device=device)
+        for v in vals), wrap=tuple(wrap))
+
+
+def spec3d_from_jax(spec) -> BoundarySpec3D:
+    """Port BoundarySpec3D from a JAX one."""
+    return BoundarySpec3D(**{
+        name: BCSide(kind=BCKind(spec.side(name).kind.value),
+                     alpha=spec.side(name).alpha, beta=spec.side(name).beta)
+        for name in SIDES3D})
 
 
 def levels3d_from_jax(levels, *, device="cpu"):
-    """Port 3D hierarchy from a tuple of JAX Level3Ds (all-Dirichlet
-    only)."""
+    """Port 3D hierarchy from a tuple of JAX Level3Ds, with their specs,
+    coefficient fields, 27-point levels and per-level dtypes (bf16
+    included)."""
     out = []
     for lev in levels:
-        if not lev.spec.all_dirichlet:
-            raise NotImplementedError("only all-Dirichlet boxes are ported "
-                                      "yet (ROADMAP item 13)")
-        out.append(Level3D(stencil=stencil3d_from_jax(lev.stencil),
-                           grid=grid3d_from_jax(lev.grid),
-                           spec=BoundarySpec3D(),
-                           dtype=as_dtype(np.dtype(lev.dtype)),
+        spec = spec3d_from_jax(lev.spec)
+        out.append(Level3D(stencil=stencil3d_from_jax(lev.stencil, lev.grid,
+                                                      device=device,
+                                                      wrap=spec.wrap),
+                           grid=grid3d_from_jax(lev.grid), spec=spec,
+                           dtype=as_dtype(np.dtype(lev.dtype).name),
                            device=torch.device(device)))
     return tuple(out)
 
 
+def _host_tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A tensor of numpy data; bf16 data (which numpy holds as ml_dtypes)
+    come across through float32 and stay bf16 unless ``dtype`` says
+    otherwise."""
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=device).to(
+            dtype or torch.bfloat16)
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
 def field3d_from_jax(arr, grid, *, dtype=None, device="cpu") -> torch.Tensor:
     """(nx, ny, nz) tensor from a padded JAX field (or any array whose
-    logical region sits at the origin)."""
+    logical region sits at the origin); a bf16 field stays bf16 unless
+    ``dtype`` says otherwise."""
     a = np.asarray(arr)[: grid.nx, : grid.ny, : grid.nz]
-    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                           device=device)
+    return _host_tensor(np.ascontiguousarray(a), device, dtype)
 
 
 def field3d_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
@@ -255,22 +282,23 @@ def field3d_to_jax_layout(t: torch.Tensor, grid) -> np.ndarray:
 
 
 def problem3d_from_jax(prob) -> Problem3D:
-    """Port Problem3D (f, lam, Dirichlet values, exact solution) from a JAX
-    one."""
-    if not prob.spec.all_dirichlet or prob.a is not None \
-            or np.ndim(prob.lam) or prob.bc_values:
-        raise NotImplementedError("only constant-coefficient all-Dirichlet "
-                                  "3D problems are ported yet (ROADMAP item "
-                                  "13)")
+    """Port Problem3D (f, a, lam, Dirichlet values, Neumann/Robin data g,
+    exact solution) from a JAX one, whatever its faces. Array data are
+    sliced to the logical region; scalars stay scalars."""
     g = grid3d_from_jax(prob.grid)
 
     def host(a):
-        return None if a is None else np.asarray(
-            a, np.float64)[: g.nx, : g.ny, : g.nz].copy()
+        if a is None or np.ndim(a) == 0:
+            return a if a is None else float(a)
+        return np.asarray(a, np.float64)[: g.nx, : g.ny, : g.nz].copy()
 
-    return Problem3D(name=prob.name, grid=g, f=host(prob.f),
-                     lam=float(prob.lam), exact=host(prob.exact),
-                     dirichlet_values=host(prob.dirichlet_values))
+    bc_values = (None if prob.bc_values is None
+                 else {k: host(v) for k, v in prob.bc_values.items()})
+    return Problem3D(name=prob.name, grid=g, spec=spec3d_from_jax(prob.spec),
+                     f=host(prob.f), a=host(prob.a), lam=host(prob.lam),
+                     exact=host(prob.exact),
+                     dirichlet_values=host(prob.dirichlet_values),
+                     bc_values=bc_values)
 
 
 # ---------------------------------------------------------------------------

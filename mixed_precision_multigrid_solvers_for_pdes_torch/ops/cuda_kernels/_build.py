@@ -57,11 +57,11 @@ _SIGNATURES = {
     "mg_tail_var_vcycle": ([_P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
                             _I, _I, _I, _P], _I),
     "mg_tail_var_geometry": ([_I, _IP, _IP, _IP], _I),
-    "mg_rbgs3d": ([_P] * 3 + [_I] * 3 + [_F] * 8 + [_I] * 4 + [_P], _I),
+    "mg_rbgs3d": ([_P] * 3 + [_I] * 3 + [_F] * 8 + [_I] * 5 + [_P], _I),
     "mg_rbgs3d_geometry": ([_I, _IP], _I),
     "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
-                               + [_I, _P], _I),
-    "mg_prolong_correct3d": ([_P, _P] + [_I] * 5 + [_I, _P], _I),
+                               + [_I, _I, _I, _P], _I),
+    "mg_prolong_correct3d": ([_P, _P] + [_I] * 5 + [_I, _I, _I, _P], _I),
     "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_planes_rbgs": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_probe_color": ([_P] * 3 + [_I] * 4 + [_I, _P], _I),
@@ -180,7 +180,7 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# Storage dtypes of kernels A-D: each loads them, computes in fp32 and
+# Storage dtypes of kernels A-G: each loads them, computes in fp32 and
 # stores once per call. The C entries take a flag per tensor: 1 = bf16.
 STORAGE = (torch.float32, torch.bfloat16)
 
@@ -191,7 +191,7 @@ def bf16(t: torch.Tensor) -> int:
 
 
 def round_once(twin, out, *args, **kwargs):
-    """A plain twin on bf16 storage, rounding where kernels A-D do: ``twin``
+    """A plain twin on bf16 storage, rounding where kernels A-G do: ``twin``
     run on ``args`` with every tensor widened to fp32, its fp32 result
     rounded once into ``out``, a tensor updated in place or the dtype of a
     new one."""

@@ -3,10 +3,15 @@ their plain twin.
 
 Replaces the Pallas ``rbgs_planes`` of
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth3d.py``
-(:178) for constant-coefficient 7-point stencils on all-Dirichlet boxes in
-fp32. The source note in ``csrc/smooth3d.cu`` gives the design and what
-bounds it. Like the Pallas kernel it runs the RB-GS family only; weighted
-Jacobi stays on the plain path (``ops/dispatch.py``).
+(:178) for constant-coefficient 7-point stencils on all-Dirichlet boxes, on
+fp32 or bf16 storage (``STORAGE``): the Pallas kernel casts u and f on load
+(:217); E loads each of u, f in its dtype, sweeps in fp32 and rounds to
+u's dtype once per call, so a call of several launches keeps its passes
+before the last in an fp32 scratch field. The source note in
+``csrc/smooth3d.cu`` gives the design and what bounds it. Like the Pallas
+kernel it runs the RB-GS family only; weighted Jacobi stays on the plain
+path (``ops/dispatch.py``). A tensor-leaf, periodic or 27-point stencil is
+refused on any device (``check_scalar7``).
 
 The kernel works out of place, as the Pallas kernel does: ``rbgs3d``
 returns a new tensor and leaves ``u`` untouched, on the CPU too, where it
@@ -15,8 +20,8 @@ kernel or raises. Levels whose u and f fit one block (``ONE_BLOCK_MAX_BYTES``)
 take every sweep of a call in one launch; larger levels take up to
 ``MAX_WAVE_SWEEPS`` sweeps per launch, so the multigrid cycle's 2-sweep calls
 are one launch each, and longer calls run in passes that alternate between
-the output and one scratch field. ``rbgs3d.launches`` counts kernel
-launches.
+the output and fp32 scratch fields. ``rbgs3d.launches`` counts kernel
+launches, ``rbgs3d.launches_bf16`` those of a call on bf16 storage.
 
 The geometry the kernel is launched with (passes, tiles, x-chunks) is
 computed here, so the CPU tests can emulate the kernel's schedule with it.
@@ -37,6 +42,8 @@ from ...core import bc3d
 from .. import smooth3d as smooth3d_mod
 from ..stencil3d import Stencil3D
 from . import _build
+
+STORAGE = _build.STORAGE
 
 # csrc/smooth3d.cu's kTileJ x kTileK, kMaxWaveSweeps, kAhead,
 # kOneBlockMaxBytes (check_geometry holds them against the library).
@@ -115,9 +122,26 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def check_scalar7(name: str, st) -> None:
+    """Raise unless ``st`` is a constant-coefficient 7-point stencil that
+    does not wrap: kernels E and F read seven scalars and take a box of
+    unknowns, and would compute another operator for a coefficient field,
+    a ``Stencil27`` or a periodic axis."""
+    if not (isinstance(st, Stencil3D) and st.scalar and not any(st.wrap)):
+        raise ValueError(f"{name}: takes a constant-coefficient 7-point "
+                         f"stencil on a box, got {type(st).__name__} "
+                         f"(scalar={getattr(st, 'scalar', False)}, "
+                         f"wrap={getattr(st, 'wrap', None)})")
+
+
 def rbgs3d_plain(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
                  reverse: bool = False):
-    """Plain twin: ``ops.smooth3d.smooth3d`` (RB-GS) in place on u."""
+    """Plain twin: ``ops.smooth3d.smooth3d`` (RB-GS) in place on u. On bf16
+    storage it rounds where E does: u and f widened to fp32, every sweep in
+    fp32, one rounding back into u."""
+    if torch.bfloat16 in (u.dtype, f.dtype):
+        return _build.round_once(rbgs3d_plain, u, st, u, f, sweeps=sweeps,
+                                 omega=omega, reverse=reverse)
     unknown = bc3d.unknown_mask3d(*u.shape, device=u.device)
     return smooth3d_mod.smooth3d(st, u, f, unknown, method="rbgs",
                                  sweeps=sweeps, omega=omega, reverse=reverse)
@@ -126,11 +150,13 @@ def rbgs3d_plain(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
 def rbgs3d(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
            reverse: bool = False):
     """``sweeps`` RB-GS/SOR sweeps of ``u`` (red then black, or black then
-    red with ``reverse``); returns a new tensor, ``u`` is left untouched."""
+    red with ``reverse``); returns a new tensor of u's dtype, ``u`` is left
+    untouched. u and f are each fp32 or bf16."""
+    check_scalar7("rbgs3d", st)
     if u.device.type == "cpu":
         return rbgs3d_plain(st, u.clone(), f, sweeps=sweeps, omega=omega,
                             reverse=reverse)
-    _build.check_cuda("rbgs3d", u, f, ndim=3)
+    _build.check_cuda("rbgs3d", u, f, ndim=3, dtypes=STORAGE)
     check_geometry()
     if f.shape != u.shape:
         raise ValueError(f"rbgs3d: f {tuple(f.shape)} != u {tuple(u.shape)}")
@@ -139,18 +165,24 @@ def rbgs3d(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
         return u.clone()
     dev, stream = u.device.index, _build.stream_of(u)
     chunk = chunk_planes(u.shape, _sm_count(dev))
-    out = torch.empty_like(u)
-    scratch = torch.empty_like(u) if len(passes) > 1 else None
+    # passes before the last alternate between two fp32 scratch fields, so
+    # a call on bf16 storage rounds once
+    mids = [torch.empty(u.shape, dtype=torch.float32, device=u.device)
+            for _ in range(min(len(passes) - 1, 2))]
+    outputs = [mids[i % 2] for i in range(len(passes) - 1)]
+    outputs.append(torch.empty_like(u))
     src = u
-    for i, n in enumerate(passes):
-        # the last pass writes out: earlier ones alternate before it
-        dst = out if (len(passes) - 1 - i) % 2 == 0 else scratch
+    for n, dst in zip(passes, outputs):
+        storage = (_build.bf16(src) | _build.bf16(f) << 1
+                   | _build.bf16(dst) << 2)
         _build.launch("mg_rbgs3d", src.data_ptr(), f.data_ptr(),
                       dst.data_ptr(), *u.shape, *st.coefs, omega, n,
-                      int(reverse), chunk, dev, stream)
+                      int(reverse), chunk, storage, dev, stream)
         rbgs3d.launches += 1
+        if torch.bfloat16 in (u.dtype, f.dtype):
+            rbgs3d.launches_bf16 += 1
         src = dst
-    return out
+    return outputs[-1]
 
 
-rbgs3d.launches = 0
+rbgs3d.launches = rbgs3d.launches_bf16 = 0

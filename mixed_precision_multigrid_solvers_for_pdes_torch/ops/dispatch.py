@@ -44,9 +44,11 @@ Storage dtypes, as the JAX package's gates take them (its ``ops/dispatch.py``
 take each of their two levels in fp32 or bf16 (a fine fp32 level over a
 coarse bf16 one restricts into bf16); D takes a tail whose entry level is
 fp32 or bf16, whatever the dtypes below it, and computes every level in
-fp32. Each loads its storage, computes in fp32 and stores once per call.
-H, I, J, K, L and E-G take fp32 only (bf16 storage for them is still to
-port), so a bf16 level on their paths runs plain torch. A level with an
+fp32. E takes fp32 or bf16 u and f, F and G each of their two levels in
+fp32 or bf16 (the JAX package's :146-151 and :179-183). Each loads its
+storage, computes in fp32 and stores once per call. H, I, J, K and L take
+fp32 only (bf16 storage for them is still to port), so a bf16 level on
+their paths runs plain torch. A level with an
 irregular domain (``Level.domain``) takes no kernel: every 2D kernel
 builds its unknowns from the rectangle, as in the JAX package's gates
 (:83, :229, :326). A ``Stencil9`` level (Galerkin coarsening) takes no 2D
@@ -65,11 +67,16 @@ level-0 planes take kernel K, others its plain twin. The JAX package's
 
 3D (``smooth3d``, ``transfer_fused3d_ok``, ``residual_restrict3d``,
 ``prolong_correct3d``; counterparts of ``pallas_smooth3d_ok`` and
-``transfer_fused3d_ok``): fp32 levels of an all-Dirichlet box take kernel E
-for RB-GS smoothing and kernels F and G for the transfers on every level,
-down to the coarsest; the TPU's byte, plane-budget and ``px >= 4`` gates are
-dropped. Weighted Jacobi stays on the plain path in 3D, as it did on the
-TPU. There is no 3D tail kernel: the JAX package never built one.
+``transfer_fused3d_ok``): fp32 and bf16 levels of an all-Dirichlet box with
+a constant-coefficient 7-point stencil take kernel E for RB-GS smoothing
+and kernels F and G for the transfers on every level, down to the
+coarsest; the TPU's byte, plane-budget and ``px >= 4`` gates are dropped.
+A level with a coefficient field, an array lam, Neumann/Robin or periodic
+faces, or a ``Stencil27`` (Galerkin) takes none of them, as in the JAX
+package's gates (:147, :175: a stencil whose c is not 0-d): the kernels
+read seven scalars. Weighted Jacobi and the line smoother stay on the
+plain path in 3D, as they did on the TPU. There is no 3D tail kernel: the
+JAX package never built one.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ import torch
 
 from . import smooth as smooth_mod, smooth3d as smooth3d_mod
 from .stencil import Stencil9
+from .stencil3d import Stencil3D
 from .cuda_kernels import smooth as k_smooth, smooth3d as k_smooth3d, \
     smooth_planes as k_planes, smooth_var as k_smooth_var, tail as k_tail, \
     transfer as k_transfer, transfer3d as k_transfer3d
@@ -232,13 +240,22 @@ def tail_vcycle(levels, lvl, u, f, cfg):
     )
 
 
-def kernel_smooth3d_ok(u, lev, backend: str, method: str) -> bool:
+def _scalar7(st) -> bool:
+    """True for a constant-coefficient 7-point stencil (float leaves)."""
+    return isinstance(st, Stencil3D) and st.scalar
+
+
+def kernel_smooth3d_ok(u, lev, backend: str, method: str, *fields) -> bool:
     """True when kernel E runs the 3D smoothing: an RB-GS-family method
-    (Jacobi stays plain), an all-Dirichlet box, fp32 data."""
+    (Jacobi and line_z stay plain), a constant-coefficient 7-point stencil
+    on an all-Dirichlet box, fp32 or bf16 ``u``, and ``fields`` (the
+    dispatch passes f) of u's dtype."""
     return (_kernels(backend)
             and (method in smooth_mod.RBGS_METHODS or method == "rbgs_rev")
+            and _scalar7(lev.stencil)
             and lev.spec.all_dirichlet
-            and u.dtype == torch.float32)
+            and u.dtype in k_smooth3d.STORAGE
+            and all(x.dtype == u.dtype for x in fields))
 
 
 def smooth3d(lev, u, f, *, method: str, sweeps: int, omega: float,
@@ -246,7 +263,7 @@ def smooth3d(lev, u, f, *, method: str, sweeps: int, omega: float,
     """``sweeps`` 3D smoothing sweeps of ``u``; returns the smoothed field:
     a new tensor from kernel E (which works out of place), ``u`` itself,
     updated in place, from the plain path."""
-    if kernel_smooth3d_ok(u, lev, backend, method):
+    if kernel_smooth3d_ok(u, lev, backend, method, f):
         return k_smooth3d.rbgs3d(lev.stencil, u, f, sweeps=sweeps,
                                  omega=omega,
                                  reverse=reverse or method == "rbgs_rev")
@@ -257,12 +274,16 @@ def smooth3d(lev, u, f, *, method: str, sweeps: int, omega: float,
 
 def transfer_fused3d_ok(lev, nxt, cfg, *fields) -> bool:
     """True when kernels F/G replace the plain 3D residual -> restrict and
-    prolong -> correct chain between ``lev`` and ``nxt``: fp32 levels, and
-    ``fields`` (the cycle passes the level's u and f) fp32 too."""
+    prolong -> correct chain between ``lev`` and ``nxt``: a constant-
+    coefficient 7-point stencil on an all-Dirichlet box at ``lev`` (G
+    reads no stencil), each level fp32 or bf16, and ``fields`` (the cycle
+    passes the level's u and f) of ``lev``'s dtype."""
     return (_kernels(cfg.backend)
             and cfg.restriction == "full_weighting"
+            and _scalar7(lev.stencil)
             and lev.spec.all_dirichlet
-            and lev.dtype == torch.float32 and nxt.dtype == torch.float32
+            and lev.dtype in k_transfer3d.STORAGE
+            and nxt.dtype in k_transfer3d.STORAGE
             and _fields_ok(lev, fields))
 
 

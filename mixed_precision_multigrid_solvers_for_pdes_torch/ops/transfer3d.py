@@ -1,14 +1,14 @@
 """Plain PyTorch 3D intergrid transfers: 27-point full-weighting restriction
 and trilinear prolongation.
 
-Counterpart of ``restrict3d`` (full weighting, ``boundary='zero'``) and
-``prolong3d`` in ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/
+Counterpart of ``restrict3d`` (full weighting and injection; boundaries
+'zero' and 'reflect', periodic ``wrap``) and ``prolong3d`` in ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/
 transfer3d.py``, written with strided slices of the logical arrays and
 summed in the order of the JAX package's CPU path (parity planes for the
 restriction, axis-by-axis z, y, x for the prolongation). The fine grid
 relates to the coarse one as nf = 2*(nc - 1) + 1 along each axis. These are
 the plain twins that kernels F and G (``ops/cuda_kernels/transfer3d.py``)
-are held against. Injection and the 'reflect' boundary are ROADMAP item 13.
+are held against.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 import itertools
 
 import torch
+import torch.nn.functional as F
 
 
 def _restrict_terms():
@@ -39,32 +40,73 @@ RESTRICT_TERMS = _restrict_terms()
 
 def restrict3d(rf: torch.Tensor, ncx: int, ncy: int, ncz: int, *,
                method: str = "full_weighting", boundary: str = "zero",
-               dtype=None) -> torch.Tensor:
-    """Fine (nfx, nfy, nfz) -> coarse (ncx, ncy, ncz) full weighting,
-    (1,2,1)^3/64 over the fine window around (2I, 2J, 2K), coarse shell
-    zero."""
-    if method != "full_weighting":
-        raise NotImplementedError(
-            f"3D restriction {method!r} is not ported yet (ROADMAP item 13)")
-    if boundary != "zero":
-        raise NotImplementedError(
-            f"3D boundary {boundary!r} is not ported yet (ROADMAP item 13)")
+               dtype=None, wrap=(False, False, False)) -> torch.Tensor:
+    """Fine (nfx, nfy, nfz) -> coarse (ncx, ncy, ncz) restriction, in
+    ``dtype`` (``rf`` is cast first, as the JAX package casts it).
+
+    ``method``: 'full_weighting' ((1,2,1)^3/64 over the fine window around
+    (2I, 2J, 2K), summed in ``RESTRICT_TERMS`` order) or 'injection' (the
+    coincident fine node). ``boundary``: 'zero' leaves the coarse shell at
+    zero (Dirichlet residuals); 'reflect' restricts onto the shell too,
+    folding the out-of-domain window planes back onto the interior (plane
+    -1 takes plane 1, plane nf takes plane nf-2; x first, then y, then z):
+    the residual transfer of Neumann/Robin faces. ``wrap``: per-axis
+    periodic flags; on a wrapped axis coarse node 0 is restricted too,
+    reading its fine neighbour -1 as node nf-2, and the duplicate coarse
+    node nc-1 is left to the level's sync (zero under 'zero', its computed
+    value under 'reflect')."""
+    if method not in ("full_weighting", "injection"):
+        raise ValueError(f"unknown restriction {method!r}")
+    if boundary not in ("zero", "reflect"):
+        raise ValueError(f"unknown restriction boundary {boundary!r}")
     dtype = dtype or rf.dtype
     r = rf.to(dtype)
-    nf = tuple(2 * (nc - 1) + 1 for nc in (ncx, ncy, ncz))
+    nc = (ncx, ncy, ncz)
+    nf = tuple(2 * (n - 1) + 1 for n in nc)
     if tuple(r.shape) != nf:
         raise ValueError(f"fine shape {tuple(r.shape)} does not coarsen to "
                          f"({ncx}, {ncy}, {ncz})")
+    out = torch.zeros(nc, dtype=dtype, device=r.device)
+    if boundary == "reflect" or any(wrap):
+        # one ghost plane around the fine array, p[k + 1] = fine k: wrap
+        # neighbours on a periodic axis, the reflection otherwise
+        p = F.pad(r, (1, 1, 1, 1, 1, 1))
+        for axis in range(3):
+            if wrap[axis]:  # ghost -1 = fine nf-2, ghost nf = fine 1
+                pairs = ((0, -3), (-1, 2))
+            elif boundary == "reflect":  # ghost -1 = 1, ghost nf = nf-2
+                pairs = ((0, 2), (-1, -3))
+            else:
+                continue
+            for ghost, node in pairs:
+                dst = [slice(None)] * axis + [ghost] + [slice(1, -1)] * (
+                    2 - axis)
+                src = dst[:axis] + [node] + dst[axis + 1:]
+                p[tuple(dst)] = p[tuple(src)]
+        r, inner, lo = p, out, 1  # every coarse node
+    else:
+        inner, lo = out[1:-1, 1:-1, 1:-1], 2  # coarse interior only
 
-    def win(d):  # fine[2I+dx, 2J+dy, 2K+dz] over the coarse interior
-        return r[tuple(slice(2 + di, n - 2 + di, 2) for di, n in zip(d, nf))]
+    def win(d):  # fine[2I+dx, 2J+dy, 2K+dz] for the coarse nodes in inner
+        return r[tuple(slice(lo + di, lo + di + 2 * m - 1, 2)
+                       for di, m in zip(d, inner.shape))]
 
-    acc = None
-    for wgt, d in RESTRICT_TERMS:
-        term = wgt * win(d)
-        acc = term if acc is None else acc + term
-    out = torch.zeros((ncx, ncy, ncz), dtype=dtype, device=r.device)
-    out[1:-1, 1:-1, 1:-1] = acc / 64.0
+    if method == "injection":
+        inner[...] = win((0, 0, 0))
+    else:
+        acc = None
+        for wgt, d in RESTRICT_TERMS:
+            term = wgt * win(d)
+            acc = term if acc is None else acc + term
+        inner[...] = acc / 64.0
+    if inner is out and boundary != "reflect":
+        # the wrap path computed every coarse node: keep the core,
+        # [0 or 1, nc - 1) per axis, and zero the rest
+        core = torch.zeros(nc, dtype=torch.bool, device=out.device)
+        core[tuple(slice(0 if w else 1, n - 1)
+                   for w, n in zip(wrap, nc))] = True
+        return torch.where(core, out, torch.zeros((), dtype=dtype,
+                                                  device=out.device))
     return out
 
 

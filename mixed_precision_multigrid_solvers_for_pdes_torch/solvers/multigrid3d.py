@@ -1,8 +1,9 @@
-"""3D geometric multigrid: V-cycles, the cycle-iteration solve and
+"""3D geometric multigrid: V and W cycles, the cycle-iteration solve and
 mixed-precision iterative refinement.
 
-Counterpart of ``Level3D``, ``build_hierarchy3d`` (rediscretization, one
-dtype), ``smooth3d``, ``_cycle3`` (V), ``mg_cycle3d``, ``mg_solve3d`` and
+Counterpart of ``Level3D``, ``build_hierarchy3d`` (rediscretization or
+Galerkin coarsening, one dtype or a ``PrecisionPolicy``'s per-level
+dtypes), ``smooth3d``, ``_cycle3``, ``mg_cycle3d``, ``mg_solve3d`` and
 ``ir_solve3d`` in
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/solvers/multigrid3d.py``.
 It shares ``MultigridConfig``, ``outer_iterate`` and ``tolerance`` with
@@ -11,10 +12,22 @@ It shares ``MultigridConfig``, ``outer_iterate`` and ``tolerance`` with
 
 As in 2D, the cycle recursion runs in Python and each level step goes
 through ``ops/dispatch.py``, which picks the CUDA kernels (E, F, G) or the
-plain path; cycles update the fine-level iterate IN PLACE. Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP item: W-cycles and the
-'line_z' smoother (13), Galerkin coarsening (10), per-level dtype policies
-(9), sharding constraints (14).
+plain path; cycles update the fine-level iterate IN PLACE. The JAX
+package's 3D cycle makes the second coarse visit for 'W' only, so a 3D
+'F' cycle is a V-cycle there and here. It always restricts by full
+weighting ('zero' on a plain spec, 'reflect' with Neumann/Robin faces, the
+coarse right-hand side then zeroed off the coarse unknowns) and prolongs
+trilinearly. A periodic level syncs its duplicate nodes where they are
+read (the coarse correction before it is prolonged) and where a solution
+is handed out (the end of ``mg_solve3d`` and ``ir_solve3d``); its
+operators read the wrap neighbours directly. Levels may differ in dtype
+(a fine fp32 level over coarse bf16 ones under 'mixed'): the residual is
+restricted into the coarse level's dtype and the correction prolonged into
+the fine level's. With ``coarsening='galerkin'`` every level below the
+finest holds the RAP operator of the level above (``ops/galerkin.py``), a
+``Stencil27``, built in float64 down the chain and cast to each level's
+dtype; such levels take no kernel. Sharding constraints (``constrain=``)
+are ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -23,14 +36,16 @@ import dataclasses
 import functools
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..core import bc3d
 from ..core.bc3d import BoundarySpec3D
 from ..core.device import resolve_device
 from ..core.grid3d import Grid3D
-from ..core.precision import as_dtype
-from ..ops import dispatch, norms, stencil3d as st3, transfer3d
+from ..core.precision import PrecisionPolicy, as_dtype
+from ..ops import dispatch, galerkin as galerkin_mod, norms, \
+    stencil3d as st3, transfer3d
 from ..ops.smooth import RBGS_METHODS
 from ..ops.smooth3d import smooth3d  # noqa: F401  (re-exported)
 from ..ops.stencil3d import Stencil3D
@@ -54,6 +69,12 @@ class Level3D:
         return bc3d.unknown_mask3d(*self.grid.shape, self.spec,
                                    device=self.device)
 
+    @functools.cached_property
+    def sync(self):
+        """In-place refresh of the periodic duplicate nodes, or None
+        (``core/bc3d.periodic_sync3d``)."""
+        return bc3d.periodic_sync3d(self.spec)
+
     def zeros(self) -> torch.Tensor:
         return torch.zeros(self.grid.shape, dtype=self.dtype,
                            device=self.device)
@@ -68,27 +89,56 @@ def _check_options(constrain) -> None:
         raise _not_ported("constrain= (3D sharding)", "item 14")
 
 
+def _sample_coarse3(field):
+    """Injection-sample an (nx, ny, nz) node field onto the 2:1 coarse
+    grid; scalars pass through."""
+    if field is None or np.ndim(field) == 0:
+        return field
+    return field[::2, ::2, ::2]
+
+
 def build_hierarchy3d(grid: Grid3D, spec: BoundarySpec3D = BoundarySpec3D(),
-                      *, a=None, lam: float = 0.0, dtype=torch.float32,
-                      policy=None, device=None,
+                      *, a=None, lam=0.0, dtype=None,
+                      policy: PrecisionPolicy = None, device=None,
                       cfg: MultigridConfig = MultigridConfig()
                       ) -> Tuple[Level3D, ...]:
-    """Levels by repeated 2:1 coarsening and rediscretization, finest first,
-    all in ``dtype``."""
-    if policy is not None:
-        raise _not_ported("policy= (per-level dtypes in 3D)", "item 13")
-    if cfg.coarsening != "rediscretize":
-        raise _not_ported(f"3D coarsening {cfg.coarsening!r}", "item 13")
-    dtype = as_dtype(dtype)
+    """Levels by repeated 2:1 coarsening, finest first. With
+    ``cfg.coarsening='rediscretize'`` the coefficient field ``a`` and an
+    array ``lam`` ((nx, ny, nz), any array type) are injection-sampled onto
+    each coarse grid and the operator is rebuilt there; with 'galerkin'
+    each coarse operator is the RAP of the one above in float64, from the
+    finest level's operator in float64, cast to the level's dtype. The
+    levels' dtypes come from ``policy`` when it is given
+    (``PrecisionPolicy.level_dtypes``), else every level takes ``dtype``
+    (float32 by default)."""
+    if cfg.coarsening not in ("rediscretize", "galerkin"):
+        raise ValueError(f"unknown coarsening {cfg.coarsening!r}")
     device = resolve_device(device)
     grids = [grid]
     while grids[-1].can_coarsen() and len(grids) < cfg.max_levels:
         grids.append(grids[-1].coarsen())
-    return tuple(
-        Level3D(stencil=st3.make_stencil3d(g, spec, a=a, lam=lam,
-                                           dtype=dtype),
-                grid=g, spec=spec, dtype=dtype, device=device)
-        for g in grids)
+    if policy is not None:
+        dtypes = policy.level_dtypes(len(grids))
+    else:
+        dtypes = (as_dtype(torch.float32 if dtype is None else dtype),) \
+            * len(grids)
+    galerkin = cfg.coarsening == "galerkin"
+    levels = []
+    for i, (g, dt) in enumerate(zip(grids, dtypes)):
+        if i == 0 or not galerkin:
+            st = st3.make_stencil3d(g, spec, a=a, lam=lam, dtype=dt,
+                                    device=device)
+            if galerkin:
+                st_hi = st3.make_stencil3d(g, spec, a=a, lam=lam,
+                                           dtype=torch.float64, device=device)
+        else:
+            st_hi = galerkin_mod.galerkin_coarse_stencil3d(
+                st_hi, grids[i - 1], g, spec, device=device)
+            st = st_hi.astype(dt)
+        levels.append(Level3D(stencil=st, grid=g, spec=spec, dtype=dt,
+                              device=device))
+        a, lam = _sample_coarse3(a), _sample_coarse3(lam)
+    return tuple(levels)
 
 
 def _smooth3(lev: Level3D, u, f, cfg: MultigridConfig, *, method: str,
@@ -102,8 +152,8 @@ def _smooth3(lev: Level3D, u, f, cfg: MultigridConfig, *, method: str,
 
 def _cycle3(levels: Tuple[Level3D, ...], u, f, lvl: int,
             cfg: MultigridConfig, cycle_type: str):
-    if cycle_type != "V":
-        raise _not_ported(f"3D {cycle_type}-cycles", "item 13")
+    if cycle_type not in ("V", "W", "F"):
+        raise ValueError(f"unknown cycle {cycle_type!r}")
     lev = levels[lvl]
     if lvl == len(levels) - 1:
         # coarsest: RB-GS to (near-)exactness
@@ -119,12 +169,22 @@ def _cycle3(levels: Tuple[Level3D, ...], u, f, lvl: int,
     else:
         # 3D always restricts by full weighting, as the JAX package does
         r = st3.residual(lev.stencil, u, f, lev.unknown)
-        fc = transfer3d.restrict3d(r, *nxt.grid.shape, boundary="zero",
-                                   dtype=nxt.dtype)
-    ec = _cycle3(levels, nxt.zeros(), fc, lvl + 1, cfg, "V")
+        plain = lev.spec.plain
+        fc = transfer3d.restrict3d(r, *nxt.grid.shape,
+                                   boundary="zero" if plain else "reflect",
+                                   dtype=nxt.dtype, wrap=lev.spec.wrap)
+        if not plain:
+            fc = torch.where(nxt.unknown, fc, torch.zeros(
+                (), dtype=fc.dtype, device=fc.device))
+    branch = cycle_type if lvl + 1 < cfg.w_depth else "V"
+    ec = _cycle3(levels, nxt.zeros(), fc, lvl + 1, cfg, branch)
+    if cycle_type == "W" and branch == "W":
+        ec = _cycle3(levels, ec, fc, lvl + 1, cfg, "W")
     if fused:
         u = dispatch.prolong_correct3d(lev, nxt, ec, u)
     else:
+        if nxt.sync is not None:
+            nxt.sync(ec)  # the coarse duplicate enters the interpolation
         e = transfer3d.prolong3d(ec, *lev.grid.shape, dtype=lev.dtype)
         u = torch.where(lev.unknown, u + e, u)
     return _smooth3(lev, u, f, cfg, method=cfg.smoother,
@@ -168,6 +228,8 @@ def mg_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
         return _norm3(st3.residual(lev0.stencil, state["u"], f, unknown), g)
 
     info = outer_iterate(step, rnorm0, tol_eff, fnorm, cfg.max_iterations)
+    if lev0.sync is not None:
+        lev0.sync(state["u"])  # consistent duplicate nodes for the output
     return state["u"], info
 
 
@@ -178,10 +240,13 @@ def ir_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
     """3D mixed-precision solve: float64 solution, residual and norms around
     low-precision cycles on ``levels``.
 
-    Each outer step runs ``inner_cycles`` cycles on the residual cast to the
-    hierarchy's dtype, starting the correction from zero, and adds it on
-    unknowns (the interior, updated in place). The stopping test reads the
-    residual norm back once per outer step."""
+    Each outer step runs ``inner_cycles`` cycles on the residual cast to
+    level 0's dtype, starting the correction from zero, and adds it on
+    unknowns (in place on an all-Dirichlet box, whose unknowns are the
+    interior). The stopping test reads the residual norm back once per
+    outer step; a periodic solution's duplicate nodes are synced at the
+    end (the JAX package's ``_ir3_jit`` leaves them at the initial
+    guess)."""
     _check_options(constrain)
     lev0 = levels[0]
     g, unknown = lev0.grid, lev0.unknown
@@ -191,20 +256,27 @@ def ir_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
     u = (torch.zeros(g.shape, dtype=f64, device=lev0.device) if u0 is None
          else u0.to(device=lev0.device, dtype=f64, copy=True))
     fnorm = norms.masked_scaled_l2(f, unknown, g.hx, g.hy, g.hz)
-    state = {"r": st3.residual(st_hi, u, f, unknown)}
+    state = {"u": u, "r": st3.residual(st_hi, u, f, unknown)}
     rnorm0 = _norm3(state["r"], g)
     tol_eff = tolerance(cfg, torch.maximum(fnorm, rnorm0))
+    box = lev0.spec.all_dirichlet
 
     def step():
         e = lev0.zeros()
         r_lo = state["r"].to(lo)
         for _ in range(inner_cycles):
             e = mg_cycle3d(levels, e, r_lo, cfg)
-        # e is zero on the shell, so this is the masked update u += e
-        u[1:-1, 1:-1, 1:-1] += e[1:-1, 1:-1, 1:-1]
-        state["r"] = st3.residual(st_hi, u, f, unknown)
+        if box:
+            # e is zero on the shell, so this is the masked update u += e
+            u[1:-1, 1:-1, 1:-1] += e[1:-1, 1:-1, 1:-1]
+        else:
+            state["u"] = torch.where(unknown, state["u"] + e.to(f64),
+                                     state["u"])
+        state["r"] = st3.residual(st_hi, state["u"], f, unknown)
         return _norm3(state["r"], g)
 
     info = outer_iterate(step, rnorm0, tol_eff, fnorm, max_outer)
+    if lev0.sync is not None:
+        lev0.sync(state["u"])
     info["method"] = "iterative_refinement_3d"
-    return u, info
+    return state["u"], info

@@ -11,7 +11,8 @@ duplicate nodes of the solution are synced once at the end: the JAX
 package's ``_ir_jit`` updates unknowns only and never syncs, so its
 duplicates stay at the initial guess, which this port does not copy.
 
-Adaptive staging (``adaptive_solve``, ``_adaptive_core``): a host loop that
+Adaptive staging (``adaptive_solve``, ``adaptive_solve3d``,
+``_adaptive_core``): a host loop that
 runs chunks of cycles at one precision and moves up (bf16, fp32, then
 iterative refinement at the current precision) when the chunk reached its
 precision's floor or the ``PrecisionPolicy`` sees stagnation or
@@ -28,7 +29,7 @@ import numpy as np
 
 from ..core.precision import Precision, PrecisionPolicy
 from ..ops import norms, stencil as st_mod
-from . import multigrid as mg_mod
+from . import multigrid as mg_mod, multigrid3d as mg3
 from .multigrid import MultigridConfig, convergence_factor
 
 
@@ -115,10 +116,36 @@ def adaptive_solve(grid, spec, f, u0=None, *, a=None, lam=0.0, domain=None,
                           chunk=chunk)
 
 
-def adaptive_solve3d(*args, **kwargs):
-    """The 3D adaptive solve is not ported yet."""
-    raise NotImplementedError("adaptive_solve3d is not ported yet (ROADMAP "
-                              "item 13)")
+def adaptive_solve3d(grid, spec, f, u0=None, *, a=None, lam=0.0,
+                     policy: PrecisionPolicy = PrecisionPolicy(
+                         mode=Precision.ADAPTIVE),
+                     cfg: MultigridConfig = MultigridConfig(),
+                     start: Precision = Precision.FP32, chunk: int = 5,
+                     mesh=None, device=None
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The staged solve of ``adaptive_solve`` over the 3D solver stack
+    (``build_hierarchy3d``, ``mg_solve3d``, ``ir_solve3d`` with its two
+    inner cycles), as the JAX package's ``adaptive_solve3d``."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
+                                  "(ROADMAP item 14)")
+    hierarchies: Dict[Precision, Any] = {}
+
+    def get_levels(p: Precision):
+        if p not in hierarchies:
+            hierarchies[p] = mg3.build_hierarchy3d(
+                grid, spec, a=a, lam=lam, dtype=p.dtype, device=device,
+                cfg=cfg)
+        return hierarchies[p]
+
+    def ir3(levels, f, u0, cfg, *, max_outer):
+        return mg3.ir_solve3d(levels, f, u0, cfg, max_outer=max_outer)
+
+    u, info = _adaptive_core(f, u0, get_levels=get_levels,
+                             solve=mg3.mg_solve3d, ir=ir3, policy=policy,
+                             cfg=cfg, start=start, chunk=chunk)
+    info["method"] = "adaptive_3d"
+    return u, info
 
 
 def _adaptive_core(f, u0, *, get_levels, solve, ir, policy, cfg, start,

@@ -455,36 +455,39 @@ def test_jacobi_smoothing_matches_jax():
 
 
 def test_unported_3d_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        bc3d.mixed3d(top="neumann")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        bc3d.mixed3d(west="periodic")
+    """Sharding (ROADMAP item 14) is the only 3D feature still raising; the
+    rest of item 13, which raised here before it was ported, now builds and
+    runs (test_torch_3d_operator.py and test_torch_3d_precision.py hold it
+    to the JAX package)."""
+    assert not bc3d.mixed3d(top="neumann").all_dirichlet
+    assert bc3d.mixed3d(west="periodic", east="periodic").wrap == (
+        True, False, False)
     assert bc3d.mixed3d(top="dirichlet").all_dirichlet
     g = T.Grid3D(9, 9, 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        stencil3d.make_stencil3d(g, a=np.ones(g.shape))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stencil3d.Stencil27()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        T.build_hierarchy3d(g, policy="mixed", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        T.build_hierarchy3d(g, cfg=T.MultigridConfig(coarsening="galerkin"),
-                            device="cpu")
+    assert not stencil3d.make_stencil3d(g, a=np.ones(g.shape)).scalar
+    assert [lev.dtype for lev in T.build_hierarchy3d(
+        g, policy=T.policy("mixed"), device="cpu")] == [torch.float32,
+                                                        torch.bfloat16,
+                                                        torch.bfloat16]
+    gal = T.build_hierarchy3d(g, cfg=T.MultigridConfig(coarsening="galerkin"),
+                              device="cpu")
+    assert isinstance(gal[1].stencil, stencil3d.Stencil27)
     levels = T.build_hierarchy3d(g, device="cpu")
     u = levels[0].zeros()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        T.mg_cycle3d(levels, u, u, T.MultigridConfig(cycle="W"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        T.mg_cycle3d(levels, u, u, T.MultigridConfig(smoother="line_z",
-                                                     backend="torch"))
+    for cfg in (T.MultigridConfig(cycle="W"),
+                T.MultigridConfig(smoother="line_z", backend="torch")):
+        assert torch.isfinite(T.mg_cycle3d(levels, u.clone(), u, cfg)).all()
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         T.ir_solve3d(levels, u, constrain=lambda v, lev: v)
     prob = T.poisson3d_mms_sinsinsin(9)
     for precision in ("mixed", "bf16", "adaptive"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            T.solve_poisson3d(prob, precision=precision, device="cpu")
+        assert T.solve_poisson3d(prob, precision=precision,
+                                 device="cpu").u.shape == (9, 9, 9)
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         T.solve_poisson3d(prob, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        T.adaptive_solve3d(g, bc3d.BoundarySpec3D(), u.double(),
+                           mesh=object(), device="cpu")
 
 
 def test_kernel_wrappers_3d_reject_what_the_kernels_do_not_take():

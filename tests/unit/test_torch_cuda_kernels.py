@@ -28,7 +28,10 @@ On bf16 storage A, B, C and D widen what they load, compute in fp32 and
 round once per call; their twins widen, run the fp32 twin and round once.
 On the unit square (powers of two in every coefficient) the fp32 bodies
 equal their twins bit for bit, so the bf16 ones are held to them bit for
-bit too.
+bit too. E, F and G do the same on bf16 storage (E rounds once per call
+however many launches it takes), and since their fp32 bodies equal their
+twins on any domain, the bf16 ones are held to them bit for bit on the
+skewed box.
 """
 
 import numpy as np
@@ -395,6 +398,91 @@ def test_3d_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ktransfer3d.prolong_correct3d(torch.zeros(4, 5, 5, device=dev), u)
     with pytest.raises(TypeError):
         ktransfer3d.residual_restrict3d(st, u, u, out_dtype=torch.float64)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("sweeps,omega,reverse", [(2, 1.0, False),
+                                                  (1, 1.3, True),
+                                                  (3, 1.0, False),
+                                                  (5, 1.3, False),
+                                                  (32, 1.0, False)])
+@pytest.mark.parametrize("shape", [(65, 65, 65), (33, 33, 33), (17, 17, 17),
+                                   (9, 33, 17), (37, 70, 131)])
+def test_rbgs3d_bf16_matches_twin(dev, shape, sweeps, omega, reverse):
+    """E on bf16 storage (one launch, or fp32 passes before a last bf16
+    one) equals its twin (fp32 sweeps, one rounding) bit for bit."""
+    g, st = _stencil3d(shape, "skew")
+    u = _bf16(_field(shape, 31, dev, ring=True))
+    f = _bf16(_field(shape, 32, dev, st.c))
+    u0 = u.clone()
+    before = (ksmooth3d.rbgs3d.launches, ksmooth3d.rbgs3d.launches_bf16)
+    got = ksmooth3d.rbgs3d(st, u, f, sweeps=sweeps, omega=omega,
+                           reverse=reverse)
+    n = len(ksmooth3d.plan_passes(shape, sweeps))
+    assert (ksmooth3d.rbgs3d.launches - before[0],
+            ksmooth3d.rbgs3d.launches_bf16 - before[1]) == (n, n)
+    assert got.dtype == torch.bfloat16 and torch.equal(u, u0)
+    _exact(got, ksmooth3d.rbgs3d_plain(st, u.clone(), f, sweeps=sweeps,
+                                       omega=omega, reverse=reverse))
+
+
+@pytest.mark.parametrize("types", [("bf16", "bf16"), ("fp32", "bf16"),
+                                   ("bf16", "fp32")])
+@pytest.mark.parametrize("shape", SHAPES_TRANSFER3D)
+def test_residual_restrict3d_bf16_matches_twin(dev, shape, types):
+    """F with bf16 fine fields and/or a bf16 coarse output equals its twin
+    bit for bit."""
+    g, st = _stencil3d(shape, "skew")
+    cast = {"bf16": _bf16, "fp32": lambda t: t}
+    u = cast[types[0]](_field(shape, 33, dev, ring=True))
+    f = cast[types[0]](_field(shape, 34, dev, st.c))
+    out = torch.bfloat16 if types[1] == "bf16" else torch.float32
+    before = ktransfer3d.residual_restrict3d.launches_bf16
+    got = ktransfer3d.residual_restrict3d(st, u, f, out_dtype=out)
+    assert ktransfer3d.residual_restrict3d.launches_bf16 == before + 1
+    assert got.dtype == out
+    _exact(got, ktransfer3d.residual_restrict3d_plain(st, u, f,
+                                                      out_dtype=out))
+
+
+@pytest.mark.parametrize("types", [("bf16", "fp32"), ("bf16", "bf16"),
+                                   ("fp32", "bf16")])
+@pytest.mark.parametrize("shape", SHAPES_TRANSFER3D)
+def test_prolong_correct3d_bf16_matches_twin(dev, shape, types):
+    """G with a bf16 ec and/or a bf16 u (one rounding per node) equals its
+    twin bit for bit."""
+    nc = tuple((n - 1) // 2 + 1 for n in shape)
+    cast = {"bf16": _bf16, "fp32": lambda t: t}
+    ec = cast[types[0]](_field(nc, 35, dev, ring=True))
+    u = cast[types[1]](_field(shape, 36, dev, ring=True))
+    before = ktransfer3d.prolong_correct3d.launches_bf16
+    got = ktransfer3d.prolong_correct3d(ec, u.clone())
+    assert ktransfer3d.prolong_correct3d.launches_bf16 == before + 1
+    _exact(got, ktransfer3d.prolong_correct3d_plain(ec, u.clone()))
+
+
+def test_3d_wrappers_refuse_coefficient_and_27_point_stencils(dev):
+    """E and F read seven scalars: a coefficient field, a Stencil27 or a
+    periodic stencil is refused before any launch."""
+    g = T.Grid3D(9, 9, 9)
+    u = torch.zeros(g.shape, device=dev)
+    var = stencil3d.make_stencil3d(g, a=np.ones(g.shape), device=dev)
+    s27 = stencil3d.Stencil27(u.clone(), torch.zeros((26, *g.shape),
+                                                     device=dev))
+    per = stencil3d.make_stencil3d(g, T.core.bc3d.BoundarySpec3D(
+        *(T.core.bc.BCSide(kind=T.core.bc.BCKind.PERIODIC),) * 6))
+    before = (ksmooth3d.rbgs3d.launches,
+              ktransfer3d.residual_restrict3d.launches)
+    for st in (var, s27, per):
+        with pytest.raises(ValueError, match="7-point"):
+            ksmooth3d.rbgs3d(st, u, u)
+        with pytest.raises(ValueError, match="7-point"):
+            ktransfer3d.residual_restrict3d(st, u, u)
+    assert before == (ksmooth3d.rbgs3d.launches,
+                      ktransfer3d.residual_restrict3d.launches)
 
 
 def test_solve_poisson3d_kernel_path_matches_plain_path(dev):

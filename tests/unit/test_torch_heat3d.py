@@ -143,12 +143,15 @@ def test_checkpoint_dt_mismatch_rejected(tmp_path):
 
 
 def test_unported_options_raise():
-    """A coefficient field (ROADMAP item 13), mesh= (item 14) and adaptive
-    dt (2D only, as in the JAX package)."""
+    """mesh= (ROADMAP item 14) and adaptive dt (2D only, as in the JAX
+    package) raise; a coefficient field, which raised here before it was
+    ported, now runs (test_torch_3d_precision.py holds it to the JAX
+    package)."""
     prob = P3.pure_diffusion3d(9)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        P3.solve_heat3d(P3.HeatProblem3D("a", prob.grid, a=np.ones((9,) * 3)),
-                        0.01, 0.002, device="cpu")
+    out = P3.solve_heat3d(P3.HeatProblem3D("a", prob.grid,
+                                           a=np.ones((9,) * 3)),
+                          0.01, 0.002, device="cpu")
+    assert out["steps"] == 5 and torch.isfinite(out["u"]).all()
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
         P3.solve_heat3d(prob, 0.01, 0.002, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="fixed-dt"):

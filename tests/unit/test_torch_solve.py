@@ -195,16 +195,21 @@ def test_dispatch_gates():
 
 
 def test_unported_features_raise():
-    """3D Galerkin coarsening (ROADMAP item 13) still raises; 2D Galerkin
-    coarsening, periodic sides, W cycles, line smoothers and irregular
-    domains, which raised here before they were ported, now run (their
-    tests hold them to the JAX package in test_torch_galerkin.py,
+    """Galerkin coarsening in 2D and 3D, periodic sides, W cycles, line
+    smoothers and irregular domains, which raised here before they were
+    ported, now run (their tests hold them to the JAX package in
+    test_torch_galerkin.py, test_torch_3d_operator.py,
     test_torch_cycles_smoothers.py, test_torch_bc_segments_periodic.py and
     test_torch_domain.py), and a coarsening or a domain of a kind the port
     does not know is refused."""
-    with pytest.raises(NotImplementedError, match="item"):
+    galerkin3d = T.build_hierarchy3d(
+        T.Grid3D(9, 9, 9), cfg=T.MultigridConfig(coarsening="galerkin"),
+        device="cpu")
+    assert [type(lev.stencil).__name__ for lev in galerkin3d] == \
+        ["Stencil3D", "Stencil27", "Stencil27"]
+    with pytest.raises(ValueError, match="coarsening"):
         T.build_hierarchy3d(T.Grid3D(9, 9, 9),
-                            cfg=T.MultigridConfig(coarsening="galerkin"),
+                            cfg=T.MultigridConfig(coarsening="algebraic"),
                             device="cpu")
     galerkin = T.build_hierarchy(T.Grid(9, 9),
                                  cfg=T.MultigridConfig(coarsening="galerkin"),
