@@ -209,6 +209,34 @@ precisions and the 3D operator, each run from launch counts reset to zero:
      CN in fp64 with a = 1 + x + y + z (5 steps); no E-G launch on a
      coefficient, Neumann, periodic or Stencil27 level; convergence_study3d
      at 33^3 and 65^3 (observed l2 order 2).
+bf16 storage in H, I, J and L, the 2D variable-coefficient precisions and
+explicit distribution (after phase 31):
+ 32. H (the bf16 jump levels 1025^2, 513^2, 257^2: RB-GS, reversed,
+     Jacobi, 5 SOR sweeps; 32 sweeps at 17^2), I (bf16 into bf16 and fp32,
+     the mixed hierarchy's fp32 -> bf16 crossing, Robin sides, with C), J
+     (from 129^2 on a bf16 tail and on the mixed tail, an fp32 entry over
+     bf16 levels) and L (1025^2, 513^2, 257^2; 1, 2, 3, 5 sweeps; equal to
+     A) against their twins bit for bit; CUDA-event ms of kernel and twin,
+     device ms per call on bf16 beside fp32;
+ 33. solve_poisson(precision='mixed' | 'bf16') and adaptive_solve(start=
+     BF16) on the varcoef, jump and Robin problems at 1025^2, each from
+     launch counts reset to zero: the kernel path at its CPU twins' count
+     and l2 (VAR_PRECISION_TWINS), equal bit for bit to the same solve with
+     every kernel call replaced by its twin on the card, H, I, C and J
+     launches (all, and bf16 apart) equal to the plan (the mixed jump
+     solve: J from 129^2 on an fp32 entry); the plain path at the JAX
+     package's count, switches and l2 (VAR_PRECISION_REF); the 1025^2
+     Poisson 'bf16' solve with the parity layout (L, B, C, D on bf16 per
+     plan, equal to its twin path); ms per solve (fp32 beside) and two
+     profiles;
+ 34. halo_solve over NCCL, one spawned rank per visible card, on the mesh of
+     the whole world: poisson_mms_sinsin(1025) and
+     jump_coefficient_problem(1025) in fp64 held to mg_solve (iterations,
+     HALO_ATOL), shard_smooth, global_residual_norm and make_sharded_field
+     on that mesh; prints the world size, the mesh and the sharded depth S.
+     On one card the world is one rank and S = 0, so halo_solve is mg_solve
+     and the phase checks only the plumbing; halos cross cards on a host of
+     several (scripts/halo_cards.py runs this phase alone).
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -252,6 +280,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -478,6 +507,42 @@ OPERATOR3D_REF = {"jump": (15, None), "neumann": (5, 4.454200e-6),
                   "heat_a": (5, 6.182821e-2)}
 # solve_heat3d CN, fp64, on pure_diffusion3d(257) with a = 1 + x + y + z
 HEAT3D_A_STEPS, HEAT3D_A_DT = 5, 1e-3
+# bf16 storage in H, I, J and L and the 2D variable-coefficient precisions
+# at 1025^2 (phases 32-33), on var_problems with MultigridConfig(
+# smoother='rbgs', omega=1.0, tol=1e-9); 'bf16' runs BF16_VAR_CYCLES cycles
+# (a uniform bf16 hierarchy cannot reach that tolerance; its l2 grows).
+# VAR_PRECISION_REF: the JAX package on the CPU at 1025^2 (steps, l2 or
+# None, switches; scripts/reference_var_precision.py), the plain path's
+# reference. VAR_PRECISION_TWINS: the port's kernel twins on the CPU at
+# 1025^2 (backend 'auto': the same script's column, or
+# benchmarking/bf16_start_witness.py --problems varcoef,jump,robin
+# --precisions mixed,bf16,bf16_start), which round once per call as the
+# kernels do: the kernel path's reference.
+BF16_VAR_CYCLES = 8
+VAR_PRECISION_REF = {
+    ("varcoef", "mixed"): (5, 4.267189e-6, []),
+    ("varcoef", "bf16"): (8, 4.662472e4, []),
+    ("varcoef", "bf16_start"): (16, 4.267174e-6, [(5, "fp32"), (9, "ir")]),
+    ("jump", "mixed"): (15, None, []),
+    ("jump", "bf16"): (8, None, []),
+    ("jump", "bf16_start"): (39, None, [(5, "fp32"), (20, "ir")]),
+    ("robin", "mixed"): (3, 1.049221e-8, []),
+    ("robin", "bf16"): (8, 2.809570e6, []),
+    ("robin", "bf16_start"): (15, 1.017700e-4, [(1, "fp32"), (11, "ir")]),
+}
+VAR_PRECISION_TWINS = {
+    ("varcoef", "mixed"): (5, 4.267189e-6, []),
+    ("varcoef", "bf16"): (8, 3.603885e6, []),
+    ("varcoef", "bf16_start"): (17, 4.267178e-6, [(5, "fp32"), (9, "ir")]),
+    ("jump", "mixed"): (15, None, []),
+    ("jump", "bf16"): (8, None, []),
+    ("jump", "bf16_start"): (33, None, [(5, "fp32"), (15, "ir")]),
+    ("robin", "mixed"): (3, 1.068658e-8, []),
+    ("robin", "bf16"): (8, 2.821998e-1, []),
+    ("robin", "bf16_start"): (15, 1.017700e-4, [(1, "fp32"), (11, "ir")]),
+}
+# halo_solve over NCCL (phase 34): solution within this of mg_solve's
+HALO_ATOL = 1e-12
 
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
@@ -588,10 +653,42 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
     fail(f"the profiler saw no {kernel} kernel in {reps} calls, three times")
 
 
-def device_ms_per_call(fn, reps: int = 10) -> float:
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean device ms per call of ``reps`` back-to-back calls of ``fn``,
+    from CUDA events around calls queued behind a sleeping kernel, so the
+    host's launch cost stays out of the reading (the gaps between the
+    card's launches stay in). The sleep doubles until the host has queued
+    every call before it ends."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(6):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        marks[2].synchronize()
+        if host_ms < marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / reps
+        cycles *= 2
+    fail(f"the host could not queue {reps} calls ahead of the card")
+
+
+def device_ms_per_call(fn, reps: int = 10, kernel: str = None,
+                       launches: int = 1) -> float:
     """Mean device time per call of ``fn``: every kernel and copy on the
     card in the profiled window (a wrapper's copies included), over
-    ``reps`` calls after a warm-up; retried as ``device_ms`` is."""
+    ``reps`` calls after a warm-up; retried as ``device_ms`` is, and, with
+    ``kernel``, until the trace holds the ``launches`` per call of the
+    kernels whose name holds it. A trace can lose events: after three
+    traces that do, the reading is ``queued_ms``'s, and says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -604,9 +701,17 @@ def device_ms_per_call(fn, reps: int = 10) -> float:
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernel is not None and sum(
+                e.count for e in events if kernel in e.key) != \
+                reps * launches:
+            continue
         if events:
             return sum(e.self_device_time_total for e in events) / 1e3 / reps
-    fail(f"the profiler saw no device work in {reps} calls, three times")
+    ms = queued_ms(fn, reps)
+    print(f"device time: three traces lost device work (or not {launches} "
+          f"{kernel} launches per call); CUDA events over {reps} queued "
+          f"calls instead: {ms:.4f} ms per call")
+    return ms
 
 
 def tail_var_entries(mg, card, dev) -> dict:
@@ -3478,6 +3583,526 @@ def operator3d_path(mg, card, dev):
     print(f"phase 31: {time.perf_counter() - start:.1f} s")
 
 
+def kernel_phase_var_bf16(mg, card, dev):
+    """Phase 32: H, I, J and L on bf16 storage against their twins (which
+    widen, run the fp32 twin and round once), bit for bit, on data from the
+    seed at the 1025^2 path's shapes: H at 1025^2, 513^2 and 257^2 of the
+    bf16 jump hierarchy (RB-GS, reversed, Jacobi, 5 SOR sweeps in two
+    launches) and with 32 sweeps (eight launches) at 17^2; I from the same
+    levels into bf16 and fp32, from the 'mixed' hierarchy's last fp32 level
+    into its first bf16 one, and on Robin sides; J from 129^2 on a bf16
+    entry and on the 'mixed' tail (an fp32 entry over bf16 levels); L at
+    1025^2, 513^2 and 257^2 (1, 2, 3 and 5 sweeps), equal to A too.
+    CUDA-event ms of kernel and twin at the record's shape, and device ms
+    per call on bf16 beside the same call on fp32."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_var as ksv, tail as kt, transfer as kx
+
+    start = time.perf_counter()
+    bf = torch.bfloat16
+    rng = np.random.default_rng(3232)
+
+    def field(shape, scale=1.0, dtype=bf, ring=False):
+        a = np.zeros(shape, np.float32)
+        if ring:
+            a[:] = scale * rng.standard_normal(shape)
+        else:
+            a[1:-1, 1:-1] = scale * rng.standard_normal(
+                (shape[0] - 2, shape[1] - 2))
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def widened(fn):  # the difference is taken in fp32
+        return lambda *a: fn(*a).float()
+
+    clocks("phase 32's device readings")
+    probs = var_problems(mg)
+    jump, robin = probs["jump"], probs["robin"]
+    hier = {mode: mg.build_hierarchy(jump.grid, jump.spec, a=jump.a,
+                                     policy=mg.policy(mode), device=dev)
+            for mode in ("bf16", "fp32", "mixed")}
+    errs, times, dev_ms = {}, {}, {}
+    two = dict(method="rbgs", sweeps=2, omega=1.0)
+    for lev, lev32 in zip(hier["bf16"][:3], hier["fp32"][:3]):
+        n, st = lev.grid.nx, lev.stencil
+        u, f = field((n, n)), field((n, n), 1e3)
+        for method, sweeps, omega in (("rbgs", 2, 1.0), ("rbgs_rev", 2, 1.0),
+                                      ("jacobi", 2, 0.8), ("sor", 5, 1.3)):
+            kw = dict(method=method, sweeps=sweeps, omega=omega)
+            compare("smooth_var_bf16", f"jump {n}^2 bf16 {kw}",
+                    widened(lambda a, b: ksv.multisweep_var(st, a, b, **kw)),
+                    widened(lambda a, b: ksv.multisweep_plain(st, a, b,
+                                                              **kw)),
+                    lambda: (u.clone(), f), errs, exact=True)
+        u32, f32 = u.float(), f.float()
+        bf_ms = dev_ms[("smooth_var_bf16", n)] = device_ms_per_call(
+            lambda: ksv.multisweep_var(st, u, f, **two), 20, "smooth_var")
+        fp_ms = device_ms_per_call(
+            lambda: ksv.multisweep_var(lev32.stencil, u32, f32, **two), 20,
+            "smooth_var")
+        print(f"H {n}^2 2-sweep RB-GS call: device {bf_ms:.4f} ms per call "
+              f"on bf16, {fp_ms:.4f} on fp32 [{card}]")
+        if n == N_VAR:
+            times[("smooth_var_bf16", n)] = (
+                time_ms(lambda: ksv.multisweep_var(st, u, f, **two)),
+                time_ms(lambda: ksv.multisweep_plain(st, u.clone(), f,
+                                                     **two)))
+    lev = next(lev for lev in hier["bf16"] if lev.grid.nx == 17)
+    st, u, f = lev.stencil, field((17, 17)), field((17, 17), 1e3)
+    compare("smooth_var_bf16", "jump 17^2 bf16 32 sweeps (8 launches)",
+            widened(lambda a, b: ksv.multisweep_var(st, a, b, sweeps=32)),
+            widened(lambda a, b: ksv.multisweep_plain(st, a, b, sweeps=32)),
+            lambda: (u.clone(), f), errs, exact=True)
+
+    for lev, lev32 in zip(hier["bf16"][:3], hier["fp32"][:3]):
+        n, st, nc = lev.grid.nx, lev.stencil, lev.grid.coarsen().nx
+        u, f = field((n, n)), field((n, n), 1e3)
+        for out in (bf, torch.float32):
+            compare("residual_restrict_var_bf16", f"jump {n}->{nc} bf16->"
+                    f"{str(out)[6:]}", widened(
+                        lambda a, b: kx.residual_restrict_var(
+                            st, a, b, out_dtype=out)), widened(
+                        lambda a, b: kx.residual_restrict_plain(
+                            st, a, b, out_dtype=out)),
+                    lambda: (u, f), errs, exact=True)
+        u32, f32 = u.float(), f.float()
+        bf_ms = dev_ms[("residual_restrict_var_bf16", n)] = \
+            device_ms_per_call(lambda: kx.residual_restrict_var(st, u, f), 20,
+                               "residual_restrict_var")
+        fp_ms = device_ms_per_call(lambda: kx.residual_restrict_var(
+            lev32.stencil, u32, f32), 20, "residual_restrict_var")
+        print(f"I {n}->{nc}: device {bf_ms:.4f} ms per call on bf16, "
+              f"{fp_ms:.4f} on fp32 [{card}]")
+        if n == N_VAR:
+            times[("residual_restrict_var_bf16", n)] = (
+                time_ms(lambda: kx.residual_restrict_var(st, u, f)),
+                time_ms(lambda: kx.residual_restrict_plain(st, u, f)))
+    mixed = hier["mixed"]
+    k = next(i for i in range(len(mixed) - 1)
+             if mixed[i + 1].dtype == bf and mixed[i].dtype != bf)
+    st, n, nc = mixed[k].stencil, mixed[k].grid.nx, mixed[k + 1].grid.nx
+    u, f = field((n, n), dtype=torch.float32), field(
+        (n, n), 1e3, torch.float32)
+    compare("residual_restrict_var_bf16", f"jump mixed {n}->{nc} fp32->bf16",
+            widened(lambda a, b: kx.residual_restrict_var(st, a, b,
+                                                          out_dtype=bf)),
+            widened(lambda a, b: kx.residual_restrict_plain(st, a, b,
+                                                            out_dtype=bf)),
+            lambda: (u, f), errs, exact=True)
+    rl = mg.build_hierarchy(robin.grid, robin.spec, policy=mg.policy("bf16"),
+                            device=dev)
+    sides = robin.spec.dirichlet_sides
+    for lev in rl[:2]:
+        n, st, nc = lev.grid.nx, lev.stencil, lev.grid.coarsen().nx
+        u, f = field((n, n), ring=True), field((n, n), 50.0, ring=True)
+        compare("residual_restrict_var_bf16", f"robin {n}->{nc} bf16",
+                widened(lambda a, b: kx.residual_restrict_var(
+                    st, a, b, sides=sides)),
+                widened(lambda a, b: kx.residual_restrict_plain(
+                    st, a, b, sides=sides)), lambda: (u, f), errs,
+                exact=True)
+        ec = field((nc, nc), ring=True)
+        compare("prolong_correct_bf16", f"robin sides {nc}->{n} bf16",
+                widened(lambda a, b: kx.prolong_correct(a, b, sides=sides)),
+                widened(lambda a, b: kx.prolong_correct_plain(a, b,
+                                                              sides=sides)),
+                lambda: (ec, u.clone()), errs, exact=True)
+
+    kw = dict(pre=2, post=2, omega=1.0, method="rbgs", coarse_sweeps=32,
+              symmetric=False)
+    for label in ("bf16", "mixed"):
+        tail = [lev for lev in hier[label] if lev.grid.nx <= TAIL_ENTRY]
+        sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
+                                                       for lev in tail]
+        dt = tail[0].dtype
+        print(f"J {label} tail: " + ", ".join(
+            f"{lev.grid.nx}^2 {str(lev.dtype)[6:]}" for lev in tail))
+        u0, f = field(shapes[0], dtype=dt), field(shapes[0], 1e3, dt)
+        for sym in (False, True):
+            kws = dict(kw, symmetric=sym)
+            compare("tail_vcycle_var_bf16", f"jump {shapes[0][0]}^2 "
+                    f"L={len(tail)} {label} tail symmetric={sym}",
+                    widened(lambda a, b: kt.tail_vcycle_var(
+                        sts, a, b, shapes=shapes, **kws)),
+                    widened(lambda a, b: kt.tail_vcycle_plain(
+                        sts, a, b, shapes=shapes, **kws)),
+                    lambda: (u0.clone(), f), errs, exact=True)
+        ms = device_ms(lambda: kt.tail_vcycle_var(sts, u0, f, shapes=shapes,
+                                                  **kw), "tail_var", reps=20)
+        if label == "bf16":
+            dev_ms[("tail_vcycle_var_bf16", TAIL_ENTRY)] = ms
+            times[("tail_vcycle_var_bf16", TAIL_ENTRY)] = (
+                time_ms(lambda: kt.tail_vcycle_var(sts, u0.clone(), f,
+                                                   shapes=shapes, **kw)),
+                time_ms(lambda: kt.tail_vcycle_plain(
+                    sts, u0.clone(), f, shapes=shapes, **kw)))
+            sts32 = [lev.stencil for lev in hier["fp32"]
+                     if lev.grid.nx <= TAIL_ENTRY]
+            u32, f32 = u0.float(), f.float()
+            ms32 = device_ms(lambda: kt.tail_vcycle_var(
+                sts32, u32, f32, shapes=shapes, **kw), "tail_var", reps=20)
+            print(f"J from {TAIL_ENTRY}^2: device {ms:.4f} ms per launch on "
+                  f"a bf16 tail, {ms32:.4f} on fp32 [{card}]")
+        else:
+            print(f"J from {TAIL_ENTRY}^2: device {ms:.4f} ms per launch on "
+                  f"the mixed tail [{card}]")
+
+    par = mg.build_hierarchy(mg.Grid(N, N), policy=mg.policy("bf16"),
+                             device=dev)
+    par32 = mg.build_hierarchy(mg.Grid(N, N), device=dev)
+    for lev, lev32 in zip(par[:3], par32[:3]):
+        n, st = lev.grid.nx, lev.stencil
+        u, f = field((n, n)), field((n, n), st.c)
+        for sweeps, omega in ((1, 1.0), (2, 1.0), (3, 1.3), (5, 1.0)):
+            kw = dict(sweeps=sweeps, omega=omega)
+            compare("smooth_parity_bf16", f"{n}^2 bf16 {kw}", widened(
+                lambda a, b: ks.multisweep(st, a, b, layout="parity", **kw)),
+                widened(lambda a, b: ks.multisweep_parity_plain(
+                    st, a, b, **kw)), lambda: (u.clone(), f), errs,
+                exact=True)
+            compare("smooth_parity_bf16", f"{n}^2 bf16 {kw} against A",
+                    widened(lambda a, b: ks.multisweep(
+                        st, a, b, layout="parity", **kw)),
+                    widened(lambda a, b: ks.multisweep(
+                        st, a, b, layout="direct", **kw)),
+                    lambda: (u.clone(), f), errs, exact=True)
+        u32, f32 = u.float(), f.float()
+        bf_ms = dev_ms[("smooth_parity_bf16", n)] = device_ms_per_call(
+            lambda: ks.multisweep(st, u, f, layout="parity"), 20,
+            "parity_kernel")
+        fp_ms = device_ms_per_call(lambda: ks.multisweep(
+            lev32.stencil, u32, f32, layout="parity"), 20, "parity_kernel")
+        print(f"L {n}^2 2-sweep call: device {bf_ms:.4f} ms per call on "
+              f"bf16, {fp_ms:.4f} on fp32 [{card}]")
+        if n == N:
+            times[("smooth_parity_bf16", n)] = (
+                time_ms(lambda: ks.multisweep(st, u, f, layout="parity")),
+                time_ms(lambda: ks.multisweep_parity_plain(st, u.clone(),
+                                                           f)))
+    for (name, n), (k_ms, p_ms) in times.items():
+        print(f"time {name} {n}^2: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+              f"ms [{card}]")
+    print(f"phase 32: {time.perf_counter() - start:.1f} s")
+    return errs, times, dev_ms
+
+
+def var_cycle_plan(levels, cycles, robin):
+    """(all, bf16) launches of H, I, C and J in ``cycles`` V-cycles of the
+    2D varcoef path over ``levels``: above the tail, H once per 2-sweep call
+    (pre and post), I and C once per transfer; J once per cycle from the
+    first level of at most TAIL_ENTRY; a Robin hierarchy has no H and no J
+    (its sides are not Dirichlet), and I and C on every transfer. A launch
+    is bf16 when a level it touches is (J: its entry)."""
+    import torch
+
+    bf = torch.bfloat16
+    plan = {k: [0, 0] for k in ("smooth_var", "residual_restrict_var",
+                                "prolong_correct", "tail_vcycle_var")}
+    for lvl, lev in enumerate(levels[:-1]):
+        if not robin and lev.grid.nx <= TAIL_ENTRY:
+            plan["tail_vcycle_var"] = [1, int(lev.dtype == bf)]
+            break
+        if not robin:
+            plan["smooth_var"][0] += 2
+            plan["smooth_var"][1] += 2 * (lev.dtype == bf)
+        either = bf in (lev.dtype, levels[lvl + 1].dtype)
+        for k in ("residual_restrict_var", "prolong_correct"):
+            plan[k][0] += 1
+            plan[k][1] += int(either)
+    return {k: (v[0] * cycles, v[1] * cycles) for k, v in plan.items()}
+
+
+def _add_plans(*plans):
+    return {k: tuple(sum(p[k][i] for p in plans) for i in (0, 1))
+            for k in plans[0]}
+
+
+def var_precision_path(mg, card, dev):
+    """Phase 33: the 2D variable-coefficient precisions at 1025^2:
+    solve_poisson(precision='mixed' | 'bf16') and adaptive_solve(start=BF16)
+    on var_problems. The kernel path is held to the kernels' CPU twins'
+    count (VAR_PRECISION_TWINS) and l2, to the twin path on the card (every
+    kernel call replaced by its twin) bit for bit, and to the launch plan
+    of H, I, C and J, bf16 launches apart (the 'mixed' jump solve takes J
+    from 129^2 on an fp32 entry over bf16 levels); the plain path to the
+    JAX package's count, switches and l2 (VAR_PRECISION_REF). Then the
+    1025^2 Poisson 'bf16' solve with the parity layout (kernel L on bf16
+    levels), held to its plan and to its twin path; ms per solve and busy
+    shares. Returns the bf16 launches of H, I, J and L."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks, smooth_var as ksv, tail as kt, transfer as kx
+
+    start = time.perf_counter()
+    bf = torch.bfloat16
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    counted = {"smooth_var": ksv.multisweep_var,
+               "residual_restrict_var": kx.residual_restrict_var,
+               "prolong_correct": kx.prolong_correct,
+               "tail_vcycle_var": kt.tail_vcycle_var}
+    var_twins = {(ksv, "multisweep_var"): ks.multisweep_plain,
+                 (kx, "residual_restrict_var"): kx.residual_restrict_plain,
+                 (kx, "prolong_correct"): kx.prolong_correct_plain,
+                 (kt, "tail_vcycle_var"): kt.tail_vcycle_plain}
+
+    def solve(prob, precision, backend="auto"):
+        c = cfg.replace(backend=backend)
+        t0 = time.perf_counter()
+        if precision == "bf16_start":
+            u, info = mg.adaptive_solve(
+                prob.grid, prob.spec, prob.rhs(torch.float64, dev),
+                prob.initial_guess(torch.float64, dev), a=prob.a,
+                lam=prob.lam, cfg=c, start=mg.Precision.BF16, device=dev)
+        else:
+            if precision == "bf16":
+                c = c.replace(max_iterations=BF16_VAR_CYCLES)
+            res = mg.solve_poisson(prob, precision=precision, cfg=c,
+                                   device=dev)
+            u, info = res.u, res.info
+        torch.cuda.synchronize()
+        l2 = prob.error_norms(u)["l2"] if prob.exact is not None else None
+        return types.SimpleNamespace(
+            u=u, info=info, iterations=info["iterations"], l2=l2,
+            switches=[tuple(s) for s in info.get("precision_switches", [])],
+            seconds=time.perf_counter() - t0)
+
+    def twin_path(run, twins=var_twins):
+        """``run()`` with every kernel wrapper of ``twins`` replaced by its
+        twin (on the card)."""
+        saved = {key: getattr(*key) for key in twins}
+        for (mod, name), twin in twins.items():
+            setattr(mod, name, twin)
+        try:
+            return run()
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+
+    def held(label, res, ref, slack, l2_rule):
+        steps, l2, switches = ref
+        print(f"solve {label}: iterations {res.iterations} l2 {res.l2} "
+              f"switches {res.switches} (reference {ref}) "
+              f"{res.seconds * 1e3:.3f} ms (first call)")
+        if tuple(res.u.shape) != (N_VAR, N_VAR) or \
+                not torch.isfinite(res.u.float()).all():
+            fail(f"{label}: the solution is misshapen or not finite")
+        if abs(res.iterations - steps) > slack or \
+                [s[1] for s in res.switches] != [s[1] for s in switches]:
+            fail(f"{label}: {res.iterations} iterations, switches "
+                 f"{res.switches}; expected {steps} +- {slack}, {switches}")
+        if l2 is not None and not l2_rule(res.l2, l2):
+            fail(f"{label}: l2 {res.l2:.6e} against the reference "
+                 f"{l2:.6e}")
+
+    def within(got, ref):
+        return abs(got / ref - 1) <= L2_RTOL
+
+    def robin_rule(got, ref):  # Robin: the tolerance sets the l2
+        return got <= ROBIN_L2_FACTOR * ref
+
+    bf16_launches = dict.fromkeys(("smooth_var_bf16",
+                                   "residual_restrict_var_bf16",
+                                   "tail_vcycle_var_bf16"), 0)
+    timing = {}
+    for name, prob in var_problems(mg).items():
+        robin = name == "robin"
+        for precision in ("mixed", "bf16", "bf16_start"):
+            label = f"{name} {precision} {N_VAR}^2"
+            for w in counted.values():
+                w.launches_bf16 = 0
+            res, got = counted_run(lambda: solve(prob, precision))
+            got_bf = {k: w.launches_bf16 for k, w in counted.items()}
+            ref = VAR_PRECISION_TWINS[(name, precision)]
+            rule = robin_rule if robin and precision == "mixed" else within
+            held(f"{label} auto", res, ref,
+                 1 if precision == "bf16_start" else 0, rule)
+            if precision == "bf16_start":
+                first = res.switches[0][0]
+                plan = _add_plans(
+                    var_cycle_plan(mg.build_hierarchy(
+                        prob.grid, prob.spec, a=prob.a,
+                        policy=mg.policy("bf16"), device=dev), first, robin),
+                    var_cycle_plan(mg.build_hierarchy(
+                        prob.grid, prob.spec, a=prob.a, device=dev),
+                        res.iterations - first, robin))
+            else:
+                cycles = res.iterations * (IR_INNER_CYCLES
+                                           if precision == "mixed" else 1)
+                plan = var_cycle_plan(mg.build_hierarchy(
+                    prob.grid, prob.spec, a=prob.a,
+                    policy=mg.policy(precision), device=dev), cycles, robin)
+            mine = {k: (got[k], got_bf[k]) for k in counted}
+            print(f"{label} auto: launches (all, bf16) {mine}, plan {plan}")
+            if mine != plan or any(v for k, v in got.items()
+                                   if k not in counted):
+                fail(f"{label}: launches {got} (bf16 {got_bf}) differ from "
+                     f"the plan {plan}")
+            for k in bf16_launches:
+                bf16_launches[k] += got_bf[k[:-len("_bf16")]]
+            twin = twin_path(lambda: solve(prob, precision))
+            same = torch.equal(res.u, twin.u) and np.array_equal(
+                np.asarray(res.info["history"]),
+                np.asarray(twin.info["history"]))
+            print(f"{label}: kernel path = twin path call by call: {same}")
+            if not same:
+                fail(f"{label}: the kernel path differs from the twin path")
+            plain = solve(prob, precision, "torch")
+            held(f"{label} torch", plain, VAR_PRECISION_REF[(name,
+                                                            precision)],
+                 1 if precision == "bf16_start" else 0, rule)
+            timing[label] = best_ms(lambda: solve(prob, precision))
+            print(f"solve time {label} auto: {timing[label]:.3f} ms per "
+                  f"solve (set-up included, minimum of 3) [{card}]")
+        # the fp32 solve beside the mixed one, timed in turns (the host's
+        # load drifts between solves timed apart)
+        turns = {"mixed": [], "fp32": []}
+        for _ in range(5):
+            for precision in turns:
+                turns[precision].append(best_ms(
+                    lambda: solve(prob, precision), reps=1))
+        mixed, fp32 = min(turns["mixed"]), min(turns["fp32"])
+        print(f"solve time {name} fp32 {N_VAR}^2 auto: {fp32:.3f} ms per "
+              f"solve, mixed {mixed:.3f} (set-up included, minimum of 5 "
+              f"taken in turns); mixed / fp32 {mixed / fp32:.3f} [{card}]")
+    probs = var_problems(mg)
+    profile_solve(f"jump mixed {N_VAR}^2", lambda: solve(probs["jump"],
+                                                          "mixed"), counted)
+    profile_solve(f"varcoef bf16 {N_VAR}^2", lambda: solve(
+        probs["varcoef"], "bf16"), counted)
+
+    # kernel L on bf16 levels: the Poisson 'bf16' solve, parity layout
+    prob = mg.poisson_mms_sinsin(N)
+    pcfg = cfg.replace(max_iterations=BF16_VAR_CYCLES)
+    wrappers = {"smooth_parity": ks.multisweep_parity,
+                "residual_restrict": kx.residual_restrict,
+                "prolong_correct": kx.prolong_correct,
+                "tail_vcycle": kt.tail_vcycle}
+
+    def parity_solve():
+        return mg.solve_poisson(prob, precision="bf16", cfg=pcfg, device=dev)
+
+    saved = ks.PARITY_DEFAULT
+    ks.PARITY_DEFAULT = True
+    try:
+        for w in wrappers.values():
+            w.launches_bf16 = 0
+        res, got = counted_run(parity_solve)
+        got_bf = {k: w.launches_bf16 for k, w in wrappers.items()}
+        levels = mg.build_hierarchy(prob.grid, policy=mg.policy("bf16"),
+                                    device=dev)
+        # cycle_launches counts IR_INNER_CYCLES cycles per iteration; this
+        # mg_solve runs one
+        plan = {k: v // IR_INNER_CYCLES for k, v in cycle_launches(
+            levels, cfg, res.iterations).items()}
+        want = {"smooth_parity": plan["smooth_multisweep"],
+                **{k: plan[k] for k in ("residual_restrict",
+                                        "prolong_correct", "tail_vcycle")}}
+        print(f"poisson bf16 {N}^2 parity layout: {res.iterations} cycles, "
+              f"launches {got}, bf16 {got_bf}, plan {want} (all bf16); l2 "
+              f"{res.errors['l2']:.6e}")
+        if res.iterations != BF16_VAR_CYCLES or res.u.dtype != bf or \
+                not torch.isfinite(res.u.float()).all():
+            fail(f"poisson bf16 parity: {res.iterations} cycles of "
+                 f"{res.u.dtype}")
+        check_launches(f"poisson bf16 {N}^2 parity", got, want)
+        if got_bf != want:
+            fail(f"poisson bf16 parity: bf16 launches {got_bf}, plan {want}")
+        twin = twin_path(parity_solve, {
+            (ks, "multisweep_parity"): lambda st, u, f, **kw:
+                ks.multisweep_parity_plain(st, u.clone(), f, **kw),
+            (kx, "residual_restrict"): kx.residual_restrict_plain,
+            (kx, "prolong_correct"): kx.prolong_correct_plain,
+            (kt, "tail_vcycle"): kt.tail_vcycle_plain})
+        same = torch.equal(res.u, twin.u)
+        print(f"poisson bf16 {N}^2 parity: kernel path = twin path call by "
+              f"call: {same}")
+        if not same:
+            fail("poisson bf16 parity: the kernel path differs from the "
+                 "twin path")
+        parity_bf16 = got_bf["smooth_parity"]
+        timing["poisson bf16 parity"] = best_ms(parity_solve)
+        print(f"solve time poisson bf16 {N}^2 parity layout: "
+              f"{timing['poisson bf16 parity']:.3f} ms per solve [{card}]")
+    finally:
+        ks.PARITY_DEFAULT = saved
+    print(f"phase 33: {time.perf_counter() - start:.1f} s")
+    return {**bf16_launches, "smooth_parity_bf16": parity_bf16}
+
+
+def halo_path(card):
+    """Phase 34: halo_solve over NCCL, one rank per visible card (the
+    launcher spawns them, each on its card), on the mesh of the whole world:
+    poisson_mms_sinsin(1025) and jump_coefficient_problem(1025), fp64 RB-GS
+    V(2,2), held to the port's mg_solve on the same card (iterations, and
+    the solution within HALO_ATOL); shard_smooth (bit for bit against the
+    plain smoother), global_residual_norm (rel 1e-12) and
+    make_sharded_field (every block and the gathered field exact) on the
+    same mesh. Prints the world size, the mesh and the plan's sharded
+    depth S; a rank that fails fails the phase. On one card the world is
+    one rank and the plan splits nothing (S = 0): halo_solve is then
+    mg_solve itself, and the phase checks the launch, the NCCL bring-up and
+    the sharded field, not halos."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.parallel import \
+        checks, launch
+
+    start = time.perf_counter()
+    world = torch.cuda.device_count()
+    C = checks.Case
+    cases = {  # on the mesh of the whole world
+        "global_poisson": C("solve", "poisson_mms_sinsin", N, None),
+        "global_jump": C("solve", "jump_coefficient_problem", N, None,
+                         changes={"max_iterations": 60}),
+        "global_shard_smooth": C("smooth", "poisson_mms_sinsin", N, None),
+        "global_norm": C("norm", "poisson_mms_sinsin", N, None),
+        "global_field": C("field", "poisson_mms_sinsin", N, None),
+    }
+    try:
+        res = launch.run(checks.run_cases, world, cases, "cuda",
+                         backend="nccl", timeout=300.0)
+    except RuntimeError as exc:
+        fail(f"phase 34: {exc}")
+    for r in res:
+        summary = r["summary"]
+        if summary["backend"] != "nccl" or \
+                summary["process_count"] != world:
+            fail(f"phase 34: rank {r['rank']} ran {summary}")
+    print(f"phase 34: world {world} NCCL rank(s), {res[0]['summary']}")
+    for name in ("global_poisson", "global_jump"):
+        r = res[0][name]
+        for other in res[1:]:
+            if not np.array_equal(other[name]["u"], r["u"]):
+                fail(f"{name}: rank {other['rank']} holds another solution")
+        print(f"halo_solve {name} {N}^2 fp64 on mesh {r['mesh']}: sharded "
+              f"depth S {r['n_sharded']}, iterations {r['iterations']} "
+              f"(mg_solve {r['ref_iterations']}), converged "
+              f"{r['converged']}, max|u - u_mg_solve| {r['max_diff_ref']:.3e}"
+              f", l2 {r.get('l2')}; rank 0's first call {r['seconds']:.3f} s "
+              f"(mg_solve {r['ref_seconds']:.3f} s) [{card}]")
+        if not r["converged"] or r["iterations"] != r["ref_iterations"] or \
+                r["max_diff_ref"] > HALO_ATOL:
+            fail(f"{name}: halo_solve differs from mg_solve")
+    r = res[0]["global_shard_smooth"]
+    print(f"shard_smooth {N}^2: equal to the plain smoother: jacobi "
+          f"{r['jacobi']['equal']}, rbgs {r['rbgs']['equal']}")
+    if not (r["jacobi"]["equal"] and r["rbgs"]["equal"]):
+        fail("shard_smooth differs from the plain smoother")
+    r = res[0]["global_norm"]
+    print(f"global_residual_norm {N}^2: {r['norm']!r} (plain {r['ref']!r})")
+    if abs(r["norm"] / r["ref"] - 1) > 1e-12:
+        fail("global_residual_norm differs from the plain norm")
+    r = res[0]["global_field"]
+    print(f"make_sharded_field {N}^2: spec {r['spec']}, block "
+          f"{r['block_shape']}, block exact {r['block_equal']}, gather exact "
+          f"{r['gather_equal']}")
+    if not (r["block_equal"] and r["gather_equal"]):
+        fail("make_sharded_field differs from the global field")
+    print(f"phase 34: {time.perf_counter() - start:.1f} s")
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -3531,6 +4156,16 @@ def work(name):
                                      14 * (m - 2) ** 3 + 30 * (mc - 2) ** 3),
         "prolong_correct3d_bf16": (2 * mc ** 3 + 4 * m ** 3,
                                    4 * (m - 2) ** 3),
+        # kernels H, I, J and L on bf16 storage: 2 bytes a node (J: the
+        # entry's u and f, every level's planes)
+        "smooth_var_bf16": (16 * n * n, 12 * 2 * (n - 2) ** 2),
+        "residual_restrict_var_bf16": (14 * n * n + 2 * nc * nc,
+                                       10 * (n - 2) ** 2
+                                       + 12 * (nc - 2) ** 2),
+        "tail_vcycle_var_bf16": (6 * 129 ** 2
+                                 + 10 * sum(k * k for k in tail),
+                                 vcycle_flops(tail)),
+        "smooth_parity_bf16": (6 * n * n, 12 * 2 * (n - 2) ** 2),
     }[name]
 
 
@@ -4022,6 +4657,17 @@ def main(argv) -> int:
     launches.update(precision3d_path(mg, card, dev))
     operator3d_path(mg, card, dev)
 
+    # ---- bf16 in H, I, J and L, the 2D varcoef precisions, halo_solve:
+    # ---- phases 32-34
+    errs_v, times_v, dev_ms_v = kernel_phase_var_bf16(mg, card, dev)
+    for name, err in errs_v.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    times.update(times_v)
+    dev_ms.update(dev_ms_v)
+    launches.update(var_precision_path(mg, card, dev))
+    torch.cuda.empty_cache()
+    halo_path(card)
+
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),
                "prolong_correct": ("csrc/transfer.cu", "transfer.py:488"),
@@ -4051,7 +4697,13 @@ def main(argv) -> int:
                "residual_restrict3d_bf16": ("csrc/transfer3d.cu",
                                             "transfer3d.py:194"),
                "prolong_correct3d_bf16": ("csrc/transfer3d.cu",
-                                          "transfer3d.py:342")}
+                                          "transfer3d.py:342"),
+               "smooth_var_bf16": ("csrc/smooth_var.cu", "smooth.py:290"),
+               "residual_restrict_var_bf16": ("csrc/transfer_var.cu",
+                                              "transfer.py:262"),
+               "tail_vcycle_var_bf16": ("csrc/tail_var.cu", "tail.py:122"),
+               "smooth_parity_bf16": ("csrc/smooth_parity.cu",
+                                      "smooth.py:119")}
     main_n = {"smooth_multisweep": 1025, "residual_restrict": 1025,
               "prolong_correct": 1025, "tail_vcycle": 129,
               "smooth_var": N_VAR, "residual_restrict_var": N_VAR,
@@ -4061,7 +4713,9 @@ def main(argv) -> int:
               "smooth_multisweep_bf16": N, "residual_restrict_bf16": N,
               "prolong_correct_bf16": N, "tail_vcycle_bf16": 129,
               "rbgs3d_bf16": N3, "residual_restrict3d_bf16": N3,
-              "prolong_correct3d_bf16": N3}
+              "prolong_correct3d_bf16": N3, "smooth_var_bf16": N_VAR,
+              "residual_restrict_var_bf16": N_VAR,
+              "tail_vcycle_var_bf16": 129, "smooth_parity_bf16": N}
     timed = {"probe": "probe_roll"}  # the record times the 5-point probe
     record = []
     for name, (src, rep) in sources.items():

@@ -6,21 +6,24 @@ against. Plain tensor code is PyTorch; the hot operations of the 2D
 constant-coefficient, variable-coefficient and Neumann/Robin paths and of
 the 3D constant-coefficient Dirichlet path run in hand-written CUDA kernels
 for Hopper (``csrc/``, built with nvcc at first use, see
-``ops/cuda_kernels/_build.py``); kernels A-G take bf16 storage too, so the
-mixed, bf16 and adaptive precisions run on them in 2D and 3D. Galerkin coarsening
-(``coarsening='galerkin'``, 9-point coarse levels on the plain path), the
-Krylov solvers (``solvers.krylov``) and their preconditioners
-(``preconditioning``) run on top of the same cycles, and so do the heat
-equations' implicit steps in 2D and 3D (``applications.heat``,
-``applications.heat3d``, shifted-operator V-cycles per step, with
-checkpoint/resume through ``utils.CheckpointManager``). Fields are stored
-at their logical shape (nx, ny) or (nx, ny, nz), and every function takes
-its dtype and device explicitly. This package never imports JAX.
+``ops/cuda_kernels/_build.py``); every kernel but K takes bf16 storage
+too, so the mixed, bf16 and adaptive precisions run on them in 2D and 3D.
+Galerkin coarsening (``coarsening='galerkin'``, 9-point coarse levels on
+the plain path), the Krylov solvers (``solvers.krylov``) and their
+preconditioners (``preconditioning``) run on top of the same cycles, and
+so do the heat equations' implicit steps in 2D and 3D
+(``applications.heat``, ``applications.heat3d``, shifted-operator V-cycles
+per step, with checkpoint/resume through ``utils.CheckpointManager``). The
+whole 2D solve also runs over a mesh of ranks with explicit halos
+(``parallel.halo_solve`` over ``torch.distributed``: gloo on the CPU,
+NCCL on cards). Fields are stored at their logical shape (nx, ny) or (nx,
+ny, nz), and every function takes its dtype and device explicitly. This
+package never imports JAX.
 """
 
 __version__ = "0.1.0"
 
-from . import applications, core, models, ops, solvers, utils  # noqa: F401
+from . import applications, core, models, ops, parallel, solvers, utils  # noqa: F401
 from . import preconditioning  # noqa: F401
 from .applications.poisson import (  # noqa: F401
     PoissonResult,

@@ -2,11 +2,11 @@
 //
 // 2D fields are row-major (nx, ny) arrays with the boundary ring included:
 // node (i, j) lives at i * ny + j. Only interior nodes 1..nx-2 x 1..ny-2 are
-// ever updated, so no access wraps around. Kernels A-D take fp32 or bf16
-// storage: they widen what they load to fp32 (load_f), compute in fp32 and
-// round once per call where they store (store_f, round to nearest even, as
-// torch's Tensor.to(torch.bfloat16)). The other kernels take fp32. The 3D
-// layout is given with the 3D helpers below.
+// ever updated, so no access wraps around. Kernels A-J and L take fp32 or
+// bf16 storage: they widen what they load to fp32 (load_f), compute in fp32
+// and round once per call where they store (store_f, round to nearest even,
+// as torch's Tensor.to(torch.bfloat16)). K takes fp32. The 3D layout is
+// given with the 3D helpers below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -199,10 +199,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
-// One node into a shared fp32 window (kernels A and D): a 4-byte cp.async
-// from fp32 storage; from bf16 storage a load widened to fp32 (cp.async
-// copies 4, 8 or 16 bytes, so a 2-byte node cannot go that way). Either is
-// visible to the block after cp_async_wait and a barrier.
+// One node into a shared fp32 window (kernels A, D, H, J and L): a 4-byte
+// cp.async from fp32 storage; from bf16 storage a load widened to fp32
+// (cp.async copies 4, 8 or 16 bytes, so a 2-byte node cannot go that way).
+// Either is visible to the block after cp_async_wait and a barrier.
 __device__ __forceinline__ void load_shared(float* dst, const float* src) {
   cp_async4(dst, src, true);
 }
@@ -261,9 +261,11 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int device, bool* done) {
 // contracts nothing into FMAs and the updates divide by c as the twins do.
 // Division happens on unknown nodes only: c may be 0 on a fixed corner.
 
-struct Planes5 {
-  const float *c, *w, *e, *s, *n;
+template <class T>
+struct PlanesOf {
+  const T *c, *w, *e, *s, *n;
 };
+using Planes5 = PlanesOf<float>;
 
 // The unknowns of a level are the rectangle [i0, i1) x [j0, j1): a Dirichlet
 // side's ring is fixed, a Neumann/Robin side's ring is unknown.
@@ -310,25 +312,30 @@ __device__ __forceinline__ float jacobi_var_update(float uc, float fv,
 }
 
 // w*u[i-1,j] + e*u[i+1,j] + s*u[i,j-1] + n*u[i,j+1], left to right, reading
-// zero outside the (nx, ny) array as the twins' zero halo does.
-__device__ __forceinline__ float neighbor_sum_var(const float* u,
-                                                  const Planes5& p, int i,
+// zero outside the (nx, ny) array as the twins' zero halo does; u and the
+// planes in fp32 or bf16 storage, widened on load.
+template <class T>
+__device__ __forceinline__ float neighbor_sum_var(const T* u,
+                                                  const PlanesOf<T>& p, int i,
                                                   int j, int nx, int ny) {
   const long idx = (long)i * ny + j;
-  return nbsum_values(p.w[idx], p.e[idx], p.s[idx], p.n[idx],
-                      i > 0 ? u[idx - ny] : 0.0f,
-                      i < nx - 1 ? u[idx + ny] : 0.0f,
-                      j > 0 ? u[idx - 1] : 0.0f,
-                      j < ny - 1 ? u[idx + 1] : 0.0f);
+  return nbsum_values(load_f(p.w + idx), load_f(p.e + idx),
+                      load_f(p.s + idx), load_f(p.n + idx),
+                      i > 0 ? load_f(u + idx - ny) : 0.0f,
+                      i < nx - 1 ? load_f(u + idx + ny) : 0.0f,
+                      j > 0 ? load_f(u + idx - 1) : 0.0f,
+                      j < ny - 1 ? load_f(u + idx + 1) : 0.0f);
 }
 
 // f - (c*u - neighbour sum) at node (i, j).
-__device__ __forceinline__ float residual_var(const float* u, const float* f,
-                                              const Planes5& p, int i, int j,
-                                              int nx, int ny) {
+template <class T>
+__device__ __forceinline__ float residual_var(const T* u, const T* f,
+                                              const PlanesOf<T>& p, int i,
+                                              int j, int nx, int ny) {
   const long idx = (long)i * ny + j;
-  return __fsub_rn(f[idx], __fsub_rn(__fmul_rn(p.c[idx], u[idx]),
-                                     neighbor_sum_var(u, p, i, j, nx, ny)));
+  return __fsub_rn(load_f(f + idx),
+                   __fsub_rn(__fmul_rn(load_f(p.c + idx), load_f(u + idx)),
+                             neighbor_sum_var(u, p, i, j, nx, ny)));
 }
 
 // Fine index k of a restriction window, folded back into the domain where it
@@ -343,8 +350,9 @@ __device__ __forceinline__ int fold(int k, int n) {
 // the window around (2I, 2J) (zero off the unknowns, folded at the ring) in
 // registers, summed as the twin sums them: 4*centre + 2*(edges) + corners,
 // over 16.
+template <class T>
 __device__ __forceinline__ float restrict_residual_var_at(
-    const float* u, const float* f, const Planes5& p, int I, int J, int nx,
+    const T* u, const T* f, const PlanesOf<T>& p, int I, int J, int nx,
     int ny, const Rect& fine) {
   int ri[3], rj[3];
   float r[3][3];

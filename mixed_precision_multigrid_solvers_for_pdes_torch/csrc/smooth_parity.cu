@@ -1,7 +1,8 @@
 // Kernels L and K: RB-GS / SOR sweeps through parity planes held in shared
 // memory, with a constant-coefficient 5-point stencil on an all-Dirichlet
-// rectangle. L takes a standard (nx, ny) field, K a field stored as four
-// parity planes. Both run every sweep of a call in one launch, out of place.
+// rectangle. L takes a standard (nx, ny) field in fp32 or bf16 storage, K a
+// field stored as four fp32 parity planes. Both run every sweep of a call in
+// one launch, out of place.
 //
 // L replaces the layout="parity" body of the Pallas kernels multisweep and
 // multisweep_strips (_parity_sweeps, _split_parity, _merge_parity) of
@@ -30,7 +31,12 @@
 //   longer than A there).
 // - Each block loads a window of u and f: its tile plus a halo of 2 nodes
 //   per sweep, clamped to the field. The loads are 4-byte cp.async, all in
-//   flight at once. They land as the window's four parity planes: window
+//   flight at once; from L's bf16 storage, 2-byte loads widened to fp32
+//   (cp.async has no 2-byte copy). L's u, f and output are each fp32 or
+//   bf16 (the storage flags of mg_rbgs_parity, as kernel A's): the planes
+//   in shared memory are fp32, and the tile is rounded once where it is
+//   stored; a bf16 call of several launches keeps its passes before the
+//   last in fp32 (the wrapper's scratch fields), as A's does. They land as the window's four parity planes: window
 //   node (li, lj) sits in plane (li & 1, lj & 1) at (li >> 1, lj >> 1).
 //   Both read window rows in order: a warp takes a run of a field row (L),
 //   or runs of two of the global planes' rows (K).
@@ -57,7 +63,8 @@
 // kernel A bit for bit.
 //
 // Bound: device memory bandwidth. A call must read u and f and write u
-// once: 12 bytes per node, 3.76 us at 1025^2 at 3.35 TB/s. The windows read
+// once: 12 bytes per node in fp32 (6 in bf16), 3.76 us at 1025^2 at
+// 3.35 TB/s. The windows read
 // (TX + 4 s)(TY + 4 s) / (TX TY) times the tile: 1.27x at 64 x 64 and 2
 // sweeps.
 #include "common.cuh"
@@ -91,11 +98,12 @@ __device__ __forceinline__ long node_at(int gi, int gj, int ny, int hx,
 
 // The body of K and L, on the block's dynamic shared memory sm; every
 // geometry value is a compile-time constant of the instantiation.
-template <int kTileX, int kTileY, int kSweeps, bool kPlanes, bool kPow2>
+template <int kTileX, int kTileY, int kSweeps, bool kPlanes, bool kPow2,
+          class TU, class TF, class TO>
 __device__ __forceinline__ void parity_sweeps(float* sm,
-                                              const float* __restrict__ u,
-                                              const float* __restrict__ f,
-                                              float* __restrict__ out, int nx,
+                                              const TU* __restrict__ u,
+                                              const TF* __restrict__ f,
+                                              TO* __restrict__ out, int nx,
                                               int ny, const Stencil5& st,
                                               float omega) {
   constexpr int halo = 2 * kSweeps;
@@ -121,8 +129,8 @@ __device__ __forceinline__ void parity_sweeps(float* sm,
     const int li = t / WY, lj = t - li * WY;
     if (lj >= wy) continue;
     const long g = node_at<kPlanes>(wi0 + li, wj0 + lj, ny, hx, hy);
-    cp_async4(us + at(li, lj), u + g, true);
-    cp_async4(fs + at(li, lj), f + g, true);
+    load_shared(us + at(li, lj), u + g);
+    load_shared(fs + at(li, lj), f + g);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -183,9 +191,10 @@ __device__ __forceinline__ void parity_sweeps(float* sm,
     const int i = t / SY, j = t - i * SY;
     if (j >= ty) continue;
     const int gi = lo_i + i, gj = lo_j + j;
-    out[node_at<kPlanes>(gi, gj, ny, hx, hy)] = us[at(gi - wi0, gj - wj0)];
+    store_f(out + node_at<kPlanes>(gi, gj, ny, hx, hy),
+            us[at(gi - wi0, gj - wj0)]);
   }
-  if (kPlanes) {
+  if constexpr (kPlanes) {
     // K: the padding beyond an odd field's edge next to the span (row nx,
     // column ny, their corner), copied from up
     const int pad_i = (nx & 1) && hi_i == nx, pad_j = (ny & 1) && hi_j == ny;
@@ -199,10 +208,11 @@ __device__ __forceinline__ void parity_sweeps(float* sm,
   }
 }
 
-template <int kTileX, int kTileY, int kSweeps, bool kPow2>
+template <int kTileX, int kTileY, int kSweeps, bool kPow2, class TU,
+          class TF, class TO>
 __global__ void __launch_bounds__(kThreads, 2)
-    parity_kernel(const float* __restrict__ u, const float* __restrict__ f,
-                  float* __restrict__ out, int nx, int ny, Stencil5 st,
+    parity_kernel(const TU* __restrict__ u, const TF* __restrict__ f,
+                  TO* __restrict__ out, int nx, int ny, Stencil5 st,
                   float omega) {
   extern __shared__ float sm[];
   parity_sweeps<kTileX, kTileY, kSweeps, false, kPow2>(sm, u, f, out, nx, ny,
@@ -219,13 +229,24 @@ __global__ void __launch_bounds__(kThreads, 2)
                                                       st, omega);
 }
 
-template <int kTileX, int kTileY, int kSweeps, bool kPlanes, bool kPow2>
-cudaError_t launch(const float* u, const float* f, float* out, int nx, int ny,
+// K's kernel (fp32 planes) or L's (TU, TF, TO storage).
+template <int kTileX, int kTileY, int kSweeps, bool kPlanes, bool kPow2,
+          class TU, class TF, class TO>
+constexpr auto kernel_of() {
+  if constexpr (kPlanes)
+    return planes_kernel<kTileX, kTileY, kSweeps, kPow2>;
+  else
+    return parity_kernel<kTileX, kTileY, kSweeps, kPow2, TU, TF, TO>;
+}
+
+template <int kTileX, int kTileY, int kSweeps, bool kPlanes, bool kPow2,
+          class TU, class TF, class TO>
+cudaError_t launch(const TU* u, const TF* f, TO* out, int nx, int ny,
                    const Stencil5& st, float omega, int device,
                    cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const auto kernel = kPlanes ? planes_kernel<kTileX, kTileY, kSweeps, kPow2>
-                              : parity_kernel<kTileX, kTileY, kSweeps, kPow2>;
+  const auto kernel =
+      kernel_of<kTileX, kTileY, kSweeps, kPlanes, kPow2, TU, TF, TO>();
   constexpr int bytes = smem_bytes(kTileX, kTileY, kSweeps);
   const cudaError_t err = allow_smem(kernel, bytes, device, done);
   if (err != cudaSuccess) return err;
@@ -235,8 +256,10 @@ cudaError_t launch(const float* u, const float* f, float* out, int nx, int ny,
   return cudaGetLastError();
 }
 
-template <bool kPlanes>
-int run(const float* u, const float* f, float* out, int nx, int ny, float c,
+// kAnySweeps false: compiled for kMaxSweeps sweeps only (a longer bf16
+// call's launches before the last, as kernel A's).
+template <bool kPlanes, class TU, class TF, class TO, bool kAnySweeps>
+int run(const void* u, const void* f, void* out, int nx, int ny, float c,
         float w, float e, float s, float n, float omega, int sweeps,
         int device, void* stream) {
   if (sweeps < 1 || sweeps > kMaxSweeps || nx < 3 || ny < 3)
@@ -244,16 +267,33 @@ int run(const float* u, const float* f, float* out, int nx, int ny, float c,
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const Stencil5 st{c, w, e, s, n};
+  const TU* tu = static_cast<const TU*>(u);
+  const TF* tf = static_cast<const TF*>(f);
+  TO* to = static_cast<TO*>(out);
   return (int)with_tile_and_sweeps(nx, ny, sweeps, [&](auto ti, auto sw) {
     constexpr Tile tile = kTiles[decltype(ti)::value];
     constexpr int sweeps_ = decltype(sw)::value;
-    const auto go = [&](auto p2) {
-      return launch<tile.x, tile.y, sweeps_, kPlanes, decltype(p2)::value>(
-          u, f, out, nx, ny, st, omega, device, (cudaStream_t)stream);
-    };
-    return is_pow2(c) ? go(std::true_type{}) : go(std::false_type{});
+    if constexpr (!kAnySweeps && sweeps_ != kMaxSweeps) {
+      return cudaErrorInvalidValue;
+    } else {
+      const auto go = [&](auto p2) {
+        return launch<tile.x, tile.y, sweeps_, kPlanes, decltype(p2)::value>(
+            tu, tf, to, nx, ny, st, omega, device, (cudaStream_t)stream);
+      };
+      return is_pow2(c) ? go(std::true_type{}) : go(std::false_type{});
+    }
   });
 }
+
+// The storage of one of L's launches, as kernel A's (csrc/smooth.cu): bit 0
+// the input u is bf16, bit 1 f, bit 2 out.
+enum Storage : int {
+  kFp32 = 0,       // an fp32 level
+  kBf16 = 7,       // a bf16 level's call in one launch
+  kBf16First = 3,  // the first launch of a longer bf16 call: out fp32
+  kBf16Mid = 2,    // a launch between: u and out fp32
+  kBf16Last = 6,   // the last: u fp32, out bf16
+};
 
 }  // namespace
 
@@ -261,12 +301,30 @@ extern "C" {
 
 // Kernel L: `sweeps` (1 .. kMaxSweeps) RB-GS/SOR sweeps (red then black)
 // of the (nx, ny) field u, written to out (every node of out is written; u
-// and f are only read, and out must not alias them).
-int mg_rbgs_parity(const float* u, const float* f, float* out, int nx, int ny,
+// and f are only read, and out must not alias them). `storage` says which
+// of u, f and out are bf16 (Storage); the others are fp32.
+int mg_rbgs_parity(const void* u, const void* f, void* out, int nx, int ny,
                    float c, float w, float e, float s, float n, float omega,
-                   int sweeps, int device, void* stream) {
-  return run<false>(u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device,
-                    stream);
+                   int sweeps, int storage, int device, void* stream) {
+  switch (storage) {
+    case kFp32:
+      return run<false, float, float, float, true>(
+          u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
+    case kBf16:
+      return run<false, bf16, bf16, bf16, true>(
+          u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
+    case kBf16First:
+      return run<false, bf16, bf16, float, false>(
+          u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
+    case kBf16Mid:
+      return run<false, float, bf16, float, false>(
+          u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
+    case kBf16Last:
+      return run<false, float, bf16, bf16, true>(
+          u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Kernel K: the same on the (4, hx, hy) planes up and fp of an (nx, ny)
@@ -277,8 +335,9 @@ int mg_planes_rbgs(const float* up, const float* fp, float* out, int nx,
                    float omega, int sweeps, int device, void* stream) {
   if (4L * ((nx + 1) / 2) * ((ny + 1) / 2) > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
-  return run<true>(up, fp, out, nx, ny, c, w, e, s, n, omega, sweeps, device,
-                   stream);
+  return run<true, float, float, float, true>(up, fp, out, nx, ny, c, w, e, s,
+                                              n, omega, sweeps, device,
+                                              stream);
 }
 
 }  // extern "C"

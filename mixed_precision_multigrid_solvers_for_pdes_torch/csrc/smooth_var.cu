@@ -1,7 +1,7 @@
 // Kernel H: multi-sweep smoothing (RB-GS / SOR / weighted Jacobi) with a
 // variable-coefficient 5-point stencil, its five coefficient planes c, w, e,
-// s, n, on an all-Dirichlet rectangle: every sweep of a call in one launch,
-// out of place.
+// s, n, on an all-Dirichlet rectangle, on fp32 or bf16 storage: every sweep
+// of a call in one launch, out of place.
 //
 // Replaces the variable-coefficient branches of the Pallas kernels
 // multisweep (whole level in VMEM, _smooth_kernel_var :231) and
@@ -18,6 +18,14 @@
 //   sweeps nodes for Jacobi, clamped to the field. The loads are 4-byte
 //   cp.async (rows of unpadded levels are not 16-byte aligned), all in
 //   flight at once.
+// - Storage: u, f and the planes (one dtype, the level's) and out are each
+//   fp32 or bf16 (the storage flags of mg_smooth_var, as kernel A's). The
+//   windows are fp32 whatever the storage: bf16 nodes are loaded with 2-byte
+//   loads and widened (cp.async has no 2-byte copy), and the tile is
+//   rounded to bf16 once, where it is stored. A call of more sweeps than
+//   one launch takes keeps its passes before the last in fp32 (the
+//   wrapper's scratch fields), so a bf16 call rounds once, as the Pallas
+//   kernel's one call does.
 // - The tile's size is the level's (tile_of): the largest of kTiles whose
 //   grid holds at least kMinBlocks blocks, about one per SM, else the
 //   smallest. A block's life (loads, 2 * sweeps phases, store) is a chain of
@@ -38,8 +46,8 @@
 //   within a row.
 // - The tile goes to a separate output: neighbouring blocks load this
 //   block's nodes as their halo, so writing u in place would race. The
-//   wrapper alternates u and that output across the launches of a call and
-//   copies the result back into u once (ops/cuda_kernels/smooth_var.py).
+//   wrapper gives each launch of a call a new output and copies the last
+//   one back into u once (ops/cuda_kernels/smooth_var.py).
 // - A launch takes at most kMaxSweeps sweeps; the wrapper splits longer runs.
 //
 // Arithmetic: the twins' order with every operation rounded explicitly and
@@ -47,7 +55,7 @@
 // jacobi_var_update), so H matches multisweep_plain bit for bit.
 //
 // Bound: device memory bandwidth. A call must read u, f and the five planes
-// once and write u once (32 bytes per node). H reads the windows (1.41x the
+// once and write u once (32 bytes per node in fp32, 16 in bf16). H reads the windows (1.41x the
 // tile at 2 sweeps with 32 x 64 tiles), writes the tile, and the wrapper's
 // copy adds 8 bytes per node; the 1025^2 level's 29 MB of inputs fit the
 // 50 MB L2, so repeated calls may read them from L2. What bounds it on the
@@ -106,10 +114,10 @@ __host__ __forceinline__ int smem_bytes(int tx, int ty, int sweeps,
          (int)sizeof(float);
 }
 
-template <int kTileX, int kTileY, bool kJacobi>
+template <int kTileX, int kTileY, bool kJacobi, class TU, class TP, class TO>
 __global__ void __launch_bounds__(kThreads)
-    smooth_var_kernel(const float* __restrict__ u, const float* __restrict__ f,
-                      Planes5 p, float* __restrict__ out, int nx, int ny,
+    smooth_var_kernel(const TU* __restrict__ u, const TP* __restrict__ f,
+                      PlanesOf<TP> p, TO* __restrict__ out, int nx, int ny,
                       float omega, int sweeps, int c0) {
   extern __shared__ float sm[];
   const int halo = halo_of(sweeps, kJacobi);
@@ -135,14 +143,14 @@ __global__ void __launch_bounds__(kThreads)
     const int li = t / wy, lj = t - li * wy;
     const long g = (long)(wi0 + li) * ny + (wj0 + lj);
     const int s = at(li, lj);
-    cp_async4(us + s, u + g, true);
-    if (kJacobi) cp_async4(vs + s, u + g, true);
-    cp_async4(fs + s, f + g, true);
-    cp_async4(cs + s, p.c + g, true);
-    cp_async4(ws + s, p.w + g, true);
-    cp_async4(es + s, p.e + g, true);
-    cp_async4(ss + s, p.s + g, true);
-    cp_async4(ns + s, p.n + g, true);
+    load_shared(us + s, u + g);
+    if (kJacobi) load_shared(vs + s, u + g);
+    load_shared(fs + s, f + g);
+    load_shared(cs + s, p.c + g);
+    load_shared(ws + s, p.w + g);
+    load_shared(es + s, p.e + g);
+    load_shared(ss + s, p.s + g);
+    load_shared(ns + s, p.n + g);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -215,17 +223,17 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = hi_j - lo_j;
   for (int t = threadIdx.x; t < (hi_i - lo_i) * ty; t += kThreads) {
     const int i = t / ty, j = t - i * ty;
-    out[(long)(lo_i + i) * ny + lo_j + j] =
-        fin[at(lo_i + i - wi0, lo_j + j - wj0)];
+    store_f(out + (long)(lo_i + i) * ny + lo_j + j,
+            fin[at(lo_i + i - wi0, lo_j + j - wj0)]);
   }
 }
 
-template <int kTileX, int kTileY, bool kJacobi>
-cudaError_t launch(const float* u, const float* f, const Planes5& p,
-                   float* out, int nx, int ny, float omega, int sweeps,
-                   int c0, int device, cudaStream_t stream) {
+template <int kTileX, int kTileY, bool kJacobi, class TU, class TP, class TO>
+cudaError_t launch(const TU* u, const TP* f, const PlanesOf<TP>& p, TO* out,
+                   int nx, int ny, float omega, int sweeps, int c0,
+                   int device, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const auto kernel = smooth_var_kernel<kTileX, kTileY, kJacobi>;
+  const auto kernel = smooth_var_kernel<kTileX, kTileY, kJacobi, TU, TP, TO>;
   const cudaError_t err = allow_smem(
       kernel, smem_bytes(kTileX, kTileY, kMaxSweeps, kJacobi), device, done);
   if (err != cudaSuccess) return err;
@@ -236,15 +244,52 @@ cudaError_t launch(const float* u, const float* f, const Planes5& p,
   return cudaGetLastError();
 }
 
-template <int k>
-cudaError_t launch_tile(const float* u, const float* f, const Planes5& p,
-                        float* out, int nx, int ny, float omega, int sweeps,
+template <int k, class TU, class TP, class TO>
+cudaError_t launch_tile(const TU* u, const TP* f, const PlanesOf<TP>& p,
+                        TO* out, int nx, int ny, float omega, int sweeps,
                         bool jacobi, int c0, int device, cudaStream_t st) {
   constexpr Tile t = kTiles[k];
   return jacobi ? launch<t.x, t.y, true>(u, f, p, out, nx, ny, omega, sweeps,
                                          0, device, st)
                 : launch<t.x, t.y, false>(u, f, p, out, nx, ny, omega,
                                           sweeps, c0, device, st);
+}
+
+// The storage of one launch, as kernel A's (csrc/smooth.cu): bit 0 the input
+// u is bf16, bit 1 f and the planes, bit 2 out.
+enum Storage : int {
+  kFp32 = 0,       // an fp32 level
+  kBf16 = 7,       // a bf16 level's call in one launch
+  kBf16First = 3,  // the first launch of a longer bf16 call: out fp32
+  kBf16Mid = 2,    // a launch between: u and out fp32
+  kBf16Last = 6,   // the last: u fp32, out bf16
+};
+
+template <class TU, class TP, class TO>
+cudaError_t smooth_var_typed(const void* u, const void* f,
+                             const void* const* planes, void* out, int nx,
+                             int ny, float omega, int sweeps, bool jacobi,
+                             int c0, int device, cudaStream_t st) {
+  const TU* tu = static_cast<const TU*>(u);
+  const TP* tf = static_cast<const TP*>(f);
+  TO* to = static_cast<TO*>(out);
+  const PlanesOf<TP> p{static_cast<const TP*>(planes[0]),
+                       static_cast<const TP*>(planes[1]),
+                       static_cast<const TP*>(planes[2]),
+                       static_cast<const TP*>(planes[3]),
+                       static_cast<const TP*>(planes[4])};
+  static_assert(kNumTiles == 3, "one case per tile");
+  switch (tile_of(nx, ny)) {
+    case 0:
+      return launch_tile<0>(tu, tf, p, to, nx, ny, omega, sweeps, jacobi, c0,
+                            device, st);
+    case 1:
+      return launch_tile<1>(tu, tf, p, to, nx, ny, omega, sweeps, jacobi, c0,
+                            device, st);
+    default:
+      return launch_tile<2>(tu, tf, p, to, nx, ny, omega, sweeps, jacobi, c0,
+                            device, st);
+  }
 }
 
 }  // namespace
@@ -254,30 +299,38 @@ extern "C" {
 // `sweeps` (1 .. kMaxSweeps) sweeps of u, written to out (every node of out
 // is written; u, f and the planes are only read, and out must not alias
 // them): weighted Jacobi when `jacobi`, else RB-GS/SOR, red first, black
-// first when `reverse`.
-int mg_smooth_var(const float* u, const float* f, const float* c,
-                  const float* w, const float* e, const float* s,
-                  const float* n, float* out, int nx, int ny, float omega,
-                  int sweeps, int jacobi, int reverse, int device,
-                  void* stream) {
+// first when `reverse`. `storage` says which of u, f with the planes, and
+// out are bf16 (Storage); the others are fp32.
+int mg_smooth_var(const void* u, const void* f, const void* c, const void* w,
+                  const void* e, const void* s, const void* n, void* out,
+                  int nx, int ny, float omega, int sweeps, int jacobi,
+                  int reverse, int storage, int device, void* stream) {
   if (sweeps < 1 || sweeps > kMaxSweeps || nx < 3 || ny < 3)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const Planes5 p{c, w, e, s, n};
+  const void* planes[5] = {c, w, e, s, n};
   const cudaStream_t st = (cudaStream_t)stream;
   const int c0 = reverse ? 1 : 0;
-  static_assert(kNumTiles == 3, "one case per tile");
-  switch (tile_of(nx, ny)) {
-    case 0:
-      return (int)launch_tile<0>(u, f, p, out, nx, ny, omega, sweeps, jacobi,
-                                 c0, device, st);
-    case 1:
-      return (int)launch_tile<1>(u, f, p, out, nx, ny, omega, sweeps, jacobi,
-                                 c0, device, st);
+  const bool jac = jacobi != 0;
+  switch (storage) {
+    case kFp32:
+      return (int)smooth_var_typed<float, float, float>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kBf16:
+      return (int)smooth_var_typed<bf16, bf16, bf16>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kBf16First:
+      return (int)smooth_var_typed<bf16, bf16, float>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kBf16Mid:
+      return (int)smooth_var_typed<float, bf16, float>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kBf16Last:
+      return (int)smooth_var_typed<float, bf16, bf16>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
     default:
-      return (int)launch_tile<2>(u, f, p, out, nx, ny, omega, sweeps, jacobi,
-                                 c0, device, st);
+      return (int)cudaErrorInvalidValue;
   }
 }
 

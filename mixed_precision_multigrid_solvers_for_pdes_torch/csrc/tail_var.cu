@@ -12,6 +12,14 @@
 // `symmetric`), all in fp32, on all-Dirichlet levels, in place on the entry
 // field.
 //
+// Storage, as the Pallas kernel takes it (:79-81, :152-154): the entry u
+// and f are fp32 or bf16 (one dtype), and each level's planes are in that
+// level's dtype, fp32 or bf16, whatever the entry's. Every level is held
+// and computed in fp32 in shared memory (the plan below is sized in fp32):
+// bf16 nodes are widened where they are loaded (2-byte loads: cp.async has
+// no 2-byte copy), and the entry u is rounded once where it is written
+// back.
+//
 // What bounds it: latency. A cycle from 129^2 moves ~0.6 MB (0.19 us at
 // 3.35 TB/s) through ~120 dependent phases (colour phases, residual,
 // restriction, prolongation), 64 of them on the coarsest level's one
@@ -149,7 +157,8 @@ struct TailVarParams {
   int ny[kTailMaxLevels];
   int off[kTailMaxLevels];
   int stride[kTailMaxLevels];
-  Planes5 planes[kTailMaxLevels];
+  Planes5 planes[kTailMaxLevels];  // bf16 where planes_bf16 says so
+  int planes_bf16;                 // bit l set: level l's planes are bf16
   int pre, post, coarse_sweeps;
   int jacobi;     // 1: weighted Jacobi pre/post smoothing, 0: RB-GS/SOR
   int symmetric;  // 1: post-smoothing runs black before red
@@ -408,9 +417,10 @@ __device__ void coarse_solve_lanes(const TailVarParams& p, float* sm,
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
-    tail_var_vcycle_kernel(float* __restrict__ u0,
-                           const float* __restrict__ f0, TailVarParams p) {
+    tail_var_vcycle_kernel(T* __restrict__ u0, const T* __restrict__ f0,
+                           TailVarParams p) {
   extern __shared__ float sm[];
   const cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank();
@@ -428,11 +438,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Planes5& q = p.planes[l];
     float* dst[5] = {v.c, v.w, v.e, v.s, v.n};
     const float* src[5] = {q.c, q.w, q.e, q.s, q.n};
+    const bool narrow = (p.planes_bf16 >> l) & 1;
     for (int t = threadIdx.x; t < n; t += kThreads) {
-      for (int a = 0; a < 5; ++a) cp_async4(dst[a] + t, src[a] + g0 + t, true);
+      for (int a = 0; a < 5; ++a) {
+        if (narrow)
+          dst[a][t] = load_f(reinterpret_cast<const bf16*>(src[a]) + g0 + t);
+        else
+          cp_async4(dst[a] + t, src[a] + g0 + t, true);
+      }
       if (l == 0) {
-        cp_async4(v.u + t, u0 + g0 + t, true);
-        cp_async4(v.f + t, f0 + g0 + t, true);
+        load_shared(v.u + t, u0 + g0 + t);
+        load_shared(v.f + t, f0 + g0 + t);
       } else {
         v.u[t] = 0.0f;
         v.f[t] = 0.0f;
@@ -504,8 +520,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     const View v = make_view(p, sm, 0, rank, cl);
     const int n = (v.row1 - v.row0) * v.ny;
     for (int t = threadIdx.x; t < n; t += kThreads)
-      u0[(long)v.row0 * v.ny + t] = v.u[t];
+      store_f(u0 + (long)v.row0 * v.ny + t, v.u[t]);
   }
+}
+
+// Launch J on entry storage T with the cluster configuration cfg.
+template <class T>
+cudaError_t launch(T* u, const T* f, const TailVarParams& p,
+                   cudaLaunchConfig_t& cfg, int device) {
+  static bool done[kMaxDevices] = {};
+  cudaError_t err =
+      allow_smem(tail_var_vcycle_kernel<T>, kMaxSmemBytes, device, done);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, tail_var_vcycle_kernel<T>, u, f, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -514,19 +543,18 @@ extern "C" {
 
 // One V(pre, post) cycle over `levels` levels, in place on the entry field
 // u, on `stream`. `planes` holds 5 * levels device pointers, (c, w, e, s, n)
-// per level, finest first.
-int mg_tail_var_vcycle(float* u, const float* f, int levels, const int* nx,
-                       const int* ny, const float* const* planes, int pre,
-                       int post, float omega, int jacobi, int coarse_sweeps,
-                       int symmetric, int device, void* stream) {
+// per level, finest first; bit l of `planes_bf16` set: level l's planes are
+// bf16, else fp32. u and f are bf16 when `entry_bf16`, else fp32.
+int mg_tail_var_vcycle(void* u, const void* f, int levels, const int* nx,
+                       const int* ny, const void* const* planes,
+                       int planes_bf16, int pre, int post, float omega,
+                       int jacobi, int coarse_sweeps, int symmetric,
+                       int entry_bf16, int device, void* stream) {
   if (levels < 1 || levels > kTailMaxLevels)
     return (int)cudaErrorInvalidValue;
   const Plan q = plan(levels, nx, ny);
   if (q.bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  static bool done[kMaxDevices] = {};
-  err = allow_smem(tail_var_vcycle_kernel, kMaxSmemBytes, device, done);
   if (err != cudaSuccess) return (int)err;
   TailVarParams p{};
   p.levels = levels;
@@ -538,9 +566,11 @@ int mg_tail_var_vcycle(float* u, const float* f, int levels, const int* nx,
     p.ny[l] = ny[l];
     p.off[l] = q.off[l];
     p.stride[l] = q.stride[l];
-    const float* const* s = planes + 5 * l;
+    const float* const* s =
+        reinterpret_cast<const float* const*>(planes) + 5 * l;
     p.planes[l] = Planes5{s[0], s[1], s[2], s[3], s[4]};
   }
+  p.planes_bf16 = planes_bf16;
   p.pre = pre;
   p.post = post;
   p.coarse_sweeps = coarse_sweeps;
@@ -559,9 +589,12 @@ int mg_tail_var_vcycle(float* u, const float* f, int levels, const int* nx,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, tail_var_vcycle_kernel, u, f, p);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)(entry_bf16 ? launch(static_cast<bf16*>(u),
+                                   static_cast<const bf16*>(f), p, cfg,
+                                   device)
+                            : launch(static_cast<float*>(u),
+                                     static_cast<const float*>(f), p, cfg,
+                                     device));
 }
 
 // J's plan for a tail of `levels` levels into out[8]: kCluster, kThreads,

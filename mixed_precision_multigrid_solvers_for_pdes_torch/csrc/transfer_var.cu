@@ -13,6 +13,11 @@
 // nx reads row nx-2; _rr_window :106-118), and the coarse ring is written.
 // Coarse nodes off the coarse unknowns are written as 0.
 //
+// Storage: u, f and the planes (the fine level's dtype) and fc (the coarse
+// level's) are each fp32 or bf16, as the Pallas kernel takes them: loads are
+// widened to fp32, the residual and its restriction run in fp32, and fc is
+// rounded once where it is stored.
+//
 // Design: as kernel B. One thread per coarse node; an unknown coarse node
 // computes the nine fine residuals of its window in registers, so the fine
 // residual is never stored. Every operation is rounded explicitly in the
@@ -21,9 +26,9 @@
 //
 // Bound: device memory bandwidth. The windows of neighbouring coarse nodes
 // overlap by one fine row and column, so each fine node's u, f and planes
-// are read about once from device memory (28 bytes per fine node, against
-// kernel B's 8) and the rest from L1/L2; 4 bytes per coarse node are
-// written.
+// are read about once from device memory (28 bytes per fine node in fp32,
+// 14 in bf16, against kernel B's 8 and 4) and the rest from L1/L2; 4 (or 2)
+// bytes per coarse node are written.
 #include "common.cuh"
 
 namespace {
@@ -31,10 +36,11 @@ namespace {
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
-__global__ void residual_restrict_var_kernel(const float* __restrict__ u,
-                                             const float* __restrict__ f,
-                                             Planes5 p,
-                                             float* __restrict__ fc, int nxf,
+template <class TI, class TO>
+__global__ void residual_restrict_var_kernel(const TI* __restrict__ u,
+                                             const TI* __restrict__ f,
+                                             PlanesOf<TI> p,
+                                             TO* __restrict__ fc, int nxf,
                                              int nyf, int ncx, int ncy,
                                              int sides) {
   const int J = blockIdx.x * kBlockX + threadIdx.x;
@@ -44,7 +50,25 @@ __global__ void residual_restrict_var_kernel(const float* __restrict__ u,
   if (unknown_rect(ncx, ncy, sides).contains(I, J))
     out = restrict_residual_var_at(u, f, p, I, J, nxf, nyf,
                                    unknown_rect(nxf, nyf, sides));
-  fc[(long)I * ncy + J] = out;
+  store_f(fc + (long)I * ncy + J, out);
+}
+
+template <class TI, class TO>
+cudaError_t residual_restrict_var_typed(const void* u, const void* f,
+                                        const void* const* planes, void* fc,
+                                        int nxf, int nyf, int ncx, int ncy,
+                                        int sides, cudaStream_t t) {
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((ncy + kBlockX - 1) / kBlockX, (ncx + kBlockY - 1) / kBlockY);
+  residual_restrict_var_kernel<<<grid, block, 0, t>>>(
+      static_cast<const TI*>(u), static_cast<const TI*>(f),
+      PlanesOf<TI>{static_cast<const TI*>(planes[0]),
+                   static_cast<const TI*>(planes[1]),
+                   static_cast<const TI*>(planes[2]),
+                   static_cast<const TI*>(planes[3]),
+                   static_cast<const TI*>(planes[4])},
+      static_cast<TO*>(fc), nxf, nyf, ncx, ncy, sides);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -53,18 +77,27 @@ extern "C" {
 
 // fc (ncx, ncy) = R_fw(f - A u) from fine (nxf, nyf) fields and planes; bit
 // k of `sides` set means side k of (west, east, south, north) is Dirichlet.
-int mg_residual_restrict_var(const float* u, const float* f, const float* c,
-                             const float* w, const float* e, const float* s,
-                             const float* n, float* fc, int nxf, int nyf,
-                             int ncx, int ncy, int sides, int device,
-                             void* stream) {
+// u, f and the planes are bf16 when `in_bf16`, fc when `out_bf16`, else
+// fp32.
+int mg_residual_restrict_var(const void* u, const void* f, const void* c,
+                             const void* w, const void* e, const void* s,
+                             const void* n, void* fc, int nxf, int nyf,
+                             int ncx, int ncy, int sides, int in_bf16,
+                             int out_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((ncy + kBlockX - 1) / kBlockX, (ncx + kBlockY - 1) / kBlockY);
-  residual_restrict_var_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      u, f, Planes5{c, w, e, s, n}, fc, nxf, nyf, ncx, ncy, sides);
-  return (int)cudaGetLastError();
+  const void* planes[5] = {c, w, e, s, n};
+  const cudaStream_t t = (cudaStream_t)stream;
+  if (in_bf16)
+    return (int)(out_bf16 ? residual_restrict_var_typed<bf16, bf16>(
+                                u, f, planes, fc, nxf, nyf, ncx, ncy, sides, t)
+                          : residual_restrict_var_typed<bf16, float>(
+                                u, f, planes, fc, nxf, nyf, ncx, ncy, sides,
+                                t));
+  return (int)(out_bf16 ? residual_restrict_var_typed<float, bf16>(
+                              u, f, planes, fc, nxf, nyf, ncx, ncy, sides, t)
+                        : residual_restrict_var_typed<float, float>(
+                              u, f, planes, fc, nxf, nyf, ncx, ncy, sides, t));
 }
 
 }  // extern "C"

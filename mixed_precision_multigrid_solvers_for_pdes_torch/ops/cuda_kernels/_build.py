@@ -45,24 +45,25 @@ _SIGNATURES = {
     "mg_smooth": ([_P, _P, _P, _I, _I] + [_F] * 6 + [_I] * 4 + [_I, _P],
                   _I),
     "mg_smooth_geometry": ([_I, _I, _IP], _I),
-    "mg_smooth_var": ([_P] * 8 + [_I, _I, _F] + [_I] * 4 + [_P], _I),
+    "mg_smooth_var": ([_P] * 8 + [_I, _I, _F] + [_I] * 5 + [_P], _I),
     "mg_smooth_var_geometry": ([_I, _I, _IP], _I),
     "mg_residual_restrict": ([_P, _P, _P, _I, _I, _I] + [_F] * 5
                              + [_I, _I, _I, _P], _I),
-    "mg_residual_restrict_var": ([_P] * 8 + [_I] * 5 + [_I, _P], _I),
+    "mg_residual_restrict_var": ([_P] * 8 + [_I] * 8 + [_P], _I),
     "mg_prolong_correct": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "mg_tail_vcycle": ([_P, _P, _I, _IP, _IP, _FP, _I, _I, _F, _I, _I,
                         _I, _I, _I, _P], _I),
     "mg_tail_geometry": ([_I, _IP, _IP, _IP], _I),
-    "mg_tail_var_vcycle": ([_P, _P, _I, _IP, _IP, _PP, _I, _I, _F, _I,
-                            _I, _I, _I, _P], _I),
+    "mg_tail_var_vcycle": ([_P, _P, _I, _IP, _IP, _PP, _I, _I, _I, _F,
+                            _I, _I, _I, _I, _I, _P], _I),
     "mg_tail_var_geometry": ([_I, _IP, _IP, _IP], _I),
     "mg_rbgs3d": ([_P] * 3 + [_I] * 3 + [_F] * 8 + [_I] * 5 + [_P], _I),
     "mg_rbgs3d_geometry": ([_I, _IP], _I),
     "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
                                + [_I, _I, _I, _P], _I),
     "mg_prolong_correct3d": ([_P, _P] + [_I] * 5 + [_I, _I, _I, _P], _I),
-    "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
+    "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I] * 3 + [_P],
+                       _I),
     "mg_planes_rbgs": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
     "mg_probe_color": ([_P] * 3 + [_I] * 4 + [_I, _P], _I),
     "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _P], _I),
@@ -180,8 +181,8 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# Storage dtypes of kernels A-G: each loads them, computes in fp32 and
-# stores once per call. The C entries take a flag per tensor: 1 = bf16.
+# Storage dtypes of kernels A-J and L: each loads them, computes in fp32
+# and stores once per call. The C entries take a flag per tensor: 1 = bf16.
 STORAGE = (torch.float32, torch.bfloat16)
 
 
@@ -191,10 +192,10 @@ def bf16(t: torch.Tensor) -> int:
 
 
 def round_once(twin, out, *args, **kwargs):
-    """A plain twin on bf16 storage, rounding where kernels A-G do: ``twin``
-    run on ``args`` with every tensor widened to fp32, its fp32 result
-    rounded once into ``out``, a tensor updated in place or the dtype of a
-    new one."""
+    """A plain twin on bf16 storage, rounding where kernels A-J and L do:
+    ``twin`` run on ``args`` with every tensor widened to fp32, its fp32
+    result rounded once into ``out``, a tensor updated in place or the
+    dtype of a new one."""
     w = twin(*(a.float() if torch.is_tensor(a) else a for a in args),
              **kwargs)
     return out.copy_(w) if torch.is_tensor(out) else w.to(out)

@@ -8,7 +8,8 @@ rectangles, on fp32 or bf16 storage: as the Pallas kernels (:207-228,
 :438-458), A loads bf16, sweeps in fp32 and stores bf16 once per call, so
 a call of several launches keeps its passes before the last in fp32 scratch
 fields. Kernel L replaces their ``layout="parity"`` body (``_parity_sweeps``
-:119), in fp32: split into parity planes on chip, sweep, merge.
+:119, reached from :211 and :413): split into parity planes on chip, sweep,
+merge, on fp32 or bf16 storage, rounding as A does.
 The source notes in ``csrc/smooth.cu`` and ``csrc/smooth_parity.cu`` give
 the designs and what bounds them.
 
@@ -22,8 +23,8 @@ On a CPU tensor each wrapper runs its plain twin in place and returns
 kernel K, ``smooth_planes.py``) run up to ``MAX_SWEEPS`` sweeps per launch
 into a separate output and return that output, leaving ``u`` untouched;
 longer calls take several launches (``plan_passes``, ``launch_passes``).
-``multisweep.launches`` counts A's launches (``launches_bf16`` those on
-bf16 storage), ``multisweep_parity.launches`` L's.
+``multisweep.launches`` counts A's launches and ``multisweep_parity.launches``
+L's (``launches_bf16`` those on bf16 storage).
 
 A, K and L share one launch geometry (``csrc/smooth_tiles.cuh``): a level
 takes the largest tile of ``TILES`` whose grid holds at least
@@ -46,6 +47,7 @@ from ..stencil import Stencil
 from . import _build
 
 RBGS = smooth_mod.RBGS_METHODS + ("rbgs_rev",)
+STORAGE = _build.STORAGE  # A's and L's
 LAYOUTS = ("auto", "direct", "parity")
 # Off by default, as in the JAX package (its smooth.py:277).
 PARITY_DEFAULT = False
@@ -97,13 +99,6 @@ def check_geometry(nx: int, ny: int) -> None:
                            f"{geometry(nx, ny)}")
 
 
-def takes(dtype, method: str) -> bool:
-    """True when ``multisweep`` launches a kernel on ``dtype`` storage: A
-    takes fp32 and bf16, L fp32 only."""
-    return dtype == torch.float32 or (
-        dtype == torch.bfloat16 and not _resolve_parity("auto", method))
-
-
 def _pass_outputs(u, passes: int) -> list:
     """The output of each launch of a ``passes``-launch call: the passes
     before the last alternate between two fp32 scratch fields, so that a
@@ -122,8 +117,8 @@ def launch_passes(entry: str, wrapper, u, f, nx: int, ny: int, coefs,
     returns the last output, a new tensor (``u`` itself when there is no
     pass). The kernels write a separate output: neighbouring blocks load a
     block's nodes as their halo, so no kernel writes its input in place.
-    ``storage``: the entry takes A's storage flags (bit 0 the input u, bit 1
-    f, bit 2 the output is bf16)."""
+    ``storage``: the entry takes A's and L's storage flags (bit 0 the
+    input u, bit 1 f, bit 2 the output is bf16)."""
     passes = plan_passes(sweeps)
     if not passes:
         return u
@@ -159,10 +154,11 @@ def multisweep_plain(st: Stencil, u, f, *, method: str = "rbgs",
                      sweeps: int = 2, omega: float = 1.0):
     """Plain twin of A and H: ``ops.smooth.smooth`` on the interior of an
     all-Dirichlet level, in place on u. On bf16 storage it rounds where A
-    does: u and f widened to fp32, every sweep in fp32, one rounding back
-    into u."""
+    and H do: u, f and H's planes widened to fp32, every sweep in fp32, one
+    rounding back into u."""
     if u.dtype == torch.bfloat16:
-        return _build.round_once(multisweep_plain, u, st, u, f,
+        wide = st if st.scalar else st.astype(torch.float32)
+        return _build.round_once(multisweep_plain, u, wide, u, f,
                                  method=method, sweeps=sweeps, omega=omega)
     unknown = bc.unknown_mask(*u.shape, device=u.device)
     return smooth_mod.smooth(st, u, f, unknown, method=method,
@@ -173,7 +169,11 @@ def multisweep_parity_plain(st: Stencil, u, f, *, sweeps: int = 2,
                             omega: float = 1.0):
     """Plain twin of L: split u and f into parity planes (the whole level is
     one window), run the parity body ``ops.planes.plane_sweeps``, merge back
-    into u."""
+    into u. On bf16 storage it rounds where L does: u and f widened to
+    fp32, every sweep in fp32, one rounding back into u."""
+    if u.dtype == torch.bfloat16:
+        return _build.round_once(multisweep_parity_plain, u, st, u, f,
+                                 sweeps=sweeps, omega=omega)
     up, fp = pln.split_field(u), pln.split_field(f)
     masks = pln.masks_for(*u.shape, *up.shape[1:], device=u.device)
     pln.plane_sweeps(st.coefs, up, fp, masks, sweeps=sweeps, omega=omega)
@@ -192,12 +192,12 @@ def multisweep_parity(st: Stencil, u, f, *, sweeps: int = 2,
     _build.check_unwrapped("multisweep_parity", st)
     if u.device.type == "cpu":
         return multisweep_parity_plain(st, u, f, sweeps=sweeps, omega=omega)
-    _build.check_cuda("multisweep_parity", u, f)
-    if f.shape != u.shape:
-        raise ValueError(f"multisweep_parity: f {tuple(f.shape)} != u "
-                         f"{tuple(u.shape)}")
+    _build.check_cuda("multisweep_parity", u, f, dtypes=STORAGE)
+    if f.shape != u.shape or f.dtype != u.dtype:
+        raise ValueError(f"multisweep_parity: f {tuple(f.shape)} {f.dtype} "
+                         f"!= u {tuple(u.shape)} {u.dtype}")
     return launch_passes("mg_rbgs_parity", multisweep_parity, u, f,
-                         *u.shape, st.coefs, omega, sweeps)
+                         *u.shape, st.coefs, omega, sweeps, storage=True)
 
 
 def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
@@ -218,7 +218,7 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
     if u.device.type == "cpu":
         return multisweep_plain(st, u, f, method=method, sweeps=sweeps,
                                 omega=omega)
-    _build.check_cuda("multisweep", u, f, dtypes=_build.STORAGE)
+    _build.check_cuda("multisweep", u, f, dtypes=STORAGE)
     if f.shape != u.shape or f.dtype != u.dtype:
         raise ValueError(f"multisweep: f {tuple(f.shape)} {f.dtype} != u "
                          f"{tuple(u.shape)} {u.dtype}")
@@ -228,4 +228,4 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
 
 
 multisweep.launches = multisweep.launches_bf16 = 0
-multisweep_parity.launches = 0
+multisweep_parity.launches = multisweep_parity.launches_bf16 = 0

@@ -4,16 +4,20 @@
 Replaces the variable-coefficient branches of the Pallas ``multisweep`` and
 ``multisweep_strips`` of
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth.py``
-(:290, :507) for tensor-leaf 5-point stencils on all-Dirichlet rectangles in
-fp32. The source note in ``csrc/smooth_var.cu`` gives the design and what
-bounds it.
+(:290, :507) for tensor-leaf 5-point stencils on all-Dirichlet rectangles,
+on fp32 or bf16 storage (``STORAGE``: u, f and the planes in the level's
+dtype): as the Pallas kernel (:231-250), H widens what it loads, sweeps in
+fp32 and rounds once per call. The source note in ``csrc/smooth_var.cu``
+gives the design and what bounds it.
 
 On a CPU tensor ``multisweep_var`` runs the plain twin; on a CUDA tensor it
 launches the kernel or raises. The kernel runs up to ``MAX_SWEEPS`` sweeps
 per launch into a separate output; longer calls take several launches
-(``plan_passes``), alternating between ``u`` and that output, and the result
-is copied back into ``u`` once. ``multisweep_var.launches`` counts kernel
-launches: one per call at the multigrid cycle's 2 sweeps.
+(``plan_passes``), each into a new output (fp32 scratch fields before the
+last, as kernel A's: ``smooth._pass_outputs``), and the last is copied back
+into ``u`` once. ``multisweep_var.launches`` counts kernel launches (one
+per call at the multigrid cycle's 2 sweeps), ``launches_bf16`` those on
+bf16 storage.
 
 The launch geometry is the kernel source's: a level takes the largest tile
 of ``TILES`` whose grid holds at least ``MIN_BLOCKS`` blocks (``tile``).
@@ -31,7 +35,9 @@ import torch
 
 from ..stencil import Stencil
 from . import _build
-from .smooth import RBGS, multisweep_plain
+from .smooth import RBGS, _pass_outputs, multisweep_plain
+
+STORAGE = _build.STORAGE
 
 # csrc/smooth_var.cu's kTiles (rows, columns; largest first), kMinBlocks,
 # kThreads, kMaxSweeps
@@ -98,10 +104,11 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
     if u.device.type == "cpu":
         return multisweep_plain(st, u, f, method=method, sweeps=sweeps,
                                 omega=omega)
-    _build.check_cuda("multisweep_var", u, f, *st.coefs)
-    if any(t.shape != u.shape for t in (f, *st.coefs)):
+    _build.check_cuda("multisweep_var", u, f, *st.coefs, dtypes=STORAGE)
+    if any(t.shape != u.shape or t.dtype != u.dtype
+           for t in (f, *st.coefs)):
         raise ValueError(f"multisweep_var: f and the planes must have u's "
-                         f"shape {tuple(u.shape)}")
+                         f"shape {tuple(u.shape)} and dtype {u.dtype}")
     nx, ny = u.shape
     check_geometry(nx, ny)
     passes = plan_passes(sweeps)
@@ -109,19 +116,21 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
         return u
     planes = [x.data_ptr() for x in st.coefs]
     dev, stream = u.device.index, _build.stream_of(u)
-    # a separate output: neighbouring blocks read this block's nodes as
-    # their halo, so H cannot write its input in place
-    src, dst = u, torch.empty_like(u)
-    for k in passes:
+    # a separate output per launch: neighbouring blocks read this block's
+    # nodes as their halo, so H cannot write its input in place
+    src = u
+    for k, dst in zip(passes, _pass_outputs(u, len(passes))):
+        types = (_build.bf16(src) | _build.bf16(f) << 1
+                 | _build.bf16(dst) << 2)
         _build.launch("mg_smooth_var", src.data_ptr(), f.data_ptr(), *planes,
                       dst.data_ptr(), nx, ny, omega, k,
                       int(method == "jacobi"), int(method == "rbgs_rev"),
-                      dev, stream)
+                      types, dev, stream)
         multisweep_var.launches += 1
-        src, dst = dst, src
-    if src is not u:
-        u.copy_(src)
-    return u
+        if u.dtype == torch.bfloat16:
+            multisweep_var.launches_bf16 += 1
+        src = dst
+    return u.copy_(src)
 
 
-multisweep_var.launches = 0
+multisweep_var.launches = multisweep_var.launches_bf16 = 0

@@ -6,11 +6,12 @@ D replaces the Pallas ``tail_vcycle`` and J the Pallas ``tail_vcycle_var`` of
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/tail.py``
 (:170, :122) for all-Dirichlet hierarchies: D for constant-coefficient
 stencils, J for stencils with (nx, ny) coefficient planes on every level.
-D computes every level in fp32 from an entry u and f of fp32 or bf16
-storage (``STORAGE``), whatever the dtypes of the levels below, whose
-stencils it takes as fp32, and stores u once, as the Pallas kernel does
-(:79-81, :193); J takes fp32 levels only. The source notes in ``csrc/``
-give the design and what bounds each kernel. D walks the tail in the
+Both compute every level in fp32 from an entry u and f of fp32 or bf16
+storage (``STORAGE``), whatever the dtypes of the levels below, and store
+u once, as the Pallas kernels do (:79-81, :152-154, :193): D takes the
+levels' stencils as fp32, J loads each level's planes in that level's
+dtype and widens them. The source notes in ``csrc/`` give the design and
+what bounds each kernel. D walks the tail in the
 shared memory of one CTA, laid out by ``plan``; J in the shared memory of
 one thread-block cluster, laid out by ``var_plan``. ``check_plan`` and
 ``check_var_plan`` hold these against the library's own plans before a
@@ -18,8 +19,8 @@ tail shape's first launch.
 
 On a CPU tensor ``tail_vcycle`` and ``tail_vcycle_var`` run the plain twin;
 on a CUDA tensor they launch their kernel or raise. ``tail_vcycle.launches``
-and ``tail_vcycle_var.launches`` count launches, and
-``tail_vcycle.launches_bf16`` D's launches on a bf16 entry.
+and ``tail_vcycle_var.launches`` count launches, and their
+``launches_bf16`` those on a bf16 entry.
 """
 
 from __future__ import annotations
@@ -163,9 +164,10 @@ def tail_vcycle_plain(stencils: Sequence[Stencil], u, f, *,
     """Plain twin of D and J: the recursive V(pre, post) cycle over the tail
     levels, composed of the plain smoother and the plain transfer twins; the
     coarsest level takes ``coarse_sweeps`` RB-GS sweeps with omega = 1.
-    Every level runs in the entry's dtype; a bf16 entry rounds where D
-    does: u and f widened to fp32, the cycle in fp32, one rounding back.
-    Updates ``u`` in place and returns it."""
+    Every level runs in the entry's dtype, bf16 stencils widened by type
+    promotion; a bf16 entry rounds where D and J do: u and f widened to
+    fp32, the cycle in fp32, one rounding back. Updates ``u`` in place and
+    returns it."""
     _check_shapes(shapes, stencils, u)
     if u.dtype == torch.bfloat16:
         return _build.round_once(tail_vcycle_plain, u, stencils, u, f,
@@ -352,23 +354,28 @@ def tail_vcycle_var(stencils: Sequence[Stencil], u, f, *,
                                  post=post, omega=omega, method=method,
                                  coarse_sweeps=coarse_sweeps,
                                  symmetric=symmetric)
-    _check_cuda("tail_vcycle_var", stencils, u, f, shapes)
-    for st, shape in zip(stencils, shapes):
-        _build.check_cuda("tail_vcycle_var", u, *st.coefs)
-        if any(tuple(x.shape) != tuple(shape) for x in st.coefs):
-            raise ValueError(f"tail_vcycle_var: planes must have their "
-                             f"level's shape {tuple(shape)}")
+    _check_cuda("tail_vcycle_var", stencils, u, f, shapes, storage=STORAGE)
+    narrow = 0  # bit l set: level l's planes are bf16
+    for lvl, (st, shape) in enumerate(zip(stencils, shapes)):
+        _build.check_cuda("tail_vcycle_var", u, *st.coefs, dtypes=STORAGE)
+        if any(tuple(x.shape) != tuple(shape) or x.dtype != st.c.dtype
+               for x in st.coefs):
+            raise ValueError(f"tail_vcycle_var: the planes of a level must "
+                             f"have its shape {tuple(shape)} and one dtype")
+        narrow |= _build.bf16(st.c) << lvl
     shapes = tuple(tuple(s) for s in shapes)
     check_var_plan(shapes)
     L = len(shapes)
     planes = (ctypes.c_void_p * (5 * L))(*(x.data_ptr() for st in stencils
                                            for x in st.coefs))
     _build.launch("mg_tail_var_vcycle", u.data_ptr(), f.data_ptr(), L,
-                  *_shape_arrays(shapes), planes, pre, post, omega,
+                  *_shape_arrays(shapes), planes, narrow, pre, post, omega,
                   int(method == "jacobi"), coarse_sweeps, int(symmetric),
-                  u.device.index, _build.stream_of(u))
+                  _build.bf16(u), u.device.index, _build.stream_of(u))
     tail_vcycle_var.launches += 1
+    if u.dtype == torch.bfloat16:
+        tail_vcycle_var.launches_bf16 += 1
     return u
 
 
-tail_vcycle_var.launches = 0
+tail_vcycle_var.launches = tail_vcycle_var.launches_bf16 = 0

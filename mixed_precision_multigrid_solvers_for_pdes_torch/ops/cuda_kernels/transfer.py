@@ -6,11 +6,12 @@ B and I replace the Pallas ``residual_restrict`` and C the Pallas
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/transfer.py``
 (:262, :488). B takes a constant-coefficient stencil on an all-Dirichlet
 rectangle; I takes the (nx, ny) coefficient planes of a tensor-leaf stencil
-and per-side boundary kinds; C takes the same side flags. B and C take
-fp32 or bf16 storage on each side (``STORAGE``) and compute in fp32, as the
-Pallas kernels do (:193-249, :431-476): B writes the coarse dtype asked
-for, C stores into u's dtype, each rounding once. I takes fp32 only. The
-source notes in ``csrc/`` give the design and what bounds each kernel.
+and per-side boundary kinds; C takes the same side flags. B, I and C take
+fp32 or bf16 storage on each side (``STORAGE``; I's planes in the fine
+level's dtype) and compute in fp32, as the Pallas kernels do (:193-249,
+:431-476): B and I write the coarse dtype asked for, C stores into u's
+dtype, each rounding once. The source notes in ``csrc/`` give the design
+and what bounds each kernel.
 
 ``sides`` is a (west, east, south, north) tuple of Dirichlet flags, as the
 Pallas kernels take it (``BoundarySpec.dirichlet_sides``): a Dirichlet
@@ -19,7 +20,8 @@ side's ring is fixed, a Neumann/Robin side's ring holds unknowns.
 On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
 launches its kernel or raises. ``residual_restrict.launches``,
 ``residual_restrict_var.launches`` and ``prolong_correct.launches`` count
-kernel launches, and ``launches_bf16`` of B and C those with a bf16 side.
+kernel launches, and ``launches_bf16`` of B, I and C those with a bf16
+side.
 """
 
 from __future__ import annotations
@@ -54,11 +56,13 @@ def residual_restrict_plain(st: Stencil, u, f, *, sides=DIRICHLET,
     """Plain twin of B and I: the fine residual on the unknowns, restricted
     with the 'zero' boundary when every side is Dirichlet, else with the
     'reflect' boundary and zeroed off the coarse unknowns. With a bf16 side
-    it rounds where B does: u and f widened to fp32, the residual and its
-    restriction in fp32, one rounding into ``out_dtype``."""
+    it rounds where B and I do: u, f and I's planes widened to fp32, the
+    residual and its restriction in fp32, one rounding into
+    ``out_dtype``."""
     dtype = out_dtype or u.dtype
     if torch.bfloat16 in (u.dtype, dtype):
-        return _build.round_once(residual_restrict_plain, dtype, st, u, f,
+        wide = st if st.scalar else st.astype(torch.float32)
+        return _build.round_once(residual_restrict_plain, dtype, wide, u, f,
                                  sides=sides)
     ncx, ncy = coarse_shape(*u.shape)
     r = st_mod.residual(st, u, f, bc.rect_mask(*u.shape, sides,
@@ -113,7 +117,9 @@ def residual_restrict_var(st: Stencil, u, f, *, sides=DIRICHLET,
                           out_dtype=None):
     """I: fc = R_fw(f - A u) with the (nx, ny) coefficient planes of ``st``;
     Neumann/Robin rings are unknowns and restrict with the reflect fold;
-    coarse nodes off the coarse unknowns are zero."""
+    coarse nodes off the coarse unknowns are zero. u, f and the planes fp32
+    or bf16 (one dtype), fc in ``out_dtype`` (u's by default), fp32 or
+    bf16."""
     _build.check_five_point("residual_restrict_var", st)
     if st.scalar:
         raise ValueError("residual_restrict_var: takes a stencil with "
@@ -122,18 +128,24 @@ def residual_restrict_var(st: Stencil, u, f, *, sides=DIRICHLET,
     if u.device.type == "cpu":
         return residual_restrict_plain(st, u, f, sides=sides,
                                        out_dtype=out_dtype)
-    (ncx, ncy), _ = _check_restrict("residual_restrict_var", u, f,
-                                    out_dtype, *st.coefs)
-    fc = torch.empty((ncx, ncy), dtype=torch.float32, device=u.device)
+    (ncx, ncy), dtype = _check_restrict("residual_restrict_var", u, f,
+                                        out_dtype, *st.coefs,
+                                        storage=STORAGE)
+    if any(x.dtype != u.dtype for x in st.coefs):
+        raise ValueError(f"residual_restrict_var: the planes must have u's "
+                         f"dtype {u.dtype}")
+    fc = torch.empty((ncx, ncy), dtype=dtype, device=u.device)
     _build.launch("mg_residual_restrict_var", u.data_ptr(), f.data_ptr(),
                   *(x.data_ptr() for x in st.coefs), fc.data_ptr(),
-                  *u.shape, ncx, ncy, side_bits(sides), u.device.index,
-                  _build.stream_of(u))
+                  *u.shape, ncx, ncy, side_bits(sides), _build.bf16(u),
+                  _build.bf16(fc), u.device.index, _build.stream_of(u))
     residual_restrict_var.launches += 1
+    if torch.bfloat16 in (u.dtype, dtype):
+        residual_restrict_var.launches_bf16 += 1
     return fc
 
 
-residual_restrict_var.launches = 0
+residual_restrict_var.launches = residual_restrict_var.launches_bf16 = 0
 
 
 def prolong_correct_plain(ec, u, *, sides=DIRICHLET):

@@ -40,15 +40,18 @@ Kernel A's wrapper picks the direct body (A) or the parity body (kernel L)
 by ``layout``, as the Pallas kernels do (``ops/cuda_kernels/smooth.py``).
 
 Storage dtypes, as the JAX package's gates take them (its ``ops/dispatch.py``
-:87, :236-240 and :316-320): A takes an fp32 or a bf16 level; B and C
-take each of their two levels in fp32 or bf16 (a fine fp32 level over a
-coarse bf16 one restricts into bf16); D takes a tail whose entry level is
-fp32 or bf16, whatever the dtypes below it, and computes every level in
-fp32. E takes fp32 or bf16 u and f, F and G each of their two levels in
-fp32 or bf16 (the JAX package's :146-151 and :179-183). Each loads its
-storage, computes in fp32 and stores once per call. H, I, J, K and L take
-fp32 only (bf16 storage for them is still to port), so a bf16 level on
-their paths runs plain torch. A level with an
+:87, :236-240 and :316-320): A, H and L take an fp32 or a bf16 level; B,
+I and C take each of their two levels in fp32 or bf16 (a fine fp32 level
+over a coarse bf16 one restricts into bf16), on constant-coefficient,
+coefficient-plane and Neumann/Robin rectangles alike; D and J take a tail
+whose entry level is fp32 or bf16, whatever the dtypes below it, and
+compute every level in fp32 (so a 'mixed' hierarchy's bf16 levels inside
+a tail run in fp32 on the kernel, as on the TPU). E takes fp32 or bf16 u
+and f, F and G each of their two levels in fp32 or bf16 (the JAX
+package's :146-151 and :179-183). Each loads its storage, computes in
+fp32 and stores once per call. K takes fp32 planes only, as the JAX
+package's plane gate does (its ``solvers/plane_solve.py`` :51). A level
+with an
 irregular domain (``Level.domain``) takes no kernel: every 2D kernel
 builds its unknowns from the rectangle, as in the JAX package's gates
 (:83, :229, :326). A ``Stencil9`` level (Galerkin coarsening) takes no 2D
@@ -109,17 +112,15 @@ def _fields_ok(lev, fields) -> bool:
 
 def kernel_smooth_ok(u, lev, backend: str, method: str) -> bool:
     """True when kernel A, H or L smooths ``u`` on ``lev``: a point
-    smoother on a 5-point all-Dirichlet rectangle; bf16 storage on A
-    only."""
-    if not (_kernels(backend)
+    smoother on a 5-point all-Dirichlet rectangle, fp32 or bf16 storage
+    (the JAX package's :87); H's planes in u's dtype."""
+    return (_kernels(backend)
             and (method in _SMOOTHERS or method == "rbgs_rev")
             and lev.domain is None
             and not isinstance(lev.stencil, Stencil9)
-            and lev.spec.all_dirichlet):
-        return False
-    if not lev.stencil.scalar:
-        return u.dtype == torch.float32  # H
-    return k_smooth.takes(u.dtype, method)
+            and lev.spec.all_dirichlet
+            and u.dtype in k_smooth.STORAGE
+            and (lev.stencil.scalar or u.dtype == lev.dtype))
 
 
 def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
@@ -161,9 +162,8 @@ def transfer_fused_ok(lev, nxt, cfg, *fields) -> bool:
     """True when kernels B or I and C replace the plain residual -> restrict
     and prolong -> correct chain between ``lev`` and ``nxt``: any spec
     without periodic sides or segments (Dirichlet, Neumann, Robin), on
-    rectangles of 5-point levels; each level fp32, or fp32 or bf16 with a
-    constant stencil (B and C); ``fields`` (the cycle passes the level's
-    u and f) of ``lev``'s dtype."""
+    rectangles of 5-point levels; each level fp32 or bf16; ``fields`` (the
+    cycle passes the level's u and f) of ``lev``'s dtype."""
     if not (_kernels(cfg.backend)
             and not (lev.spec.any_periodic or lev.spec.any_segments)
             and lev.domain is None and nxt.domain is None
@@ -173,8 +173,7 @@ def transfer_fused_ok(lev, nxt, cfg, *fields) -> bool:
             and cfg.prolongation == "bilinear"
             and _fields_ok(lev, fields)):
         return False
-    storage = k_transfer.STORAGE if lev.stencil.scalar else (torch.float32,)
-    return lev.dtype in storage and nxt.dtype in storage
+    return lev.dtype in k_transfer.STORAGE and nxt.dtype in k_transfer.STORAGE
 
 
 def residual_restrict(lev, nxt, u, f):
@@ -196,10 +195,11 @@ def prolong_correct(lev, nxt, ec, u):
 
 def tail_ok(levels, lvl, cfg, cycle_type, *fields) -> bool:
     """True when the whole V-recursion from ``lvl`` down may run as one
-    tail-kernel launch: D with an fp32 or bf16 entry level (the levels
-    below in any dtype, computed in fp32), J on fp32 levels; every level
-    a 5-point all-Dirichlet rectangle; ``fields`` (the cycle passes the
-    entry's u and f) of the entry level's dtype."""
+    tail-kernel launch: D or J with an fp32 or bf16 entry level (the levels
+    below in any dtype, computed in fp32; the JAX package's :316-320 look
+    at the entry alone), J on a tail that fits its shared memory; every
+    level a 5-point all-Dirichlet rectangle; ``fields`` (the cycle passes
+    the entry's u and f) of the entry level's dtype."""
     if cycle_type != "V" or not _kernels(cfg.backend):
         return False
     if not _fields_ok(levels[lvl], fields):
@@ -217,11 +217,10 @@ def tail_ok(levels, lvl, cfg, cycle_type, *fields) -> bool:
     if any(lev.domain is not None or not lev.spec.all_dirichlet
            or isinstance(lev.stencil, Stencil9) for lev in tail):
         return False
-    if tail[0].stencil.scalar:
-        return tail[0].dtype in k_tail.STORAGE  # D: the entry's storage
-    if not k_tail.var_fits(tuple(lev.grid.shape for lev in tail)):
+    if not (tail[0].stencil.scalar
+            or k_tail.var_fits(tuple(lev.grid.shape for lev in tail))):
         return False  # J holds a tail in shared memory: too large a level
-    return all(lev.dtype == torch.float32 for lev in tail)
+    return tail[0].dtype in k_tail.STORAGE  # the entry's storage
 
 
 def tail_vcycle(levels, lvl, u, f, cfg):
