@@ -236,7 +236,24 @@ explicit distribution (after phase 31):
      on that mesh; prints the world size, the mesh and the sharded depth S.
      On one card the world is one rank and S = 0, so halo_solve is mg_solve
      and the phase checks only the plumbing; halos cross cards on a host of
-     several (scripts/halo_cards.py runs this phase alone).
+     several (scripts/halo_cards.py runs this phase alone);
+ 35. the GSPMD path over NCCL, one spawned rank per visible card, on the
+     mesh of the whole world: solve_poisson(poisson_mms_sinsin(1025),
+     mesh=) in 'fp64', 'mixed' and 'adaptive', sharded_solve with ADI on
+     poisson_mms_anisotropic(1025, ay=0.01) and on the Galerkin
+     jump_coefficient_problem(1025), and MG-preconditioned CG on
+     shard_inputs vectors with a make_constrainer preconditioner, on
+     backend 'auto' (kernel A smooths the fp32 and bf16 levels, on the
+     split levels' haloed windows), each held on every rank to the same
+     call on a one-rank mesh, the single-device solve under the hook
+     (iterations, SHARDED_ATOL, and equal A and H launches, which 'mixed'
+     and 'adaptive' must have), beside the single-device plain solve;
+     prints the sharded depth and tiers, the iterations, the largest
+     differences, the launches, rank 0's first call and the plain and
+     kernel paths' seconds. On one card the world is one rank and no level
+     is split, so the phase checks only the plumbing;
+     scripts/sharded_cards.py runs it alone, on four cards with the graded
+     mesh too.
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -543,6 +560,9 @@ VAR_PRECISION_TWINS = {
 }
 # halo_solve over NCCL (phase 34): solution within this of mg_solve's
 HALO_ATOL = 1e-12
+# the GSPMD path over NCCL (phase 35): fp64 solutions within this of the
+# single-device plain solve's (the JAX package's sharded-solve bound)
+SHARDED_ATOL = 1e-11
 
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
@@ -4103,6 +4123,116 @@ def halo_path(card):
     print(f"phase 34: {time.perf_counter() - start:.1f} s")
 
 
+def sharded_path(card, *, graded: bool = False, repeats: int = 0):
+    """Phase 35: the GSPMD path (``parallel.distributed``) over NCCL, one
+    rank per visible card (the launcher spawns them, each on its card), on
+    the mesh of the whole world, at 1025^2: ``solve_poisson(mesh=)`` on
+    poisson_mms_sinsin in 'fp64', 'mixed' and 'adaptive' (tol 1e-9),
+    ``sharded_solve`` with ADI on poisson_mms_anisotropic (ay = 0.01, tol
+    1e-10) and on the Galerkin jump_coefficient_problem (RB-GS V(2,2)),
+    and CG to 1e-10 on ``shard_inputs`` vectors preconditioned by a
+    symmetric V(2,2) cycle with ``make_constrainer``, all on backend
+    'auto'. Each is held on every rank to the same call on a one-rank mesh
+    (the single-device solve under the hook: equal iterations, fp64
+    solutions within SHARDED_ATOL, the same launches of the smoothing
+    kernels A and H, at least one in 'mixed' and 'adaptive', where kernel
+    A smooths the fp32 and bf16 levels, the split ones on haloed windows)
+    and printed beside the single-device plain solve; every rank must
+    return the same solution. ``graded`` adds the Poisson fp64
+    ``sharded_solve`` on the graded mesh (xo, xi, yo, yi) = (2, 2, 1, 1)
+    (four cards or more); ``repeats`` times that many more calls of each
+    solve, the sharded one, the one-rank one, the plain and the kernel
+    path's, and prints their minimum (set-up
+    included) beside rank 0's first call. On one card the world is one
+    rank and no level is split: the phase then checks the launch, NCCL
+    and the plumbing of every entry point, not halos."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.parallel import \
+        checks, launch
+
+    start = time.perf_counter()
+    world = torch.cuda.device_count()
+    C = checks.Case
+    front = {"tol": 1e-9, "max_iterations": 100, "backend": "auto"}
+    cases = {  # on the mesh of the whole world
+        "fp64": C("frontend", "poisson_mms_sinsin", N, None, changes=front,
+                  options={"precision": "fp64", "repeats": repeats}),
+        "mixed": C("frontend", "poisson_mms_sinsin", N, None, changes=front,
+                   options={"precision": "mixed", "repeats": repeats}),
+        "adaptive": C("frontend", "poisson_mms_sinsin", N, None,
+                      changes=front,
+                      options={"precision": "adaptive", "repeats": repeats}),
+        "adi": C("sharded", "poisson_mms_anisotropic", N, None,
+                 changes={"smoother": "adi", "omega": 0.8,
+                          "max_iterations": 100, "tol": 1e-10,
+                          "backend": "auto"},
+                 options={"repeats": repeats}),
+        "galerkin_jump": C("sharded", "jump_coefficient_problem", N, None,
+                           changes={"coarsening": "galerkin",
+                                    "max_iterations": 60,
+                                    "backend": "auto"},
+                           options={"repeats": repeats}),
+        "mg_pcg": C("pcg", "poisson_mms_sinsin", N, None,
+                    changes={"symmetric": True, "backend": "auto"},
+                    options={"tol": 1e-10, "maxiter": 30,
+                             "repeats": repeats}),
+    }
+    if graded and world >= 4:
+        cases["graded_fp64"] = C("sharded", "poisson_mms_sinsin", N,
+                                 (2, 2, 1, 1), changes={"backend": "auto"},
+                                 options={"repeats": repeats})
+    try:
+        res = launch.run(checks.run_cases, world, cases, "cuda",
+                         backend="nccl", timeout=900.0)
+    except RuntimeError as exc:
+        fail(f"phase 35: {exc}")
+    for r in res:
+        summary = r["summary"]
+        if summary["backend"] != "nccl" or \
+                summary["process_count"] != world:
+            fail(f"phase 35: rank {r['rank']} ran {summary}")
+    print(f"phase 35: world {world} NCCL rank(s), {res[0]['summary']}"
+          + ("; one rank splits no level: the plumbing alone"
+             if world == 1 else ""))
+
+    def ms(x):
+        return "-" if x is None else f"{x * 1e3:.1f}"
+
+    for name in cases:
+        r = res[0][name]
+        for other in res[1:]:
+            if not np.array_equal(other[name]["u"], r["u"]):
+                fail(f"phase 35 {name}: rank {other['rank']} holds another "
+                     "solution")
+        tiers = r["tiers"]
+        print(f"sharded {name} {N}^2 on mesh {r['mesh']}: sharded depth "
+              f"{len(tiers)}, tiers (x, y) per level {tiers}; iterations "
+              f"{r['iterations']} (one-rank {r['one_iterations']}, "
+              f"single-device plain {r['ref_iterations']}), converged "
+              f"{r['converged']}, max|u - u_one| {r['max_diff_one']:.3e}, "
+              f"max|u - u_plain| {r['max_diff_ref']:.3e}, l2 {r.get('l2')}; "
+              f"A+H launches {r['launches']} (one-rank "
+              f"{r['one_launches']})"
+              + (f", block {r['block_shape']} of {r['global_shape']}"
+                 if "block_shape" in r else "")
+              + f"; rank 0's first call {r['seconds']:.3f} s, min of "
+              f"{repeats} {ms(r['best'])} ms (one-rank {ms(r['one_best'])}"
+              f" ms, plain {ms(r['ref_best'])} ms, kernel path "
+              f"{ms(r.get('kernel_best'))} ms) [{card}]")
+        if not r["converged"] or r["iterations"] != r["one_iterations"] or \
+                r["max_diff_one"] > SHARDED_ATOL:
+            fail(f"phase 35 {name}: the sharded solve differs from the "
+                 "single-device solve under the hook")
+        needs = name in ("mixed", "adaptive")
+        if any(x[name]["launches"] != x[name]["one_launches"] for x in res) \
+                or (needs and not r["launches"]):
+            fail(f"phase 35 {name}: launches of A and H "
+                 f"{[x[name]['launches'] for x in res]}, one-rank "
+                 f"{[x[name]['one_launches'] for x in res]}")
+    print(f"phase 35: {time.perf_counter() - start:.1f} s")
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -4667,6 +4797,9 @@ def main(argv) -> int:
     launches.update(var_precision_path(mg, card, dev))
     torch.cuda.empty_cache()
     halo_path(card)
+
+    # ---- the GSPMD path: phase 35 ----------------------------------------
+    sharded_path(card)
 
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),

@@ -16,9 +16,10 @@ so do the heat equations' implicit steps in 2D and 3D
 per step, with checkpoint/resume through ``utils.CheckpointManager``). The
 whole 2D solve also runs over a mesh of ranks with explicit halos
 (``parallel.halo_solve`` over ``torch.distributed``: gloo on the CPU,
-NCCL on cards). Fields are stored at their logical shape (nx, ny) or (nx,
-ny, nz), and every function takes its dtype and device explicitly. This
-package never imports JAX.
+NCCL on cards), and so do the 2D entry points (``parallel.distributed``:
+``sharded_solve``, ``solve_poisson(mesh=)``, ``constrain=``). Fields are
+stored at their logical shape (nx, ny) or (nx, ny, nz), and every function
+takes its dtype and device explicitly. This package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -28,7 +28,7 @@ dtype for the t=0 Dirichlet values), and use torch ops; they reproduce the
 JAX package's promotions, where a float32 mesh times a float64 time factor
 is a float64 product (``heat_problems.py``). ``u0`` and ``a`` are host
 arrays of shape (nx, ny). ``mesh=`` and ``constrain=`` (sharded runs) are
-ROADMAP item 14.
+ROADMAP item 14b.
 """
 
 from __future__ import annotations
@@ -275,7 +275,7 @@ def make_step_fn(
     uniform step). ``t``, ``dt`` and ``dt_prev`` are Python floats. The step
     never writes into ``u_prev`` or ``u``."""
     if constrain is not None:
-        raise _not_ported("constrain= (sharded time stepping)", "item 14")
+        raise _not_ported("constrain= (sharded time stepping)", "item 14b")
     grid, spec, alpha = problem.grid, problem.spec, problem.alpha
     dtype = as_dtype(cfg.dtype)
     lev0 = levels0[0]
@@ -446,7 +446,7 @@ def solve_heat(
     resumes from its latest checkpoint. checkpoint_every=0 saves once at
     the end."""
     if mesh is not None:
-        raise _not_ported("mesh= (sharded time stepping)", "item 14")
+        raise _not_ported("mesh= (sharded time stepping)", "item 14b")
     device = resolve_device(device)
     dtype = as_dtype(cfg.dtype)
     grid = problem.grid

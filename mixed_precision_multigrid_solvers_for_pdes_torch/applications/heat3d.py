@@ -19,7 +19,7 @@ builds no mesh of its own. They promote as the JAX package does (see
 -div(a grad u): its levels hold coefficient fields (``ops/stencil3d.py``)
 and run the plain path, as in the JAX package, and the shift adds lam to
 each level's diagonal field; a ``Stencil27`` level (Galerkin coarsening in
-``HeatConfig.mg``) is shifted the same way. ``mesh=`` is ROADMAP item 14.
+``HeatConfig.mg``) is shifted the same way. ``mesh=`` is ROADMAP item 14b.
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ def solve_heat3d(
     saves and resumes bit-exactly from the latest checkpoint (BDF2 two-step
     history preserved). checkpoint_every=0 saves once at the end."""
     if mesh is not None:
-        raise _not_ported("mesh= (sharded time stepping)", "item 14")
+        raise _not_ported("mesh= (sharded time stepping)", "item 14b")
     if cfg.adaptive_dt:
         raise ValueError("solve_heat3d is fixed-dt (adaptive_dt is 2D-only)")
     device = resolve_device(device)

@@ -11,8 +11,8 @@ since an fp32 residual floors near 1e-7 relative; 'mixed' (fp32 fine and
 bf16 coarse levels under iterative refinement); 'adaptive' (staged
 promotion, ``refinement.adaptive_solve``); 'auto' (the measured choice of
 ``precision_analysis.autotune``); or a ``PrecisionPolicy``. A problem's
-irregular domain goes to every hierarchy. ``mesh=`` (sharding) is ROADMAP
-item 14.
+irregular domain goes to every hierarchy. ``mesh=`` runs every precision
+over a mesh of ranks (``parallel.distributed``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -51,10 +51,12 @@ class PoissonResult:
 
 
 def precision_policy(precision: Any, problem: Problem,
-                     cfg: MultigridConfig, device) -> PrecisionPolicy:
+                     cfg: MultigridConfig, device, mesh=None
+                     ) -> PrecisionPolicy:
     """The policy of a ``solve_poisson`` precision: a PrecisionPolicy as
-    given, 'auto' measured by ``autotune`` on ``problem``, else the named
-    mode (a string or a Precision)."""
+    given, 'auto' measured by ``autotune`` on ``problem`` (unsharded; on a
+    mesh every rank takes its first rank's choice), else the named mode (a
+    string or a Precision)."""
     if isinstance(precision, PrecisionPolicy):
         return precision
     if isinstance(precision, Precision):
@@ -62,7 +64,10 @@ def precision_policy(precision: Any, problem: Problem,
     if precision == "auto":
         from .precision_analysis import autotune
 
-        return make_policy(autotune(problem, cfg=cfg, device=device))
+        choice = autotune(problem, cfg=cfg, device=device)
+        if mesh is not None:
+            choice = mesh.broadcast(choice)
+        return make_policy(choice)
     if isinstance(precision, str):
         return make_policy(precision)
     raise TypeError(f"precision must be a mode name, a Precision or a "
@@ -84,12 +89,20 @@ def solve_poisson(problem: Problem, *, precision: Any = "fp32",
     fp32, mixed and adaptive that holds accuracy on this problem, measured
     once and cached; or a PrecisionPolicy, used as given.
     ``solve_time`` is the wall time of the solve, hierarchy set-up
-    included, synchronized with the device."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
-                                  "(ROADMAP item 14)")
+    included, synchronized with the device.
+
+    ``mesh`` (``parallel.mesh.make_mesh`` or ``make_graded_mesh``) runs the
+    solve in every precision on this rank's blocks, on the plain path
+    (``parallel.distributed.make_constrainer``): every rank of the mesh
+    calls with the same problem, on its own device, and gets the global
+    solution."""
     device = resolve_device(device)
-    pol = precision_policy(precision, problem, cfg, device)
+    pol = precision_policy(precision, problem, cfg, device, mesh)
+    constrain = None
+    if mesh is not None:
+        from ..parallel import distributed
+
+        constrain = distributed.make_constrainer(mesh)
 
     t0 = time.perf_counter()
     f64 = torch.float64
@@ -97,14 +110,16 @@ def solve_poisson(problem: Problem, *, precision: Any = "fp32",
         u, info = refinement.adaptive_solve(
             problem.grid, problem.spec, problem.rhs(f64, device),
             problem.initial_guess(f64, device), a=problem.a, lam=problem.lam,
-            domain=problem.domain, policy=pol, cfg=cfg, device=device)
+            domain=problem.domain, policy=pol, cfg=cfg, mesh=mesh,
+            device=device)
     elif pol.mode == Precision.MIXED:
         levels = mg_mod.build_hierarchy(
             problem.grid, problem.spec, a=problem.a, lam=problem.lam,
             domain=problem.domain, policy=pol, device=device, cfg=cfg)
         u, info = refinement.ir_solve(
             levels, problem.rhs(f64, device),
-            problem.initial_guess(f64, device), cfg, inner_cycles=2)
+            problem.initial_guess(f64, device), cfg, inner_cycles=2,
+            constrain=constrain)
     else:
         dt = pol.mode.dtype
         levels = mg_mod.build_hierarchy(
@@ -113,11 +128,13 @@ def solve_poisson(problem: Problem, *, precision: Any = "fp32",
         if dt == torch.float32 and cfg.tol < 1e-6:
             u, info = refinement.ir_solve(
                 levels, problem.rhs(f64, device),
-                problem.initial_guess(f64, device), cfg, inner_cycles=2)
+                problem.initial_guess(f64, device), cfg, inner_cycles=2,
+                constrain=constrain)
         else:
             u, info = mg_mod.mg_solve(levels, problem.rhs(dt, device),
                                       problem.initial_guess(dt, device),
-                                      cfg, use_fmg=use_fmg)
+                                      cfg, use_fmg=use_fmg,
+                                      constrain=constrain)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_time = time.perf_counter() - t0

@@ -9,7 +9,7 @@ cycles per outer step, since an fp32 residual floors near 1e-7 relative);
 'mixed' builds the per-level dtypes of its policy (fp32 fine levels, bf16
 coarse ones) under float64 iterative refinement; 'adaptive' runs
 ``refinement.adaptive_solve3d``. A ``PrecisionPolicy`` may be given in
-place of a name. ``mesh=`` (sharding) is ROADMAP item 14.
+place of a name. ``mesh=`` (sharding) is ROADMAP item 14b.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def solve_poisson3d(problem: Problem3D, *, precision: Any = "fp32",
     the device."""
     if mesh is not None:
         raise NotImplementedError("mesh= (sharded solves) is not ported yet "
-                                  "(ROADMAP item 14)")
+                                  "(ROADMAP item 14b)")
     pol = precision if isinstance(precision, PrecisionPolicy) \
         else make_policy(precision)
     device = resolve_device(device)

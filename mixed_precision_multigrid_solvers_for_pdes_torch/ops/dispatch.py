@@ -130,12 +130,20 @@ def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
     untouched), ``u`` itself, updated in place, from kernel H and the plain
     path. Callers take the return value."""
     if kernel_smooth_ok(u, lev, backend, method):
-        kernel = (k_smooth.multisweep if stencil.scalar
-                  else k_smooth_var.multisweep_var)
-        return kernel(stencil, u, f, method=method, sweeps=sweeps,
-                      omega=omega)
+        return smooth_kernel(stencil, u, f, method=method, sweeps=sweeps,
+                             omega=omega)
     return smooth_mod.smooth(stencil, u, f, lev.unknown, method=method,
                              sweeps=sweeps, omega=omega)
+
+
+def smooth_kernel(stencil, u, f, *, method: str, sweeps: int,
+                  omega: float):
+    """Kernel A (a constant stencil) or H (coefficient planes) on the whole
+    of ``u``, its outer ring held fixed (gate with kernel_smooth_ok first;
+    ``parallel.blocks`` also calls it on a haloed window of a block)."""
+    kernel = (k_smooth.multisweep if stencil.scalar
+              else k_smooth_var.multisweep_var)
+    return kernel(stencil, u, f, method=method, sweeps=sweeps, omega=omega)
 
 
 def kernel_planes_ok(up, backend: str) -> bool:

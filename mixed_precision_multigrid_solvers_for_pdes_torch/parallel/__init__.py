@@ -1,9 +1,16 @@
-"""Explicit distribution over ``torch.distributed``: meshes of ranks, the
-halo-exchange multigrid solve, and multi-process launch (the counterpart of
-the JAX package's ``parallel`` package but for its GSPMD ``distributed``
-module, which is not ported yet)."""
+"""Distribution over ``torch.distributed``: meshes of ranks, the
+explicit halo-exchange multigrid solve (``halo_solve``), the GSPMD path
+(``distributed``: ``make_constrainer``, ``shard_inputs``,
+``sharded_solve``) on the block machinery both share (``blocks``), and
+multi-process launch (the counterpart of the JAX package's ``parallel``
+package)."""
 
-from . import halo_solve, mesh, multihost  # noqa: F401
+from . import blocks, distributed, halo_solve, mesh, multihost  # noqa: F401
+from .distributed import (  # noqa: F401
+    make_constrainer,
+    shard_inputs,
+    sharded_solve,
+)
 from .halo_solve import global_residual_norm, shard_smooth  # noqa: F401
 from .mesh import (  # noqa: F401
     choose_mesh_shape,

@@ -144,6 +144,14 @@ class Mesh:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out.reshape(())
 
+    def broadcast(self, obj):
+        """The mesh's first rank's ``obj`` (picklable), on every rank."""
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.ranks[0], group=self.group)
+        return box[0]
+
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, ranks={self.ranks}, "
                 f"coords={self.coords})")

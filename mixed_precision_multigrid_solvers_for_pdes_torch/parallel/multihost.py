@@ -27,7 +27,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.device import resolve_device
-from . import mesh as mesh_mod
+from ..ops import stencil as st_mod
+from . import blocks as bk, mesh as mesh_mod
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -87,24 +88,140 @@ def make_global_mesh(shape: Optional[Tuple[int, int]] = None,
     return mesh_mod.make_mesh(shape=shape)
 
 
+# the torch functions that act on a field block by block: the Krylov
+# solvers' vector arithmetic (a 0-d tensor times a field, a tensor plus or
+# minus one, zeros_like); anything else on a field raises
+_BLOCKWISE = frozenset({"add", "sub", "mul", "div", "zeros_like", "__add__",
+                        "__sub__", "__mul__", "__truediv__"})
+
+
+def _blockwise(func, args, kwargs):
+    """``func`` on the blocks of the fields among ``args``, which must share
+    one layout; a tensor result is a field of that layout."""
+    ref = None
+
+    def unwrap(x):
+        nonlocal ref
+        if not isinstance(x, ShardedField):
+            return x
+        if ref is None:
+            ref = x
+        elif tuple(x.sharding.spec) != tuple(ref.sharding.spec) or \
+                x.block.shape != ref.block.shape:
+            raise ValueError("fields of different layouts")
+        return x.block
+
+    out = func(*[unwrap(a) for a in args],
+               **{k: unwrap(v) for k, v in kwargs.items()})
+    return ref.like(out) if isinstance(out, torch.Tensor) else out
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedField:
-    """This rank's ``block`` of a level-0 field on ``grid``, laid out over
-    the block extent (the logical (nx, ny) region at its origin) under
-    ``sharding``."""
+    """This rank's ``block`` of a level-0 field on ``grid`` under
+    ``sharding``: the block extent's for ``make_sharded_field``, the
+    hierarchy's layout for ``distributed.shard_inputs`` (the logical (nx,
+    ny) region at the layout's origin either way).
+
+    A field is also a vector of the Krylov solvers (``solvers.krylov``):
+    elementwise arithmetic with fields of its layout and with scalars acts
+    on the blocks (``torch.zeros_like`` too); ``dot`` is one ``all_reduce``
+    of float64 block sums, the same on every rank; ``apply_stencil``
+    exchanges halos. Ranks that hold the same block (an axis no mesh axis
+    splits) are replicas: one of them adds its block to a sum. ``level``
+    is the hierarchy's level-0 ``blocks.Block`` of a ``shard_inputs``
+    field whose level is split (its stencil and unknowns), else None."""
 
     block: torch.Tensor
     sharding: mesh_mod.BlockSharding
     grid: object
+    level: Optional[bk.Block] = None
 
     def gather(self) -> torch.Tensor:
         """The global (nx, ny) field, on every rank (``all_gather`` along
-        each split axis)."""
+        each split axis). A periodic axis's layout holds its unique nodes:
+        the duplicates come back zero, for the level's sync."""
         x = self.block
-        for dim, name in enumerate(self.sharding.spec):
-            if name is not None:
+        for dim, entry in enumerate(self.sharding.spec):
+            for name in reversed(bk.axis_names(entry)):
                 x = self.sharding.mesh.all_gather(x, name, dim)
-        return x[:self.grid.nx, :self.grid.ny].contiguous()
+        return bk.from_layout(x, self.grid)
+
+    # -- the field as a vector ------------------------------------------------
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.block.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.block.device
+
+    def like(self, block: torch.Tensor) -> "ShardedField":
+        """A field of this layout holding ``block``."""
+        return dataclasses.replace(self, block=block)
+
+    def clone(self) -> "ShardedField":
+        return self.like(self.block.clone())
+
+    def to(self, *args, **kwargs) -> "ShardedField":
+        return self.like(self.block.to(*args, **kwargs))
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", None) not in _BLOCKWISE:
+            raise TypeError(f"{getattr(func, '__name__', func)} does not act "
+                            "block by block on a ShardedField")
+        return _blockwise(func, args, kwargs or {})
+
+    def __add__(self, other):
+        return _blockwise(torch.add, (self, other), {})
+
+    def __sub__(self, other):
+        return _blockwise(torch.sub, (self, other), {})
+
+    def __mul__(self, other):
+        return _blockwise(torch.mul, (self, other), {})
+
+    def __truediv__(self, other):
+        return _blockwise(torch.div, (self, other), {})
+
+    def dot(self, other: "ShardedField") -> torch.Tensor:
+        """sum(self * other) in float64 over the whole field: the blocks'
+        sums added by one ``all_reduce``, the same 0-d tensor on every
+        rank."""
+        s = torch.sum(self.block.to(torch.float64)
+                      * other.block.to(torch.float64))
+        if not bk.primary(self.sharding.mesh, [bk.axis_names(e) for e in
+                                               self.sharding.spec]):
+            s = torch.zeros_like(s)
+        return self.sharding.mesh.psum(s)
+
+    def apply_stencil(self, stencil, unknown) -> "ShardedField":
+        """where(unknown, A x, 0) of this field (``krylov.stencil_matvec``;
+        ``stencil`` and ``unknown`` are the global level-0 ones): on the
+        level-0 block of its hierarchy (its own stencil and unknowns, or
+        ``stencil``'s cut to the block) after a one-node halo exchange, in
+        ``ops.stencil.apply``'s operations; a field holding the whole
+        level (nothing split) takes the plain operator."""
+        blk = self.level
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        if blk is None:
+            if tuple(self.block.shape) != tuple(self.grid.shape):
+                raise ValueError("the operator takes a field in a "
+                                 "hierarchy's layout: make it with "
+                                 "distributed.shard_inputs")
+            return self.like(torch.where(unknown, st_mod.apply(
+                stencil, self.block), zero))
+        lev = blk.lev
+        st = (blk.st if stencil is lev.stencil else bk.block_stencil(
+            stencil, lev.grid, blk.extent, blk.slices))
+        known = (blk.unknown if unknown is lev.unknown else bk.to_layout(
+            unknown, lev.grid, blk.extent)[blk.slices])
+        uh = bk.with_halo(self.sharding.mesh, self.block, blk.names,
+                          lev.spec.wrap)
+        return self.like(torch.where(
+            known, st.c * self.block - bk.nbsum_ext(st, uh), zero))
 
 
 def make_sharded_field(mesh: mesh_mod.Mesh, grid,

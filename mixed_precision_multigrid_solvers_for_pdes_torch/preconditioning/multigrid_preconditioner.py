@@ -13,6 +13,11 @@ fp64 on the plain path (the kernel gates look at the fields), and the
 levels below run their kernels (A-D in 2D, E-G in 3D on the card). The
 cycles update the iterate in place where they can and return it; the
 preconditioner always takes the returned tensor.
+
+``constrain`` (``parallel.distributed.make_constrainer``) runs the 2D
+cycles on this rank's blocks: the Krylov vectors are then level-0
+``ShardedField`` blocks (``parallel.distributed.shard_inputs``), and so is
+z. The 3D hook is ROADMAP item 14b.
 """
 
 from __future__ import annotations
@@ -25,25 +30,20 @@ from ..solvers import multigrid as mg_mod, multigrid3d as mg3
 from ..solvers.multigrid import Level, MultigridConfig
 
 
-def _check_constrain(constrain) -> None:
-    if constrain is not None:
-        raise NotImplementedError("constrain= (sharded cycles) is not "
-                                  "ported yet (ROADMAP item 14)")
-
-
 def multigrid_preconditioner(
         levels: Tuple[Level, ...],
         cfg: MultigridConfig = MultigridConfig(smoother="rbgs", omega=1.0),
         *, cycles: int = 1, constrain=None) -> Callable:
-    """z = (approximately A^-1) r by ``cycles`` cycles from zero."""
-    _check_constrain(constrain)
+    """z = (approximately A^-1) r by ``cycles`` cycles from zero;
+    ``constrain`` runs them on the blocks of a sharded ``r``."""
     lev0 = levels[0]
 
     def apply(r):
-        z = torch.zeros(lev0.grid.shape, dtype=r.dtype, device=r.device)
+        # r's dtype and device (a sharded field: its zero blocks)
+        z = torch.zeros_like(r, memory_format=torch.contiguous_format)
         rl = r.to(lev0.dtype)
         for _ in range(cycles):
-            z = mg_mod.mg_cycle(levels, z, rl, cfg)
+            z = mg_mod.mg_cycle(levels, z, rl, cfg, constrain)
         return z.to(r.dtype)
 
     return apply
@@ -55,7 +55,9 @@ def multigrid_preconditioner3d(
         *, cycles: int = 1, constrain=None) -> Callable:
     """3D analogue of :func:`multigrid_preconditioner` (pair it with
     ``solvers.krylov.stencil_matvec3d``)."""
-    _check_constrain(constrain)
+    if constrain is not None:
+        raise NotImplementedError("constrain= (sharded 3D cycles) is not "
+                                  "ported yet (ROADMAP item 14b)")
     lev0 = levels[0]
 
     def apply(r):

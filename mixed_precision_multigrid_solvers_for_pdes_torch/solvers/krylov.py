@@ -14,6 +14,13 @@ callable z = M(r) (``preconditioning``). The tolerance is relative to
 ||b||. Every solver returns the iterate and an info dict with the JAX
 package's keys: 'iterations', 'residual_norm', 'history' (the residual
 norms from the start, its unused tail trimmed), 'converged' and 'method'.
+
+The vectors may be ``parallel.multihost.ShardedField`` blocks
+(``parallel.distributed.shard_inputs``), every rank of the mesh calling
+the solver: their arithmetic acts on this rank's blocks,
+``stencil_matvec`` exchanges halos, ``_dot`` is one all_reduce of float64
+block sums, so every ``.item()`` reads the same value on every rank, and
+the iterate comes back as blocks.
 """
 
 from __future__ import annotations
@@ -31,7 +38,10 @@ _TINY = 1e-300
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum(a * b) in float64, a 0-d tensor on the vectors' device."""
+    """sum(a * b) in float64, a 0-d tensor on the vectors' device (over the
+    mesh for sharded fields)."""
+    if not torch.is_tensor(a):
+        return a.dot(b)
     return torch.sum(a.to(torch.float64) * b.to(torch.float64))
 
 
@@ -54,9 +64,11 @@ def _identity(r):
 
 def stencil_matvec(stencil, unknown) -> Callable:
     """The masked operator x -> A x on unknowns, zero elsewhere (a
-    ``Stencil`` or a ``Stencil9``)."""
-
+    ``Stencil`` or a ``Stencil9``); on a sharded field, blockwise with a
+    halo exchange."""
     def mv(x):
+        if not torch.is_tensor(x):
+            return x.apply_stencil(stencil, unknown)
         return torch.where(unknown, st_mod.apply(stencil, x),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 

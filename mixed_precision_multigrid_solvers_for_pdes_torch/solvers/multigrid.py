@@ -183,12 +183,34 @@ def _smooth(lev: Level, u, f, cfg: MultigridConfig, sweeps: int,
                            backend=cfg.backend)
 
 
+class BlockHook:
+    """A sharding hook that runs whole solves on this rank's blocks
+    (``parallel.distributed.Constrainer``): ``mg_cycle``, ``fmg``,
+    ``mg_solve`` and ``refinement.ir_solve`` hand it their work. Any other
+    ``constrain=`` is an array hook, (array, Level) -> array, as in the
+    JAX package (``whole``)."""
+
+
+def whole(arr, lev):
+    """The array hook of levels every rank holds whole (a mesh of one rank,
+    the replicated levels of a sharded hierarchy): the identity. Under it,
+    as under any hook, the cycle takes no tail kernel and no fused
+    transfer, as the JAX package's does; smoothing still dispatches."""
+    return arr
+
+
 def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
-           cycle_type: str):
+           cycle_type: str, constrain=None):
+    """One cycle from level ``lvl``. ``constrain`` is an array hook
+    ((array, Level) -> array, e.g. ``whole``), applied to the coarse
+    right-hand side and the prolonged correction; with one, as in the JAX
+    package's ``_cycle``, the tail kernel and the fused transfers are
+    off."""
     if cycle_type not in ("V", "W", "F"):
         raise ValueError(f"unknown cycle {cycle_type!r}")
     lev = levels[lvl]
-    if dispatch.tail_ok(levels, lvl, cfg, cycle_type, u, f):
+    if constrain is None and dispatch.tail_ok(levels, lvl, cfg, cycle_type,
+                                              u, f):
         # the whole remaining V-recursion in one tail-kernel launch
         return dispatch.tail_vcycle(levels, lvl, u, f, cfg)
     if lvl == len(levels) - 1:
@@ -199,7 +221,8 @@ def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
 
     u = _smooth(lev, u, f, cfg, cfg.pre_sweeps)
     nxt = levels[lvl + 1]
-    fused = dispatch.transfer_fused_ok(lev, nxt, cfg, u, f)
+    fused = constrain is None and dispatch.transfer_fused_ok(lev, nxt, cfg,
+                                                             u, f)
     if fused:
         fc = dispatch.residual_restrict(lev, nxt, u, f)
     else:
@@ -209,19 +232,21 @@ def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
         fc = transfer.restrict(r, nxt.grid.nx, nxt.grid.ny,
                                method=cfg.restriction, boundary=boundary,
                                dtype=nxt.dtype, wrap=lev.spec.wrap)
+        if constrain is not None:
+            fc = constrain(fc, nxt)
         if boundary == "reflect":
             fc = torch.where(nxt.unknown, fc, torch.zeros(
                 (), dtype=fc.dtype, device=fc.device))
     ec = nxt.zeros()
     branch = cycle_type if lvl + 1 < cfg.w_depth else "V"
     if branch == "V":
-        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "V")
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "V", constrain)
     elif branch == "W":
-        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "W")
-        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "W")
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "W", constrain)
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "W", constrain)
     else:  # F: an F-recursion, then a V-recursion
-        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "F")
-        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "V")
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "F", constrain)
+        ec = _cycle(levels, ec, fc, lvl + 1, cfg, "V", constrain)
     if fused:
         u = dispatch.prolong_correct(lev, nxt, ec, u)
     else:
@@ -229,36 +254,52 @@ def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
             nxt.sync(ec)  # the coarse duplicate enters the interpolation
         e = transfer.prolong(ec, lev.grid.nx, lev.grid.ny,
                              method=cfg.prolongation, dtype=lev.dtype)
+        if constrain is not None:
+            e = constrain(e, lev)
         u = torch.where(lev.unknown, u + e, u)
     return _smooth(lev, u, f, cfg, cfg.post_sweeps, post=True)
 
 
 def mg_cycle(levels: Tuple[Level, ...], u, f,
-             cfg: MultigridConfig = MultigridConfig()):
+             cfg: MultigridConfig = MultigridConfig(), constrain=None):
     """One multigrid cycle on the finest level; updates ``u`` in place where
-    the path allows and returns the new iterate."""
-    return _cycle(levels, u, f, 0, cfg, cfg.cycle)
+    the path allows and returns the new iterate.
+
+    ``constrain`` (``parallel.distributed.make_constrainer``) runs the
+    cycle on this rank's blocks of every split level: ``u`` and ``f`` are
+    then global (nx, ny) tensors, and the result is gathered, or level-0
+    ``ShardedField`` blocks (``shard_inputs``), and the result is one. An
+    array hook goes to ``_cycle``."""
+    if isinstance(constrain, BlockHook):
+        return constrain.mg_cycle(levels, u, f, cfg)
+    return _cycle(levels, u, f, 0, cfg, cfg.cycle, constrain)
 
 
 def fmg(levels: Tuple[Level, ...], f, cfg: MultigridConfig = MultigridConfig(),
-        cycles_per_level: int = 1):
+        cycles_per_level: int = 1, constrain=None):
     """Full multigrid start: restrict the right-hand side to every level
-    (ring injected), solve the coarsest, then prolong and cycle upward."""
-    rhs = [f.to(levels[0].dtype)]
+    (ring injected), solve the coarsest, then prolong and cycle upward.
+    ``constrain`` runs it on the blocks, as for ``mg_cycle``; an array hook
+    is applied to every level's right-hand side and start."""
+    if isinstance(constrain, BlockHook):
+        return constrain.fmg(levels, f, cfg, cycles_per_level)
+    _c = constrain if constrain is not None else (lambda a, lev: a)
+    rhs = [_c(f.to(levels[0].dtype), levels[0])]
     for nxt in levels[1:]:
-        rhs.append(transfer.restrict(rhs[-1], nxt.grid.nx, nxt.grid.ny,
-                                     method=cfg.restriction,
-                                     boundary="inject", dtype=nxt.dtype))
+        rhs.append(_c(transfer.restrict(
+            rhs[-1], nxt.grid.nx, nxt.grid.ny, method=cfg.restriction,
+            boundary="inject", dtype=nxt.dtype), nxt))
     u = _cycle(levels, levels[-1].zeros(), rhs[-1], len(levels) - 1, cfg,
-               "V")
+               "V", constrain)
     for lvl in range(len(levels) - 2, -1, -1):
         lev = levels[lvl]
         if levels[lvl + 1].sync is not None:
             levels[lvl + 1].sync(u)
-        u = transfer.prolong(u, lev.grid.nx, lev.grid.ny,
-                             method=cfg.prolongation, dtype=lev.dtype)
+        u = _c(transfer.prolong(u, lev.grid.nx, lev.grid.ny,
+                                method=cfg.prolongation, dtype=lev.dtype),
+               lev)
         for _ in range(cycles_per_level):
-            u = _cycle(levels, u, rhs[lvl], lvl, cfg, cfg.cycle)
+            u = _cycle(levels, u, rhs[lvl], lvl, cfg, cfg.cycle, constrain)
     return u
 
 
@@ -314,12 +355,19 @@ def tolerance(cfg: MultigridConfig, scale: torch.Tensor) -> torch.Tensor:
 
 def mg_solve(levels: Tuple[Level, ...], f, u0=None,
              cfg: MultigridConfig = MultigridConfig(), *,
-             use_fmg: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+             use_fmg: bool = False, constrain=None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Solve A u = f by repeated cycles at the finest level's dtype.
 
     ``f`` and ``u0`` are (nx, ny) tensors; ``u0`` carries the Dirichlet
     values on its ring. Returns the solution and an info dict (iterations,
-    residual history, convergence factor, ...)."""
+    residual history, convergence factor, ...). ``constrain``
+    (``parallel.distributed.make_constrainer``) runs the solve on this
+    rank's blocks on the plain path, every rank of the mesh calling it:
+    ``f`` and ``u0`` may then be level-0 ``ShardedField`` blocks, and every
+    rank gets the global solution. An array hook goes to the cycles."""
+    if isinstance(constrain, BlockHook):
+        return constrain.mg_solve(levels, f, u0, cfg, use_fmg=use_fmg)
     lev0 = levels[0]
     unknown = lev0.unknown
     hx, hy = lev0.grid.hx, lev0.grid.hy
@@ -334,13 +382,13 @@ def mg_solve(levels: Tuple[Level, ...], f, u0=None,
     tol_eff = tolerance(cfg, torch.maximum(fnorm,
                                            norms.scaled_l2(r_init, hx, hy)))
     if use_fmg:
-        u = fmg(levels, f, cfg)
+        u = fmg(levels, f, cfg, constrain=constrain)
     rnorm0 = norms.scaled_l2(st_mod.residual(lev0.stencil, u, f, unknown),
                              hx, hy)
     state = {"u": u}
 
     def step():
-        state["u"] = mg_cycle(levels, state["u"], f, cfg)
+        state["u"] = mg_cycle(levels, state["u"], f, cfg, constrain)
         r = st_mod.residual(lev0.stencil, state["u"], f, unknown)
         return norms.scaled_l2(r, hx, hy)
 

@@ -27,7 +27,7 @@ the fine level's. With ``coarsening='galerkin'`` every level below the
 finest holds the RAP operator of the level above (``ops/galerkin.py``), a
 ``Stencil27``, built in float64 down the chain and cast to each level's
 dtype; such levels take no kernel. Sharding constraints (``constrain=``)
-are ROADMAP item 14.
+are ROADMAP item 14b.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def _not_ported(what: str, item: str):
 
 def _check_options(constrain) -> None:
     if constrain is not None:
-        raise _not_ported("constrain= (3D sharding)", "item 14")
+        raise _not_ported("constrain= (3D sharding)", "item 14b")
 
 
 def _sample_coarse3(field):

@@ -21,6 +21,7 @@ near-convergence, as the JAX package's does.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -35,7 +36,8 @@ from .multigrid import MultigridConfig, convergence_factor
 
 def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
              inner_cycles: int = 1, max_outer: int = 100,
-             use_fmg: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+             use_fmg: bool = False, constrain=None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Solve A u = f to fp64 accuracy with low-precision multigrid cycles.
 
     ``levels`` is a low-precision hierarchy (fp32, bf16, or per-level
@@ -46,7 +48,16 @@ def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
     ``use_fmg`` starts from a full-multigrid guess. The tolerance scale
     max(||f||, ||r(u0)||) is taken before that start. The stopping test reads
     the norm back once per outer step.
+    ``constrain`` (``parallel.distributed.make_constrainer``) keeps the
+    float64 solution and residual in this rank's level-0 blocks and runs
+    the inner cycles on the blocks, every rank of the mesh calling it; each
+    outer step's norm is one all_reduce, and every rank gets the global
+    solution. An array hook goes to the inner cycles.
     """
+    if isinstance(constrain, mg_mod.BlockHook):
+        return constrain.ir_solve(levels, f, u0, cfg,
+                                  inner_cycles=inner_cycles,
+                                  max_outer=max_outer, use_fmg=use_fmg)
     lev0 = levels[0]
     unknown = lev0.unknown
     hx, hy = lev0.grid.hx, lev0.grid.hy
@@ -62,7 +73,8 @@ def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
         cfg, torch.maximum(fnorm, norms.scaled_l2(r_init, hx, hy)))
 
     if use_fmg:
-        u = u + mg_mod.fmg(levels, f.to(lo), cfg).to(f64)
+        u = u + mg_mod.fmg(levels, f.to(lo), cfg,
+                           constrain=constrain).to(f64)
     r = st_mod.residual(st_hi, u, f, unknown)
     state = {"u": u, "r": r}
 
@@ -70,7 +82,7 @@ def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
         e = lev0.zeros()
         r_lo = state["r"].to(lo)
         for _ in range(inner_cycles):
-            e = mg_mod.mg_cycle(levels, e, r_lo, cfg)
+            e = mg_mod.mg_cycle(levels, e, r_lo, cfg, constrain)
         u = torch.where(unknown, state["u"] + e.to(f64), state["u"])
         state["u"] = u
         state["r"] = st_mod.residual(st_hi, u, f, unknown)
@@ -98,10 +110,15 @@ def adaptive_solve(grid, spec, f, u0=None, *, a=None, lam=0.0, domain=None,
     ``start`` precision, promoted on the policy's triggers, finished by
     iterative refinement when ``cfg.tol`` is below what the working
     precision can reach. Each stage's hierarchy is built once, on
-    ``device`` (the card when None)."""
+    ``device`` (the card when None). ``mesh`` runs every stage on the
+    blocks of that mesh (``parallel.distributed.make_constrainer``), every
+    rank calling; every rank reads the same all-reduced norms, so every
+    rank takes the same promotion branch."""
+    constrain = None
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
-                                  "(ROADMAP item 14)")
+        from ..parallel import distributed
+
+        constrain = distributed.make_constrainer(mesh)
     hierarchies: Dict[Precision, Any] = {}
 
     def get_levels(p: Precision):
@@ -111,9 +128,11 @@ def adaptive_solve(grid, spec, f, u0=None, *, a=None, lam=0.0, domain=None,
                 device=device, cfg=cfg)
         return hierarchies[p]
 
-    return _adaptive_core(f, u0, get_levels=get_levels, solve=mg_mod.mg_solve,
-                          ir=ir_solve, policy=policy, cfg=cfg, start=start,
-                          chunk=chunk)
+    return _adaptive_core(f, u0, get_levels=get_levels,
+                          solve=functools.partial(mg_mod.mg_solve,
+                                                  constrain=constrain),
+                          ir=functools.partial(ir_solve, constrain=constrain),
+                          policy=policy, cfg=cfg, start=start, chunk=chunk)
 
 
 def adaptive_solve3d(grid, spec, f, u0=None, *, a=None, lam=0.0,
@@ -127,8 +146,8 @@ def adaptive_solve3d(grid, spec, f, u0=None, *, a=None, lam=0.0,
     (``build_hierarchy3d``, ``mg_solve3d``, ``ir_solve3d`` with its two
     inner cycles), as the JAX package's ``adaptive_solve3d``."""
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
-                                  "(ROADMAP item 14)")
+        raise NotImplementedError("mesh= (sharded 3D solves) is not ported "
+                                  "yet (ROADMAP item 14b)")
     hierarchies: Dict[Precision, Any] = {}
 
     def get_levels(p: Precision):

@@ -161,7 +161,7 @@ def _jax_reference(name):
         return {}
     lev = levels[0]
     if kind == "smooth":
-        tlev = checks.case_inputs(case)[2][0]
+        tlev = checks.case_inputs(case, "cpu")[2][0]
         u = checks.smooth_input(tlev)
         ju = jnp.asarray(interop.field_to_jax_layout(u, lev.grid))
         return {m: np.asarray(jpar.shard_smooth(

@@ -527,8 +527,13 @@ def test_unported_varcoef_features_raise():
     # none is refused
     with pytest.raises(TypeError, match="precision"):
         T.solve_poisson(prob, precision=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        T.solve_poisson(prob, mesh=object(), device="cpu")
+    # mesh= is ported (parallel.distributed): on a mesh of one rank it is
+    # the single-device plain solve
+    plain = T.MultigridConfig(smoother="rbgs", omega=1.0, backend="torch")
+    one = T.solve_poisson(prob, cfg=plain, device="cpu",
+                          mesh=T.parallel.make_mesh(shape=(1, 1)))
+    ref = T.solve_poisson(prob, cfg=plain, device="cpu")
+    assert one.iterations == ref.iterations and torch.equal(one.u, ref.u)
     seg = jbc.BoundarySpec(east=jbc.BCSide(
         segments=(jbc.BCSegment(0.5, 1.0, kind=jbc.BCKind.NEUMANN),)))
     # periodic sides and segments are ported: they validate as in JAX
