@@ -253,7 +253,24 @@ explicit distribution (after phase 31):
      kernel paths' seconds. On one card the world is one rank and no level
      is split, so the phase checks only the plumbing;
      scripts/sharded_cards.py runs it alone, on four cards with the graded
-     mesh too.
+     mesh too;
+ 36. the 3D hook and sharded time stepping over NCCL, one spawned rank per
+     visible card, on the mesh of the whole world, backend 'auto':
+     solve_poisson3d(poisson3d_mms_sinsinsin, mesh=) in 'mixed' at 513^3
+     and 'adaptive' at 257^3 (make_constrainer3d: (x, y) blocks of whole
+     z-lines, kernel E on the split levels' haloed windows and the
+     replicated levels whole, F and G off), solve_heat(pure_diffusion(1025),
+     mesh=) fp32 CN for 5 steps and solve_heat3d(pure_diffusion3d(257),
+     mesh=) fp32 CN for 3 steps (the time loop on blocks, one global
+     gather at its end), each held on every rank to the same call on a
+     one-rank mesh (counts, the solution bit for bit, equal launches of E
+     or A, at least one) and to the unhooked single-device kernel path
+     (counts, PATH3D_ATOL, the fp32 heat states SHARDED_HEAT_ATOL; the
+     513^3 l2 within L2_RTOL of its expected value); prints ms per solve
+     or step beside the one-rank and kernel paths' and each rank's busy
+     share. On one card the world is one rank and no level is
+     split, so the phase checks only the plumbing; scripts/sharded_cards.py
+     36 runs it alone.
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -563,6 +580,16 @@ HALO_ATOL = 1e-12
 # the GSPMD path over NCCL (phase 35): fp64 solutions within this of the
 # single-device plain solve's (the JAX package's sharded-solve bound)
 SHARDED_ATOL = 1e-11
+# Phase 36: the fp32 CN heat runs on the mesh of the world (pure_diffusion,
+# dt 1e-4 at N^2, dt 1e-3 at N3_REF^3)
+SHARDED_HEAT_STEPS = 5
+SHARDED_HEAT3D_STEPS = 3
+# The heat runs' fp32 states against the unhooked kernel path, where D's
+# tail and the fused B/C (F/G) round otherwise than A (E) and the plain
+# transfers the hook takes: fp32 rounding noise over 60 (1025^2) or 6
+# (257^3) V-cycles, ~60 x 2^-24 at |u| <= 1 (2.742e-6 at 1025^2 on the
+# first H100 run); the solves' fp64 outer states are held to PATH3D_ATOL
+SHARDED_HEAT_ATOL = 1e-5
 
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
@@ -4233,6 +4260,146 @@ def sharded_path(card, *, graded: bool = False, repeats: int = 0):
     print(f"phase 35: {time.perf_counter() - start:.1f} s")
 
 
+def sharded3d_path(card, *, repeats: int = 0):
+    """Phase 36: the 3D hook (``make_constrainer3d``: (x, y) blocks of
+    whole z-lines) and sharded time stepping over NCCL, one rank per
+    visible card, on the mesh of the whole world, backend 'auto':
+    ``solve_poisson3d(mesh=)`` on poisson3d_mms_sinsinsin at N3^3 'mixed'
+    and N3_REF^3 'adaptive' (tol 1e-9), the N3^3 'mixed' ``ir_solve3d``
+    under ``make_constrainer3d`` alone (its hierarchy, hook and
+    ``shard_inputs`` blocks made once, so its calls after the first time
+    the solve and its closing gather), ``solve_heat(mesh=)`` fp32 CN on
+    pure_diffusion(N) for SHARDED_HEAT_STEPS steps and
+    ``solve_heat3d(mesh=)`` fp32 CN on pure_diffusion3d(N3_REF) for
+    SHARDED_HEAT3D_STEPS steps. Each is held on every rank to the same call
+    on a one-rank mesh (the single-device solve under the hook: equal
+    iterations or steps, the solution bit for bit, the same launches of
+    the smoothing kernels, E's in 3D and A's in 2D, at least one) and to
+    the unhooked single-device kernel path (equal counts, within
+    PATH3D_ATOL, the fp32 heat states within SHARDED_HEAT_ATOL; the N3^3
+    l2 within L2_RTOL of its expected value); every rank must return the
+    same solution (its digest). ``repeats`` times that many more calls of
+    each (at least one of the solve alone), whose minimum is printed beside
+    rank 0's first call, the one-rank and kernel paths'; one more sharded
+    call of each (and one-rank call, on several cards) runs under
+    torch.profiler on every rank (busy share, and the device ms per launch
+    of E in 3D, of A in 2D). On one card the world is one rank and no level is split: the
+    phase checks the launch, NCCL and the plumbing of the entry points."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.parallel import \
+        checks, launch
+
+    start = time.perf_counter()
+    world = torch.cuda.device_count()
+    C = checks.Case
+    cfg = {"tol": 1e-9, "backend": "auto"}
+    # the plain path is phase 30's and 27-28's to time; a world of one
+    # profiles its sharded call alone, which is the one-rank call
+    opts = {"repeats": repeats, "digest": True, "plain": False}
+    cases = {  # on the mesh of the whole world
+        "mixed3d": C("frontend3d", "poisson3d_mms_sinsinsin", N3, None,
+                     changes=cfg, options={"precision": "mixed",
+                                           "profile": "rbgs3d", **opts}),
+        "mixed3d_solve": C("sharded3d", "poisson3d_mms_sinsinsin", N3,
+                           None, "mixed", changes=cfg,
+                           options={**opts, "repeats": max(repeats, 1),
+                                    "blocks": True, "profile": "rbgs3d"}),
+        "adaptive3d": C("frontend3d", "poisson3d_mms_sinsinsin", N3_REF,
+                        None, changes=cfg,
+                        options={"precision": "adaptive", **opts}),
+        "heat_cn": C("heat", "pure_diffusion", N, None, "float32",
+                     changes={"backend": "auto"},
+                     options={"t_final": SHARDED_HEAT_STEPS * 1e-4,
+                              "dt": 1e-4, "profile": "smooth_kernel",
+                              **opts}),
+        "heat3d_cn": C("heat3d", "pure_diffusion3d", N3_REF, None, "float32",
+                       changes={"backend": "auto"},
+                       options={"t_final": SHARDED_HEAT3D_STEPS * 1e-3,
+                                "dt": 1e-3, "profile": "rbgs3d", **opts}),
+    }
+    try:
+        res = launch.run(checks.run_cases, world, cases, "cuda",
+                         backend="nccl", timeout=900.0)
+    except RuntimeError as exc:
+        fail(f"phase 36: {exc}")
+    for r in res:
+        summary = r["summary"]
+        if summary["backend"] != "nccl" or \
+                summary["process_count"] != world:
+            fail(f"phase 36: rank {r['rank']} ran {summary}")
+    print(f"phase 36: world {world} NCCL rank(s), {res[0]['summary']}"
+          + ("; one rank splits no level: the plumbing alone"
+             if world == 1 else ""))
+
+    def ms(x, per=1):
+        return "-" if x is None else f"{x * 1e3 / per:.1f}"
+
+    for name, case in cases.items():
+        r = res[0][name]
+        heat = case.kind in ("heat", "heat3d")
+        count = "steps" if heat else "iterations"
+        one = r["one_steps"] if heat else r["one_iterations"]
+        per = r["steps"] if heat else 1
+        kernel = "A" if case.kind == "heat" else "E"
+        for other in res[1:]:
+            if other[name]["u"] != r["u"]:
+                fail(f"phase 36 {name}: rank {other['rank']} holds another "
+                     "solution")
+        print(f"sharded {name} {case.n} on mesh {r['mesh']}: sharded depth "
+              f"{len(r.get('tiers', []))}, tiers {r.get('tiers')}; {count} "
+              f"{r[count]} (one-rank {one}, single-device kernel path "
+              f"{r['kernel_iterations']}), max|u - u_one| "
+              f"{r['max_diff_one']:.3e}, max|u - u_kernel| "
+              f"{r['max_diff_kernel']:.3e}, l2 {r.get('l2')}"
+              + (f", gathers {r['gathers']}" if heat else "")
+              + f"; {kernel} launches per rank "
+              f"{[x[name]['launches'] for x in res]} (one-rank "
+              f"{[x[name]['one_launches'] for x in res]}); ms per "
+              f"{'step' if heat else 'solve'}: rank 0's first call "
+              f"{ms(r['seconds'], per)}, min of {case.options['repeats']} "
+              f"{ms(r['best'], per)} (one-rank {ms(r['one_best'], per)}, "
+              f"kernel path {ms(r['kernel_best'], per)}) [{card}]")
+        for key, label in (("profile", "sharded"), ("profile_one",
+                                                     "one-rank")):
+            for x in res:
+                p = x[name].get(key)
+                if p:
+                    print(f"profile {name} {label}, rank {x['rank']}: wall "
+                          f"{p['wall_ms']:.1f} ms, device {p['device_ms']:.1f}"
+                          f" ms, busy {p['busy']:.1%}; {kernel} "
+                          f"{p['kernel_launches']} launches, "
+                          f"{p['kernel_ms_per_launch']:.4f} ms device per "
+                          f"launch, {p['kernel_device_ms']:.1f} ms in all "
+                          f"[{card}]")
+                    if x is res[0]:
+                        for op, op_ms, n in p["top"]:
+                            print(f"  top device op {op_ms:9.2f} ms x{n:5d} "
+                                  f"{op}")
+        if r[count] != one or r["max_diff_one"] != 0.0 or \
+                (not heat and not r["converged"]):
+            fail(f"phase 36 {name}: the sharded run differs from the "
+                 "single-device run under the hook")
+        if r["kernel_iterations"] != r[count] or r["max_diff_kernel"] > (
+                SHARDED_HEAT_ATOL if heat else PATH3D_ATOL):
+            fail(f"phase 36 {name}: the sharded run differs from the "
+                 "unhooked single-device kernel path")
+        if any(x[name]["launches"] != x[name]["one_launches"]
+               or not x[name]["launches"] for x in res):
+            fail(f"phase 36 {name}: launches of {kernel} "
+                 f"{[x[name]['launches'] for x in res]}, one-rank "
+                 f"{[x[name]['one_launches'] for x in res]}")
+        if heat and r["gathers"] != (1 if world > 1 else 0):
+            fail(f"phase 36 {name}: {r['gathers']} global gathers, the "
+                 "run's end makes the only one")
+    for name in ("mixed3d", "mixed3d_solve"):
+        l2 = res[0][name]["l2"]
+        if abs(l2 / L2_3D_EXPECTED[N3] - 1) > L2_RTOL:
+            fail(f"phase 36 {name}: l2 {l2:.4e}, expected "
+                 f"{L2_3D_EXPECTED[N3]:.4e}")
+    print(f"phase 36: {time.perf_counter() - start:.1f} s")
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -4800,6 +4967,9 @@ def main(argv) -> int:
 
     # ---- the GSPMD path: phase 35 ----------------------------------------
     sharded_path(card)
+
+    # ---- 3D and time-stepping sharding: phase 36 --------------------------
+    sharded3d_path(card)
 
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),

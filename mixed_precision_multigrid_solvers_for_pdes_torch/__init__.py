@@ -16,8 +16,11 @@ so do the heat equations' implicit steps in 2D and 3D
 per step, with checkpoint/resume through ``utils.CheckpointManager``). The
 whole 2D solve also runs over a mesh of ranks with explicit halos
 (``parallel.halo_solve`` over ``torch.distributed``: gloo on the CPU,
-NCCL on cards), and so do the 2D entry points (``parallel.distributed``:
-``sharded_solve``, ``solve_poisson(mesh=)``, ``constrain=``). Fields are
+NCCL on cards), and so do the entry points (``parallel.distributed``:
+``sharded_solve``, ``solve_poisson(mesh=)``, ``constrain=``; in 3D
+``make_constrainer3d``, ``solve_poisson3d(mesh=)`` on (x, y) blocks of
+whole z-lines; and the time loops, ``solve_heat(mesh=)`` and
+``solve_heat3d(mesh=)``, on blocks from start to end). Fields are
 stored at their logical shape (nx, ny) or (nx, ny, nz), and every function
 takes its dtype and device explicitly. This package never imports JAX.
 """

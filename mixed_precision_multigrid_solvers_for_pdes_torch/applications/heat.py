@@ -27,8 +27,18 @@ the state's dtype and a 0-d float64 tensor ``t`` on the host (of the state's
 dtype for the t=0 Dirichlet values), and use torch ops; they reproduce the
 JAX package's promotions, where a float32 mesh times a float64 time factor
 is a float64 product (``heat_problems.py``). ``u0`` and ``a`` are host
-arrays of shape (nx, ny). ``mesh=`` and ``constrain=`` (sharded runs) are
-ROADMAP item 14b.
+arrays of shape (nx, ny).
+
+``mesh=`` (``solve_heat``) and ``constrain=`` (``make_step_fn``) run the
+whole time loop over a mesh of ranks, as the JAX package's SPMD scan does
+(``parallel.stepping``): every rank calls with the same problem, the state
+is this rank's level-0 block (``multihost.ShardedField``), the source,
+boundary and Dirichlet terms are evaluated on the block's coordinates,
+``A_sp u`` is a halo matvec and the cycles run on the hook's block cycle;
+inside the loop only halos, the scalar all_reduces of the step's
+readbacks and the cycles' coarse gathers cross ranks. The global field is
+gathered at the end (every rank gets it) and at each checkpoint save,
+which the mesh's first rank writes; a resume cuts the blocks again.
 """
 
 from __future__ import annotations
@@ -48,14 +58,11 @@ from ..core.grid import Grid
 from ..core.precision import as_dtype
 from ..models.problems import eval_on_grid
 from ..ops import norms, stencil as st_mod
+from ..parallel import stepping
 from ..solvers import multigrid as mg_mod
 from ..solvers.multigrid import Level, MultigridConfig
 
 SCHEMES = ("explicit", "backward_euler", "crank_nicolson", "theta", "bdf2")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,17 +280,22 @@ def make_step_fn(
     the n-1 state (used by BDF2 only; pass ``u`` for single-step schemes);
     BDF2 takes the previous step ``dt_prev`` as a fifth argument (None: the
     uniform step). ``t``, ``dt`` and ``dt_prev`` are Python floats. The step
-    never writes into ``u_prev`` or ``u``."""
-    if constrain is not None:
-        raise _not_ported("constrain= (sharded time stepping)", "item 14b")
+    never writes into ``u_prev`` or ``u``. ``constrain``: an array hook goes
+    to the cycles; ``parallel.distributed.make_constrainer``'s hook runs
+    the step on this rank's blocks, taking level-0 ``ShardedField``s (or
+    global tensors, cut) and returning one."""
+    return _make_step(problem, levels0, cfg,
+                      stepping.fields_for(constrain, levels0))
+
+
+def _make_step(problem: HeatProblem, levels0: Tuple[Level, ...],
+               cfg: HeatConfig, fields):
+    """``make_step_fn`` on ``fields`` (``parallel.stepping``)."""
     grid, spec, alpha = problem.grid, problem.spec, problem.alpha
     dtype = as_dtype(cfg.dtype)
-    lev0 = levels0[0]
-    device = lev0.device
-    unknown = lev0.unknown
-    fixed = _fixed_mask(grid, spec, device)
-    X, Y = problem.mesh(dtype, device)
-    st_sp = lev0.stencil  # fine-level spatial stencil (lam=0)
+    device = levels0[0].device
+    unknown, fixed = fields.unknown, fields.fixed
+    X, Y = fields.coords(*problem.mesh(dtype, device))
     zero = torch.zeros((), dtype=dtype, device=device)
 
     def scalar(x) -> torch.Tensor:
@@ -295,31 +307,31 @@ def make_step_fn(
         # a fixed-dt run shifts by one lam; an adaptive trial by two
         return shift_hierarchy(levels0, lam)
 
-    def apply_sp(u):
-        """A_sp u (the true operator, before the BC-elimination term)."""
-        return st_mod.apply(st_sp, u)
+    # A_sp u: the true operator, before the BC-elimination term
+    apply_sp = fields.apply
+
+    def bc_correction(t: float):
+        cbc = _bc_correction(problem, grid, spec, t, dtype, device)
+        return None if cbc is None else fields.cut(cbc)
 
     def cycles(levels, u, f):
         """cycles_per_step fixed cycles + tolerance-driven extras, each
         extra tested on the host first, as the JAX package's while_loop
         tests its condition: at most max_cycles_per_step in all."""
         for _ in range(cfg.cycles_per_step):
-            u = mg_mod.mg_cycle(levels, u, f, cfg.mg)
+            u = fields.mg_cycle(levels, u, f, cfg.mg)
         extra = cfg.max_cycles_per_step - cfg.cycles_per_step
         if cfg.step_rtol <= 0.0 or extra <= 0:
             return u
-        l0 = levels[0]
-        unk = l0.unknown
-        fnorm = norms.masked_scaled_l2(f, unk, grid.hx, grid.hy)
-        tol_eff = cfg.step_rtol * torch.clamp(fnorm, min=1e-300)
+        tol_eff = cfg.step_rtol * torch.clamp(fields.masked_norm(f),
+                                              min=1e-300)
 
         def above_tol(u) -> bool:
-            r = st_mod.residual(l0.stencil, u, f, unk)
-            return bool(norms.scaled_l2(r, grid.hx, grid.hy) > tol_eff)
+            return bool(fields.residual_norm(levels, u, f) > tol_eff)
 
         k = 0
         while k < extra and above_tol(u):
-            u = mg_mod.mg_cycle(levels, u, f, cfg.mg)
+            u = fields.mg_cycle(levels, u, f, cfg.mg)
             k += 1
         return u
 
@@ -327,7 +339,7 @@ def make_step_fn(
 
         def step(u_prev, u, t, dt):
             tn1 = t + dt
-            cbc = _bc_correction(problem, grid, spec, t, dtype, device)
+            cbc = bc_correction(t)
             au = apply_sp(u)
             lap = -(au if cbc is None else au - cbc)  # div(a grad u) at t
             rhs = alpha * lap
@@ -337,7 +349,7 @@ def make_step_fn(
             u_new = torch.where(unknown, u + scalar(dt) * rhs, u)
             return _install_dirichlet(problem, u_new, X, Y, tn1, fixed)
 
-        return step
+        return fields.wrap(step)
 
     if cfg.scheme == "bdf2":
         # Variable-step BDF2 with ratio r = dt/dt_prev (u_prev sits dt_prev
@@ -355,14 +367,14 @@ def make_step_fn(
             q = _source(problem, X, Y, tn1, dtype)
             if q is not None:
                 F = F + q / alpha
-            cbc1 = _bc_correction(problem, grid, spec, tn1, dtype, device)
+            cbc1 = bc_correction(tn1)
             if cbc1 is not None:
                 F = F + cbc1
             F = torch.where(unknown, F, zero)
             u_new = _install_dirichlet(problem, u, X, Y, tn1, fixed)
             return cycles(levels, u_new, F)
 
-        return step
+        return fields.wrap(step)
 
     th = cfg.effective_theta
 
@@ -379,18 +391,18 @@ def make_step_fn(
         if qn1 is not None:
             qn = _source(problem, X, Y, t, dtype)
             F = F + (th * qn1 + (1.0 - th) * qn) / (alpha * th)
-        cbc1 = _bc_correction(problem, grid, spec, tn1, dtype, device)
+        cbc1 = bc_correction(tn1)
         if cbc1 is not None:
             F = F + cbc1
         if th < 1.0:
             au = apply_sp(u)
-            cbc0 = _bc_correction(problem, grid, spec, t, dtype, device)
+            cbc0 = bc_correction(t)
             F = F - (1.0 - th) / th * (au if cbc0 is None else au - cbc0)
         F = torch.where(unknown, F, zero)
         u_new = _install_dirichlet(problem, u, X, Y, tn1, fixed)
         return cycles(levels, u_new, F)
 
-    return step
+    return fields.wrap(step)
 
 
 # --------------------------------------------------------------------------
@@ -410,14 +422,29 @@ def _run_steps(step, u_prev, u, t: float, dt: float, n_steps: int,
     return u_prev, u, t, saved
 
 
-def _snapshots(ks, saved, dt: float):
-    return [(float((k + 1) * dt), s.cpu().numpy()) for k, s in zip(ks, saved)]
+def _host(fields, x) -> np.ndarray:
+    """A state as a host array (a sharded one gathered)."""
+    return fields.gather(x).cpu().numpy()
 
 
-def _bootstrap_bdf2(problem, levels0, cfg, u0, t0, dt):
+def _snapshots(ks, saved, dt: float, fields):
+    return [(float((k + 1) * dt), _host(fields, s))
+            for k, s in zip(ks, saved)]
+
+
+def _save(checkpoint, fields, k: int, u_prev, u, meta) -> None:
+    """A checkpoint of the global states, written by the mesh's first
+    rank, which every rank then waits for."""
+    arrays = {"u_prev": fields.gather(u_prev), "u": fields.gather(u)}
+    if fields.writer:
+        checkpoint.save(k, arrays, meta)
+    fields.barrier()
+
+
+def _bootstrap_bdf2(problem, levels0, cfg, u0, t0, dt, fields):
     """First BDF2 step via one Crank-Nicolson step (standard bootstrap)."""
     cn = dataclasses.replace(cfg, scheme="crank_nicolson")
-    step_cn = make_step_fn(problem, levels0, cn)
+    step_cn = _make_step(problem, levels0, cn, fields)
     return step_cn(u0, u0, t0, dt)
 
 
@@ -444,26 +471,37 @@ def solve_heat(
     loop runs in chunks of ``checkpoint_every`` steps, saving (u_prev, u,
     t) at each chunk boundary; a run pointed at a non-empty directory
     resumes from its latest checkpoint. checkpoint_every=0 saves once at
-    the end."""
-    if mesh is not None:
-        raise _not_ported("mesh= (sharded time stepping)", "item 14b")
+    the end.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) runs the whole loop on this
+    rank's blocks (``parallel.distributed.make_constrainer``; see the
+    module docstring): every rank of the mesh calls with the same problem
+    and gets the global result."""
     device = resolve_device(device)
     dtype = as_dtype(cfg.dtype)
     grid = problem.grid
-    # one hierarchy and step per configuration and device, kept on the
-    # problem for later calls
+    # one hierarchy and step per configuration, device and mesh, kept on
+    # the problem for later calls
     cache = problem.__dict__.setdefault("_solver_cache", {})
     key = (cfg.mg, cfg.scheme, cfg.theta, cfg.cycles_per_step, cfg.step_rtol,
-           cfg.max_cycles_per_step, dtype, device)
-    if key in cache:
-        levels0, step = cache[key]
+           cfg.max_cycles_per_step, dtype, device,
+           None if mesh is None else id(mesh))
+    hit = cache.get(key)
+    if hit is not None and hit[3] is mesh:
+        levels0, step, fields, _ = hit
     else:
         levels0 = mg_mod.build_hierarchy(
             grid, problem.spec, a=problem.a, lam=0.0, dtype=dtype,
             device=device, cfg=cfg.mg)
-        step = make_step_fn(problem, levels0, cfg)
-        cache[key] = (levels0, step)
-    u0 = problem.initial_state(dtype, device)
+        constrain = None
+        if mesh is not None:
+            from ..parallel import distributed
+
+            constrain = distributed.make_constrainer(mesh)
+        fields = stepping.fields_for(constrain, levels0)
+        step = _make_step(problem, levels0, cfg, fields)
+        cache[key] = (levels0, step, fields, mesh)
+    u0 = fields.field(fields.cut(problem.initial_state(dtype, device)))
 
     if cfg.scheme == "explicit":
         limit = stability_limit_dt(
@@ -478,7 +516,7 @@ def solve_heat(
 
     if cfg.adaptive_dt:
         return _solve_adaptive(problem, levels0, cfg, step, u0, t_final,
-                               dt or t_final / 100.0)
+                               dt or t_final / 100.0, fields)
 
     if dt is None and n_steps is None:
         raise ValueError("provide dt or n_steps")
@@ -501,21 +539,21 @@ def solve_heat(
                 f"checkpoint scheme={meta.get('scheme')!r} != requested "
                 f"scheme={cfg.scheme!r}; resuming would continue from "
                 "incompatible time-integration history")
-        u_prev0 = torch.as_tensor(arrays["u_prev"], dtype=dtype,
-                                  device=device)
-        u0 = torch.as_tensor(arrays["u"], dtype=dtype, device=device)
+        u_prev0, u0 = (fields.field(fields.cut(torch.as_tensor(
+            arrays[name], dtype=dtype, device=device)))
+            for name in ("u_prev", "u"))
         start = int(meta["k"])
         t0 = float(meta["t"])
         resumed = True
     if cfg.scheme == "bdf2" and n_steps >= 1 and not resumed:
-        u1 = _bootstrap_bdf2(problem, levels0, cfg, u0, t0, dt)
+        u1 = _bootstrap_bdf2(problem, levels0, cfg, u0, t0, dt, fields)
         u_prev0, u0 = u0, u1
         t0 = t0 + dt
         start = 1
     if checkpoint is not None:
         return _solve_checkpointed(
             problem, cfg, step, u_prev0, u0, t0, n_steps, start, dt,
-            checkpoint, checkpoint_every,
+            checkpoint, checkpoint_every, fields,
         )
     saved_list = None
     if start < n_steps:
@@ -523,10 +561,11 @@ def solve_heat(
                                     n_steps - start, cfg.save_every)
         if cfg.save_every:
             ks = np.arange(start, n_steps)[cfg.save_every - 1::cfg.save_every]
-            saved_list = _snapshots(ks, saved, dt)
+            saved_list = _snapshots(ks, saved, dt, fields)
     else:
         u, t = u0, t0
 
+    u = fields.gather(u)
     result = HeatResult(
         u=u, t=float(t), steps=n_steps,
         dt_history=np.full(n_steps, dt), saved=saved_list,
@@ -537,7 +576,7 @@ def solve_heat(
 
 
 def _solve_checkpointed(problem, cfg, step, u_prev0, u0, t0, n_steps, start,
-                        dt, checkpoint, checkpoint_every):
+                        dt, checkpoint, checkpoint_every, fields):
     """Chunked loop with checkpoint saves at chunk boundaries."""
     every = checkpoint_every if checkpoint_every > 0 else n_steps
     if cfg.save_every and every % cfg.save_every:
@@ -553,12 +592,11 @@ def _solve_checkpointed(problem, cfg, step, u_prev0, u0, t0, n_steps, start,
                                          cfg.save_every)
         if cfg.save_every:
             ks = np.arange(k, k + m)[cfg.save_every - 1::cfg.save_every]
-            saved_list += _snapshots(ks, saved, dt)
+            saved_list += _snapshots(ks, saved, dt, fields)
         k += m
-        checkpoint.save(
-            k, {"u_prev": u_prev, "u": u},
-            {"t": float(t), "k": k, "dt": dt, "scheme": cfg.scheme},
-        )
+        _save(checkpoint, fields, k, u_prev, u,
+              {"t": float(t), "k": k, "dt": dt, "scheme": cfg.scheme})
+    u = fields.gather(u)
     result = HeatResult(
         u=u, t=float(t), steps=n_steps,
         dt_history=np.full(n_steps, dt), saved=saved_list or None,
@@ -568,7 +606,7 @@ def _solve_checkpointed(problem, cfg, step, u_prev0, u0, t0, n_steps, start,
     return result
 
 
-def _solve_adaptive(problem, levels0, cfg, step, u0, t_final, dt0):
+def _solve_adaptive(problem, levels0, cfg, step, u0, t_final, dt0, fields):
     """Step-doubling: accept when |u_dt - u_{dt/2,x2}| / (2^p - 1) < dt_tol.
 
     BDF2 runs with variable-step coefficients (r = dt/dt_prev) and is
@@ -588,13 +626,14 @@ def _solve_adaptive(problem, levels0, cfg, step, u0, t_final, dt0):
     nsteps = 0
 
     if is_bdf2:
-        step_cn = make_step_fn(
+        step_cn = _make_step(
             problem, levels0,
-            dataclasses.replace(cfg, scheme="crank_nicolson"))
+            dataclasses.replace(cfg, scheme="crank_nicolson"), fields)
 
     def error(big, two, d: float) -> float:
-        """max|big - two| / d, divided in the state's dtype on the host."""
-        return (torch.max(torch.abs(big - two)).cpu() / d).item()
+        """max|big - two| / d (over the mesh), divided in the state's dtype
+        on the host."""
+        return (fields.max_abs(big - two).cpu() / d).item()
 
     def try_step(u_prev, u, t, dt):
         big = step(u_prev, u, t, dt)
@@ -631,14 +670,15 @@ def _solve_adaptive(problem, levels0, cfg, step, u0, t_final, dt0):
             nsteps += 1
             dts.append(dt)
             if cfg.save_every and nsteps % cfg.save_every == 0:
-                saved.append((t, u.cpu().numpy()))
+                saved.append((t, u))
         # PI-free classic controller
         factor = cfg.dt_safety * (cfg.dt_tol / max(err, 1e-300)) ** (1.0 / (p + 1))
         dt = float(np.clip(dt * np.clip(factor, 0.2, 5.0), cfg.dt_min, cfg.dt_max))
 
+    u = fields.gather(u)
     result = HeatResult(
         u=u, t=t, steps=nsteps, dt_history=np.asarray(dts),
-        saved=saved or None,
+        saved=[(ts, _host(fields, s)) for ts, s in saved] or None,
     )
     if problem.exact is not None:
         result.errors = problem.error_norms(u, t)

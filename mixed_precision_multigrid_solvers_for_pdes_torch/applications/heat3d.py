@@ -19,7 +19,12 @@ builds no mesh of its own. They promote as the JAX package does (see
 -div(a grad u): its levels hold coefficient fields (``ops/stencil3d.py``)
 and run the plain path, as in the JAX package, and the shift adds lam to
 each level's diagonal field; a ``Stencil27`` level (Galerkin coarsening in
-``HeatConfig.mg``) is shifted the same way. ``mesh=`` is ROADMAP item 14b.
+``HeatConfig.mg``) is shifted the same way. ``mesh=`` runs the whole
+loop on this rank's (x, y) blocks of whole z-lines
+(``parallel.distributed.make_constrainer3d``), as ``solve_heat`` runs on
+2D blocks (``parallel.stepping``): the state is a level-0
+``ShardedField``, the terms are evaluated on the block's coordinates and
+the global field is gathered at the end and at each checkpoint save.
 """
 
 from __future__ import annotations
@@ -33,10 +38,11 @@ import torch
 from ..core.device import resolve_device
 from ..core.grid3d import Grid3D
 from ..core.precision import as_dtype
-from ..ops import norms, stencil3d as st3
+from ..ops import norms
+from ..parallel import stepping
 from ..solvers import multigrid3d as mg3
-from .heat import HeatConfig, _carry_cache, _not_ported, _time, \
-    shifted_diagonal, theta_shift
+from .heat import HeatConfig, _carry_cache, _save, _time, shifted_diagonal, \
+    theta_shift
 from .heat_problems import _up
 
 
@@ -106,9 +112,11 @@ def solve_heat3d(
     With ``checkpoint`` (a utils.checkpoint.CheckpointManager) the loop runs
     in chunks of ``checkpoint_every`` steps with atomic (u_prev, u, t)
     saves and resumes bit-exactly from the latest checkpoint (BDF2 two-step
-    history preserved). checkpoint_every=0 saves once at the end."""
-    if mesh is not None:
-        raise _not_ported("mesh= (sharded time stepping)", "item 14b")
+    history preserved). checkpoint_every=0 saves once at the end.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) runs the loop on this rank's
+    blocks (``parallel.distributed.make_constrainer3d``); every rank calls
+    with the same problem and gets the global result."""
     if cfg.adaptive_dt:
         raise ValueError("solve_heat3d is fixed-dt (adaptive_dt is 2D-only)")
     device = resolve_device(device)
@@ -117,11 +125,14 @@ def solve_heat3d(
     alpha = problem.alpha
     levels0 = mg3.build_hierarchy3d(grid, a=problem.a, lam=0.0, dtype=dtype,
                                     device=device, cfg=cfg.mg)
-    lev0 = levels0[0]
-    unknown = lev0.unknown
-    fixed = ~unknown
-    X, Y, Z = problem.mesh(dtype, device)
-    st_sp = lev0.stencil
+    constrain = None
+    if mesh is not None:
+        from ..parallel import distributed
+
+        constrain = distributed.make_constrainer3d(mesh)
+    fields = stepping.fields_for(constrain, levels0)
+    unknown, fixed = fields.unknown, fields.fixed
+    X, Y, Z = fields.coords(*problem.mesh(dtype, device))
     zero = torch.zeros((), dtype=dtype, device=device)
     shifted = {}
 
@@ -149,7 +160,7 @@ def solve_heat3d(
 
     def solve(levels, u, F):
         for _ in range(cfg.cycles_per_step):
-            u = mg3.mg_cycle3d(levels, u, F, cfg.mg)
+            u = fields.mg_cycle(levels, u, F, cfg.mg)
         return u
 
     n_steps = max(1, int(round(t_final / dt)))
@@ -165,7 +176,7 @@ def solve_heat3d(
             if qn1 is not None:
                 F = F + (th * qn1 + (1 - th) * source(t)) / (alpha * th)
             if th < 1.0:
-                F = F - (1.0 - th) / th * st3.apply(st_sp, u)
+                F = F - (1.0 - th) / th * fields.apply(u)
             F = torch.where(unknown, F, zero)
             return solve(levels, install_bc(u, tn1), F)
 
@@ -178,7 +189,7 @@ def solve_heat3d(
             raise ValueError(f"explicit dt={dt_val:g} exceeds limit {limit:g}")
 
         def step(u_prev, u, t, dt_):
-            rhs = alpha * -st3.apply(st_sp, u)
+            rhs = alpha * -fields.apply(u)
             q = source(t)
             if q is not None:
                 rhs = rhs + q
@@ -208,7 +219,7 @@ def solve_heat3d(
             u_prev, u, t = u, step(u_prev, u, t, dt_val), t + dt_val
         return u_prev, u, t
 
-    u0 = problem.initial_state(dtype, device)
+    u0 = fields.cut(problem.initial_state(dtype, device))
     t0 = 0.0
     u_prev0, start = u0, 0
     resumed = False
@@ -223,9 +234,9 @@ def solve_heat3d(
                 f"checkpoint scheme={meta.get('scheme')!r} != requested "
                 f"scheme={cfg.scheme!r}; resuming would continue from "
                 "incompatible time-integration history")
-        u_prev0 = torch.as_tensor(arrays["u_prev"], dtype=dtype,
-                                  device=device)
-        u0 = torch.as_tensor(arrays["u"], dtype=dtype, device=device)
+        u_prev0, u0 = (fields.cut(torch.as_tensor(
+            arrays[name], dtype=dtype, device=device))
+            for name in ("u_prev", "u"))
         start = int(meta["k"])
         t0 = float(meta["t"])
         resumed = True
@@ -242,20 +253,18 @@ def solve_heat3d(
             m = min(every, n_steps - k)
             u_prev, u, t = run(u_prev, u, t, m)
             k += m
-            checkpoint.save(
-                k, {"u_prev": u_prev, "u": u},
-                {"t": float(t), "k": k, "dt": dt_val, "scheme": cfg.scheme},
-            )
+            _save(checkpoint, fields, k, u_prev, u,
+                  {"t": float(t), "k": k, "dt": dt_val,
+                   "scheme": cfg.scheme})
         if (checkpoint.latest_step() or 0) < n_steps:
             # n_steps fully covered by the bootstrap (bdf2, n_steps == 1):
             # the loop never ran; the run still saves at its end
-            checkpoint.save(
-                n_steps, {"u_prev": u_prev, "u": u},
-                {"t": float(t), "k": n_steps, "dt": dt_val,
-                 "scheme": cfg.scheme},
-            )
+            _save(checkpoint, fields, n_steps, u_prev, u,
+                  {"t": float(t), "k": n_steps, "dt": dt_val,
+                   "scheme": cfg.scheme})
     elif start < n_steps:
         u_prev, u, t = run(u_prev0, u0, t0, n_steps - start)
+    u = fields.gather(u)
     out = {"u": u, "t": float(t), "steps": n_steps}
     if problem.exact is not None:
         out["errors"] = problem.error_norms(u, float(t))

@@ -9,7 +9,9 @@ cycles per outer step, since an fp32 residual floors near 1e-7 relative);
 'mixed' builds the per-level dtypes of its policy (fp32 fine levels, bf16
 coarse ones) under float64 iterative refinement; 'adaptive' runs
 ``refinement.adaptive_solve3d``. A ``PrecisionPolicy`` may be given in
-place of a name. ``mesh=`` (sharding) is ROADMAP item 14b.
+place of a name. ``mesh=`` runs every precision over a mesh of ranks
+(``parallel.distributed.make_constrainer3d``: (x, y) blocks of whole
+z-lines), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -34,21 +36,29 @@ def solve_poisson3d(problem: Problem3D, *, precision: Any = "fp32",
     """Solve the 3D problem on ``device`` (the card when None) with one
     call, at ``precision`` (see the module docstring). ``solve_time`` is
     the wall time of the hierarchy's build and the solve, synchronized with
-    the device."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded solves) is not ported yet "
-                                  "(ROADMAP item 14b)")
+    the device.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) runs the solve on this rank's
+    (x, y) blocks of whole z-lines, x and y split while every rank keeps
+    16 rows and columns (``parallel.distributed.make_constrainer3d``):
+    every rank of the mesh calls with the same problem, on its own device,
+    and gets the global solution."""
     pol = precision if isinstance(precision, PrecisionPolicy) \
         else make_policy(precision)
     device = resolve_device(device)
     f64 = torch.float64
+    constrain = None
+    if mesh is not None:
+        from ..parallel import distributed
+
+        constrain = distributed.make_constrainer3d(mesh)
 
     t0 = time.perf_counter()
     if pol.mode == Precision.ADAPTIVE:
         u, info = refinement.adaptive_solve3d(
             problem.grid, problem.spec, problem.rhs(f64, device),
             problem.initial_guess(f64, device), a=problem.a, lam=problem.lam,
-            policy=pol, cfg=cfg, device=device)
+            policy=pol, cfg=cfg, mesh=mesh, device=device)
     else:
         dt = None if pol.mode == Precision.MIXED else pol.mode.dtype
         if dt == torch.float32 and cfg.tol < 1e-6:
@@ -61,13 +71,14 @@ def solve_poisson3d(problem: Problem3D, *, precision: Any = "fp32",
                 device=device, cfg=cfg)
             u, info = mg3.ir_solve3d(levels, problem.rhs(f64, device),
                                      problem.initial_guess(f64, device), cfg,
-                                     inner_cycles=2)
+                                     inner_cycles=2, constrain=constrain)
         else:
             levels = mg3.build_hierarchy3d(
                 problem.grid, problem.spec, a=problem.a, lam=problem.lam,
                 dtype=dt, device=device, cfg=cfg)
             u, info = mg3.mg_solve3d(levels, problem.rhs(dt, device),
-                                     problem.initial_guess(dt, device), cfg)
+                                     problem.initial_guess(dt, device), cfg,
+                                     constrain=constrain)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     solve_time = time.perf_counter() - t0

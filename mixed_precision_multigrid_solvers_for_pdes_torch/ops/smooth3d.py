@@ -113,14 +113,17 @@ def _z_neighbours(st, u):
     return lo, hi
 
 
-def _line_z_update(st, u, f, unknown, color_mask, system):
+def _line_z_update(st, u, f, unknown, color_mask, system, nb=None):
     """Zebra line relaxation along z for the lines picked by ``color_mask``
     ((nx, ny, nz)): the x/y couplings (and a ``Stencil27``'s edges and
-    corners) lagged, the b/t couplings in the tridiagonal."""
+    corners) lagged, the b/t couplings in the tridiagonal. ``nb``, the
+    neighbour sum on the unknowns, is computed from ``u`` when not given
+    (``parallel.blocks3d`` gives a block's, taken across its halo)."""
     lo_c, hi_c, lo_unknown, hi_unknown, factor = system
     zero = torch.zeros((), dtype=u.dtype, device=u.device)
-    nb = torch.zeros_like(u)
-    region(st, nb)[...] = st3.neighbor_sum(st, u)
+    if nb is None:
+        nb = torch.zeros_like(u)
+        region(st, nb)[...] = st3.neighbor_sum(st, u)
     lo_val, hi_val = _z_neighbours(st, u)
     rhs = f + nb - lo_c * lo_val - hi_c * hi_val
     rhs = rhs + torch.where(lo_unknown, zero, lo_c * lo_val)

@@ -1,13 +1,16 @@
 """Distribution over ``torch.distributed``: meshes of ranks, the
 explicit halo-exchange multigrid solve (``halo_solve``), the GSPMD path
-(``distributed``: ``make_constrainer``, ``shard_inputs``,
-``sharded_solve``) on the block machinery both share (``blocks``), and
-multi-process launch (the counterpart of the JAX package's ``parallel``
-package)."""
+(``distributed``: ``make_constrainer``, ``make_constrainer3d``,
+``shard_inputs``, ``sharded_solve``) on the block machinery both share
+(``blocks``; ``blocks3d``: (x, y) blocks of whole z-lines), time loops on
+blocks (``stepping``), and multi-process launch (the counterpart of the
+JAX package's ``parallel`` package)."""
 
-from . import blocks, distributed, halo_solve, mesh, multihost  # noqa: F401
+from . import blocks, blocks3d, distributed, halo_solve, mesh, \
+    multihost, stepping  # noqa: F401
 from .distributed import (  # noqa: F401
     make_constrainer,
+    make_constrainer3d,
     shard_inputs,
     sharded_solve,
 )

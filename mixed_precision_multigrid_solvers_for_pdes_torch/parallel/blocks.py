@@ -229,16 +229,17 @@ def nbsum_ext(stb, uh):
 
 
 def to_layout(x, grid, extent):
-    """An (nx, ny) field in a layout of ``extent``: its logical region (the
-    unique nodes of a periodic axis) at the origin."""
+    """An (nx, ny) field, or an (nx, ny, nz) one of whole z-lines, in a
+    layout of ``extent`` along x and y: its logical region (the unique nodes
+    of a periodic axis) at the origin."""
     return pad_to_extent(x[:min(grid.nx, extent[0]), :min(grid.ny,
                                                           extent[1])],
-                         extent)
+                         tuple(extent[:2]) + tuple(x.shape[2:]))
 
 
 def from_layout(x, grid):
-    """A layout field back to (nx, ny); a periodic axis's duplicate nodes
-    are left at zero for the level's sync."""
+    """A layout field back to the grid's shape; a periodic axis's duplicate
+    nodes are left at zero for the level's sync."""
     out = torch.zeros(grid.shape, dtype=x.dtype, device=x.device)
     nx, ny = min(grid.nx, x.shape[0]), min(grid.ny, x.shape[1])
     out[:nx, :ny] = x[:nx, :ny]
@@ -582,14 +583,18 @@ def smooth_block(mesh, blk: Block, u, f, *, method: str, sweeps: int,
 # transfers
 
 
-def _install_reflection(rh, spec, blk: Block):
+def install_reflection(rh, spec, blk):
     """Reflected values on the haloed residual where it leaves the domain
     (gi = -1 reads gi = 1, gi = nx reads nx - 2; x first, then y): the
-    'reflect' restriction of Neumann/Robin rings, blockwise."""
-    nx, ny = blk.lev.grid.shape
-    (ox, oy), (bx, by) = blk.offset, blk.shape
-    gih = (ox - 1 + torch.arange(bx + 2, device=rh.device))[:, None]
-    gjh = (oy - 1 + torch.arange(by + 2, device=rh.device))[None, :]
+    'reflect' restriction of Neumann/Robin rings (faces in 3D, whose
+    z-lines ride along), blockwise."""
+    nx, ny = blk.lev.grid.shape[:2]
+    (ox, oy), (bx, by) = blk.offset, blk.shape[:2]
+    tail = (1,) * (rh.dim() - 2)
+    gih = (ox - 1 + torch.arange(bx + 2, device=rh.device)).reshape(
+        -1, 1, *tail)
+    gjh = (oy - 1 + torch.arange(by + 2, device=rh.device)).reshape(
+        1, -1, *tail)
     no_refl = (BCKind.DIRICHLET, BCKind.PERIODIC)
 
     def refl(side):
@@ -622,7 +627,7 @@ def restrict_block(mesh, blk: Block, r, dtype, *, method: str,
     bx, by = r.shape
     rh = with_halo(mesh, r, blk.names, wrap)
     if boundary == "reflect":
-        rh = _install_reflection(rh, blk.lev.spec, blk)
+        rh = install_reflection(rh, blk.lev.spec, blk)
     rh = rh.to(dtype)
 
     def win(di, dj):  # fine (2I + di, 2J + dj) for every coarse (I, J)
@@ -679,7 +684,12 @@ class BlockCycle:
     redundantly. Fields of a sharded level are its blocks, of a replicated
     one the whole (nx, ny) array. With no tiling (S = 0) every level is
     replicated and the solves are the single-device ones under that
-    hook."""
+    hook. ``gathers`` counts the global gathers of a level-0 field
+    (``gather`` with a level split) over every cycle of the process."""
+
+    gathers = 0
+    _make_block = staticmethod(make_block)
+    _ir_method = "iterative_refinement"
 
     def __init__(self, mesh: Mesh, levels, tilings, *, overlap: bool = True):
         self.mesh = mesh
@@ -688,14 +698,15 @@ class BlockCycle:
         self.S = len(self.tilings)
         self.overlap = overlap
         self.wrap = self.levels[0].spec.wrap
-        self.blocks = [make_block(mesh, self.levels[lvl], t)
+        self.blocks = [self._make_block(mesh, self.levels[lvl], t)
                        for lvl, t in enumerate(self.tilings)]
         # one rank of each block's replicas adds its block to a norm
         self.primary = primary(mesh, self.tilings[0].names if self.S
                                else ())
         grid = self.levels[0].grid
-        self.h = math.prod((grid.hx, grid.hy))
-        self._wide: Optional[Block] = None
+        self.h = math.prod(getattr(grid, a) for a in
+                           ("hx", "hy", "hz")[:len(grid.shape)])
+        self._wide = None
 
     # -- layout of level 0 -------------------------------------------------
 
@@ -710,6 +721,7 @@ class BlockCycle:
         periodic duplicates synced."""
         if self.S == 0:
             return x
+        BlockCycle.gathers += 1
         lev0 = self.levels[0]
         out = from_layout(gather_axes(self.mesh, x, self.tilings[0].names),
                           lev0.grid)
@@ -758,8 +770,7 @@ class BlockCycle:
         along the dropped mesh axes (agglomeration), and the result is
         masked onto the coarse unknowns (but for 'inject')."""
         lev_c = self.levels[lvl + 1]
-        fc = restrict_block(self.mesh, self.blocks[lvl], r, lev_c.dtype,
-                            method=method, boundary=boundary, wrap=self.wrap)
+        fc = self._restrict_block(lvl, r, lev_c.dtype, method, boundary)
         fc = gather_axes(self.mesh, fc, self._dropped(lvl))
         if lvl + 1 < self.S:
             unknown = self.blocks[lvl + 1].unknown
@@ -771,12 +782,27 @@ class BlockCycle:
         return torch.where(unknown, fc, torch.zeros((), dtype=fc.dtype,
                                                     device=fc.device))
 
+    def _restrict_block(self, lvl, r, dtype, method, boundary):
+        return restrict_block(self.mesh, self.blocks[lvl], r, dtype,
+                              method=method, boundary=boundary,
+                              wrap=self.wrap)
+
+    def _interpolate(self, lvl, window, method):
+        bx, by = self.blocks[lvl].shape
+        return interpolate(window, bx, by, self.levels[lvl].dtype, method)
+
+    def _coarse(self, lvl, ec):
+        """The coarse field as the prolongation reads it (in 3D, its
+        periodic z duplicates synced)."""
+        return ec
+
     def prolong(self, lvl, ec, method):
         """Level ``lvl + 1``'s field onto level ``lvl``'s block: the coarse
         block's east/north one-node halo (cyclic on a periodic axis), then
         this block's window of it, interpolated. A replicated coarse field
         is first laid out as one block."""
-        bx, by = self.blocks[lvl].shape
+        bx, by = self.blocks[lvl].shape[:2]
+        ec = self._coarse(lvl, ec)
         if lvl + 1 < self.S:
             names = self.tilings[lvl + 1].names
         else:
@@ -792,8 +818,8 @@ class BlockCycle:
         dx, dy = self._dropped(lvl)
         ox = axis_index(self.mesh, dx) * (bx // 2)
         oy = axis_index(self.mesh, dy) * (by // 2)
-        return interpolate(ext[ox:ox + bx // 2 + 1, oy:oy + by // 2 + 1], bx,
-                           by, self.levels[lvl].dtype, method)
+        return self._interpolate(
+            lvl, ext[ox:ox + bx // 2 + 1, oy:oy + by // 2 + 1], method)
 
     # -- cycles ------------------------------------------------------------
 
@@ -865,6 +891,16 @@ class BlockCycle:
 
     # -- outer solves ------------------------------------------------------
 
+    def _single_solve(self, f, u0, cfg, use_fmg):
+        return mg_mod.mg_solve(self.levels, f, u0, cfg, use_fmg=use_fmg,
+                               constrain=mg_mod.whole)
+
+    def _single_ir(self, f, u0, cfg, inner_cycles, max_outer, use_fmg):
+        return refinement.ir_solve(self.levels, f, u0, cfg,
+                                   inner_cycles=inner_cycles,
+                                   max_outer=max_outer, use_fmg=use_fmg,
+                                   constrain=mg_mod.whole)
+
     def solve(self, f, u0, cfg: MultigridConfig, *, use_fmg: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """``mg_solve`` on the blocks: ``f`` and ``u0`` are level-0 blocks,
@@ -873,8 +909,7 @@ class BlockCycle:
         every rank, so every rank takes the same branch."""
         lev0 = self.levels[0]
         if self.S == 0:  # nothing split: the single-device solve, hooked
-            return mg_mod.mg_solve(self.levels, f, u0, cfg, use_fmg=use_fmg,
-                                   constrain=mg_mod.whole)
+            return self._single_solve(f, u0, cfg, use_fmg)
         blk = self.blocks[0]
         f = f.to(device=lev0.device, dtype=lev0.dtype)
         u = (self.zeros(0) if u0 is None
@@ -906,15 +941,13 @@ class BlockCycle:
         rank."""
         lev0 = self.levels[0]
         if self.S == 0:
-            return refinement.ir_solve(self.levels, f, u0, cfg,
-                                       inner_cycles=inner_cycles,
-                                       max_outer=max_outer, use_fmg=use_fmg,
-                                       constrain=mg_mod.whole)
+            return self._single_ir(f, u0, cfg, inner_cycles, max_outer,
+                                   use_fmg)
         f64, lo = torch.float64, lev0.dtype
         blk = self.blocks[0]
         if self._wide is None:
-            self._wide = make_block(self.mesh, lev0, self.tilings[0],
-                                    lev0.stencil.astype(f64))
+            self._wide = self._make_block(self.mesh, lev0, self.tilings[0],
+                                          lev0.stencil.astype(f64))
         wide = self._wide
         f = f.to(device=lev0.device, dtype=f64)
         u = (self.zeros(0, f64) if u0 is None
@@ -939,5 +972,5 @@ class BlockCycle:
 
         info = mg_mod.outer_iterate(step, self.norm(state["r"]), tol_eff,
                                     fnorm, max_outer)
-        info["method"] = "iterative_refinement"
+        info["method"] = self._ir_method
         return self.gather(state["u"]), info

@@ -6,17 +6,23 @@ names a problem, a size, a mesh shape (four axes for a graded mesh), a
 dtype, configuration changes and entry-point options; it builds its
 problem and hierarchy on the rank's device and runs it on its mesh: the
 explicit path (``halo_solve``, ``shard_smooth``, ``global_residual_norm``,
-``make_sharded_field``) or the GSPMD path (``sharded_solve``,
+``make_sharded_field``), the GSPMD path (``sharded_solve``,
 ``solve_poisson(mesh=)``, MG-preconditioned CG on ``shard_inputs``
-vectors, the block smoothers), and the port's single-device plain
-counterpart. It returns the numbers and, for the caller's comparisons, its
-solution as a float64 numpy array. The caller holds the list of cases and
+vectors, the block smoothers), its 3D hook (``mg_solve3d``/``ir_solve3d``
+with ``make_constrainer3d``, ``solve_poisson3d(mesh=)``, MG-PCG with
+``multigrid_preconditioner3d(constrain=)``, the 3D block operators) or
+sharded time stepping (``solve_heat(mesh=)``, ``solve_heat3d(mesh=)``),
+and the port's single-device plain counterpart. It returns the numbers
+and, for the caller's comparisons, its solution as a float64 numpy
+array. The caller holds the list of cases and
 passes it in, as plain data that a spawned rank unpickles without
 importing the caller.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -24,18 +30,26 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..applications import heat as heat_mod, heat3d as heat3d_mod, \
+    heat_problems as HP
 from ..applications.poisson import solve_poisson
+from ..applications.poisson3d import solve_poisson3d
 from ..core import bc as bc_mod
 from ..core.device import resolve_device
 from ..core.grid import Grid
-from ..models import problems as P
-from ..ops import norms, smooth as smooth_mod, stencil as st_mod
-from ..ops.cuda_kernels import smooth as k_smooth, smooth_var as k_smooth_var
-from ..preconditioning import multigrid_preconditioner
-from ..solvers import krylov
+from ..core.precision import policy as make_policy
+from ..models import problems as P, problems3d as P3
+from ..ops import dispatch, norms, smooth as smooth_mod, smooth3d as sm3, \
+    stencil as st_mod, stencil3d as st3, transfer3d
+from ..ops.cuda_kernels import smooth as k_smooth, \
+    smooth3d as k_smooth3d, smooth_var as k_smooth_var
+from ..preconditioning import multigrid_preconditioner, \
+    multigrid_preconditioner3d
+from ..solvers import krylov, multigrid3d as mg3
 from ..solvers.multigrid import MultigridConfig, build_hierarchy, mg_solve
-from . import blocks as bk, distributed, halo_solve as hs, mesh as mesh_mod, \
-    multihost
+from ..utils.checkpoint import CheckpointManager
+from . import blocks as bk, blocks3d as bk3, distributed, \
+    halo_solve as hs, mesh as mesh_mod, multihost
 
 CFG = MultigridConfig(smoother="rbgs", omega=1.0, backend="torch",
                       max_iterations=30)
@@ -67,17 +81,39 @@ PROBLEMS = {
     "l_shaped_problem": P.l_shaped_problem,
     "poisson_mms_anisotropic": P.poisson_mms_anisotropic,
 }
+PROBLEMS3D = {
+    "poisson3d_mms_sinsinsin": P3.poisson3d_mms_sinsinsin,
+    "varcoef3d_mms": P3.varcoef3d_mms,
+    "jump_coefficient3d": P3.jump_coefficient3d,
+    "neumann3d_test": P3.neumann3d_test,
+    "periodic3d_helmholtz": P3.periodic3d_helmholtz,
+    "anisotropic3d_z": P3.anisotropic3d_z,
+}
+HEAT = {"pure_diffusion": HP.pure_diffusion,
+        "pure_diffusion3d": heat3d_mod.pure_diffusion3d}
 
 
 class Case(NamedTuple):
     """One check: what to run (``kind``: the explicit path's 'solve',
     'overlap', 'raises', 'smooth', 'norm' or 'field'; the GSPMD path's
-    'sharded', 'frontend', 'pcg' or 'smooth_blocks'), on which problem of
-    ``PROBLEMS`` at n x n, on which mesh (None: the 2D mesh of the whole
-    world; four axes: a graded mesh), in which dtype, with which
-    ``MultigridConfig`` changes from ``CFG``, and with which entry-point
-    ``options`` ('use_fmg'; 'precision'; 'tol' and 'maxiter' of CG;
-    'repeats': timed calls after the first, whose minimum is reported)."""
+    'sharded', 'frontend', 'pcg' or 'smooth_blocks'; its 3D hook's
+    'sharded3d', 'frontend3d', 'pcg3d' or 'blocks3d'; time stepping's
+    'heat' or 'heat3d'), on which problem of ``PROBLEMS`` (``PROBLEMS3D``,
+    ``HEAT``) at n x n (x n), on which mesh (None: the 2D mesh of the whole
+    world; four axes: a graded mesh), in which dtype ('mixed': the mixed
+    policy's level dtypes), with which ``MultigridConfig`` changes from
+    ``CFG``, and with which entry-point ``options`` ('use_fmg';
+    'precision'; 'tol' and 'maxiter' of CG; 'min_points_per_device' of
+    the 3D hook in 'sharded3d', 'pcg3d' and 'blocks3d' (the front ends
+    split as the JAX package's, from 16); the
+    heat run's 'scheme', 't_final', 'dt', 'n_steps', 'step_rtol',
+    'adaptive_dt' and 'resume_at' with a checkpoint 'directory'; 'repeats':
+    timed calls after the first, whose minimum is reported; 'digest': the
+    solution comes back as its SHA-256; 'profile': on a card, one more
+    sharded and one-rank call under torch.profiler, reporting busy share
+    and the device ms of the kernels whose name holds this string;
+    'plain': False skips the single-device plain run; 'blocks': a
+    'sharded3d' solve takes ``shard_inputs`` blocks)."""
 
     kind: str
     problem: str
@@ -155,9 +191,10 @@ def _solve_case(case, mesh, device):
 
 
 def _launches() -> int:
-    """Launches of the smoothing kernels A and H so far (the wrappers'
+    """Launches of the smoothing kernels A, H and E so far (the wrappers'
     counts: CUDA launches only)."""
-    return k_smooth.multisweep.launches + k_smooth_var.multisweep_var.launches
+    return (k_smooth.multisweep.launches + k_smooth_var.multisweep_var.launches
+            + k_smooth3d.rbgs3d.launches)
 
 
 def _best(run, device, repeats: int):
@@ -179,29 +216,75 @@ def one_rank_mesh() -> mesh_mod.Mesh:
     return mesh_mod.Mesh((1, 1), ranks=(rank,))
 
 
+def _global(x):
+    """A result field as a global tensor (a sharded one gathered)."""
+    return x.gather() if isinstance(x, multihost.ShardedField) else x
+
+
 def _compare(case, mesh, run, cfg, device):
     """``run(mesh, cfg)`` (an entry point on a mesh, or on None for the
     single-device call) on ``mesh`` beside the same call on a
     one-rank mesh (the single-device solve under the hook, which the
     sharded one must equal), the single-device plain call (backend
-    'torch') and, on a card, the kernel path's (backend 'auto', unhooked),
-    each timed: (the sharded result, the one-rank one, the plain one, the
-    record's numbers)."""
-    repeats = (case.options or {}).get("repeats", 0)
+    'torch'; None with the option 'plain' False) and, on a card, the
+    kernel path's (backend 'auto', unhooked; its count and its largest
+    difference from the sharded result), each timed: (the sharded result,
+    the one-rank one, the plain one, the record's numbers)."""
+    opts = case.options or {}
+    repeats = opts.get("repeats", 0)
     got, first, best, launches = _best(lambda: run(mesh, cfg), device,
                                        repeats)
     one, _, one_best, one_launches = _best(
         lambda: run(one_rank_mesh(), cfg), device, repeats)
-    plain = cfg.replace(backend="torch")
-    ref, ref_first, ref_best, _ = _best(lambda: run(None, plain), device,
-                                        repeats)
+    ref, ref_first, ref_best = None, None, None
+    if opts.get("plain", True):
+        plain = cfg.replace(backend="torch")
+        ref, ref_first, ref_best, _ = _best(lambda: run(None, plain), device,
+                                            repeats)
     out = {"seconds": first, "best": best, "ref_seconds": ref_first,
            "ref_best": ref_best, "one_best": one_best,
            "launches": launches, "one_launches": one_launches}
     if torch.device(device).type == "cuda":
-        out["kernel_best"] = _best(lambda: run(
-            None, cfg.replace(backend="auto")), device, max(repeats, 1))[2]
+        kern, k_first, k_best, _ = _best(lambda: run(
+            None, cfg.replace(backend="auto")), device, repeats)
+        out["kernel_best"] = k_first if k_best is None else k_best
+        out["kernel_iterations"] = kern[1]["iterations"]
+        out["max_diff_kernel"] = float((_global(got[0]).double() - _global(
+            kern[0]).double()).abs().max())
+        kernel = opts.get("profile")
+        if kernel:
+            out["profile"] = _profile(lambda: run(mesh, cfg), kernel)
+            if mesh.size > 1:  # else the sharded call is the one-rank one
+                out["profile_one"] = _profile(
+                    lambda: run(one_rank_mesh(), cfg), kernel)
     return got, one, ref, out
+
+
+def _profile(run, kernel: str) -> dict:
+    """One more call of ``run`` on the card, unprofiled and then under
+    torch.profiler (device activity alone): its wall ms, device ms, busy
+    share (device time over the unprofiled wall; NCCL kernels count for
+    the time they wait), the launches and device ms per launch of the CUDA
+    kernels whose name holds ``kernel``, and the six device ops that took
+    the most time (name, ms, count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, wall = _timed(run, "cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _timed(run, "cuda")
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    mine = [e for e in events if kernel in e.key]
+    k_us = sum(e.self_device_time_total for e in mine)
+    k_n = sum(e.count for e in mine)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+            "busy": dev_us / 1e6 / wall, "kernel_launches": k_n,
+            "kernel_ms_per_launch": k_us / 1e3 / max(k_n, 1),
+            "kernel_device_ms": k_us / 1e3,
+            "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+                    for e in top]}
 
 
 def _record(u, info, one, ref, prob) -> dict:
@@ -211,10 +294,12 @@ def _record(u, info, one, ref, prob) -> dict:
            "history": np.asarray(info["history"]).tolist(),
            "one_iterations": one[1]["iterations"],
            "max_diff_one": float((u.double() - one[0].double()).abs().max()),
-           "ref_iterations": ref[1]["iterations"],
-           "ref_converged": ref[1]["converged"],
-           "max_diff_ref": float((u.double() - ref[0].double()).abs().max()),
            "u": _np(u)}
+    if ref is not None:
+        out.update(ref_iterations=ref[1]["iterations"],
+                   ref_converged=ref[1]["converged"],
+                   max_diff_ref=float((u.double() - ref[0].double()).abs()
+                                      .max()))
     if prob.exact is not None:
         out["l2"] = prob.error_norms(u.double())["l2"]
     return out
@@ -229,7 +314,8 @@ def _tiers(mesh, levels) -> list:
 
 def _options(case) -> dict:
     """The entry point's keyword arguments among the case's options."""
-    return {k: v for k, v in (case.options or {}).items() if k != "repeats"}
+    return {k: v for k, v in (case.options or {}).items()
+            if k not in ("repeats", "digest", "profile", "plain")}
 
 
 def _sharded_case(case, mesh, device):
@@ -318,6 +404,248 @@ def _smooth_blocks_case(case, mesh, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the 3D hook and sharded time stepping
+
+
+def _mpd(case) -> int:
+    return (case.options or {}).get("min_points_per_device", 16)
+
+
+def case_inputs3d(case: Case, device=None):
+    """The 3D problem, configuration and hierarchy of ``case``."""
+    device = resolve_device(device)
+    prob = PROBLEMS3D[case.problem](case.n)
+    cfg = CFG.replace(**(case.changes or {}))
+    pol = make_policy("mixed") if case.dtype == "mixed" else None
+    levels = mg3.build_hierarchy3d(
+        prob.grid, prob.spec, a=prob.a, lam=prob.lam, policy=pol,
+        dtype=None if pol else case.dtype, cfg=cfg, device=device)
+    return prob, cfg, levels
+
+
+def _tiers3d(mesh, levels, mpd) -> list:
+    return [[list(n) for n in t.names] for t in distributed.make_tilings(
+        mesh, levels, mpd, dims=3)]
+
+
+def _sharded3d_case(case, mesh, device):
+    """``mg_solve3d`` (fp64 levels) or ``ir_solve3d`` with the 3D hook
+    against the single-device solve. The hierarchy is built once, and so is
+    each mesh's hook with its block cycle; with the option 'blocks' the
+    inputs go in as ``shard_inputs`` blocks, cut once. So a call after the
+    first ('repeats') times the solve alone, its closing gather of the
+    global solution included."""
+    prob, cfg, levels = case_inputs3d(case, device)
+    mpd = _mpd(case)
+    ir = case.dtype != "float64"
+    dt = torch.float64 if ir else levels[0].dtype
+    f, u0 = prob.rhs(dt, device), prob.initial_guess(dt, device)
+    solve = mg3.ir_solve3d if ir else mg3.mg_solve3d
+    hooks = {}  # by mesh size: the whole world's mesh, or one rank's
+
+    def run(on, cfg):
+        if on is None:
+            return solve(levels, f, u0, cfg)
+        if on.size not in hooks:
+            c = distributed.make_constrainer3d(on, mpd)
+            hooks[on.size] = (c, *(distributed.shard_inputs(
+                on, levels, f, u0, min_points_per_device=mpd)
+                if (case.options or {}).get("blocks") else (f, u0)))
+        c, fb, ub = hooks[on.size]
+        return solve(levels, fb, ub, cfg, constrain=c)
+
+    (u, info), one, ref, times = _compare(case, mesh, run, cfg, device)
+    return {**_record(u, info, one, ref, prob), **times,
+            "tiers": _tiers3d(mesh, levels, mpd)}
+
+
+def _frontend3d_case(case, mesh, device):
+    """``solve_poisson3d(mesh=)`` against the single-device call."""
+    prob = PROBLEMS3D[case.problem](case.n)
+    cfg = CFG.replace(**(case.changes or {}))
+    kw = _options(case)
+
+    def run(on, cfg):
+        res = solve_poisson3d(prob, cfg=cfg, mesh=on, device=device, **kw)
+        return res.u, res.info
+
+    (u, info), one, ref, times = _compare(case, mesh, run, cfg, device)
+    levels = mg3.build_hierarchy3d(prob.grid, prob.spec, cfg=cfg,
+                                   device=device)
+    return {**_record(u, info, one, ref, prob), **times,
+            "tiers": _tiers3d(mesh, levels, 16),
+            "switches": [list(s) for s in info.get(
+                "precision_switches", [])]}
+
+
+def _pcg3d_case(case, mesh, device):
+    """CG on global 3D vectors preconditioned by
+    ``multigrid_preconditioner3d`` with the 3D hook."""
+    prob, cfg, levels = case_inputs3d(case, device)
+    kw = _options(case)
+    mpd = kw.pop("min_points_per_device", 16)
+    lev0 = levels[0]
+    mv = krylov.stencil_matvec3d(lev0.stencil, lev0.unknown)
+    f = prob.rhs(torch.float64, device)
+
+    def run(on, cfg):
+        c = None if on is None else distributed.make_constrainer3d(on, mpd)
+        return krylov.pcg(mv, f, precond=multigrid_preconditioner3d(
+            levels, cfg, constrain=c), **kw)
+
+    (x, info), one, ref, times = _compare(case, mesh, run, cfg, device)
+    return {**_record(x, info, one, ref, prob), **times,
+            "tiers": _tiers3d(mesh, levels, mpd)}
+
+
+def _blocks3d_case(case, mesh, device):
+    """Each 3D block operator on every split level against the plain
+    operator on the whole level, bit for bit: Jacobi, RB-GS and line_z
+    (E's window twin too on an fp32 or bf16 all-Dirichlet scalar level,
+    with a sweep count that takes one window and one that takes two), the
+    restriction with its agglomeration, and the prolongation."""
+    prob, cfg, levels = case_inputs3d(case, device)
+    hook = distributed.make_constrainer3d(mesh, _mpd(case))
+    cycle = hook.blocks(levels)
+    out = {"tiers": _tiers3d(mesh, levels, _mpd(case))}
+
+    def whole(lvl, x):  # a level's field from its blocks (or itself)
+        if lvl >= cycle.S:
+            return x
+        return bk.from_layout(bk.gather_axes(mesh, x, cycle.tilings[
+            lvl].names), levels[lvl].grid)
+
+    def cut(lvl, x):
+        if lvl >= cycle.S:
+            return x
+        return bk.cut_block(mesh, cycle.tilings[lvl], levels[lvl].grid, x)
+
+    def held(lvl, got, ref):  # compared on the level's unknowns
+        unk = levels[lvl].unknown
+        zero = torch.zeros((), dtype=ref.dtype, device=ref.device)
+        return bool(torch.equal(torch.where(unk, whole(lvl, got), zero),
+                                torch.where(unk, ref, zero)))
+
+    for lvl in range(cycle.S):
+        lev, nxt = levels[lvl], levels[lvl + 1]
+        u = smooth_input(lev, seed=lvl).to(lev.dtype)
+        f = smooth_input(lev, seed=lvl + 7).to(lev.dtype)
+        for method, omega in (("jacobi", 0.8), ("rbgs", 1.0),
+                              ("line_z", 1.0)):
+            ref = sm3.smooth3d(lev.stencil, u.clone(), f, lev.unknown,
+                               method=method, sweeps=2, omega=omega)
+            got = cycle.smooth(lvl, cut(lvl, u), cut(lvl, f), 2, method,
+                               omega)
+            out[f"{method}_{lvl}"] = held(lvl, got, ref)
+        lev32 = dataclasses.replace(lev, stencil=lev.stencil.astype(
+            torch.float32), dtype=torch.float32)
+        for dt in (torch.float32, torch.bfloat16):
+            if not dispatch.kernel_smooth3d_ok(u.to(dt), lev32, "auto",
+                                               "rbgs", f.to(dt)):
+                continue
+            for sweeps in (2, 12):
+                ref = k_smooth3d.rbgs3d(lev.stencil, u.to(dt), f.to(dt),
+                                        sweeps=sweeps, omega=1.0)
+                got = bk3._window_smooth3d(
+                    mesh, cycle.blocks[lvl], cut(lvl, u.to(dt)),
+                    cut(lvl, f.to(dt)), sweeps=sweeps, omega=1.0,
+                    reverse=False)
+                out[f"kernel_E_{str(dt)[6:]}_{sweeps}_{lvl}"] = held(
+                    lvl, got, ref)
+        r = st3.residual(lev.stencil, u, f, lev.unknown)
+        boundary = "zero" if lev.spec.plain else "reflect"
+        ref = transfer3d.restrict3d(r, *nxt.grid.shape, boundary=boundary,
+                                    dtype=nxt.dtype, wrap=lev.spec.wrap)
+        got = cycle.restrict(lvl, cut(lvl, r), "full_weighting", boundary)
+        out[f"restrict_{lvl}"] = held(lvl + 1, got, ref)
+        ec = smooth_input(nxt, seed=lvl + 3).to(nxt.dtype)
+        ref = ec.clone()
+        if nxt.sync is not None:
+            nxt.sync(ref)
+        ref = transfer3d.prolong3d(ref, *lev.grid.shape, dtype=lev.dtype)
+        got = cycle.prolong(lvl, cut(lvl + 1, ec), "trilinear")
+        out[f"prolong_{lvl}"] = held(lvl, got, ref)
+    return out
+
+
+def _heat_run(case, on, mg_cfg, device, tag: str):
+    """The case's heat run (``solve_heat``, or ``solve_heat3d`` for a 3D
+    problem) on mesh ``on`` (None: unsharded); a 'resume_at' run first
+    stops there with checkpoints in its own directory, then resumes to
+    't_final'. Returns (u, steps, l2, gathers)."""
+    opts = dict(case.options or {})
+    three_d = case.problem.endswith("3d")
+    cfg = heat_mod.HeatConfig(
+        scheme=opts.get("scheme", "crank_nicolson"), cycles_per_step=2,
+        step_rtol=opts.get("step_rtol", 1e-9), dtype=case.dtype, mg=mg_cfg,
+        adaptive_dt=opts.get("adaptive_dt", False))
+    kw = {"mesh": on, "device": device}
+    if "n_steps" in opts:
+        kw["n_steps"] = opts["n_steps"]
+    prob = HEAT[case.problem](case.n)
+    stops = [opts["t_final"]]
+    if "resume_at" in opts:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        where = "mesh" if tag == "mesh" else f"{tag}{rank}"
+        kw["checkpoint"] = CheckpointManager(f"{opts['directory']}/{where}")
+        kw["checkpoint_every"] = 1
+        stops.insert(0, opts["resume_at"])
+    g0 = bk.BlockCycle.gathers
+    for t_final in stops:
+        if three_d:
+            res = heat3d_mod.solve_heat3d(prob, t_final, opts["dt"], cfg,
+                                          **kw)
+            u, steps = res["u"], res["steps"]
+            l2 = res["errors"]["l2"]
+        else:
+            res = heat_mod.solve_heat(prob, t_final, opts.get("dt"), cfg,
+                                      **kw)
+            u, steps, l2 = res.u, res.steps, res.errors["l2"]
+    return u, steps, l2, bk.BlockCycle.gathers - g0
+
+
+def _heat_case(case, mesh, device):
+    """A sharded heat run against the same run on a one-rank mesh and the
+    unsharded one; the global gathers it made (its end and checkpoints
+    only) and the block a step returns (the state stays sharded)."""
+    cfg = CFG.replace(**(case.changes or {}))
+    runs = {}
+
+    def run(on, cfg):
+        tag = ("plain" if on is None else "mesh" if on is mesh else "one")
+        out = _heat_run(case, on, cfg, device, tag)
+        runs.setdefault(tag, out)
+        return out[0], {"iterations": out[1]}
+
+    (u, info), one, ref, times = _compare(case, mesh, run, cfg, device)
+    _, steps, l2, gathers = runs["mesh"]
+    prob = HEAT[case.problem](case.n)
+    out = {"steps": steps, "one_steps": one[1]["iterations"], "l2": l2,
+           "gathers": gathers,
+           "max_diff_one": float((u.double() - one[0].double()).abs().max()),
+           "u": _np(u), **times}
+    if ref is not None:
+        out.update(ref_steps=ref[1]["iterations"], max_diff_ref=float(
+            (u.double() - ref[0].double()).abs().max()))
+    if not case.problem.endswith("3d"):
+        dtype = torch.float64 if case.dtype == "float64" else torch.float32
+        levels = build_hierarchy(prob.grid, prob.spec, dtype=dtype,
+                                 cfg=cfg, device=device)
+        hook = distributed.make_constrainer(mesh)
+        step = heat_mod.make_step_fn(prob, levels, heat_mod.HeatConfig(
+            dtype=case.dtype, mg=cfg), constrain=hook)
+        u0 = prob.initial_state(dtype, device)
+        nxt = step(u0, u0, 0.0, (case.options or {}).get("dt") or 1e-4)
+        out["step_block"] = list(nxt.block.shape)
+        out["step_is_field"] = isinstance(nxt, multihost.ShardedField)
+        out["tiers"] = _tiers(mesh, levels)
+    else:
+        out["tiers"] = _tiers3d(mesh, mg3.build_hierarchy3d(
+            prob.grid, cfg=cfg, device=device), 16)
+    return out
+
+
 def run_case(case: Case, device=None, meshes=None) -> dict:
     """``case`` on this rank (on ``device``, the card by default); its
     numbers and solution."""
@@ -326,7 +654,10 @@ def run_case(case: Case, device=None, meshes=None) -> dict:
     mesh = _mesh(case.mesh, meshes)
     kind = case.kind
     gspmd = {"sharded": _sharded_case, "frontend": _frontend_case,
-             "pcg": _pcg_case, "smooth_blocks": _smooth_blocks_case}
+             "pcg": _pcg_case, "smooth_blocks": _smooth_blocks_case,
+             "sharded3d": _sharded3d_case, "frontend3d": _frontend3d_case,
+             "pcg3d": _pcg3d_case, "blocks3d": _blocks3d_case,
+             "heat": _heat_case, "heat3d": _heat_case}
     if kind in gspmd:
         return gspmd[kind](case, mesh, device)
     if kind == "solve":
@@ -387,4 +718,8 @@ def run_cases(cases: Dict[str, Case], device=None) -> dict:
     for name, case in cases.items():
         out[name] = run_case(case, device, meshes)
         out[name]["mesh"] = list(_mesh(case.mesh, meshes).shape.values())
+        if (case.options or {}).get("digest") and "u" in out[name]:
+            # a large solution travels back as its digest
+            out[name]["u"] = hashlib.sha256(
+                out[name]["u"].tobytes()).hexdigest()
     return out

@@ -33,7 +33,14 @@ coefficient planes) smooths the replicated levels whole and each split
 level's blocks on haloed windows. A mesh of one rank, or a grid too small
 for the rule to split, splits nothing: every rank then runs the
 single-device solve under that hook (``solvers.multigrid.whole``).
-``make_constrainer3d`` (3D) is not ported yet (ROADMAP item 14b).
+
+``make_constrainer3d`` is the 3D hook: ``mesh.grid_sharding3d`` splits x
+and y and keeps z whole, so each rank holds (x, y) blocks of whole z-lines
+(``blocks3d.BlockCycle3D``) in the 2D rule's x/y layouts; kernel E smooths
+the split levels' blocks on haloed windows and the replicated levels
+whole, and the fused 3D transfers F and G stay off, as under the JAX hook
+(its ``_cycle3``). The JAX 3D rule reads only the axes 'x' and 'y', so a
+graded mesh is refused.
 """
 
 from __future__ import annotations
@@ -45,8 +52,10 @@ import torch
 
 from ..solvers import multigrid as mg_mod
 from ..solvers.multigrid import MultigridConfig
-from . import blocks as bk, mesh as mesh_mod
+from . import blocks as bk, blocks3d as bk3, mesh as mesh_mod
 from .multihost import ShardedField
+
+_CACHED = 8  # block cycles a hook keeps (a heat run's shifted hierarchies)
 
 
 def _sharding_fn(mesh):
@@ -83,14 +92,21 @@ def _extent(n0: int, wrap: bool, counts) -> int:
     return -(-(n0 - 1 + (1 << len(counts))) // q) * q
 
 
-def make_tilings(mesh, levels, min_points_per_device: int = 16
-                 ) -> Tuple[bk.Tiling, ...]:
+def make_tilings(mesh, levels, min_points_per_device: int = 16, *,
+                 dims: int = 2) -> Tuple[bk.Tiling, ...]:
     """The layouts of the levels the rule splits (finest first; the
-    coarser ones are replicated). Raises ``NotImplementedError`` where the
-    rule splits a level along an axis in a way its finer level does not
-    (the blocks need every coarser split to be a prefix of the finer
-    one)."""
-    rule = _sharding_fn(mesh)
+    coarser ones are replicated), along x and y (``dims`` 3: the 3D rule,
+    z kept whole). Raises ``NotImplementedError`` where the rule splits a
+    level along an axis in a way its finer level does not (the blocks need
+    every coarser split to be a prefix of the finer one)."""
+    if dims == 3:
+        if tuple(mesh.axis_names) != mesh_mod.AXES:
+            raise ValueError(f"the 3D rule reads the mesh axes "
+                             f"{mesh_mod.AXES}, this mesh has "
+                             f"{tuple(mesh.axis_names)}")
+        rule = mesh_mod.grid_sharding3d
+    else:
+        rule = _sharding_fn(mesh)
     splits = []
     for lev in levels:
         spec = tuple(rule(mesh, lev.grid, min_points_per_device).spec)
@@ -111,20 +127,22 @@ def make_tilings(mesh, levels, min_points_per_device: int = 16
     lev0 = levels[0]
     extents = [_extent(n, w, [bk.axis_count(mesh, s[axis])
                               for s in splits[:S]])
-               for axis, (n, w) in enumerate(zip(lev0.grid.shape,
-                                                 lev0.spec.wrap))]
+               for axis, (n, w) in enumerate(zip(lev0.grid.shape[:2],
+                                                 lev0.spec.wrap[:2]))]
     return tuple(bk.Tiling(splits[lvl], (extents[0] >> lvl,
                                          extents[1] >> lvl))
                  for lvl in range(S))
 
 
-def _level0_sharding(mesh, tilings) -> mesh_mod.BlockSharding:
-    """The ``BlockSharding`` of level 0's blocks."""
+def _level0_sharding(mesh, tilings, dims: int = 2
+                     ) -> mesh_mod.BlockSharding:
+    """The ``BlockSharding`` of level 0's blocks (z whole in 3D)."""
+    z = (None,) * (dims - 2)
     if not tilings:
-        return mesh_mod.BlockSharding(mesh, (None, None))
+        return mesh_mod.BlockSharding(mesh, (None, None) + z)
     return mesh_mod.BlockSharding(mesh, tuple(
         (names[0] if len(names) == 1 else names) if names else None
-        for names in tilings[0].names))
+        for names in tilings[0].names) + z)
 
 
 def _field_block(mesh, tilings, lev0, sharding, x):
@@ -134,7 +152,8 @@ def _field_block(mesh, tilings, lev0, sharding, x):
         x = x.to(lev0.device)
         return bk.cut_block(mesh, tilings[0], lev0.grid, x) if tilings else x
     want = (tuple(s.stop - s.start for s in bk.tiling_slices(
-        mesh, tilings[0])) if tilings else lev0.grid.shape)
+        mesh, tilings[0])) + lev0.grid.shape[2:] if tilings
+        else lev0.grid.shape)
     if tuple(x.sharding.spec) != tuple(sharding.spec) or \
             tuple(x.block.shape) != tuple(want):
         raise ValueError(
@@ -146,31 +165,48 @@ def _field_block(mesh, tilings, lev0, sharding, x):
 
 
 class Constrainer(mg_mod.BlockHook):
-    """The port's ``make_constrainer`` hook: the solvers' ``constrain=``
-    argument. It holds the mesh and the per-level rule, and for each
-    hierarchy it meets (by identity) the ``blocks.BlockCycle`` of its
-    layouts; the solvers hand their work to it (``mg_cycle``, ``fmg``,
-    ``mg_solve``, ``ir_solve``), which runs on this rank's blocks. Fields
-    pass as global (nx, ny) tensors, gathered back, or as ``ShardedField``
+    """The port's ``make_constrainer`` and ``make_constrainer3d`` hooks: the
+    solvers' ``constrain=`` argument. It holds the mesh and the per-level
+    rule (``dims`` 2 or 3), and for each hierarchy it meets (by identity,
+    the last few) the ``blocks.BlockCycle`` (``blocks3d.BlockCycle3D``) of
+    its layouts; the solvers hand their work to it (``mg_cycle``, ``fmg``,
+    ``mg_solve``, ``ir_solve``, and ``mg_cycle3d``, ``mg_solve3d``,
+    ``ir_solve3d`` under these names), which runs on this rank's blocks.
+    Fields pass as global tensors, gathered back, or as ``ShardedField``
     level-0 blocks, returned as blocks."""
 
-    def __init__(self, mesh, min_points_per_device: int = 16):
+    def __init__(self, mesh, min_points_per_device: int = 16, *,
+                 dims: int = 2):
         self.mesh = mesh
         self.min_points_per_device = min_points_per_device
+        self.dims = dims
         self._cycles: Dict[int, Tuple[Any, bk.BlockCycle, Any]] = {}
 
     def blocks(self, levels) -> bk.BlockCycle:
         """The block cycle of ``levels`` (built once per hierarchy)."""
         return self._entry(levels)[1]
 
+    def layout(self, levels):
+        """(the block cycle, the level-0 ``BlockSharding``) of
+        ``levels``."""
+        return self._entry(levels)[1:]
+
     def _entry(self, levels):
-        hit = self._cycles.get(id(levels))
+        hit = self._cycles.pop(id(levels), None)
         if hit is None or hit[0] is not levels:
+            if len(levels[0].grid.shape) != self.dims:
+                raise ValueError(f"a {self.dims}D sharding hook got "
+                                 f"{len(levels[0].grid.shape)}D levels")
             tilings = make_tilings(self.mesh, levels,
-                                   self.min_points_per_device)
-            hit = (levels, bk.BlockCycle(self.mesh, levels, tilings),
-                   _level0_sharding(self.mesh, tilings))
-            self._cycles[id(levels)] = hit
+                                   self.min_points_per_device, dims=self.dims)
+            cycle = (bk3.BlockCycle3D(self.mesh, levels, tilings)
+                     if self.dims == 3
+                     else bk.BlockCycle(self.mesh, levels, tilings))
+            hit = (levels, cycle,
+                   _level0_sharding(self.mesh, tilings, self.dims))
+        self._cycles[id(levels)] = hit  # the most recent last
+        while len(self._cycles) > _CACHED:
+            self._cycles.pop(next(iter(self._cycles)))
         return hit
 
     def _in(self, levels, x):
@@ -217,14 +253,28 @@ def make_constrainer(mesh, min_points_per_device: int = 16) -> Constrainer:
     return Constrainer(mesh, min_points_per_device)
 
 
+def make_constrainer3d(mesh, min_points_per_device: int = 16
+                       ) -> Constrainer:
+    """The 3D hook for ``mg_cycle3d``, ``mg_solve3d``, ``ir_solve3d``,
+    ``multigrid_preconditioner3d`` and the 3D front ends: (x, y) split over
+    the mesh, z local. Raises ``ValueError`` on a graded mesh, whose axes
+    the 3D rule does not read."""
+    if tuple(mesh.axis_names) != mesh_mod.AXES:
+        raise ValueError(f"make_constrainer3d takes a mesh of axes "
+                         f"{mesh_mod.AXES}, got {tuple(mesh.axis_names)}")
+    return Constrainer(mesh, min_points_per_device, dims=3)
+
+
 def shard_inputs(mesh, levels, *arrays, min_points_per_device: int = 16):
-    """Each global (nx, ny) array as this rank's level-0 block
-    (``ShardedField``) in the hierarchy's layout, with the level-0
-    ``blocks.Block`` its operator runs on."""
-    tilings = make_tilings(mesh, levels, min_points_per_device)
-    sharding = _level0_sharding(mesh, tilings)
+    """Each global array (nx, ny), or (nx, ny, nz) on 3D levels, as this
+    rank's level-0 block (``ShardedField``) in the hierarchy's layout, with
+    the level-0 block its operator runs on."""
+    dims = len(levels[0].grid.shape)
+    tilings = make_tilings(mesh, levels, min_points_per_device, dims=dims)
+    sharding = _level0_sharding(mesh, tilings, dims)
     lev0 = levels[0]
-    blk = bk.make_block(mesh, lev0, tilings[0]) if tilings else None
+    make = bk3.make_block3d if dims == 3 else bk.make_block
+    blk = make(mesh, lev0, tilings[0]) if tilings else None
     out = tuple(ShardedField(_field_block(mesh, tilings, lev0, sharding, a),
                              sharding, lev0.grid, blk)
                 for a in arrays)

@@ -144,6 +144,15 @@ class Mesh:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out.reshape(())
 
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """Largest value of ``t`` (a 0-d tensor) over every rank of the
+        mesh."""
+        if self.size == 1:
+            return t
+        out = t.reshape(1).clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out.reshape(())
+
     def broadcast(self, obj):
         """The mesh's first rank's ``obj`` (picklable), on every rank."""
         if self.size == 1:

@@ -17,7 +17,9 @@ preconditioner always takes the returned tensor.
 ``constrain`` (``parallel.distributed.make_constrainer``) runs the 2D
 cycles on this rank's blocks: the Krylov vectors are then level-0
 ``ShardedField`` blocks (``parallel.distributed.shard_inputs``), and so is
-z. The 3D hook is ROADMAP item 14b.
+z. In 3D (``make_constrainer3d``) the Krylov vectors are global tensors,
+as in the JAX package: each application cuts r into this rank's (x, y)
+blocks of whole z-lines, runs the cycles there and gathers z.
 """
 
 from __future__ import annotations
@@ -54,17 +56,15 @@ def multigrid_preconditioner3d(
         cfg: MultigridConfig = MultigridConfig(smoother="rbgs", omega=1.0),
         *, cycles: int = 1, constrain=None) -> Callable:
     """3D analogue of :func:`multigrid_preconditioner` (pair it with
-    ``solvers.krylov.stencil_matvec3d``)."""
-    if constrain is not None:
-        raise NotImplementedError("constrain= (sharded 3D cycles) is not "
-                                  "ported yet (ROADMAP item 14b)")
+    ``solvers.krylov.stencil_matvec3d``); ``constrain`` runs the cycles on
+    the blocks of ``make_constrainer3d``'s mesh."""
     lev0 = levels[0]
 
     def apply(r):
         z = torch.zeros(lev0.grid.shape, dtype=r.dtype, device=r.device)
         rl = r.to(lev0.dtype)
         for _ in range(cycles):
-            z = mg3.mg_cycle3d(levels, z, rl, cfg)
+            z = mg3.mg_cycle3d(levels, z, rl, cfg, constrain)
         return z.to(r.dtype)
 
     return apply

@@ -26,8 +26,16 @@ restricted into the coarse level's dtype and the correction prolonged into
 the fine level's. With ``coarsening='galerkin'`` every level below the
 finest holds the RAP operator of the level above (``ops/galerkin.py``), a
 ``Stencil27``, built in float64 down the chain and cast to each level's
-dtype; such levels take no kernel. Sharding constraints (``constrain=``)
-are ROADMAP item 14b.
+dtype; such levels take no kernel.
+
+``constrain=`` is a sharding hook, as in the JAX package: an array hook,
+(array, Level3D) -> array (``multigrid.whole``), applied to the coarse
+right-hand side and the prolonged correction of each cycle and to the
+float64 iterate of ``ir_solve3d``, turns the fused transfers F and G off
+(the JAX package's ``_cycle3`` :239) and leaves smoothing dispatched (E);
+``parallel.distributed.make_constrainer3d``'s hook (a ``BlockHook``)
+takes the whole cycle or solve and runs it on this rank's (x, y) blocks
+of whole z-lines, as ``mg_solve`` hands its work over in 2D.
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ from ..ops import dispatch, galerkin as galerkin_mod, norms, \
 from ..ops.smooth import RBGS_METHODS
 from ..ops.smooth3d import smooth3d  # noqa: F401  (re-exported)
 from ..ops.stencil3d import Stencil3D
-from .multigrid import MultigridConfig, outer_iterate, tolerance
+from .multigrid import BlockHook, MultigridConfig, outer_iterate, \
+    tolerance
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,13 +89,15 @@ class Level3D:
                            device=self.device)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
-def _check_options(constrain) -> None:
-    if constrain is not None:
-        raise _not_ported("constrain= (3D sharding)", "item 14b")
+def _block_hook(constrain):
+    """``constrain`` when it is a block hook of 3D levels
+    (``make_constrainer3d``), else None."""
+    if not isinstance(constrain, BlockHook):
+        return None
+    if getattr(constrain, "dims", 2) != 3:
+        raise ValueError("the 3D solvers take make_constrainer3d's hook, "
+                         "not a 2D one")
+    return constrain
 
 
 def _sample_coarse3(field):
@@ -151,7 +162,9 @@ def _smooth3(lev: Level3D, u, f, cfg: MultigridConfig, *, method: str,
 
 
 def _cycle3(levels: Tuple[Level3D, ...], u, f, lvl: int,
-            cfg: MultigridConfig, cycle_type: str):
+            cfg: MultigridConfig, cycle_type: str, constrain=None):
+    """One cycle from level ``lvl``; ``constrain`` is an array hook (see the
+    module docstring): with one, F and G are off."""
     if cycle_type not in ("V", "W", "F"):
         raise ValueError(f"unknown cycle {cycle_type!r}")
     lev = levels[lvl]
@@ -163,7 +176,8 @@ def _cycle3(levels: Tuple[Level3D, ...], u, f, lvl: int,
     u = _smooth3(lev, u, f, cfg, method=cfg.smoother, sweeps=cfg.pre_sweeps,
                  omega=cfg.omega)
     nxt = levels[lvl + 1]
-    fused = dispatch.transfer_fused3d_ok(lev, nxt, cfg, u, f)
+    fused = constrain is None and dispatch.transfer_fused3d_ok(lev, nxt, cfg,
+                                                               u, f)
     if fused:
         fc = dispatch.residual_restrict3d(lev, nxt, u, f)
     else:
@@ -173,19 +187,23 @@ def _cycle3(levels: Tuple[Level3D, ...], u, f, lvl: int,
         fc = transfer3d.restrict3d(r, *nxt.grid.shape,
                                    boundary="zero" if plain else "reflect",
                                    dtype=nxt.dtype, wrap=lev.spec.wrap)
+        if constrain is not None:
+            fc = constrain(fc, nxt)
         if not plain:
             fc = torch.where(nxt.unknown, fc, torch.zeros(
                 (), dtype=fc.dtype, device=fc.device))
     branch = cycle_type if lvl + 1 < cfg.w_depth else "V"
-    ec = _cycle3(levels, nxt.zeros(), fc, lvl + 1, cfg, branch)
+    ec = _cycle3(levels, nxt.zeros(), fc, lvl + 1, cfg, branch, constrain)
     if cycle_type == "W" and branch == "W":
-        ec = _cycle3(levels, ec, fc, lvl + 1, cfg, "W")
+        ec = _cycle3(levels, ec, fc, lvl + 1, cfg, "W", constrain)
     if fused:
         u = dispatch.prolong_correct3d(lev, nxt, ec, u)
     else:
         if nxt.sync is not None:
             nxt.sync(ec)  # the coarse duplicate enters the interpolation
         e = transfer3d.prolong3d(ec, *lev.grid.shape, dtype=lev.dtype)
+        if constrain is not None:
+            e = constrain(e, lev)
         u = torch.where(lev.unknown, u + e, u)
     return _smooth3(lev, u, f, cfg, method=cfg.smoother,
                     sweeps=cfg.post_sweeps, omega=cfg.omega,
@@ -195,9 +213,13 @@ def _cycle3(levels: Tuple[Level3D, ...], u, f, lvl: int,
 def mg_cycle3d(levels: Tuple[Level3D, ...], u, f,
                cfg: MultigridConfig = MultigridConfig(), constrain=None):
     """One multigrid cycle on the finest level; updates ``u`` in place where
-    the path allows and returns the new iterate."""
-    _check_options(constrain)
-    return _cycle3(levels, u, f, 0, cfg, cfg.cycle)
+    the path allows and returns the new iterate. ``make_constrainer3d``'s
+    hook runs it on this rank's blocks (``u`` and ``f`` global tensors, the
+    result gathered, or level-0 ``ShardedField`` blocks, the result one)."""
+    hook = _block_hook(constrain)
+    if hook is not None:
+        return hook.mg_cycle(levels, u, f, cfg)
+    return _cycle3(levels, u, f, 0, cfg, cfg.cycle, constrain)
 
 
 def _norm3(r, g: Grid3D) -> torch.Tensor:
@@ -211,8 +233,13 @@ def mg_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
 
     ``f`` and ``u0`` are (nx, ny, nz) tensors; ``u0`` carries the Dirichlet
     values on its shell. The tolerance scale is max(||f||, ||r(u0)||).
-    Returns the solution and an info dict."""
-    _check_options(constrain)
+    Returns the solution and an info dict. ``make_constrainer3d``'s hook
+    runs the solve on this rank's blocks, every rank of the mesh calling
+    it (``f`` and ``u0`` global, or ``shard_inputs`` blocks), and every
+    rank gets the global solution."""
+    hook = _block_hook(constrain)
+    if hook is not None:
+        return hook.mg_solve(levels, f, u0, cfg)
     lev0 = levels[0]
     g, unknown = lev0.grid, lev0.unknown
     f = f.to(device=lev0.device, dtype=lev0.dtype)
@@ -224,7 +251,7 @@ def mg_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
     state = {"u": u}
 
     def step():
-        state["u"] = mg_cycle3d(levels, state["u"], f, cfg)
+        state["u"] = mg_cycle3d(levels, state["u"], f, cfg, constrain)
         return _norm3(st3.residual(lev0.stencil, state["u"], f, unknown), g)
 
     info = outer_iterate(step, rnorm0, tol_eff, fnorm, cfg.max_iterations)
@@ -246,8 +273,13 @@ def ir_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
     interior). The stopping test reads the residual norm back once per
     outer step; a periodic solution's duplicate nodes are synced at the
     end (the JAX package's ``_ir3_jit`` leaves them at the initial
-    guess)."""
-    _check_options(constrain)
+    guess). ``make_constrainer3d``'s hook runs it on this rank's blocks,
+    the float64 solution and residual kept there (as ``mg_solve3d``); an
+    array hook is applied to the float64 iterate too."""
+    hook = _block_hook(constrain)
+    if hook is not None:
+        return hook.ir_solve(levels, f, u0, cfg, inner_cycles=inner_cycles,
+                             max_outer=max_outer, use_fmg=False)
     lev0 = levels[0]
     g, unknown = lev0.grid, lev0.unknown
     lo, f64 = lev0.dtype, torch.float64
@@ -265,8 +297,11 @@ def ir_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
         e = lev0.zeros()
         r_lo = state["r"].to(lo)
         for _ in range(inner_cycles):
-            e = mg_cycle3d(levels, e, r_lo, cfg)
-        if box:
+            e = mg_cycle3d(levels, e, r_lo, cfg, constrain)
+        if constrain is not None:
+            state["u"] = constrain(torch.where(
+                unknown, state["u"] + e.to(f64), state["u"]), lev0)
+        elif box:
             # e is zero on the shell, so this is the masked update u += e
             u[1:-1, 1:-1, 1:-1] += e[1:-1, 1:-1, 1:-1]
         else:

@@ -144,10 +144,15 @@ def adaptive_solve3d(grid, spec, f, u0=None, *, a=None, lam=0.0,
                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The staged solve of ``adaptive_solve`` over the 3D solver stack
     (``build_hierarchy3d``, ``mg_solve3d``, ``ir_solve3d`` with its two
-    inner cycles), as the JAX package's ``adaptive_solve3d``."""
+    inner cycles), as the JAX package's ``adaptive_solve3d``. ``mesh``
+    runs every stage on this rank's (x, y) blocks of whole z-lines
+    (``parallel.distributed.make_constrainer3d``), every rank calling with
+    the same global inputs and reading the same all-reduced norms."""
+    constrain = None
     if mesh is not None:
-        raise NotImplementedError("mesh= (sharded 3D solves) is not ported "
-                                  "yet (ROADMAP item 14b)")
+        from ..parallel import distributed
+
+        constrain = distributed.make_constrainer3d(mesh)
     hierarchies: Dict[Precision, Any] = {}
 
     def get_levels(p: Precision):
@@ -158,11 +163,14 @@ def adaptive_solve3d(grid, spec, f, u0=None, *, a=None, lam=0.0,
         return hierarchies[p]
 
     def ir3(levels, f, u0, cfg, *, max_outer):
-        return mg3.ir_solve3d(levels, f, u0, cfg, max_outer=max_outer)
+        return mg3.ir_solve3d(levels, f, u0, cfg, max_outer=max_outer,
+                              constrain=constrain)
 
     u, info = _adaptive_core(f, u0, get_levels=get_levels,
-                             solve=mg3.mg_solve3d, ir=ir3, policy=policy,
-                             cfg=cfg, start=start, chunk=chunk)
+                             solve=functools.partial(mg3.mg_solve3d,
+                                                     constrain=constrain),
+                             ir=ir3, policy=policy, cfg=cfg, start=start,
+                             chunk=chunk)
     info["method"] = "adaptive_3d"
     return u, info
 

@@ -455,10 +455,11 @@ def test_jacobi_smoothing_matches_jax():
 
 
 def test_unported_3d_features_raise():
-    """Sharding (ROADMAP item 14) is the only 3D feature still raising; the
-    rest of item 13, which raised here before it was ported, now builds and
-    runs (test_torch_3d_operator.py and test_torch_3d_precision.py hold it
-    to the JAX package)."""
+    """Every 3D feature that raised here before it was ported now builds and
+    runs: the rest of item 13 (test_torch_3d_operator.py and
+    test_torch_3d_precision.py hold it to the JAX package) and sharding
+    (item 14b; test_torch_sharded3d.py holds it on four ranks): an array
+    hook, and a mesh of one rank, give the unsharded solve."""
     assert not bc3d.mixed3d(top="neumann").all_dirichlet
     assert bc3d.mixed3d(west="periodic", east="periodic").wrap == (
         True, False, False)
@@ -477,17 +478,31 @@ def test_unported_3d_features_raise():
     for cfg in (T.MultigridConfig(cycle="W"),
                 T.MultigridConfig(smoother="line_z", backend="torch")):
         assert torch.isfinite(T.mg_cycle3d(levels, u.clone(), u, cfg)).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        T.ir_solve3d(levels, u, constrain=lambda v, lev: v)
+    from mixed_precision_multigrid_solvers_for_pdes_torch.parallel.mesh \
+        import Mesh
+
+    f = torch.ones(g.shape, dtype=torch.float64)
+    plain = T.ir_solve3d(levels, f)
+    hooked = T.ir_solve3d(levels, f, constrain=lambda v, lev: v)
+    assert hooked[1]["iterations"] == plain[1]["iterations"]
+    assert torch.equal(hooked[0], plain[0])
     prob = T.poisson3d_mms_sinsinsin(9)
     for precision in ("mixed", "bf16", "adaptive"):
         assert T.solve_poisson3d(prob, precision=precision,
                                  device="cpu").u.shape == (9, 9, 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        T.solve_poisson3d(prob, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        T.adaptive_solve3d(g, bc3d.BoundarySpec3D(), u.double(),
-                           mesh=object(), device="cpu")
+    # the hook turns F and G off: their twins round a bf16 level once per
+    # call where the plain transfers round per op, so 'mixed' moves by
+    # ~1e-12; the fp32 and adaptive (fp32 stages, fp32 IR) solves do not
+    for precision, atol in (("fp32", 0.0), ("adaptive", 0.0),
+                            ("mixed", 1e-10)):
+        res = T.solve_poisson3d(prob, precision=precision, device="cpu")
+        one = T.solve_poisson3d(prob, precision=precision, mesh=Mesh((1, 1)),
+                                device="cpu")
+        assert one.iterations == res.iterations
+        assert (one.u - res.u).abs().max() <= atol
+    got, info = T.adaptive_solve3d(g, bc3d.BoundarySpec3D(), f,
+                                   mesh=Mesh((1, 1)), device="cpu")
+    assert info["converged"] and got.shape == g.shape
 
 
 def test_kernel_wrappers_3d_reject_what_the_kernels_do_not_take():

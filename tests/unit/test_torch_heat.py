@@ -439,12 +439,30 @@ def test_explicit_stability_guard():
 
 
 def test_unported_options_raise():
+    """mesh= and constrain= raised here until sharded time stepping was
+    ported (ROADMAP item 14b; test_torch_sharded3d.py holds it on four
+    ranks); on a mesh of one rank the run is the unsharded one, and the
+    step takes and returns level-0 fields."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.parallel import (
+        distributed,
+        mesh as mesh_mod,
+        multihost,
+    )
+
     prob = PHP.pure_diffusion(N)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        PH.solve_heat(prob, 0.01, 0.001, mesh=object(), device="cpu")
-    levels = T.build_hierarchy(prob.grid, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        PH.make_step_fn(prob, levels, PH.HeatConfig(), constrain=object())
+    cfg = PH.HeatConfig(dtype="float64")
+    ref = PH.solve_heat(prob, 0.01, 0.002, cfg, device="cpu")
+    one = PH.solve_heat(prob, 0.01, 0.002, cfg, mesh=mesh_mod.Mesh((1, 1)),
+                        device="cpu")
+    assert one.steps == ref.steps and torch.equal(one.u, ref.u)
+    levels = T.build_hierarchy(prob.grid, dtype="float64", device="cpu")
+    u0 = prob.initial_state(torch.float64)
+    step = PH.make_step_fn(prob, levels, cfg, constrain=distributed.
+                           make_constrainer(mesh_mod.Mesh((1, 1))))
+    out = step(u0, u0, 0.0, 0.002)
+    assert isinstance(out, multihost.ShardedField)
+    plain = PH.make_step_fn(prob, levels, cfg)(u0, u0, 0.0, 0.002)
+    assert torch.equal(out.gather(), plain)
 
 
 def test_default_device_is_the_card():

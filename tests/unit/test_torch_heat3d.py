@@ -143,17 +143,23 @@ def test_checkpoint_dt_mismatch_rejected(tmp_path):
 
 
 def test_unported_options_raise():
-    """mesh= (ROADMAP item 14) and adaptive dt (2D only, as in the JAX
-    package) raise; a coefficient field, which raised here before it was
-    ported, now runs (test_torch_3d_precision.py holds it to the JAX
-    package)."""
+    """Adaptive dt (2D only, as in the JAX package) raises; a coefficient
+    field and mesh= (ROADMAP item 14b), which raised here before they were
+    ported, now run (test_torch_3d_precision.py and
+    test_torch_sharded3d.py hold them); on a mesh of one rank the run is
+    the unsharded one."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.parallel.mesh \
+        import Mesh
+
     prob = P3.pure_diffusion3d(9)
     out = P3.solve_heat3d(P3.HeatProblem3D("a", prob.grid,
                                            a=np.ones((9,) * 3)),
                           0.01, 0.002, device="cpu")
     assert out["steps"] == 5 and torch.isfinite(out["u"]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        P3.solve_heat3d(prob, 0.01, 0.002, mesh=object(), device="cpu")
+    ref = P3.solve_heat3d(prob, 0.01, 0.002, device="cpu")
+    one = P3.solve_heat3d(prob, 0.01, 0.002, mesh=Mesh((1, 1)),
+                          device="cpu")
+    assert one["steps"] == ref["steps"] and torch.equal(one["u"], ref["u"])
     with pytest.raises(ValueError, match="fixed-dt"):
         P3.solve_heat3d(prob, 0.01, 0.002, PH.HeatConfig(adaptive_dt=True),
                         device="cpu")

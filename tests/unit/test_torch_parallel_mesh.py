@@ -214,7 +214,8 @@ def test_parallel_modules_import_no_jax():
     repo = str(Path(__file__).resolve().parents[2])
     mods = ["parallel", "parallel.halo_solve", "parallel.mesh",
             "parallel.multihost", "parallel.launch", "parallel.checks",
-            "parallel.blocks", "parallel.distributed"]
+            "parallel.blocks", "parallel.distributed", "parallel.blocks3d",
+            "parallel.stepping"]
     code = ("import sys, importlib; "
             + "; ".join(f"importlib.import_module('mixed_precision_multigrid_"
                         f"solvers_for_pdes_torch.{m}')" for m in mods)
