@@ -271,6 +271,24 @@ explicit distribution (after phase 31):
      share. On one card the world is one rank and no level is
      split, so the phase checks only the plumbing; scripts/sharded_cards.py
      36 runs it alone.
+The support layers (after phase 36), on backend 'auto', each run from
+launch counts reset to zero; the phase uses neither matplotlib nor pyyaml:
+ 37. MMSValidator(precision='mixed', tol 1e-9) on poisson_mms_sinsin at
+     129^2-1025^2 (L2 order within 2 +- 0.3; A, B, C and D launched; the
+     1025^2 row's outer steps equal to the same solve_poisson call's) and
+     in fp32 on poisson3d_mms_sinsinsin at 65^3-257^3 (E, F and G
+     launched); measure_two_grid_factor on the 1025^2 fp32 hierarchy on
+     'auto' (A launched) and 'torch' (rho below 0.15 on both, within 0.01
+     of each other); validate_h_independence at 257^2-1025^2 in fp32;
+     BenchmarkSuite at 257^2-1025^2 in fp32, fp64 and 'mixed' on both
+     backends (runs=3; every record converged; records, speedups and the
+     fp32 scaling exponent printed, the 1025^2 'mixed' time beside phase
+     6's); PerformanceBaselines at 257^2 and 513^2 (ours_mixed and
+     ours_fp64 l2 within 2% of scipy_spsolve's, scipy_cg, no pyamg or
+     petsc row; _assemble_csr's host seconds at 513^2); MultigridProfiler
+     on the 1025^2 fp32 hierarchy (A launched by the level-0 smooth stage;
+     GB/s and share of 3.35 TB/s per stage, the bottleneck); a
+     trace_profile of one 1025^2 'mixed' solve written; system_info.
 The kernels' JSON record gives each kernel's bound: its compulsory bytes
 (each input read once, each output written once) over the H100's published
 3.35 TB/s, or its fp32 operations over 67 TFLOP/s, whichever is larger.
@@ -590,6 +608,20 @@ SHARDED_HEAT3D_STEPS = 3
 # (257^3) V-cycles, ~60 x 2^-24 at |u| <= 1 (2.742e-6 at 1025^2 on the
 # first H100 run); the solves' fp64 outer states are held to PATH3D_ATOL
 SHARDED_HEAT_ATOL = 1e-5
+# Phase 37, the support layers: the MMS ladders (2D 'mixed', 3D fp32), the
+# size of the two-grid factor, the suite's top size and the profiler's, and
+# the baselines' sizes; all at tol 1e-9 (MMS; the suite's and baselines'
+# own default is 1e-8)
+SUPPORT_SIZES = (129, 257, 513, 1025)
+SUPPORT_SIZES3D = (65, 129, 257)
+SUPPORT_N = 1025
+SUPPORT_H_SIZES = (257, 513, 1025)
+SUPPORT_SUITE_SIZES = (257, 513, 1025)
+SUPPORT_BASE_SIZES = (257, 513)
+SUPPORT_ORDER_TOL = 0.3    # L2 order within 2 +- this
+SUPPORT_RHO_MAX = 0.15     # the measured cycle factor, 'auto' and 'torch'
+SUPPORT_RHO_ATOL = 0.01    # the two backends' factors within this
+SUPPORT_ERR_RTOL = 0.02    # ours_* l2 error within this of scipy_spsolve's
 
 PKG = "mixed_precision_multigrid_solvers_for_pdes_torch"
 TPU_PKG = "mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels"
@@ -4400,6 +4432,185 @@ def sharded3d_path(card, *, repeats: int = 0):
     print(f"phase 36: {time.perf_counter() - start:.1f} s")
 
 
+def support_path(mg, card, dev, main_ms):
+    """Phase 37: the support layers (``validation``, ``benchmarking``,
+    ``utils.timing``) on the card, backend 'auto', each run from launch
+    counts reset to zero. ``main_ms`` is phase 6's kernel-path ms per
+    solve, printed beside the suite's 1025^2 mixed time."""
+    import tempfile
+
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking \
+        import BenchmarkSuite, MultigridProfiler, suite as suite_mod
+    from mixed_precision_multigrid_solvers_for_pdes_torch.utils import \
+        trace_profile
+    from mixed_precision_multigrid_solvers_for_pdes_torch.validation import \
+        MMSValidator, PerformanceBaselines, baselines, theory
+
+    start = time.perf_counter()
+    cfg = mg.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9,
+                             backend="auto")
+    two_d = ("smooth_multisweep", "residual_restrict", "prolong_correct",
+             "tail_vcycle")
+    three_d = ("rbgs3d", "residual_restrict3d", "prolong_correct3d")
+
+    def launched(label, got, names):
+        missing = [k for k in names if got[k] <= 0]
+        print(f"{label}: launches {({k: v for k, v in got.items() if v})}")
+        if missing:
+            fail(f"phase 37 {label}: kernels never launched: {missing}")
+
+    def check_order(res, sizes):
+        print(f"MMS {res.problem} {res.kind} {list(sizes)}: l2 "
+              f"{[f'{e:.4e}' for e in res.l2_errors]}, order "
+              f"{res.observed_order:.4f} (H1 {res.h1_order:.4f}), "
+              f"iterations {res.iterations}, passed {res.passed}, "
+              f"{res.wall_s:.2f} s [{card}]")
+        if not res.passed or abs(res.observed_order - 2.0) > \
+                SUPPORT_ORDER_TOL:
+            fail(f"phase 37 MMS {res.kind}: order {res.observed_order:.3f} "
+                 f"not within 2 +- {SUPPORT_ORDER_TOL}, or not passed")
+
+    # 1. the 2D MMS ladder in 'mixed' (A-D on the fp32 levels above the
+    # tail, D once per V-cycle)
+    mms = MMSValidator(cfg, precision="mixed", device=dev)
+    res, got = counted_run(lambda: mms.validate_steady(
+        mg.poisson_mms_sinsin, sizes=SUPPORT_SIZES))
+    check_order(res, SUPPORT_SIZES)
+    launched("MMS 2D mixed", got, two_d)
+    direct, got = counted_run(lambda: mg.solve_poisson(
+        mg.poisson_mms_sinsin(SUPPORT_N), precision="mixed", cfg=cfg,
+        device=dev))
+    launched(f"solve_poisson mixed {SUPPORT_N}^2", got, two_d)
+    print(f"MMS row {SUPPORT_N}^2: {res.iterations[-1]} outer steps; the "
+          f"same call on the kernel path alone: {direct.iterations}")
+    if res.iterations[-1] != direct.iterations or not direct.converged:
+        fail(f"phase 37: the MMS row's {res.iterations[-1]} steps differ "
+             f"from the kernel path's {direct.iterations}")
+
+    # 2. the 3D MMS ladder in fp32 (E, F and G)
+    mms3 = MMSValidator(cfg, precision="fp32", device=dev)
+    res3, got = counted_run(lambda: mms3.validate_steady3d(
+        mg.poisson3d_mms_sinsinsin, sizes=SUPPORT_SIZES3D))
+    check_order(res3, SUPPORT_SIZES3D)
+    launched("MMS 3D fp32", got, three_d)
+    del mms, mms3, direct
+    torch.cuda.empty_cache()
+
+    # 3. the measured cycle factor on the fp32 hierarchy, kernels and plain
+    prob = mg.poisson_mms_sinsin(SUPPORT_N)
+    levels = mg.build_hierarchy(prob.grid, prob.spec, dtype="float32",
+                                device=dev, cfg=cfg)
+    rho = {}
+    for backend in ("auto", "torch"):
+        out, got = counted_run(lambda: theory.measure_two_grid_factor(
+            levels, cfg.replace(backend=backend)))
+        rho[backend] = out["rho"]
+        print(f"two-grid factor {SUPPORT_N}^2 fp32 {backend}: rho "
+              f"{out['rho']:.6f}, ratios "
+              f"{[f'{r:.4f}' for r in out['ratios']]}")
+        if backend == "auto":
+            launched("two-grid factor auto", got, ("smooth_multisweep",))
+        if not out["rho"] < SUPPORT_RHO_MAX:
+            fail(f"phase 37: rho {out['rho']:.4f} ({backend}) not below "
+                 f"{SUPPORT_RHO_MAX}")
+    if abs(rho["auto"] - rho["torch"]) > SUPPORT_RHO_ATOL:
+        fail(f"phase 37: the two backends' rho differ by more than "
+             f"{SUPPORT_RHO_ATOL}: {rho}")
+
+    # 4. h-independence of the measured factor
+    hind = theory.validate_h_independence(
+        mg.poisson_mms_sinsin, SUPPORT_H_SIZES, cfg, dtype="float32",
+        device=dev)
+    print(f"h-independence fp32 {list(SUPPORT_H_SIZES)}: rhos "
+          f"{ {n: round(r, 6) for n, r in hind['rhos'].items()} }, spread "
+          f"{hind['spread']:.6f}, h_independent {hind['h_independent']}")
+    if not hind["h_independent"]:
+        fail("phase 37: the measured factor is not h-independent")
+
+    # 5. the benchmark suite on both backends
+    suite = BenchmarkSuite(mg.poisson_mms_sinsin, device=dev)
+    suite.run(sizes=SUPPORT_SUITE_SIZES, precisions=("fp32", "fp64",
+                                                     "mixed"),
+              runs=3, backends=("auto", "torch"))
+    for r in suite.records:
+        print(f"suite {r.n}^2 {r.precision} {r.backend}: {r.wall_s * 1e3:.3f}"
+              f" ms (std {r.std_s * 1e3:.3f}), {r.iterations} iterations "
+              f"({r.rho_kind} rho {r.convergence_factor:.4f}), "
+              f"{r.dof_per_s:.6e} DoF/s, l2 {r.error_l2:.4e} [{card}]")
+    bad = [(r.n, r.precision, r.backend) for r in suite.records
+           if not r.converged]
+    if bad:
+        fail(f"phase 37: suite records did not converge: {bad}")
+    print(f"suite precision_speedups {suite.precision_speedups()}")
+    print(f"suite backend_speedups {suite.backend_speedups()}")
+    print(f"suite fp32 scaling exponent {suite.scaling_exponent('fp32'):.4f}")
+    mixed = min(r.wall_s for r in suite.records if r.n == SUPPORT_N and
+                r.precision == "mixed" and r.backend == "auto")
+    print(f"suite {SUPPORT_N}^2 mixed auto {mixed * 1e3:.3f} ms per solve "
+          f"beside phase 6's {main_ms:.3f} ms: the suite solves from zero "
+          f"with no FMG start to tol 1e-8 on fp32/bf16 levels, phase 6 from "
+          f"an FMG start to tol 1e-9 on fp32 levels [{card}]")
+    del suite
+
+    # 6. the baselines on the same discrete systems
+    base = PerformanceBaselines(device=dev)
+    for n in SUPPORT_BASE_SIZES:
+        p = mg.poisson_mms_sinsin(n)
+        rows = [base.run_ours(p, "mixed", runs=1),
+                base.run_ours(p, "fp64", runs=1),
+                base.run_scipy_direct(p, runs=1),
+                base.run_scipy_cg(p, runs=1)]
+        for r in rows:
+            print(f"baseline {n}^2 {r.solver}: {r.wall_s * 1e3:.3f} ms, "
+                  f"{r.iterations} iterations, l2 {r.error_l2:.6e} [{card}]")
+        ref = rows[2].error_l2
+        for r in rows[:2]:
+            if abs(r.error_l2 / ref - 1) > SUPPORT_ERR_RTOL:
+                fail(f"phase 37 baseline {n}^2: {r.solver} l2 "
+                     f"{r.error_l2:.4e} not within {SUPPORT_ERR_RTOL:.0%} "
+                     f"of scipy_spsolve's {ref:.4e}")
+        if base.run_pyamg(p, runs=1) is not None or \
+                base.run_petsc(p, runs=1) is not None:
+            fail("phase 37: a pyamg or petsc row where neither is installed")
+    t0 = time.perf_counter()
+    baselines._assemble_csr(mg.poisson_mms_sinsin(513))
+    print(f"_assemble_csr 513^2 host seconds "
+          f"{time.perf_counter() - t0:.4f} (problem set-up included)")
+    print(f"baselines complexity exponents {base.complexity_exponents()}")
+
+    # 7. the per-stage profiler on the fp32 hierarchy (smooth: kernel A)
+    prof = MultigridProfiler(levels, cfg)
+    _, got = counted_run(lambda: prof.profile_level(0))
+    launched(f"profiler level 0 ({SUPPORT_N}^2)", got, ("smooth_multisweep",))
+    prof.profile_all()
+    for key, rec in prof.records.items():
+        print(f"profiler {key} ({rec['n']}^2 {rec['dtype']}): " + ", ".join(
+            f"{st} {rec[st]['min_s'] * 1e3:.4f} ms "
+            f"{rec[st]['gbytes_per_s']:.1f} GB/s "
+            f"({rec[st]['gbytes_per_s'] * 1e9 / HBM_BYTES_PER_S:.1%})"
+            for st in ("smooth", "residual", "restrict", "prolong")
+            if st in rec) + f" [{card}]")
+    print(f"profiler bottlenecks {prof.bottlenecks()}")
+
+    # 8. a torch.profiler trace of one mixed solve
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with trace_profile(path):
+            mg.solve_poisson(prob, precision="mixed", cfg=cfg, device=dev)
+        size = os.path.getsize(path) if os.path.exists(path) else 0
+        print(f"trace_profile: {size} bytes")
+        if size <= 0:
+            fail("phase 37: trace_profile wrote no trace")
+
+    # 9. the environment
+    print(f"system_info {json.dumps(suite_mod.system_info())}")
+    del levels, prof
+    torch.cuda.empty_cache()
+    print(f"phase 37: {time.perf_counter() - start:.1f} s")
+
+
 def vcycle_flops(sizes, pre=2, post=2, coarse=32, update=12):
     """fp32 operations of one V(pre, post) cycle over square levels
     ``sizes``: ``update`` per smoothing update, 10 per fine residual, 12 per
@@ -4970,6 +5181,9 @@ def main(argv) -> int:
 
     # ---- 3D and time-stepping sharding: phase 36 --------------------------
     sharded3d_path(card)
+
+    # ---- the support layers: phase 37 -------------------------------------
+    support_path(mg, card, dev, t_k * 1e3)
 
     sources = {"smooth_multisweep": ("csrc/smooth.cu", "smooth.py:290"),
                "residual_restrict": ("csrc/transfer.cu", "transfer.py:262"),

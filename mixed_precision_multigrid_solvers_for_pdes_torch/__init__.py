@@ -2,16 +2,16 @@
 
 A second package beside the JAX reference
 ``mixed_precision_multigrid_solvers_for_pdes_tpu``, which it is tested
-against. Plain tensor code is PyTorch; the hot operations of the 2D
-constant-coefficient, variable-coefficient and Neumann/Robin paths and of
-the 3D constant-coefficient Dirichlet path run in hand-written CUDA kernels
-for Hopper (``csrc/``, built with nvcc at first use, see
-``ops/cuda_kernels/_build.py``); every kernel but K takes bf16 storage
-too, so the mixed, bf16 and adaptive precisions run on them in 2D and 3D.
-Galerkin coarsening (``coarsening='galerkin'``, 9-point coarse levels on
-the plain path), the Krylov solvers (``solvers.krylov``) and their
-preconditioners (``preconditioning``) run on top of the same cycles, and
-so do the heat equations' implicit steps in 2D and 3D
+against, with all of its modules. Plain tensor code is PyTorch; the hot
+operations of the 2D constant-coefficient, variable-coefficient and
+Neumann/Robin paths and of the 3D constant-coefficient Dirichlet path run
+in hand-written CUDA kernels for Hopper (``csrc/``, built with nvcc at
+first use, see ``ops/cuda_kernels/_build.py``); every kernel but K takes
+bf16 storage too, so the mixed, bf16 and adaptive precisions run on them in
+2D and 3D. Galerkin coarsening (``coarsening='galerkin'``, 9-point coarse
+levels on the plain path), the Krylov solvers (``solvers.krylov``) and
+their preconditioners (``preconditioning``) run on top of the same cycles,
+and so do the heat equations' implicit steps in 2D and 3D
 (``applications.heat``, ``applications.heat3d``, shifted-operator V-cycles
 per step, with checkpoint/resume through ``utils.CheckpointManager``). The
 whole 2D solve also runs over a mesh of ranks with explicit halos
@@ -20,15 +20,26 @@ NCCL on cards), and so do the entry points (``parallel.distributed``:
 ``sharded_solve``, ``solve_poisson(mesh=)``, ``constrain=``; in 3D
 ``make_constrainer3d``, ``solve_poisson3d(mesh=)`` on (x, y) blocks of
 whole z-lines; and the time loops, ``solve_heat(mesh=)`` and
-``solve_heat3d(mesh=)``, on blocks from start to end). Fields are
-stored at their logical shape (nx, ny) or (nx, ny, nz), and every function
-takes its dtype and device explicitly. This package never imports JAX.
+``solve_heat3d(mesh=)``, on blocks from start to end).
+
+The support layers run on the same solvers and devices: ``validation``
+(MMS convergence studies, LFA and measured two-grid factors, scipy
+baselines), ``benchmarking`` (the benchmark suite, the per-stage profiler,
+the kernels' microbenchmark), ``analysis`` (convergence-history analysis
+and monitoring), ``utils`` (timing synchronized with the card,
+``torch.profiler`` traces, the config tree with JSON/YAML files, logging,
+checkpoints) and ``visualization`` (matplotlib figures; imported on
+demand, so this package imports where matplotlib is absent).
+
+Fields are stored at their logical shape (nx, ny) or (nx, ny, nz), and
+every function takes its dtype and device explicitly; the entry points run
+on the card unless given ``device='cpu'``. This package never imports JAX.
 """
 
 __version__ = "0.1.0"
 
 from . import applications, core, models, ops, parallel, solvers, utils  # noqa: F401
-from . import preconditioning  # noqa: F401
+from . import analysis, benchmarking, preconditioning, validation  # noqa: F401
 from .applications.poisson import (  # noqa: F401
     PoissonResult,
     convergence_study,

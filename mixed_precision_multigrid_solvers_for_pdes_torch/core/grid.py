@@ -46,6 +46,10 @@ class Grid:
         return (self.nx, self.ny)
 
     @property
+    def num_points(self) -> int:
+        return self.nx * self.ny
+
+    @property
     def num_interior(self) -> int:
         return (self.nx - 2) * (self.ny - 2)
 
