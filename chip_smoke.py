@@ -188,9 +188,13 @@ precisions and the 3D operator, each run from launch counts reset to zero:
      pass then a bf16 one, 33^3 to 5^3, and the coarsest 3^3 with 32
      sweeps), F and G (513 <-> 257 all bf16, the mixed crossing 65 <-> 33
      with an fp32 fine level and a bf16 coarse one, 33 <-> 17 all bf16)
-     against their twins bit for bit; CUDA-event ms of kernel and twin at
-     513^3 and device ms per launch on bf16 beside fp32 with the 2-byte
-     bound;
+     against their twins bit for bit; the bf16 copies' alignment cases:
+     E at (37, 66, 70) (nz even), (33, 34, 131) (nz odd) and
+     513^3, u and f views at odd storage offsets, 2 sweeps and 5 (the
+     multi-launch storages), an fp32 u with a bf16 f; F at (37, 69, 131)
+     and 513 -> 257 with views at odd offsets and both crossings, bit for
+     bit; CUDA-event ms of kernel and twin at 513^3 and device ms per
+     launch on bf16 beside fp32 with the 2-byte bound;
  30. solve_poisson3d(precision='mixed') at 513^3: the twins' outer-step
      count (MIXED3D_TWINS), l2 within 2% of 1.1093e-6, E, F and G launches
      (all, and bf16 apart) equal to the plan of the mixed levels, ms per
@@ -301,7 +305,8 @@ commits of the port, each unpacked into a DIR (for example ``git archive
 tree each, taking turns DIR, this, this, DIR for each DIR. A set is: E's
 2-sweep call at 513^3 (CUDA events, device time per launch, launches per
 call); F's 513^3 -> 257^3 and G's 257^3 -> 513^3 call and u.mul_(2.0) at
-513^3 (CUDA events, device time per launch); the copy and torch.mul at
+513^3 (CUDA events, device time per launch); E's 2-sweep call and F's
+513^3 -> 257^3 call on bf16 (device time per launch); the copy and torch.mul at
 1025^2 and 8192^2 (CUDA events, device time per launch); the host time to
 enqueue kernel A's 2-sweep call at 1025^2 (minimum over 5 x 200 calls) and
 its CUDA-event time; A's and L's device time per 2-sweep call at 1025^2,
@@ -312,6 +317,8 @@ main-path solve (FMG, IR; minimum of 5 after a warm-up, one right-hand
 side); ir_solve3d at
 513^3 (fp32 levels, tol 1e-9): wall ms per solve (minimum over 3 repeats of
 2 right-hand sides), peak device memory, E's launches and the outer steps;
+the BF16_3D_ITERS-cycle 513^3 'bf16' mg_solve3d (right-hand side on the
+card, ms per solve, minimum of 3);
 H's 2-sweep call at 1025^2 and J from 129^2 on the jump hierarchy (CUDA
 events, device time per call or launch, H's host time per call and launches
 per call) and H's device time per call at 513^2 and 257^2; the varcoef and
@@ -533,6 +540,10 @@ HEAT3D_L2_BOUND = {"cn": 1.9134e-5, "cn_257": 7.6098e-7, "bdf2": 4.3039e-6}
 # package's count at 129^3 and 257^3 (scripts/reference3d.py), and to the
 # fp32 path's l2; 'bf16' runs BF16_3D_ITERS cycles; 'adaptive' at 257^3 is
 # held to the JAX package's iterations, l2 and switches.
+# Phase 29's bf16 alignment shapes: E at nz even and odd, F at
+# an odd nz whose tiles do not divide the grid (F takes odd sizes only)
+E_PAIR_SHAPES = ((37, 66, 70), (33, 34, 131))
+F_PAIR_SHAPES = ((37, 69, 131),)
 MIXED3D_TWINS = 5
 MIXED3D_L2 = L2_3D_EXPECTED[N3]
 BF16_3D_ITERS = 8
@@ -3353,10 +3364,68 @@ def kernel_phase3d_bf16(mg, card, dev):
             del u32, f32, ec32
         del u, f, ec
         torch.cuda.empty_cache()
+    word_pair_checks(ks3, kx3, field, widened, errs, dev)
     for (name, n), (k_ms, p_ms) in times.items():
         print(f"time {name} {n}^3: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"[{card}]")
     return errs, times, dev_ms
+
+
+def word_pair_checks(ks3, kx3, field, widened, errs, dev):
+    """Phase 29: E's bf16 planes come in as pairs of 4-byte words, F's as
+    16-byte chunks, each row's shift read from the element address. E at
+    nz even and odd and at 513^3, F at (37, 69, 131) and 513 -> 257, with u
+    and f views at odd storage offsets (a field that starts in a word's
+    upper half), E's multi-launch storages and an fp32 u with a bf16 f,
+    F's crossings: against their twins bit for bit."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch import Grid3D
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import \
+        stencil3d
+
+    bf = torch.bfloat16
+
+    def at(t, offset):  # t in a view at element `offset` of its storage
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        v = buf[offset:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    for shape in E_PAIR_SHAPES + ((N3,) * 3,):
+        st = stencil3d.make_stencil3d(Grid3D(*shape))
+        u, f = field(shape, shell=True), field(shape, st.c)
+        cases = [(1, 0, 2, bf), (0, 1, 2, bf), (1, 1, 5, bf),
+                 (0, 1, 2, torch.float32)]
+        for ou, of, sweeps, ud in cases:
+            if shape[0] == N3 and sweeps != 2:
+                continue
+            kw = dict(sweeps=sweeps, omega=1.3)
+            compare("rbgs3d_bf16", f"{shape} u {str(ud)[6:]} at offset "
+                    f"{ou}, f at {of}, {sweeps} sweeps",
+                    widened(lambda a, b: ks3.rbgs3d(st, a, b, **kw)),
+                    widened(lambda a, b: ks3.rbgs3d_plain(st, a, b, **kw)),
+                    lambda: (at(u.to(ud), ou), at(f, of)), errs, exact=True)
+        del u, f
+    for shape in F_PAIR_SHAPES + ((N3,) * 3,):
+        st = stencil3d.make_stencil3d(Grid3D(*shape))
+        u, f = field(shape, shell=True), field(shape, st.c)
+        for off in (0, 1):
+            for tin, tout in ((bf, bf), (bf, torch.float32),
+                              (torch.float32, bf)):
+                if tin != bf and off:
+                    continue
+                compare("residual_restrict3d_bf16",
+                        f"{shape} {str(tin)[6:]} -> {str(tout)[6:]}, u at "
+                        f"offset {off}, f at {1 - off}",
+                        widened(lambda a, b: kx3.residual_restrict3d(
+                            st, a, b, out_dtype=tout)),
+                        widened(lambda a, b: kx3.residual_restrict3d_plain(
+                            st, a, b, out_dtype=tout)),
+                        lambda: (at(u.to(tin), off), at(f.to(tin), 1 - off)),
+                        errs, exact=True)
+        del u, f
+    torch.cuda.empty_cache()
 
 
 def cycle_visits3d(num_levels, cfg):
@@ -4707,6 +4776,13 @@ def _ab_3d_and_copy(mg, kb, stencil3d, ks3, kx3, dev, gen, out):
     call = lambda: kx3.prolong_correct3d(ec, u)  # noqa: E731
     out["G_ms"] = time_ms(call, reps=20)
     out["G_device_ms"] = device_ms(call, "prolong_correct3d")
+    # E's 2-sweep call and F's 513 -> 257 call on bf16 storage
+    ub, fb = u.to(torch.bfloat16), f.to(torch.bfloat16)
+    out["E_bf16_device_ms"] = device_ms(
+        lambda: ks3.rbgs3d(st3, ub, fb, sweeps=2), "rbgs3d")
+    out["F_bf16_device_ms"] = device_ms(
+        lambda: kx3.residual_restrict3d(st3, ub, fb), "residual_restrict3d")
+    del ub, fb
     call = lambda: u.mul_(2.0)  # noqa: E731
     out["mul_inplace_ms"] = time_ms(call, reps=20)
     out["mul_inplace_device_ms"] = device_ms(call, "elementwise")
@@ -4904,6 +4980,18 @@ def ab_set(tree: str, only_2d: bool = False) -> dict:
             total += time.perf_counter() - t0
         best = min(best, total / len(rhs))
     out["solve3d_ms"] = best * 1e3
+    del levels3, rhs
+    torch.cuda.empty_cache()
+    # the BF16_3D_ITERS-cycle 'bf16' solve: every level on E-G in bf16
+    bcfg = cfg3.replace(max_iterations=BF16_3D_ITERS)
+    levels3 = mg.build_hierarchy3d(mg.Grid3D(N3, N3, N3),
+                                   policy=mg.policy("bf16"), device=dev,
+                                   cfg=cfg3)
+    fb = rhs3d(levels3, 0, 0, 1, dev).to(torch.bfloat16)
+    ub = torch.zeros_like(fb)
+    mg.mg_solve3d(levels3, fb, ub, bcfg)  # warm-up
+    out["solve3d_bf16_ms"] = best_ms(
+        lambda: mg.mg_solve3d(levels3, fb, ub, bcfg), reps=3)
     return out
 
 

@@ -12,6 +12,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
 
 using bf16 = __nv_bfloat16;
@@ -191,8 +192,8 @@ __device__ __forceinline__ float half_sum(float a, float b) {
 // nor 16-byte copies can address their rows: the streaming kernels E and F
 // bring planes into shared memory with 4-byte cp.async, zero-filled where
 // `valid` is false, in commit groups.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid = true) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0)
@@ -210,15 +211,181 @@ __device__ __forceinline__ void load_shared(float* dst, const bf16* src) {
   *dst = load_f(src);
 }
 
-// A bf16 node widened to fp32 from a load issued here and now: an asm
-// volatile load keeps its place before the step's barrier, where the
-// compiler would sink a plain load to the value's first use (kernels E and
-// F hold such loads in registers across a step's compute, in place of the
-// 4-byte cp.async that a 2-byte node cannot take).
-__device__ __forceinline__ float load_bf16_now(const bf16* p) {
-  unsigned short v;
-  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
-  return __uint_as_float(static_cast<unsigned>(v) << 16);
+// bf16 rows of the 3D fields as 4-byte words (kernels E and F). cp.async
+// has no 2-byte copy, and a bf16 row of an unpadded field may start in
+// either half of a 4-byte word: node k of a row sits at element address
+// a + k, whose parity sh, read from the tensor's address (its storage
+// offset included), alternates from row to row when nz is odd. So a window
+// row (window column c is field column k0 + c) comes in as pairs of aligned
+// words: pair m holds columns 4m - sh .. 4m + 3 - sh, and the row's PR
+// pairs cover its columns [0, hi) in either case (PR = (hi + 4) / 4). Each
+// word is copied by a 4-byte cp.async into a staging ring in shared memory,
+// planes ahead of the compute, and the thread that issued a pair widens it
+// into the fp32 ring (cp.async.wait_group makes a thread's own copies
+// visible to it, so no barrier is needed between): the pair's even columns
+// 4m and 4m + 2 are words 2m and 2m + 1 of the row's even half (one 8-byte
+// store), its odd columns 4m + 1 - 2sh and 4m + 3 - 2sh words 2m - sh and
+// 2m + 1 - sh of the odd half. A node outside the field (a row outside it,
+// or a column that reaches into the next row or the previous one) is 0:
+// the kernel zeroes its rings once (zero_rings), and a pair writes such a
+// word 0 or not at all, the same in every plane. No word is read outside
+// the tensor.
+
+// One pair of a thread: fixed for the launch, the same in every plane.
+struct BfPair {
+  int g;   // in-plane element offset of the row's column 4m (kNoRow: none)
+  int fl;  // kPair* bits, ring word (bits 8..19), staging word (20..30);
+           // bit 31 free (F marks an odd m there)
+};
+// Its nodes in the field: columns 4m, 4m + 2 (E0, E1; a node outside the
+// field widens to 0); its even ring words 2m, 2m + 1 in the window (WE);
+// the odd ring words it writes, each a window word whose node lies in the
+// field: 2m - sh (A0 << sh) and 2m + 1 - sh (B0 << sh); and kPairEnd: the
+// pair may reach outside the tensor in its first or last plane.
+enum : int {
+  kPairE0 = 1, kPairE1 = 2, kPairWE = 4, kPairA0 = 8, kPairA1 = 16,
+  kPairB0 = 32, kPairB1 = 64, kPairEnd = 128,
+};
+
+// In-plane element offset of a window row that lies outside the field.
+constexpr int kNoRow = -0x40000000;
+
+// Pair m of a window row: `row` when the row lies in the field, g_row the
+// in-plane element offset of its window column 0 (field column k0 of n; sx
+// elements to a plane), `half` the words of a ring half-row, ring and stage
+// the pair's first words in a ring plane and a staging plane. `valid`
+// false: no pair.
+__device__ __forceinline__ BfPair bf_pair(bool valid, bool row, int g_row,
+                                          int k0, int n, long sx, int m,
+                                          int half, int ring, int stage) {
+  if (!valid || !row) return {kNoRow, 0};
+  // window column c (in the field) lands in ring word `word` of a half
+  auto in = [&](int c, int word) {
+    return k0 + c >= 0 && k0 + c < n && word >= 0 && word < half;
+  };
+  const int g = g_row + 4 * m;
+  const int fl = (in(4 * m, 2 * m) ? kPairE0 : 0) |
+                 (in(4 * m + 2, 2 * m + 1) ? kPairE1 : 0) |
+                 (2 * m + 1 < half ? kPairWE : 0) |
+                 (in(4 * m + 1, 2 * m) ? kPairA0 | kPairB1 : 0) |
+                 (in(4 * m - 1, 2 * m - 1) ? kPairA1 : 0) |
+                 (in(4 * m + 3, 2 * m + 1) ? kPairB0 : 0) |
+                 (g <= 0 || g + 3 >= sx ? kPairEnd : 0);
+  return {g, fl | ring << 8 | stage << 20};
+}
+
+// Zero `words` words of shared memory at `p` (16-byte aligned, words a
+// multiple of 4), by `threads` threads.
+__device__ __forceinline__ void zero_rings(float* p, int words, int threads) {
+  float4* q = reinterpret_cast<float4*>(p);
+  for (int i = threadIdx.x; i < words / 4; i += threads)
+    q[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The word of a bf16 field whose low half is element e (a 4-byte aligned
+// address) into the shared word dst: a cp.async where the word lies in the
+// field's n elements; where it reaches outside them (e = -1 on a view at an
+// odd address, e = n - 1 with the last element in a low half) the node
+// inside it by a 2-byte load into its half; nothing where it lies outside.
+__device__ __forceinline__ void stage_word(unsigned* dst, const bf16* field,
+                                           long e, long n) {
+  if (e >= 0 && e + 1 < n) {
+    cp_async4(dst, field + e);
+  } else if (e == -1 || e == n - 1) {
+    unsigned short v;
+    asm volatile("ld.global.nc.u16 %0, [%1];\n"
+                 : "=h"(v)
+                 : "l"(field + (e < 0 ? 0 : e)));
+    reinterpret_cast<unsigned short*>(dst)[e < 0 ? 1 : 0] = v;
+  }
+}
+
+// The two words at element e of a pair that may reach outside the field's
+// n elements (kPairEnd), out of line: it runs in a pair's first or last
+// plane at most.
+static __device__ __noinline__ void stage_pair_ends(unsigned* d,
+                                                    const bf16* field,
+                                                    long e, long n) {
+  stage_word(d, field, e, n);
+  stage_word(d + 1, field, e + 2, n);
+}
+
+// Pair p of a bf16 plane (element offset pe in the field of n elements; pq
+// the parity of the plane's first element address) into staging plane st.
+__device__ __forceinline__ void bf_pair_issue(BfPair p,
+                                              const bf16* field, long pe,
+                                              int pq, long n, unsigned* st) {
+  if (p.g == kNoRow) return;
+  const long e = pe + p.g - ((pq ^ p.g) & 1);
+  unsigned* d = st + ((p.fl >> 20) & 0x7FF);
+  if (p.fl & kPairEnd) {
+    stage_pair_ends(d, field, e, n);
+  } else {
+    cp_async4(d, field + e);
+    cp_async4(d + 1, field + e + 2);
+  }
+}
+
+// Pair p of a staged plane st widened into fp32 ring plane `ring` (half:
+// the odd half's offset in a ring row; kAligned8 false: st may sit at an
+// odd word): its even words (0 outside the field) and its odd words in the
+// field. A byte permute moves a word's low (selector 0x1044) or high
+// (0x3244) half into the upper half of an fp32 word, zeros below.
+template <bool kAligned8 = true>
+__device__ __forceinline__ void bf_pair_widen(BfPair p, int pq,
+                                              const unsigned* st,
+                                              float* ring, int half) {
+  const int fl = p.fl, sh = (pq ^ p.g) & 1;
+  const unsigned* ws = st + ((fl >> 20) & 0x7FF);
+  uint2 w;
+  if constexpr (kAligned8) {
+    w = *reinterpret_cast<const uint2*>(ws);
+  } else {
+    w.x = ws[0];
+    w.y = ws[1];
+  }
+  const unsigned se = 0x1044u + sh * 0x2200u, so = 0x3244u - sh * 0x2200u;
+  float* r = ring + ((fl >> 8) & 0xFFF);
+  if (fl & kPairWE)
+    *reinterpret_cast<float2*>(r) = make_float2(
+        __uint_as_float(fl & kPairE0 ? __byte_perm(w.x, 0, se) : 0u),
+        __uint_as_float(fl & kPairE1 ? __byte_perm(w.y, 0, se) : 0u));
+  if (fl & (kPairA0 << sh))
+    r[half - sh] = __uint_as_float(__byte_perm(w.x, 0, so));
+  if (fl & (kPairB0 << sh))
+    r[half + 1 - sh] = __uint_as_float(__byte_perm(w.y, 0, so));
+}
+
+// 16-byte rows (kernel F): a window row comes in as the aligned 16-byte
+// chunks that hold it, by cp.async.cg (L1 bypassed, a quarter of the
+// copies), and its pairs are read from the staged row at a word offset
+// taken from the row's address. The thread that copies a chunk is not the
+// one that widens its pairs, so a barrier lies between.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Chunk c of a window row whose column 0 is element pe + g of a bf16 field
+// (g = kNoRow: a row outside the field): the 16 bytes at 16c past the
+// row's column 0 rounded down to 16 bytes, into staging words dst[0..3];
+// word by word (stage_word) where `end` says the chunk may reach outside
+// the field's n elements.
+__device__ __forceinline__ void bf_chunk_issue(int g, int c, bool end,
+                                               const bf16* field, long pe,
+                                               long n, unsigned* dst) {
+  if (g == kNoRow) return;
+  const uintptr_t row = reinterpret_cast<uintptr_t>(field + (pe + g));
+  const bf16* src = reinterpret_cast<const bf16*>((row & ~uintptr_t(15)) +
+                                                  16 * c);
+  if (!end) {
+    cp_async16(dst, src);
+  } else {
+    const long e = src - field;
+    for (int w = 0; w < 4; ++w) stage_word(dst + w, field, e + 2 * w, n);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -60,14 +60,24 @@
 //
 // Storage: u, f and out are each fp32 or bf16 (mg_rbgs3d's storage flags,
 // kernel A's encoding). The rings and the one-block buffers are fp32
-// whatever the storage, so the shared-memory plan (mg_rbgs3d_geometry) is
-// the same for 2-byte planes. An fp32 field's planes come in by cp.async as
-// above; a bf16 field's by 2-byte loads into registers, issued kAhead steps
-// ahead like the copies, widened and written into the ring at the end of
-// the step (cp.async has no 2-byte copy, and the rows of a bf16 field are
-// 2-byte aligned). The tile is rounded to bf16 once, where it is stored. A
-// call of more sweeps than one launch takes keeps its passes before the
-// last in fp32 (the wrapper's scratch field), so a bf16 call rounds once.
+// whatever the storage, so the rings of mg_rbgs3d_geometry are the same for
+// 2-byte planes. An fp32 field's planes come in by cp.async as above. A bf16
+// field's rows cannot: cp.async has no 2-byte copy, and a row of an unpadded
+// bf16 field starts in either half of a 4-byte word (common.cuh, "bf16 rows
+// ... as 4-byte words"). So each bf16 window row comes in as Wave::PR pairs
+// of aligned words, one pair a thread, by 4-byte cp.async into a staging
+// ring of kAhead planes (Wave::STAGE_BYTES per bf16 field; 220,160 bytes per
+// block with both at S = 2), in the same commit groups and as far ahead as
+// the fp32 copies; at the end of step q - 1 each thread waits for its own
+// pair of plane q and widens it into its four nodes (0 outside the field),
+// two in each parity half of the fp32 ring row, before step q's barrier.
+// A bf16 level thus moves half an fp32 level's bytes with as many loads in
+// flight, and holds nothing in registers across a step. (F stages 16-byte
+// chunks instead, which needs a barrier between the copies and the
+// widening; E has one barrier a step.) The tile is rounded to bf16 once,
+// where it is stored. A call of more sweeps than one launch takes keeps its
+// passes before the last in fp32 (the wrapper's scratch field), so a bf16
+// call rounds once.
 //
 // Small levels (both fields within kOneBlockMaxBytes, 17^3 and below) run
 // every sweep of a call in one launch of a one-block kernel that holds u and
@@ -119,7 +129,26 @@ struct Wave {
   // a tile stores at most (kTileJ + 2) x (kTileK + 2) nodes (shell included)
   static constexpr int STORES =
       ((kTileJ + 2) * (kTileK + 2) + kWaveThreads - 1) / kWaveThreads;
+  // bf16 storage: pairs of 4-byte words that cover a window row
+  // (common.cuh), one pair a thread, staged kAhead planes ahead for each
+  // bf16 field
+  static constexpr int PR = (RK + 4) / 4;    // pairs of a window row
+  static constexpr int PAIRS = RJ * PR;
+  static constexpr int STAGE = 2 * PAIRS;    // words of a staged plane
+  static constexpr int STAGE_BYTES = kAhead * STAGE * (int)sizeof(unsigned);
+  static_assert(PAIRS <= kWaveThreads, "one pair of a plane a thread");
 };
+
+// Dynamic shared memory of a wave launch: the fp32 rings, and a staging
+// ring for each bf16 field.
+template <int S, class TU, class TF>
+constexpr int wave_bytes() {
+  return Wave<S>::BYTES + ((int)std::is_same_v<TU, bf16> +
+                           (int)std::is_same_v<TF, bf16>) *
+                              Wave<S>::STAGE_BYTES;
+}
+static_assert(wave_bytes<2, bf16, bf16>() <= 232448,
+              "the rings and both staging rings fit a block's 227 KB");
 
 // RB-GS/SOR value of a node from its value uc, its right-hand side fv and its
 // neighbours W, E (i -+ 1), S, N (j -+ 1), B, T (k -+ 1). kUnitOmega skips
@@ -139,19 +168,6 @@ __device__ __forceinline__ float rbgs7(float uc, float fv, float W, float E,
   return __fadd_rn(uc, kUnitOmega ? d : __fmul_rn(omega, d));
 }
 
-// One node of a plane into a shared fp32 ring: a 4-byte cp.async from fp32
-// storage (`held` unused); from bf16 storage a 2-byte load into `held`,
-// widened, which `settle` writes into the ring later.
-__device__ __forceinline__ void fetch(float* dst, const float* src,
-                                      bool valid, float&) {
-  cp_async4(dst, src, valid);
-}
-__device__ __forceinline__ void fetch(float*, const bf16* src, bool valid,
-                                      float& held) {
-  const float v = load_bf16_now(src);  // src is in the field when !valid
-  held = valid ? v : 0.0f;
-}
-
 // A tile node to the output, streaming (evict-first) for fp32; rounded once
 // for bf16.
 __device__ __forceinline__ void store_stream(float* p, float v) {
@@ -166,19 +182,22 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
     rbgs3d_wave_kernel(const TU* __restrict__ u, const TF* __restrict__ f,
                        TO* __restrict__ out, int nx, int ny, int nz,
                        int chunk, Stencil7 st, float omega, int c0) {
-  constexpr bool kHeldU = std::is_same_v<TU, bf16>;
-  constexpr bool kHeldF = std::is_same_v<TF, bf16>;
+  constexpr bool kBfU = std::is_same_v<TU, bf16>;
+  constexpr bool kBfF = std::is_same_v<TF, bf16>;
   using W = Wave<S>;
   constexpr int P = 2 * S;  // phases per step
   extern __shared__ float sm[];
   float* us = sm;                        // NU u planes
   float* fs = sm + W::NU * W::PLANE;     // NF f planes
+  // kAhead staged planes of words for each bf16 field, u's first
+  unsigned* ust = reinterpret_cast<unsigned*>(fs + W::NF * W::PLANE);
+  unsigned* fst = ust + (kBfU ? kAhead * W::STAGE : 0);
   const int jw0 = 1 + blockIdx.y * kTileJ - W::H;
   const int kw0 = 1 + blockIdx.x * kTileK - W::H;
   const int x0 = blockIdx.z * chunk, x1 = min(x0 + chunk, nx);
   const int a = max(x0 - P, 0), b = min(x1 - 1 + P, nx - 1);
   const int last = x1 - 1 + P;  // the step that finishes plane x1 - 1
-  const long sx = (long)ny * nz;
+  const long sx = (long)ny * nz, total = (long)nx * sx;
   int jlo, jhi, klo, khi;
   tile_span(blockIdx.y, kTileJ, ny, &jlo, &jhi);
   tile_span(blockIdx.x, kTileK, nz, &klo, &khi);
@@ -194,36 +213,59 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
     lo_s[r] = t < W::PLANE ? lj * W::RK + (lk & 1) * W::HP + (lk >> 1) : -1;
     lo_g[r] = j >= 0 && j < ny && k >= 0 && k < nz ? j * nz + k : -1;
   }
-  // plane q of u and f -> the rings (one commit group, empty past plane b);
-  // a bf16 field's nodes wait in held_u / held_f for settle(q)
-  float held_u[W::LOADS], held_f[W::LOADS];
+  // A bf16 field's plane comes in as word pairs (common.cuh), this thread's
+  // the pair threadIdx.x of a staged plane: pair m of window row lj.
+  BfPair pr;
+  {
+    const int t = threadIdx.x, lj = t / W::PR, m = t - lj * W::PR;
+    const int j = jw0 + lj;
+    pr = bf_pair(t < W::PAIRS, j >= 0 && j < ny, j * nz + kw0, kw0, nz, sx,
+                 m, W::HP, lj * W::RK + 2 * m, 2 * t);
+  }
+  // element-address parity of each field's node 0 (the view's offset too)
+  const int pu = (int)((reinterpret_cast<uintptr_t>(u) >> 1) & 1);
+  const int pf = (int)((reinterpret_cast<uintptr_t>(f) >> 1) & 1);
+  auto parity = [&](int p0, int q) { return (p0 + (int)(q & sx)) & 1; };
+
+  // plane q of u and f -> the rings, or a bf16 field's into its staging
+  // ring (one commit group, empty past plane b)
   auto issue = [&](int q) {
     if (q <= b) {
       float* ud = us + (q % W::NU) * W::PLANE;
       float* fd = fs + (q % W::NF) * W::PLANE;
       const TU* ug = u + (long)q * sx;
       const TF* fg = f + (long)q * sx;
+      if constexpr (!kBfU || !kBfF) {
 #pragma unroll
-      for (int r = 0; r < W::LOADS; ++r) {
-        if (lo_s[r] < 0) continue;
-        const int g = max(lo_g[r], 0);
-        fetch(ud + lo_s[r], ug + g, lo_g[r] >= 0, held_u[r]);
-        fetch(fd + lo_s[r], fg + g, lo_g[r] >= 0, held_f[r]);
+        for (int r = 0; r < W::LOADS; ++r) {
+          if (lo_s[r] < 0) continue;
+          const int g = max(lo_g[r], 0);
+          if constexpr (!kBfU) cp_async4(ud + lo_s[r], ug + g, lo_g[r] >= 0);
+          if constexpr (!kBfF) cp_async4(fd + lo_s[r], fg + g, lo_g[r] >= 0);
+        }
       }
+      if constexpr (kBfU)
+        bf_pair_issue(pr, u, (long)q * sx, parity(pu, q), total,
+                      ust + (q % kAhead) * W::STAGE);
+      if constexpr (kBfF)
+        bf_pair_issue(pr, f, (long)q * sx, parity(pf, q), total,
+                      fst + (q % kAhead) * W::STAGE);
     }
     cp_async_commit();
   };
-  // the held bf16 nodes of plane q into the rings; no thread reads those
-  // slots before the next step's barrier
+  // a bf16 field's plane q from its staging ring into its fp32 ring, at the
+  // end of step q - 1: its words were issued kAhead - 1 commit groups ago.
+  // No thread reads the ring slot before step q's barrier.
   auto settle = [&](int q) {
-    if (!(kHeldU || kHeldF) || q > b) return;
-    float* ud = us + (q % W::NU) * W::PLANE;
-    float* fd = fs + (q % W::NF) * W::PLANE;
-#pragma unroll
-    for (int r = 0; r < W::LOADS; ++r) {
-      if (lo_s[r] < 0) continue;
-      if (kHeldU) ud[lo_s[r]] = held_u[r];
-      if (kHeldF) fd[lo_s[r]] = held_f[r];
+    if constexpr (kBfU || kBfF) {
+      if (q > b) return;
+      cp_async_wait<kAhead - 1>();
+      if constexpr (kBfU)
+        bf_pair_widen(pr, parity(pu, q), ust + (q % kAhead) * W::STAGE,
+                      us + (q % W::NU) * W::PLANE, W::HP);
+      if constexpr (kBfF)
+        bf_pair_widen(pr, parity(pf, q), fst + (q % kAhead) * W::STAGE,
+                      fs + (q % W::NF) * W::PLANE, W::HP);
     }
   };
 
@@ -317,10 +359,12 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
     }
   };
 
-  for (int d = 0; d < kAhead; ++d) {
-    issue(a + d);
-    settle(a + d);
+  if constexpr (kBfU || kBfF) {  // the words no pair writes stay 0
+    zero_rings(sm, (W::NU + W::NF) * W::PLANE, kWaveThreads);
+    __syncthreads();
   }
+  for (int d = 0; d < kAhead; ++d) issue(a + d);
+  settle(a);
   for (int s = a; s <= last + 1; ++s) {
     issue(s + kAhead);
     cp_async_wait<kAhead>();  // plane s has landed
@@ -338,7 +382,7 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
     // phases p in [plo, phi] touch planes a < s - p < b
     const int plo = max(1, s - b + 1), phi = min(P, s - a - 1);
     if (s <= last && plo <= phi) step(s, plo, phi);
-    settle(s + kAhead);
+    settle(s + 1);
   }
   cp_async_wait<0>();
 }
@@ -383,12 +427,12 @@ cudaError_t launch_wave(const TU* u, const TF* f, TO* out, int nx, int ny,
   const bool unit = omega == 1.0f;
   const auto kernel = unit ? rbgs3d_wave_kernel<S, true, TU, TF, TO>
                            : rbgs3d_wave_kernel<S, false, TU, TF, TO>;
-  const cudaError_t err =
-      allow_smem(kernel, Wave<S>::BYTES, device, done[unit]);
+  constexpr int bytes = wave_bytes<S, TU, TF>();
+  const cudaError_t err = allow_smem(kernel, bytes, device, done[unit]);
   if (err != cudaSuccess) return err;
   const dim3 grid((nz - 2 + kTileK - 1) / kTileK,
                   (ny - 2 + kTileJ - 1) / kTileJ, (nx + chunk - 1) / chunk);
-  kernel<<<grid, kWaveThreads, Wave<S>::BYTES, stream>>>(
+  kernel<<<grid, kWaveThreads, bytes, stream>>>(
       u, f, out, nx, ny, nz, chunk, st, omega, c0);
   return cudaGetLastError();
 }

@@ -65,10 +65,21 @@
 // Storage of F: u and f are fp32 or bf16 (one type for both, the level's)
 // and fc is written fp32 or bf16 (the coarse level's), each selected by a
 // flag of mg_residual_restrict3d. The rings are fp32 whatever the storage.
-// A bf16 field's planes come in by 2-byte loads into registers, issued
-// where the copies are, widened and written into the rings at the end of
-// the step (cp.async has no 2-byte copy); the residuals and
-// the restriction are fp32, and fc is rounded once, where it is stored.
+// A bf16 field's rows cannot come in node by node: cp.async has no 2-byte
+// copy, and a bf16 row starts anywhere in a 16-byte word (common.cuh, "bf16
+// rows ... as 4-byte words" and "16-byte rows"). So a bf16 window row comes
+// in as the kRrChunkRow aligned 16-byte chunks that hold it, by cp.async.cg
+// (L1 bypassed) into staging rings (kRrStageBytes per block), kRrStageAhead
+// = 2 steps ahead where fp32 planes go one. Each thread waits for its
+// copies of step I's planes before step I - 1's second barrier, and after
+// the restriction widens its pairs of words of those rows, read at a word
+// offset taken from each row's address, into their four nodes (0 outside
+// the field) in the fp32 rings, before step I's first barrier. Nothing is
+// held in registers across a step. Staged as 4-byte word pairs, each
+// thread copying the words it widens, F took 0.94 ms on a bf16 513^3 call;
+// as 16-byte chunks, a quarter of the copies, 0.71 (PERF.md §6). The
+// residuals and the restriction are fp32, and fc is rounded once, where it
+// is stored.
 //
 // Design of G, a stream of fine row pairs:
 // - A thread takes one interior k of fine rows 2J and 2J+1 and kPcSteps
@@ -135,11 +146,48 @@ constexpr int kRrLoadsU = (kRrRows * kRrCols + kRrThreads - 1) / kRrThreads;
 constexpr int kRrLoadsF =
     (kRrResRows * (kRrCols - 2) + kRrThreads - 1) / kRrThreads;
 
+// bf16 storage: a window row comes in as the aligned 16-byte chunks that
+// hold it (common.cuh, "16-byte rows"), kRrChunkRow to a row (u rows
+// 0 .. kRrRows - 1, f rows 1 .. kRrResRows), staged kRrStageAhead steps
+// ahead: two u and two f planes a step, and the lead-in's west u plane. It
+// is widened as pairs of 4-byte words (common.cuh), kRrPairRow to a row: a
+// thread takes pair tid of each plane, and the pairs past kRrThreads are
+// spread over other threads (kRrExtraU of each u plane, kRrExtraF of each f
+// plane).
+constexpr int kRrStageAhead = 2;
+constexpr int kRrPairRow = (kRrCols + 4) / 4;       // 17 pairs of a row
+constexpr int kRrPairsU = kRrRows * kRrPairRow;     // of a u plane
+constexpr int kRrPairsF = kRrResRows * kRrPairRow;  // of an f plane
+constexpr int kRrExtraU = kRrPairsU - kRrThreads;
+constexpr int kRrExtraF = kRrPairsF - kRrThreads;
+// a row's pairs start up to 3 words into its first chunk
+constexpr int kRrChunkRow = (2 * kRrPairRow + 3 + 3) / 4;  // 10 chunks
+constexpr int kRrStageRow = 4 * kRrChunkRow;               // words of a row
+constexpr int kRrChunksU = kRrRows * kRrChunkRow;
+constexpr int kRrChunksF = kRrResRows * kRrChunkRow;
+constexpr int kRrStageU = 2 * kRrStageAhead + 1;  // staged u planes
+constexpr int kRrStageF = 2 * kRrStageAhead;      // staged f planes
+constexpr int kRrStageBytes =
+    (kRrStageU * kRrRows + kRrStageF * kRrResRows) * kRrStageRow *
+    (int)sizeof(unsigned);
+
 static_assert(kRrItems <= kRrThreads && kRrTileJ * kRrTileK <= kRrThreads,
               "F takes a column strip and a coarse node a thread");
 static_assert(kRrTileK % 32 == 0, "F's warps take 32 columns of one row");
-static_assert(kRrBytes * kRrBlocksPerSM <= 227 * 1024,
-              "F's rings must fit kRrBlocksPerSM blocks on a multiprocessor");
+static_assert((kRrBytes + kRrStageBytes) * kRrBlocksPerSM <= 227 * 1024,
+              "F's rings (and bf16 staging) must fit kRrBlocksPerSM blocks "
+              "on a multiprocessor");
+static_assert(kRrExtraU >= 0 && kRrExtraF >= 0 &&
+                  2 * (kRrExtraU + kRrExtraF) <= kRrThreads,
+              "F's bf16 pairs: one of each plane a thread, and one more");
+static_assert(kRrChunksU <= kRrThreads && kRrChunksF <= kRrThreads,
+              "F's bf16 chunks: at most one of each plane a thread");
+
+// Dynamic shared memory of an F launch on storage T.
+template <class T>
+constexpr int rr_bytes() {
+  return kRrBytes + (std::is_same_v<T, bf16> ? kRrStageBytes : 0);
+}
 
 // Shared-memory word of window node (lj, lk).
 __device__ __forceinline__ int rr_word(int lj, int lk) {
@@ -196,19 +244,6 @@ __device__ __forceinline__ void restrict_pattern(float& acc, const float* r1,
   }
 }
 
-// One node of a plane into a shared fp32 ring: a 4-byte cp.async from fp32
-// storage (`held` unused); from bf16 storage a 2-byte load into `held`,
-// widened, which the kernel writes into the ring later.
-__device__ __forceinline__ void fetch(float* dst, const float* src,
-                                      bool valid, float&) {
-  cp_async4(dst, src, valid);
-}
-__device__ __forceinline__ void fetch(float*, const bf16* src, bool valid,
-                                      float& held) {
-  const float v = load_bf16_now(src);  // src is in the field when !valid
-  held = valid ? v : 0.0f;
-}
-
 template <class T, class TO>
 __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
     residual_restrict3d_kernel(const T* __restrict__ u,
@@ -216,18 +251,22 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
                                TO* __restrict__ fc, int nyf, int nzf,
                                int ncx, int ncy, int ncz, int chunk,
                                Stencil7 st) {
-  constexpr bool kHeld = std::is_same_v<T, bf16>;
+  constexpr bool kBf = std::is_same_v<T, bf16>;
+  constexpr int kAheadT = kBf ? kRrStageAhead : kRrAhead;  // steps in flight
   constexpr int R = kRrStripRows, nj = 2 * kRrHalf;
   extern __shared__ float sm[];
   float* us = sm;                              // kRrRingU u planes
   float* fs = us + kRrRingU * kRrPlane;        // kRrRingF f planes
   float* r1 = fs + kRrRingF * kRrPlane;        // residual plane 2I
   float* r2 = r1 + kRrPlane;                   // residual plane 2I + 1
+  // bf16: kRrStageU staged u planes, then kRrStageF f planes
+  unsigned* ust = reinterpret_cast<unsigned*>(r2 + kRrPlane);
+  unsigned* fst = ust + kRrStageU * kRrRows * kRrStageRow;
   const int tid = threadIdx.x;
   const int J0 = 1 + blockIdx.y * kRrTileJ, K0 = 1 + blockIdx.x * kRrTileK;
   const int I0 = 1 + blockIdx.z * chunk, I1 = min(I0 + chunk, ncx - 1);
   const int fj0 = 2 * J0 - 2, fk0 = 2 * K0 - 2;  // the window's fine origin
-  const long sx = (long)nyf * nzf;
+  const long sx = (long)nyf * nzf, total = (long)(2 * ncx - 1) * sx;
 
   // This thread's window nodes to load: shared word and in-plane offset in
   // the field (-1 outside it); the same in every plane.
@@ -248,50 +287,139 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
     lf_s[r] = t < kRrResRows * (kRrCols - 2) ? rr_word(lj, lk) : -1;
     lf_g[r] = j < nyf && k < nzf ? j * nzf + k : -1;
   }
-  // a bf16 field's nodes of the planes in flight wait here for settle
-  float held_u[2][kRrLoadsU], held_f[2][kRrLoadsF];
-  auto load_u = [&](int q, int h) {
-    float* d = us + (q % kRrRingU) * kRrPlane;
-    const T* g = u + q * sx;
-#pragma unroll
-    for (int r = 0; r < kRrLoadsU; ++r)
-      if (lu_s[r] >= 0) fetch(d + lu_s[r], g + max(lu_g[r], 0),
-                              lu_g[r] >= 0, held_u[h][r]);
+  // bf16: pair t of a u plane (window row t / kRrPairRow) or of an f plane
+  // (row 1 + t / kRrPairRow); this thread's pair tid of each, and its extra
+  // pair xp of plane kind xk (0, 1: the first and second u plane of a step,
+  // 2, 3: the f planes; -1 none). Bit 31 of a pair's flags: m is odd.
+  auto pair = [&](int t, bool f_plane, int pairs) {
+    const int r = t / kRrPairRow, m = t % kRrPairRow;
+    const int lj = r + f_plane, j = fj0 + lj;
+    BfPair p = bf_pair(t < pairs, j < nyf, j * nzf + fk0, fk0, nzf, sx, m,
+                       kRrHalf, lj * 2 * kRrHalf + 2 * m,
+                       r * kRrStageRow + 2 * m);
+    p.fl = (int)((unsigned)p.fl | (unsigned)(m & 1) << 31);
+    return p;
   };
-  auto load_f = [&](int q, int h) {
-    float* d = fs + (q % kRrRingF) * kRrPlane;
-    const T* g = f + q * sx;
+  const BfPair pu1 = pair(tid, false, kRrPairsU);
+  const BfPair pf1 = pair(tid, true, kRrPairsF);
+  int xk = -1, xt = 0;
+  if (tid < 2 * kRrExtraU) {
+    xk = tid / kRrExtraU;
+    xt = kRrThreads + tid % kRrExtraU;
+  } else if (tid < 2 * (kRrExtraU + kRrExtraF)) {
+    xk = 2 + (tid - 2 * kRrExtraU) / kRrExtraF;
+    xt = kRrThreads + (tid - 2 * kRrExtraU) % kRrExtraF;
+  }
+  const BfPair px = pair(xt, xk >= 2, xk < 0 ? 0 : xk < 2 ? kRrPairsU
+                                                          : kRrPairsF);
+  // bf16: this thread's chunk of a u plane (t = tid) and of an f plane
+  // (t = kRrThreads - 1 - tid): its row's in-plane offset (kNoRow: a row
+  // outside the field, or no chunk), and the chunk index (bits 0..3), a
+  // flag that it may reach outside the field in its first or last plane
+  // (bit 4) and its first staging word (bits 5..)
+  auto chunk_of = [&](int t, bool f_plane, int chunks, int& g, int& c) {
+    const int r = t / kRrChunkRow, k = t % kRrChunkRow;
+    const int j = fj0 + r + f_plane;
+    g = t < chunks && j < nyf ? j * nzf + fk0 : kNoRow;
+    const bool end = g + 8 * k < 7 || g + 8 * k + 8 > sx;
+    c = k | (end ? 16 : 0) | (r * kRrStageRow + 4 * k) << 5;
+  };
+  int cu_g, cu_c, cf_g, cf_c;
+  chunk_of(tid, false, kRrChunksU, cu_g, cu_c);
+  chunk_of(kRrThreads - 1 - tid, true, kRrChunksF, cf_g, cf_c);
+  // element address of each field's node 0, modulo 8 (the view's offset
+  // too): a row's word offset in its first chunk and its parity
+  const int pu = (int)((reinterpret_cast<uintptr_t>(u) >> 1) & 7);
+  const int pf = (int)((reinterpret_cast<uintptr_t>(f) >> 1) & 7);
+  // bf16: plane q of a field (its rings and staging rings of nr and ns
+  // planes of `words`, address p0 modulo 8, pair tid's p1, its chunk cg, cc,
+  // and the extra pair where xk is the plane's kind): its chunks into the
+  // staging slot, or its pairs from it into the ring (widen)
+  auto bf16_plane = [&](const T* field, int p0, BfPair p1, int cg, int cc,
+                   float* ring, int nr, unsigned* stage, int ns, int words,
+                   int q, int kind, bool widen) {
+    if constexpr (kBf) {
+      unsigned* stq = stage + (q % ns) * words;
+      const int p8 = (p0 + (int)(q * sx & 7)) & 7;
+      if (!widen) {
+        bf_chunk_issue(cg, cc & 15, cc & 16, field, q * sx, total,
+                       stq + (cc >> 5));
+        return;
+      }
+      float* d = ring + (q % nr) * kRrPlane;
+      auto one = [&](BfPair p) {  // at its row's word offset
+        const int off = (((p8 + p.g) & 7) ^ ((unsigned)p.fl >> 29 & 4)) >> 1;
+        bf_pair_widen<false>(p, p8 & 1, stq + off, d, kRrHalf);
+      };
+      one(p1);
+      if (xk == kind) one(px);
+    }
+  };
+  // step I's planes: u planes 2I + 1, 2I + 2 (kinds 0, 1), f planes 2I,
+  // 2I + 1 (kinds 2, 3), and in the lead-in step u plane 2I
+  auto bf16_step = [&](int I, bool widen) {
+    auto u_plane = [&](int q, int kind) {
+      bf16_plane(u, pu, pu1, cu_g, cu_c, us, kRrRingU, ust, kRrStageU,
+            kRrRows * kRrStageRow, q, kind, widen);
+    };
+    auto f_plane = [&](int q, int kind) {
+      bf16_plane(f, pf, pf1, cf_g, cf_c, fs, kRrRingF, fst, kRrStageF,
+            kRrResRows * kRrStageRow, q, kind, widen);
+    };
+    if (I < I0) u_plane(2 * I, 0);
+    u_plane(2 * I + 1, 0);
+    u_plane(2 * I + 2, 1);
+    f_plane(2 * I, 2);
+    f_plane(2 * I + 1, 3);
+  };
+  // fp32: plane q of u or f into its ring
+  auto load_u = [&](int q) {
+    if constexpr (!kBf) {
+      float* d = us + (q % kRrRingU) * kRrPlane;
+      const T* g = u + q * sx;
 #pragma unroll
-    for (int r = 0; r < kRrLoadsF; ++r)
-      if (lf_s[r] >= 0) fetch(d + lf_s[r], g + max(lf_g[r], 0),
-                              lf_g[r] >= 0, held_f[h][r]);
+      for (int r = 0; r < kRrLoadsU; ++r)
+        if (lu_s[r] >= 0)
+          cp_async4(d + lu_s[r], g + max(lu_g[r], 0), lu_g[r] >= 0);
+    }
+  };
+  auto load_f = [&](int q) {
+    if constexpr (!kBf) {
+      float* d = fs + (q % kRrRingF) * kRrPlane;
+      const T* g = f + q * sx;
+#pragma unroll
+      for (int r = 0; r < kRrLoadsF; ++r)
+        if (lf_s[r] >= 0)
+          cp_async4(d + lf_s[r], g + max(lf_g[r], 0), lf_g[r] >= 0);
+    }
   };
   // step I's planes (one commit group; empty past the chunk's last step)
   auto issue = [&](int I) {
     if (I < I1) {
-      load_u(2 * I + 1, 0);
-      load_u(2 * I + 2, 1);
-      load_f(2 * I, 0);
-      load_f(2 * I + 1, 1);
+      if constexpr (kBf) {
+        bf16_step(I, false);
+      } else {
+        load_u(2 * I + 1);
+        load_u(2 * I + 2);
+        load_f(2 * I);
+        load_f(2 * I + 1);
+      }
     }
     cp_async_commit();
   };
-  // the held bf16 nodes of step I's planes into the rings, at the end of
-  // the step before it (the loads' latency hides behind its residuals and
-  // restriction); no thread reads those slots before step I's first
-  // barrier
+  // bf16: step I's staged planes (and, for the lead-in step, its west u
+  // plane) widened into the rings at the end of step I - 1. A chunk is
+  // copied by one thread and its pairs widened by others, so each thread
+  // waits for its copies of step I (issued kAheadT - 1 commit groups
+  // before) ahead of step I - 1's second barrier (land), which makes them
+  // visible to all; no thread reads those ring slots before step I's first
+  // barrier.
+  auto land = [&]() {
+    if constexpr (kBf) cp_async_wait<kAheadT - 1>();
+  };
   auto settle = [&](int I) {
-    if (!kHeld || I >= I1) return;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* du = us + ((2 * I + 1 + h) % kRrRingU) * kRrPlane;
-      float* df = fs + ((2 * I + h) % kRrRingF) * kRrPlane;
-#pragma unroll
-      for (int r = 0; r < kRrLoadsU; ++r)
-        if (lu_s[r] >= 0) du[lu_s[r]] = held_u[h][r];
-#pragma unroll
-      for (int r = 0; r < kRrLoadsF; ++r)
-        if (lf_s[r] >= 0) df[lf_s[r]] = held_f[h][r];
+    if constexpr (kBf) {
+      if (I < I1) bf16_step(I, true);
     }
   };
 
@@ -341,21 +469,23 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
   };
   if (I0 == 1) zero_span(0, true);
 
-  load_u(2 * I0 - 2, 0);  // the lead-in's west plane, in the first group
-  if (kHeld) {
-    float* d = us + ((2 * I0 - 2) % kRrRingU) * kRrPlane;
-#pragma unroll
-    for (int r = 0; r < kRrLoadsU; ++r)
-      if (lu_s[r] >= 0) d[lu_s[r]] = held_u[0][r];
-  }
-  for (int d = 0; d < kRrAhead; ++d) {
-    issue(I0 - 1 + d);
-    settle(I0 - 1 + d);
-  }
-  for (int I = I0 - 1; I < I1; ++I) {
-    cp_async_wait<kRrAhead - 1>();  // step I's planes have landed
+  if constexpr (kBf) {  // the words no pair writes stay 0
+    zero_rings(sm, (kRrRingU + kRrRingF) * kRrPlane, kRrThreads);
     __syncthreads();
-    issue(I + kRrAhead);
+  }
+  // the lead-in's west plane, in the first group (bf16: in bf16_step)
+  if constexpr (!kBf) load_u(2 * I0 - 2);
+  for (int d = 0; d < kAheadT; ++d) issue(I0 - 1 + d);
+  if constexpr (kBf) {
+    land();
+    __syncthreads();
+  }
+  settle(I0 - 1);
+  for (int I = I0 - 1; I < I1; ++I) {
+    // step I's planes have landed (bf16: widened by settle(I))
+    if constexpr (!kBf) cp_async_wait<kRrAhead - 1>();
+    __syncthreads();
+    issue(I + kAheadT);
     const bool lead = I < I0;  // computes residual plane 2I+1 alone
     const float* u1 = us + ((2 * I) % kRrRingU) * kRrPlane + first;
     const float* u2 = us + ((2 * I + 1) % kRrRingU) * kRrPlane + first;
@@ -389,6 +519,7 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
 #pragma unroll
       for (int i = 0; i < R + 2; ++i) cb[i] = cd[i];
     }
+    land();  // this thread's copies of step I + 1
     __syncthreads();
     if (lead) {
       if (mine) {
@@ -400,7 +531,7 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
                 r2[centre + dy * nj + (dz == 0 ? 0 : kRrHalf) -
                    (dz < 0 ? 1 : 0)];
       }
-      settle(I + kRrAhead);
+      settle(I + 1);
       continue;
     }
     if (mine) {
@@ -419,7 +550,7 @@ __global__ void __launch_bounds__(kRrThreads, kRrBlocksPerSM)
       for (int i = 0; i < 9; ++i) rw[i] = rn[i];
     }
     if (edge) zero_span(I, false);
-    settle(I + kRrAhead);
+    settle(I + 1);
   }
   if (I1 == ncx - 1) zero_span(ncx - 1, true);
   cp_async_wait<0>();
@@ -435,7 +566,7 @@ int rr_block_slots(int device) {
     int per_sm = 0, sms = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, residual_restrict3d_kernel<T, TO>, kRrThreads,
-            kRrBytes) == cudaSuccess &&
+            rr_bytes<T>()) == cudaSuccess &&
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                device) == cudaSuccess)
       slots[device] = per_sm * sms;
@@ -496,7 +627,7 @@ cudaError_t residual_restrict3d_typed(const void* u, const void* f, void* fc,
                                       cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
   const auto kernel = residual_restrict3d_kernel<T, TO>;
-  const cudaError_t err = allow_smem(kernel, kRrBytes, device, done);
+  const cudaError_t err = allow_smem(kernel, rr_bytes<T>(), device, done);
   if (err != cudaSuccess) return err;
   const int tj = (ncy - 2 + kRrTileJ - 1) / kRrTileJ;
   const int tk = (ncz - 2 + kRrTileK - 1) / kRrTileK;
@@ -508,7 +639,7 @@ cudaError_t residual_restrict3d_typed(const void* u, const void* f, void* fc,
                   planes / kRrMinChunk));
   const int chunk = std::min((planes + fill - 1) / fill, kRrMaxChunk);
   const dim3 grid(tk, tj, (planes + chunk - 1) / chunk);
-  kernel<<<grid, kRrThreads, kRrBytes, stream>>>(
+  kernel<<<grid, kRrThreads, rr_bytes<T>(), stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(f),
       static_cast<TO*>(fc), nyf, nzf, ncx, ncy, ncz, chunk, st);
   return cudaGetLastError();

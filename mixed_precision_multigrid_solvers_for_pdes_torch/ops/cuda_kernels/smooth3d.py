@@ -21,7 +21,9 @@ take every sweep of a call in one launch; larger levels take up to
 ``MAX_WAVE_SWEEPS`` sweeps per launch, so the multigrid cycle's 2-sweep calls
 are one launch each, and longer calls run in passes that alternate between
 the output and fp32 scratch fields. ``rbgs3d.launches`` counts kernel
-launches, ``rbgs3d.launches_bf16`` those of a call on bf16 storage.
+launches, ``rbgs3d.launches_bf16`` those of a call on bf16 storage. A bf16
+field may be a view at any storage offset: the kernel reads each row's
+shift within its 4-byte words from the tensor's address.
 
 The geometry the kernel is launched with (passes, tiles, x-chunks) is
 computed here, so the CPU tests can emulate the kernel's schedule with it.

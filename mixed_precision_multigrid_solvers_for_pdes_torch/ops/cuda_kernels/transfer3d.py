@@ -19,7 +19,8 @@ CPU test of their schedules reads.
 On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
 launches its kernel or raises. ``residual_restrict3d.launches`` and
 ``prolong_correct3d.launches`` count kernel launches, ``launches_bf16``
-those with a bf16 operand.
+those with a bf16 operand. F takes bf16 views at any storage offset: it
+reads each row's place in its 16-byte words from the tensor's address.
 """
 
 from __future__ import annotations

@@ -464,6 +464,79 @@ def test_prolong_correct3d_bf16_matches_twin(dev, shape, types):
     _exact(got, ktransfer3d.prolong_correct3d_plain(ec, u.clone()))
 
 
+def _bf16_at(t, offset):
+    """``t`` as bf16, in a view at element ``offset`` of a larger storage:
+    at an odd offset the field starts in the upper half of a 4-byte word."""
+    buf = torch.empty(t.numel() + offset, dtype=torch.bfloat16,
+                      device=t.device)
+    v = buf[offset:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("sweeps,omega,reverse", [(2, 1.0, False),
+                                                  (1, 1.3, True),
+                                                  (5, 1.3, False)])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("shape", [(37, 66, 70), (33, 34, 131),
+                                   (65, 65, 65)])
+def test_rbgs3d_bf16_word_pairs_equal_twin(dev, shape, offsets, sweeps,
+                                           omega, reverse):
+    """E's bf16 planes come in as 4-byte word pairs: nz even and odd, u and
+    f views at odd storage offsets (the kernel takes them; no wrapper sends
+    a bf16 tensor to the twin), and 5 sweeps (the First, Mid and Last
+    storage of a multi-launch bf16 call) equal the twin bit for bit."""
+    g, st = _stencil3d(shape, "skew")
+    u = _bf16_at(_field(shape, 41, dev, ring=True), offsets[0])
+    f = _bf16_at(_field(shape, 42, dev, st.c), offsets[1])
+    assert u.data_ptr() % 4 == 2 * offsets[0]
+    u0 = u.clone()
+    before = ksmooth3d.rbgs3d.launches_bf16
+    got = ksmooth3d.rbgs3d(st, u, f, sweeps=sweeps, omega=omega,
+                           reverse=reverse)
+    assert ksmooth3d.rbgs3d.launches_bf16 - before == len(
+        ksmooth3d.plan_passes(shape, sweeps))
+    assert got.dtype == torch.bfloat16 and torch.equal(u, u0)
+    _exact(got, ksmooth3d.rbgs3d_plain(st, u0.clone(), f, sweeps=sweeps,
+                                       omega=omega, reverse=reverse))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(37, 66, 70), (33, 34, 131)])
+def test_rbgs3d_fp32_u_bf16_f_equals_twin(dev, shape, offset):
+    """An fp32 u with a bf16 f (E's Mid storage in one launch): f's word
+    pairs beside u's fp32 copies."""
+    g, st = _stencil3d(shape, "skew")
+    u = _field(shape, 43, dev, ring=True)
+    f = _bf16_at(_field(shape, 44, dev, st.c), offset)
+    got = ksmooth3d.rbgs3d(st, u, f, sweeps=2, omega=1.3)
+    assert got.dtype == torch.float32
+    _exact(got, ksmooth3d.rbgs3d_plain(st, u.clone(), f, sweeps=2,
+                                       omega=1.3))
+
+
+@pytest.mark.parametrize("types", [("bf16", "bf16"), ("bf16", "fp32"),
+                                   ("fp32", "bf16")])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(37, 69, 131), (65, 65, 65), (11, 9, 7)])
+def test_residual_restrict3d_bf16_word_pairs_equal_twin(dev, shape, offset,
+                                                        types):
+    """F's bf16 planes as 4-byte word pairs, u and f views at opposite
+    storage offsets (the kernel takes them), and the fp32 -> bf16 and
+    bf16 -> fp32 crossings: equal to the twin bit for bit."""
+    g, st = _stencil3d(shape, "skew")
+    cast = {"bf16": _bf16_at, "fp32": lambda t, _: t}
+    u = cast[types[0]](_field(shape, 45, dev, ring=True), offset)
+    f = cast[types[0]](_field(shape, 46, dev, st.c), 1 - offset)
+    out = torch.bfloat16 if types[1] == "bf16" else torch.float32
+    before = ktransfer3d.residual_restrict3d.launches_bf16
+    got = ktransfer3d.residual_restrict3d(st, u, f, out_dtype=out)
+    assert ktransfer3d.residual_restrict3d.launches_bf16 == before + 1
+    assert got.dtype == out
+    _exact(got, ktransfer3d.residual_restrict3d_plain(st, u, f,
+                                                      out_dtype=out))
+
+
 def test_3d_wrappers_refuse_coefficient_and_27_point_stencils(dev):
     """E and F read seven scalars: a coefficient field, a Stencil27 or a
     periodic stencil is refused before any launch."""

@@ -23,6 +23,14 @@ tile, read from the source; and G's blocks, threads and steps. Every
 node is the twin's arithmetic in the twin's order, so the emulation must
 equal ``residual_restrict3d_plain`` and ``prolong_correct3d_plain`` bit for
 bit, and must fail when a ring or the halo is one plane or one node short.
+
+On bf16 storage F's rows come in as aligned 16-byte chunks and are widened
+as pairs of 4-byte words read at a word offset taken from each row's
+address; the tests at the end copy each block's chunks from the field's
+16-bit elements, widen its pairs (the thread of each pair, the extra pairs
+past the block's threads) with the word-pair emulation of
+``test_torch_smooth3d_schedule.py``, and hold the widened u and f planes to
+the zero-filled windows of the fp32 path.
 """
 
 import re
@@ -40,6 +48,14 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
     transfer3d as kx3,
 )
+from test_torch_smooth3d_schedule import (
+    GARBAGE,
+    _c_int,
+    bf16_field,
+    bf_pairs,
+    natural,
+    widen_plane,
+)
 
 SOURCE = Path(T.__file__).parent / "csrc" / "transfer3d.cu"
 SHAPES = [(5, 5, 5), (9, 17, 13), (17, 9, 21)]
@@ -50,10 +66,9 @@ TINY_TILE = (2, 4)
 def _source_consts():
     """csrc/transfer3d.cu's integer constants, evaluated in order."""
     consts = {}
-    for name, expr in re.findall(r"constexpr int (k\w+) =\s*([^;]+);",
-                                 SOURCE.read_text()):
-        if "sizeof" not in expr:
-            consts[name] = eval(expr, {}, dict(consts))
+    for name, expr in re.findall(r"^constexpr int (k\w+) =\s*([^;]+);",
+                                 SOURCE.read_text(), re.M):
+        consts[name] = _c_int(expr, consts)
     return consts
 
 
@@ -325,3 +340,170 @@ def test_geometry_is_the_kernel_sources():
     # one to each coarse node of the tile
     assert strips * (2 * g["tile"][1] + 1) <= c["kRrThreads"]
     assert g["tile"][0] * g["tile"][1] <= c["kRrThreads"]
+
+
+# ---------------------------------------------------------------------------
+# bf16 planes as word pairs (csrc/common.cuh) in kernel F.
+
+
+def _f_plane_pairs(c, fj0, fk0, nyf, nzf):
+    """Every pair of a block's u planes and f planes, as F's threads take
+    them: pair tid of each plane, and the extra pair xt of plane kind xk
+    (0, 1: a step's u planes, 2, 3: its f planes); per kind, (g, fl) with
+    the staging word of a pair's row (kRrStageRow words a row) and bit 31
+    set for an odd m."""
+    tid = np.arange(c["kRrThreads"])
+    half, pr = c["kRrHalf"], c["kRrPairRow"]
+
+    def pair(t, f_plane, pairs):
+        r = t // pr
+        lj = r + f_plane
+        g, fl = bf_pairs(t, t < pairs, lj, fj0 + lj, fk0, nyf, nzf, half, pr)
+        m = t % pr
+        stage = r * c["kRrStageRow"] + 2 * m
+        fl = np.where(fl != 0, (fl & ((1 << 20) - 1)) | stage << 20
+                      | (m & 1) << 31, 0)
+        return g, fl
+
+    eu, ef = c["kRrExtraU"], c["kRrExtraF"]
+    xk = np.full_like(tid, -1)
+    xt = np.zeros_like(tid)
+    lo = tid < 2 * eu
+    xk[lo], xt[lo] = tid[lo] // eu, c["kRrThreads"] + tid[lo] % eu
+    hi = ~lo & (tid < 2 * (eu + ef))
+    xk[hi] = 2 + (tid[hi] - 2 * eu) // ef
+    xt[hi] = c["kRrThreads"] + (tid[hi] - 2 * eu) % ef
+    pairs_of = np.where(xk < 0, 0, np.where(xk < 2, c["kRrPairsU"],
+                                            c["kRrPairsF"]))
+    xg, xfl = pair(xt, xk >= 2, pairs_of)
+    out = {}
+    for kind in range(4):
+        f_plane = kind >= 2
+        pairs = c["kRrPairsF"] if f_plane else c["kRrPairsU"]
+        g, fl = pair(tid, f_plane, pairs)
+        mine = xk == kind
+        taken = np.concatenate([tid[tid < pairs], xt[mine]])
+        assert sorted(taken.tolist()) == list(range(pairs))  # each once
+        out[kind] = (np.concatenate([g, xg[mine]]),
+                     np.concatenate([fl, xfl[mine]]))
+    return out
+
+
+def _f_chunks(c, field, q, fj0, fk0, f_plane, stage_words):
+    """The 16-byte chunks of plane q of a block's u rows (f_plane False)
+    or f rows, as bf_chunk_issue copies them: the staged words (GARBAGE
+    where nothing was copied) and every element read. A chunk that may
+    reach outside the tensor (its end flag) goes word by word."""
+    nx, ny, nz = field.shape
+    n, sx = field.numel(), ny * nz
+    el = field.contiguous().view(torch.int16).numpy().view(np.uint16)
+    el = el.reshape(-1).astype(np.uint32)
+    real = (field.data_ptr() >> 1) & 7
+    rows = c["kRrResRows"] if f_plane else c["kRrRows"]
+    stage = np.full(stage_words, GARBAGE, np.uint32)
+    reads = []
+    for t in range(rows * c["kRrChunkRow"]):
+        r, k = divmod(t, c["kRrChunkRow"])
+        j = fj0 + r + f_plane
+        if j >= ny:
+            continue
+        g = j * nz + fk0
+        end = g + 8 * k < 7 or g + 8 * k + 8 > sx
+        row = q * sx + g  # element of the row's column 0
+        start = row - ((real + row) & 7) + 8 * k  # its 16-byte chunk k
+        for w in range(4):
+            e, dst = start + 2 * w, r * c["kRrStageRow"] + 4 * k + w
+            if not end or (0 <= e and e + 1 < n):
+                reads += [e, e + 1]
+                stage[dst] = el[min(max(e, 0), n - 1)] | el[
+                    min(max(e + 1, 0), n - 1)] << 16
+            elif e == -1:
+                stage[dst] = (stage[dst] & 0xFFFF) | el[0] << 16
+                reads.append(0)
+            elif e == n - 1:
+                stage[dst] = (stage[dst] & 0xFFFF0000) | el[e]
+                reads.append(e)
+    return stage, reads
+
+
+def _f_plane_check(u, f, parity=None):
+    """Every block's u and f planes through F's chunks and word pairs;
+    True when each equals the zero-filled window of the fp32 path (u over
+    the whole window, f over the residual window) and no word is read
+    outside its tensor. ``parity`` replaces the low bit of the address the
+    kernel reads a row's parity from (the teeth test)."""
+    c = _source_consts()
+    nxf, nyf, nzf = u.shape
+    ncy, ncz = (nyf - 1) // 2 + 1, (nzf - 1) // 2 + 1
+    rows, cols = c["kRrRows"], c["kRrCols"]
+    ok = True
+    for bj in range(-(-(ncy - 2) // c["kRrTileJ"])):
+        for bk in range(-(-(ncz - 2) // c["kRrTileK"])):
+            fj0 = 2 * (1 + bj * c["kRrTileJ"]) - 2
+            fk0 = 2 * (1 + bk * c["kRrTileK"]) - 2
+            plan = _f_plane_pairs(c, fj0, fk0, nyf, nzf)
+            rings = [np.zeros(c["kRrPlane"], np.uint32) for _ in range(2)]
+            for q in range(nxf):
+                for kind, field in ((q % 2, u), (2 + q % 2, f)):
+                    g, fl = plan[kind]
+                    f_plane = kind >= 2
+                    stage, reads = _f_chunks(
+                        c, field, q, fj0, fk0, f_plane,
+                        (c["kRrResRows"] if f_plane else rows)
+                        * c["kRrStageRow"])
+                    ok &= all(0 <= e < field.numel() for e in reads)
+                    p8 = ((field.data_ptr() >> 1) + q * nyf * nzf) & 7
+                    if parity is not None:
+                        p8 ^= 1
+                    off = (((p8 + g) & 7) ^ (((fl >> 31) & 1) << 2)) >> 1
+                    ring = rings[f_plane]  # u's, f's: zeroed once
+                    widen_plane(ring, stage, g, fl, p8 & 1, c["kRrHalf"],
+                                off)
+                    ring = natural(ring.view(np.float32), c["kRrHalf"], rows,
+                                   cols)
+                    ref = _window(field.float(), q, fj0, fk0, rows, cols)
+                    if f_plane:  # the residual window, rows and columns 1..
+                        ring, ref = ring[1:-1, 1:-1], ref[1:-1, 1:-1]
+                    ok &= ring.tobytes() == ref.numpy().tobytes()
+    return ok
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(3, 37, 131), (3, 19, 70)])
+def test_f_bf16_word_pairs_are_the_zero_filled_windows(shape, offset):
+    """F's bf16 u and f planes as 16-byte chunks widened as word pairs, nz
+    odd (every shape F takes) and even (the plan alone), views at storage
+    offsets 0 and 1 (u and f opposite), tiles that do not divide the grid:
+    each block's widened planes are the fp32 path's zero-filled windows bit
+    for bit, every pair taken by one thread, and no word read outside the
+    tensor."""
+    u = bf16_field(shape, offset, 3 + offset)
+    f = bf16_field(shape, 1 - offset, 5 + offset)
+    assert _f_plane_check(u, f)
+
+
+def test_f_bf16_word_pairs_fail_with_the_wrong_row_shift():
+    """The check has teeth: a row's parity from the wrong address gives
+    other planes."""
+    u, f = bf16_field((3, 37, 131), 1, 3), bf16_field((3, 37, 131), 1, 5)
+    assert not _f_plane_check(u, f, parity=True)
+
+
+def test_f_bf16_staging_fits_the_blocks_per_multiprocessor():
+    """F's rings and bf16 staging rings fit kRrBlocksPerSM blocks in 227 KB,
+    a row's pairs fit its 16-byte chunks, a thread takes at most one chunk
+    of a plane, and the pairs past a block's threads fit its threads once
+    more."""
+    c = _source_consts()
+    assert c["kRrBytes"] == (c["kRrRingU"] + c["kRrRingF"]
+                             + c["kRrRingR"]) * c["kRrPlane"] * 4
+    assert c["kRrStageBytes"] == 4 * c["kRrStageRow"] * (
+        c["kRrStageU"] * c["kRrRows"] + c["kRrStageF"] * c["kRrResRows"])
+    # a row's pairs, up to 3 words into its first chunk, fit its chunks
+    assert 3 + 2 * c["kRrPairRow"] <= c["kRrStageRow"]
+    assert max(c["kRrChunksU"], c["kRrChunksF"]) <= c["kRrThreads"]
+    assert (c["kRrBytes"] + c["kRrStageBytes"]) * c["kRrBlocksPerSM"] \
+        <= 227 * 1024
+    assert (c["kRrPairRow"] - 1) * 4 + 2 >= c["kRrCols"] - 1  # cover a row
+    assert 0 <= 2 * (c["kRrExtraU"] + c["kRrExtraF"]) <= c["kRrThreads"]
+    assert c["kRrStageU"] == 2 * c["kRrStageAhead"] + 1
