@@ -582,6 +582,12 @@ HEAT3D_A_STEPS, HEAT3D_A_DT = 5, 1e-3
 # --precisions mixed,bf16,bf16_start), which round once per call as the
 # kernels do: the kernel path's reference.
 BF16_VAR_CYCLES = 8
+# Phase 32's bf16 row alignment cases of H and L: ny odd and even, fields
+# narrower than a tile (windows clamped at both edges), the main path's
+# 1025^2; storage offsets of (u, f, H's planes), 'alt' putting plane k at
+# offset k % 2
+BF16_ROW_SHAPES = ((70, 133), (69, 130), (1025, 1025), (5, 9), (9, 6))
+BF16_ROW_OFFSETS = ((1, 1, 1), (0, 1, 0), (1, 0, "alt"))
 VAR_PRECISION_REF = {
     ("varcoef", "mixed"): (5, 4.267189e-6, []),
     ("varcoef", "bf16"): (8, 4.662472e4, []),
@@ -3740,7 +3746,8 @@ def kernel_phase_var_bf16(mg, card, dev):
     levels into bf16 and fp32, from the 'mixed' hierarchy's last fp32 level
     into its first bf16 one, and on Robin sides; J from 129^2 on a bf16
     entry and on the 'mixed' tail (an fp32 entry over bf16 levels); L at
-    1025^2, 513^2 and 257^2 (1, 2, 3 and 5 sweeps), equal to A too.
+    1025^2, 513^2 and 257^2 (1, 2, 3 and 5 sweeps), equal to A too; H's
+    and L's row alignment cases (bf16_row_checks).
     CUDA-event ms of kernel and twin at the record's shape, and device ms
     per call on bf16 beside the same call on fp32."""
     import torch
@@ -3802,6 +3809,7 @@ def kernel_phase_var_bf16(mg, card, dev):
             widened(lambda a, b: ksv.multisweep_var(st, a, b, sweeps=32)),
             widened(lambda a, b: ksv.multisweep_plain(st, a, b, sweeps=32)),
             lambda: (u.clone(), f), errs, exact=True)
+    bf16_row_checks(mg, ks, ksv, field, widened, errs, dev)
 
     for lev, lev32 in zip(hier["bf16"][:3], hier["fp32"][:3]):
         n, st, nc = lev.grid.nx, lev.stencil, lev.grid.coarsen().nx
@@ -3933,6 +3941,65 @@ def kernel_phase_var_bf16(mg, card, dev):
               f"ms [{card}]")
     print(f"phase 32: {time.perf_counter() - start:.1f} s")
     return errs, times, dev_ms
+
+
+def bf16_row_checks(mg, ks, ksv, field, widened, errs, dev):
+    """Phase 32: L's bf16 window rows come in as aligned 4-byte words
+    (common.cuh load_windows), each row's shift read from its element
+    address; H's nodes as 2-byte loads. H (RB-GS, Jacobi, 5 SOR sweeps in
+    two launches) and L (2 and 5 sweeps, against its twin and A) on
+    BF16_ROW_SHAPES with u, f and H's planes in views at BF16_ROW_OFFSETS:
+    against their twins bit for bit."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import stencil
+
+    bf = torch.bfloat16
+
+    def at(t, offset):  # t in a view at element `offset` of its storage
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        v = buf[offset:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    for shape in BF16_ROW_SHAPES:
+        g = mg.Grid(*shape)
+        X, Y = g.coordinates()
+        st32 = stencil.make_stencil(g, a=np.where(X < 0.5, 1.0, 1e3) + Y,
+                                    device=dev)
+        sp = stencil.make_stencil(g)
+        u, f, fp = field(shape, ring=True), field(shape, 1e3), field(
+            shape, sp.c)
+        for ou, of, op in BF16_ROW_OFFSETS:
+            st = stencil.Stencil(*(
+                at(x.to(bf), k % 2 if op == "alt" else op)
+                for k, x in enumerate(st32.coefs)))
+            for method, sweeps, omega in (("rbgs", 2, 1.0),
+                                          ("jacobi", 2, 0.8),
+                                          ("sor", 5, 1.3)):
+                kw = dict(method=method, sweeps=sweeps, omega=omega)
+                compare("smooth_var_bf16", f"{shape} bf16 {kw} u at offset "
+                        f"{ou}, f at {of}, planes at {op}",
+                        widened(lambda a, b: ksv.multisweep_var(st, a, b,
+                                                                **kw)),
+                        widened(lambda a, b: ksv.multisweep_plain(st, a, b,
+                                                                  **kw)),
+                        lambda: (at(u, ou), at(f, of)), errs, exact=True)
+            for sweeps in (2, 5):
+                kw = dict(sweeps=sweeps, omega=1.0)
+                for label, plain in (
+                        ("", lambda a, b: ks.multisweep_parity_plain(
+                            sp, a, b, **kw)),
+                        (" against A", lambda a, b: ks.multisweep(
+                            sp, a, b, layout="direct", **kw))):
+                    compare("smooth_parity_bf16", f"{shape} bf16 {kw} u at "
+                            f"offset {ou}, f at {of}{label}",
+                            widened(lambda a, b: ks.multisweep(
+                                sp, a, b, layout="parity", **kw)),
+                            widened(plain), lambda: (at(u, ou), at(fp, of)),
+                            errs, exact=True)
+        del u, f, fp
+    torch.cuda.empty_cache()
 
 
 def var_cycle_plan(levels, cycles, robin):
@@ -4800,9 +4867,34 @@ def _ab_3d_and_copy(mg, kb, stencil3d, ks3, kx3, dev, gen, out):
     torch.cuda.empty_cache()
 
 
+def solve_device_ms(run, reps: int = 3) -> float:
+    """Least device time of one call of ``run`` over ``reps`` calls, each
+    traced alone by torch.profiler (the card's activity only): every kernel
+    and copy of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us:
+            best = min(best, us / 1e3)
+    if best == float("inf"):
+        fail("the profiler saw no device work in a solve, three times")
+    return best
+
+
 def _ab_2d(mg, ks, dev, gen, out):
     """--against: A's host and device time per call, K's, L's and D's device
-    time, and the main-path solve."""
+    time, and the main-path solve; H's and L's device time per 2-sweep call
+    on bf16 and fp32 storage at 1025^2, 513^2 and 257^2, and the wall and
+    device ms of phase 33's two 8-cycle 'bf16' solves (the jump problem;
+    Poisson with the parity layout)."""
     import torch
 
     prob = mg.poisson_mms_sinsin(N)
@@ -4873,6 +4965,42 @@ def _ab_2d(mg, ks, dev, gen, out):
     out["solve2d_ms"] = min(walls[1:]) * 1e3
     out["solve2d_iterations"] = int(info["iterations"])
     del levels2, un, fn
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth_var as ksv
+    jump = mg.jump_coefficient_problem(N_VAR, 1e3)
+    for label, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        hj = mg.build_hierarchy(jump.grid, jump.spec, a=jump.a,
+                                policy=mg.policy(label), device=dev)
+        hp = mg.build_hierarchy(prob.grid, prob.spec,
+                                policy=mg.policy(label), device=dev)
+        for lj, lp in zip(hj[:VAR_UPPER_LEVELS], hp[:VAR_UPPER_LEVELS]):
+            n = lj.grid.nx
+            uh = torch.randn((n, n), generator=gen, device=dev).to(dt)
+            fh = (1e3 * torch.randn((n, n), generator=gen,
+                                    device=dev)).to(dt)
+            fl = (lp.stencil.c * torch.randn((n, n), generator=gen,
+                                             device=dev)).to(dt)
+            out[f"H{n}_{label}_device_ms_per_call"] = device_ms_per_call(
+                lambda: ksv.multisweep_var(lj.stencil, uh, fh, sweeps=2),
+                reps=20)
+            out[f"L{n}_{label}_device_ms_per_call"] = device_ms_per_call(
+                lambda: ks.multisweep_parity(lp.stencil, uh, fl), reps=20)
+        del hj, hp
+    cfg8 = cfg.replace(max_iterations=BF16_VAR_CYCLES)
+    saved = ks.PARITY_DEFAULT
+    try:
+        for name, problem, parity in (("jump_bf16", jump, False),
+                                      ("poisson_bf16_parity", prob, True)):
+            ks.PARITY_DEFAULT = parity
+            run = lambda: mg.solve_poisson(  # noqa: E731
+                problem, precision="bf16", cfg=cfg8, device=dev)
+            run()  # warm-up
+            out[f"solve_{name}_ms"] = best_ms(run, reps=5)
+            out[f"solve_{name}_device_ms"] = solve_device_ms(run)
+    finally:
+        ks.PARITY_DEFAULT = saved
+    torch.cuda.empty_cache()
 
 
 def ab_set(tree: str, only_2d: bool = False) -> dict:

@@ -14,6 +14,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 using bf16 = __nv_bfloat16;
 
@@ -201,8 +202,9 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 }
 
 // One node into a shared fp32 window (kernels A, D, H, J and L): a 4-byte
-// cp.async from fp32 storage; from bf16 storage a load widened to fp32
-// (cp.async copies 4, 8 or 16 bytes, so a 2-byte node cannot go that way).
+// cp.async from fp32 storage; from bf16 storage (A, D, H and J) a load
+// widened to fp32 (cp.async copies 4, 8 or 16 bytes, so a 2-byte node
+// cannot go that way; L loads bf16 rows as words, load_windows below).
 // Either is visible to the block after cp_async_wait and a barrier.
 __device__ __forceinline__ void load_shared(float* dst, const float* src) {
   cp_async4(dst, src, true);
@@ -386,6 +388,130 @@ __device__ __forceinline__ void bf_chunk_issue(int g, int c, bool end,
     const long e = src - field;
     for (int w = 0; w < 4; ++w) stage_word(dst + w, field, e + 2 * w, n);
   }
+}
+
+// 2D bf16 windows (kernel L): a block's window row li holds columns
+// wj0 .. wj0 + wy - 1 of field row wi0 + li, whose first element e =
+// (wi0 + li) * ny + wj0 sits at a byte address a + 2e (a: the tensor's,
+// storage offset included). ny is odd on every multigrid level and wj0 is
+// odd unless the window is clamped, so a row starts in either half of a
+// 4-byte word: its shift sh = ((a / 2) + e) & 1 alternates from row to row.
+// A row comes in as the aligned words from element e - sh: word w holds
+// columns 2w - sh and 2w + 1 - sh, and (wy + sh + 1) / 2 words hold the
+// row. Each thread loads all its words of all its arrays into registers
+// before it widens any (load_word: a 4-byte load, or at the tensor's first
+// or last element the half inside it, so nothing is read outside the
+// tensor), so every load of the window is in flight at once, and widens
+// each word into the fp32 window itself (load_windows), which no other
+// thread reads before the next barrier. Widening bf16 -> fp32 is exact (the
+// bits move up 16), so the window is the one the fp32 path loads.
+
+// Parity of the element address of a bf16 tensor's element 0.
+__device__ __forceinline__ int bf_parity(const bf16* field) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(field) >> 1) & 1;
+}
+
+// The word of a bf16 tensor of n elements whose low half is element e (a
+// 4-byte aligned address), through the read-only cache: a 4-byte load where
+// it lies in the tensor; where it reaches outside (e = -1 on a view at an
+// odd address, e = n - 1 with the last element in a low half) the element
+// inside it by a 2-byte load into its half; 0 where it lies outside.
+__device__ __forceinline__ unsigned load_word(const bf16* field, long e,
+                                              long n) {
+  if (e >= 0 && e + 1 < n)
+    return __ldg(reinterpret_cast<const unsigned*>(field + e));
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(field);
+  if (e == -1) return static_cast<unsigned>(__ldg(h)) << 16;
+  if (e == n - 1) return __ldg(h + e);
+  return 0u;
+}
+
+// The fp32 values of a word's low and high halves.
+__device__ __forceinline__ float bf_lo(unsigned v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
+// v to the shared-memory address a (a 32-bit shared-window address, as
+// __cvta_generic_to_shared gives) where `pred` holds: a predicated store,
+// with no branch and no generic-to-shared conversion per store.
+__device__ __forceinline__ void st_shared_if(unsigned a, float v, bool pred) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %2, 0;\n"
+      " @p st.shared.f32 [%0], %1;\n}\n" ::"r"(a),
+      "f"(v), "r"(static_cast<unsigned>(pred))
+      : "memory");
+}
+
+// The window rows of K bf16 arrays src[k] (each an (nx, ny) tensor of n
+// elements) into fp32 windows that keep even and odd columns apart, array
+// k's at win = dst + k * stride (one shared-memory base, converted once to
+// a shared-window address for st_shared_if): column 2m of row li at
+// win[row(li) + m], column 2m + 1 at win[row(li) + odd + m]. Item
+// r of a thread is word w of window row li, t = threadIdx.x + r * kThreads
+// = li * WR + w, WR words a row (at least wy / 2 + 1); the items cover the
+// window's rows when kPer * kThreads >= wx * WR. Each word is widened by the
+// thread that loaded it, after all of that thread's loads have been
+// issued; the windows are the block's to read after its next barrier. A
+// block whose words all lie in the tensors loads them with no edge test
+// (load_word takes the others).
+template <int K, int kPer, int WR, int kThreads, class Row>
+__device__ __forceinline__ void load_windows(const bf16* const (&src)[K],
+                                             float* dst, int stride, int wi0,
+                                             int wj0, int wx, int wy, int nx,
+                                             int ny, int odd, Row row) {
+  const long n = (long)nx * ny, e0 = (long)wi0 * ny + wj0;
+  const unsigned s0 = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  int pq[K];
+  const bf16* org[K];  // the window's first element
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    pq[k] = bf_parity(src[k]);
+    org[k] = src[k] + e0;
+  }
+  // the window's words, elements e0 - 1 .. e0 + (wx - 1) ny + 2 WR - 2, lie
+  // in the tensors: no edge test
+  const bool inside = e0 >= 1 && e0 + (long)(wx - 1) * ny + 2 * WR <= n;
+  auto run = [&](auto checked) {
+    unsigned v[K][kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int t = threadIdx.x + r * kThreads, li = t / WR, w = t - li * WR;
+      if (li >= wx) continue;
+      // word w of row li: element e0 + x of the tensor, x = li ny - sh + 2w
+      const int ep = (((wi0 + li) & ny) ^ wj0) & 1, x0 = li * ny + 2 * w;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int x = x0 - (pq[k] ^ ep);
+        if constexpr (decltype(checked)::value)
+          v[k][r] = load_word(src[k], e0 + x, n);
+        else
+          v[k][r] = __ldg(reinterpret_cast<const unsigned*>(org[k] + x));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int t = threadIdx.x + r * kThreads, li = t / WR, w = t - li * WR;
+      if (li >= wx) continue;
+      const int ep = (((wi0 + li) & ny) ^ wj0) & 1, base = row(li) + w;
+      const bool even = 2 * w < wy;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        // word w holds columns 2w - sh and 2w + 1 - sh: h, the even one low
+        const int sh = pq[k] ^ ep, c = 2 * w + 1 - 2 * sh;
+        const unsigned h = __funnelshift_l(v[k][r], v[k][r], 16 * sh);
+        const unsigned a = s0 + 4 * (k * stride + base);
+        st_shared_if(a, bf_lo(h), even);
+        st_shared_if(a + 4 * (odd - sh), bf_hi(h), c >= 0 && c < wy);
+      }
+    }
+  };
+  if (inside)
+    run(std::false_type{});
+  else
+    run(std::true_type{});
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -30,16 +30,18 @@
 //   then run in one wave (at 82 registers, one block per SM, L took 10%
 //   longer than A there).
 // - Each block loads a window of u and f: its tile plus a halo of 2 nodes
-//   per sweep, clamped to the field. The loads are 4-byte cp.async, all in
-//   flight at once; from L's bf16 storage, 2-byte loads widened to fp32
-//   (cp.async has no 2-byte copy). L's u, f and output are each fp32 or
-//   bf16 (the storage flags of mg_rbgs_parity, as kernel A's): the planes
-//   in shared memory are fp32, and the tile is rounded once where it is
-//   stored; a bf16 call of several launches keeps its passes before the
-//   last in fp32 (the wrapper's scratch fields), as A's does. They land as the window's four parity planes: window
-//   node (li, lj) sits in plane (li & 1, lj & 1) at (li >> 1, lj >> 1).
-//   Both read window rows in order: a warp takes a run of a field row (L),
-//   or runs of two of the global planes' rows (K).
+//   per sweep, clamped to the field. fp32 nodes come in as 4-byte
+//   cp.async, all in flight at once. L's u, f and output are each fp32 or
+//   bf16 (the storage flags of mg_rbgs_parity, as kernel A's). A bf16
+//   array's window rows come in as aligned 4-byte words (common.cuh
+//   load_windows: two nodes a load, every load of a thread in flight
+//   before it widens any), widened into the same fp32 planes. The
+//   tile is rounded once where it is stored; a bf16 call of several
+//   launches keeps its passes before the last in fp32 (the wrapper's
+//   scratch fields), as A's does. The nodes land as the window's four
+//   parity planes: window node (li, lj) sits in plane (li & 1, lj & 1) at
+//   (li >> 1, lj >> 1). Both read window rows in order: a warp takes a run
+//   of a field row (L), or runs of two of the global planes' rows (K).
 // - A colour's nodes are two of the window's four planes. A colour phase
 //   walks whole rows of those two planes, so no thread takes a node of the
 //   other colour and a warp's lanes take consecutive words (no bank
@@ -124,13 +126,30 @@ __device__ __forceinline__ void parity_sweeps(float* sm,
 
   // row by row: a warp reads a run of a field row (L), or of two global
   // planes' rows (K); loading K plane by plane was slower (PERF.md)
+  constexpr bool kBu = std::is_same_v<TU, bf16>;
+  constexpr bool kBf = std::is_same_v<TF, bf16>;
   constexpr int WY = 2 * PC;  // columns of a full window
-  for (int t = threadIdx.x; t < wx * WY; t += kThreads) {
-    const int li = t / WY, lj = t - li * WY;
-    if (lj >= wy) continue;
-    const long g = node_at<kPlanes>(wi0 + li, wj0 + lj, ny, hx, hy);
-    load_shared(us + at(li, lj), u + g);
-    load_shared(fs + at(li, lj), f + g);
+  if constexpr (!kBu || !kBf) {
+    for (int t = threadIdx.x; t < wx * WY; t += kThreads) {
+      const int li = t / WY, lj = t - li * WY;
+      if (lj >= wy) continue;
+      const long g = node_at<kPlanes>(wi0 + li, wj0 + lj, ny, hx, hy);
+      if constexpr (!kBu) load_shared(us + at(li, lj), u + g);
+      if constexpr (!kBf) load_shared(fs + at(li, lj), f + g);
+    }
+  }
+  if constexpr (kBu || kBf) {
+    // L's bf16 arrays as words into the planes (common.cuh load_windows),
+    // u's then f's (4 PS apart): window row li's columns 2m and 2m + 1 in
+    // planes (li & 1, 0) and (li & 1, 1) at (li >> 1, m)
+    constexpr int K = kBu + kBf, WR = PC + 1;  // the widest row's words
+    constexpr int kPer = (2 * PR * WR + kThreads - 1) / kThreads;
+    const bf16* src[K];
+    src[K - 1] = reinterpret_cast<const bf16*>(f);
+    if constexpr (kBu) src[0] = reinterpret_cast<const bf16*>(u);
+    load_windows<K, kPer, WR, kThreads>(
+        src, kBu ? us : fs, 4 * PS, wi0, wj0, wx, wy, nx, ny, PS,
+        [&](int li) { return 2 * (li & 1) * PS + (li >> 1) * PC; });
   }
   cp_async_commit();
   cp_async_wait<0>();

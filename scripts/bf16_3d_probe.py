@@ -15,9 +15,17 @@ those kernels (cuobjdump) to FILE. Run it on the trees to compare one after
 another in one process per tree (parent, change, change, parent), on one
 card.
 
+With ``--2d`` it prints the ptxas report (and with ``--sass FILE`` writes
+the SASS) of the 2D kernels H and L as the 1025^2 paths launch them, and
+stops: H's RB-GS kernel at its 32 x 64 tiles (1025^2, 513^2) and 8 x 64
+tiles (257^2), L's 2-sweep kernel at 64 x 64, 32 x 64 and 8 x 64, each on
+fp32 and on bf16 storage. Their checks and times are ``chip_smoke.py``'s
+(phase 32, ``--against``).
+
 Usage, on a host with a CUDA card:
 
     python3 scripts/bf16_3d_probe.py TREE [--checks] [--sass FILE]
+    python3 scripts/bf16_3d_probe.py TREE --2d [--sass FILE]
 """
 
 import json
@@ -27,6 +35,29 @@ import subprocess
 import sys
 
 KERNELS = ("rbgs3d_wave_kernelILi2ELb1E", "residual_restrict3d_kernel")
+# --2d: H's smooth_var_kernel<TX, 64, RB-GS, ...> and L's parity_kernel<TX,
+# 64, 2 sweeps, pow2 c, ...>
+KERNELS_2D = ("smooth_var_kernelILi32ELi64ELb0E",
+              "smooth_var_kernelILi8ELi64ELb0E",
+              "parity_kernelILi64ELi64ELi2ELb1E",
+              "parity_kernelILi32ELi64ELi2ELb1E",
+              "parity_kernelILi8ELi64ELi2ELb1E")
+
+
+def write_sass(lib, kernels, path) -> None:
+    """The SASS of ``kernels`` in the built library (cuobjdump) to path."""
+    sass = subprocess.run(
+        [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                      "bin", "cuobjdump"), "-sass", str(lib.path)],
+        capture_output=True, text=True).stdout
+    keep, lines = False, []
+    for line in sass.splitlines():
+        if "Function : " in line:
+            keep = any(k in line for k in kernels)
+        if keep:
+            lines.append(line)
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines))
 
 
 def main(argv) -> int:
@@ -49,14 +80,19 @@ def main(argv) -> int:
         return 1
     lib = _build.library()
     print(f"[{tree}] build {lib.build_seconds:.1f} s")
+    kernels = KERNELS_2D if "--2d" in argv else KERNELS
     name = None
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
-            name = next((k for k in KERNELS if k in line), None)
+            name = next((k for k in kernels if k in line), None)
             if name:
                 print(re.sub(r".*(_Z\w+).*", r"  \1", line))
         elif name and ("registers" in line or "spill" in line):
             print("   " + line.strip())
+    if "--sass" in argv:
+        write_sass(lib, kernels, argv[argv.index("--sass") + 1])
+    if "--2d" in argv:
+        return 0
     dev = torch.device("cuda", 0)
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -134,19 +170,6 @@ def main(argv) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({"tree": tree, "card": card, **out}))
-    if "--sass" in argv:
-        sass = subprocess.run(
-            [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                          "bin", "cuobjdump"), "-sass", str(lib.path)],
-            capture_output=True, text=True).stdout
-        keep, lines = False, []
-        for line in sass.splitlines():
-            if "Function : " in line:
-                keep = any(k in line for k in KERNELS)
-            if keep:
-                lines.append(line)
-        with open(argv[argv.index("--sass") + 1], "w") as fh:
-            fh.write("\n".join(lines))
     if bad:
         print(f"bf16_3d_probe: kernel and twin differ: {bad}",
               file=sys.stderr)

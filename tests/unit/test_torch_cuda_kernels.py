@@ -1065,3 +1065,69 @@ def test_heat3d_kernels_match_plain(dev):
                                    cfg, device=dev)["u"]
 
     _exact(run("auto"), run("torch"))
+
+
+# ---------------------------------------------------------------------------
+# L on bf16 storage takes each window row as aligned 4-byte words whose
+# shift is read from the row's element address (H takes 2-byte loads): views
+# at storage offset 1 (a field that starts in the upper half of a word), odd
+# and even ny, and narrow fields whose windows are clamped at both edges
+# equal their twins bit for bit. (5, 9) and (9, 6) are narrower than any tile; 1025^2 is the
+# main path's level.
+BF16_ROW_SHAPES = [(70, 133), (69, 130), (1025, 1025), (5, 9), (9, 6)]
+
+
+def _planes_at(st, offset):
+    """``st``'s planes as bf16 views at storage ``offset`` ('alt': plane k
+    at offset k % 2, so the five planes' rows start at both parities)."""
+    return stencil.Stencil(*(
+        _bf16_at(x, k % 2 if offset == "alt" else offset)
+        for k, x in enumerate(st.coefs)))
+
+
+@pytest.mark.parametrize("method,omega,sweeps", [("rbgs", 1.0, 2),
+                                                 ("jacobi", 0.8, 2),
+                                                 ("sor", 1.3, 5)])
+@pytest.mark.parametrize("offsets", [(1, 1, 1), (0, 1, 0), (1, 0, "alt")])
+@pytest.mark.parametrize("shape", BF16_ROW_SHAPES)
+def test_multisweep_var_bf16_offset_views_equal_twin(dev, shape, offsets,
+                                                     method, omega, sweeps):
+    """H on bf16 u, f and planes at storage offsets (u, f, planes): one
+    launch (RB-GS, Jacobi) or two (5 SOR sweeps: bf16 u into an fp32 pass,
+    then an fp32 u over bf16 planes) equal the twin bit for bit."""
+    g, st = _var_stencil(shape, "jump", dev)
+    stb = _planes_at(st, offsets[2])
+    u = _bf16_at(_field(shape, 51, dev, ring=True), offsets[0])
+    f = _bf16_at(_field(shape, 52, dev, 1e3), offsets[1])
+    assert u.data_ptr() % 4 == 2 * offsets[0]
+    u0 = u.clone()
+    before = ksmooth_var.multisweep_var.launches_bf16
+    got = ksmooth_var.multisweep_var(stb, u, f, method=method,
+                                     sweeps=sweeps, omega=omega)
+    assert ksmooth_var.multisweep_var.launches_bf16 - before == len(
+        ksmooth_var.plan_passes(sweeps))
+    _exact(got, ksmooth.multisweep_plain(stb, u0, f, method=method,
+                                         sweeps=sweeps, omega=omega))
+
+
+@pytest.mark.parametrize("sweeps,omega", [(2, 1.0), (5, 1.3)])
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("shape", BF16_ROW_SHAPES)
+def test_multisweep_parity_bf16_word_rows_equal_twin(dev, shape, offsets,
+                                                     sweeps, omega):
+    """L on bf16 u and f at storage offsets (u, f): equal to its twin and
+    to A bit for bit, one launch or two (5 sweeps)."""
+    st = stencil.make_stencil(T.Grid(*shape))
+    u = _bf16_at(_field(shape, 53, dev, ring=True), offsets[0])
+    f = _bf16_at(_field(shape, 54, dev, st.c), offsets[1])
+    u_in = u.clone()
+    before = ksmooth.multisweep_parity.launches_bf16
+    got = ksmooth.multisweep(st, u, f, sweeps=sweeps, omega=omega,
+                             layout="parity")
+    assert ksmooth.multisweep_parity.launches_bf16 - before == len(
+        ksmooth.plan_passes(sweeps))
+    assert got.dtype == torch.bfloat16 and torch.equal(u, u_in)
+    _exact(got, ksmooth.multisweep_parity_plain(st, u_in.clone(), f,
+                                                sweeps=sweeps, omega=omega))
+    _exact(got, ksmooth.multisweep(st, u_in.clone(), f, sweeps=sweeps,
+                                   omega=omega, layout="direct"))
