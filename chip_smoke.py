@@ -890,6 +890,39 @@ def var_transfer_device(mg, card, dev) -> float:
     return ms
 
 
+def at_offset(t, offset):
+    """``t`` in a view at element ``offset`` of a larger storage of its
+    dtype: at an odd offset a bf16 field starts in a word's upper half."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    v = buf[offset:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def i_offset_checks(kx, st, u, f, label, errs, *, sides=None, out=None,
+                    name="residual_restrict_var"):
+    """I against its twin bit for bit on views at storage offsets 0 and 1:
+    u at the offset, f at the other parity, the planes alternating (the
+    difference taken in fp32)."""
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.stencil \
+        import Stencil
+
+    kw = dict(out_dtype=out) if sides is None else dict(sides=sides,
+                                                        out_dtype=out)
+    for off in (0, 1):
+        sv = Stencil(*(at_offset(x, (k + off) % 2)
+                       for k, x in enumerate(st.coefs)))
+        uv, fv = at_offset(u, off), at_offset(f, 1 - off)
+        compare(name, f"{label}, u at offset {off}",
+                lambda a, b: kx.residual_restrict_var(sv, a, b,
+                                                      **kw).float(),
+                lambda a, b: kx.residual_restrict_plain(sv, a, b,
+                                                        **kw).float(),
+                lambda: (uv, fv), errs, exact=True)
+
+
 def kernel_phase(levels, cfg, dev):
     """Phase 3: each kernel against its twin at the main path's shapes."""
     import torch
@@ -1384,15 +1417,14 @@ def kernel_phase_var(mg, cfg, dev):
     for name in ("varcoef", "east_robin", "west_north_neumann"):
         levels = hier[name]
         sides = levels[0].spec.dirichlet_sides
-        for lev in levels[:3]:
+        for k, lev in enumerate(levels[:-1]):
             n, st, nc = lev.grid.nx, lev.stencil, (lev.grid.nx - 1) // 2 + 1
             u, f = field((n, n)), field((n, n), 1e3)
-            compare("residual_restrict_var", f"{name} {n}->{nc}",
-                    lambda a, b: kx.residual_restrict_var(st, a, b,
-                                                          sides=sides),
-                    lambda a, b: kx.residual_restrict_plain(st, a, b,
-                                                            sides=sides),
-                    lambda: (u, f), errs)
+            # I at every level size, bit for bit, on views at offsets 0, 1
+            i_offset_checks(kx, st, u, f, f"{name} {n}->{nc}", errs,
+                            sides=sides)
+            if k >= 3:
+                continue
             if name == "varcoef":
                 times[("residual_restrict_var", n)] = (
                     time_ms(lambda: kx.residual_restrict_var(st, u, f)),
@@ -3023,6 +3055,12 @@ def heat_kernel_checks(mg, dev):
                   lambda a, b: kx.prolong_correct(a, b, sides=sides),
                   lambda a, b: kx.prolong_correct_plain(a, b, sides=sides),
                   lambda: (ec, u.clone()), name != "pure_diffusion")
+        if name != "pure_diffusion":  # I at every level size, offsets
+            for lev in levels[:-1]:
+                n, nc = lev.grid.nx, (lev.grid.nx - 1) // 2 + 1
+                i_offset_checks(kx, lev.stencil, field((n, n)),
+                                field((n, n), 1e3), f"shifted {name} "
+                                f"{n}->{nc}", errs, sides=sides)
         if name != "neumann":
             tail = [lev for lev in levels if lev.grid.nx <= TAIL_ENTRY]
             sts = [lev.stencil for lev in tail]
@@ -3382,7 +3420,8 @@ def word_pair_checks(ks3, kx3, field, widened, errs, dev):
     16-byte chunks, each row's shift read from the element address. E at
     nz even and odd and at 513^3, F at (37, 69, 131) and 513 -> 257, with u
     and f views at odd storage offsets (a field that starts in a word's
-    upper half), E's multi-launch storages and an fp32 u with a bf16 f,
+    upper half), E's multi-launch storages, an fp32 u with a bf16 f and a
+    bf16 u with an fp32 f (1-3 sweeps, one-block and wave-sized fields),
     F's crossings: against their twins bit for bit."""
     import torch
 
@@ -3391,12 +3430,6 @@ def word_pair_checks(ks3, kx3, field, widened, errs, dev):
         stencil3d
 
     bf = torch.bfloat16
-
-    def at(t, offset):  # t in a view at element `offset` of its storage
-        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-        v = buf[offset:].view(t.shape)
-        v.copy_(t)
-        return v
 
     for shape in E_PAIR_SHAPES + ((N3,) * 3,):
         st = stencil3d.make_stencil3d(Grid3D(*shape))
@@ -3411,7 +3444,28 @@ def word_pair_checks(ks3, kx3, field, widened, errs, dev):
                     f"{ou}, f at {of}, {sweeps} sweeps",
                     widened(lambda a, b: ks3.rbgs3d(st, a, b, **kw)),
                     widened(lambda a, b: ks3.rbgs3d_plain(st, a, b, **kw)),
-                    lambda: (at(u.to(ud), ou), at(f, of)), errs, exact=True)
+                    lambda: (at_offset(u.to(ud), ou), at_offset(f, of)),
+                    errs, exact=True)
+        del u, f
+    # E with a bf16 u over an fp32 f and an fp32 u over a bf16 f at 1-3
+    # sweeps, on a one-block field and wave-sized ones (storages 5, 1 and
+    # 4; 2 at every sweep count), u at an odd offset
+    f32 = torch.float32
+    for shape in ((9, 10, 11),) + E_PAIR_SHAPES:
+        st = stencil3d.make_stencil3d(Grid3D(*shape))
+        u = field(shape, shell=True, dtype=f32)
+        f = field(shape, st.c, dtype=f32)
+        for ud, fd in ((bf, f32), (f32, bf)):
+            for sweeps in (1, 2, 3):
+                kw = dict(sweeps=sweeps, omega=1.3)
+                compare("rbgs3d_bf16", f"{shape} u {str(ud)[6:]} at offset "
+                        f"1, f {str(fd)[6:]}, {sweeps} sweeps "
+                        f"({len(ks3.plan_passes(shape, sweeps))} launches)",
+                        widened(lambda a, b: ks3.rbgs3d(st, a, b, **kw)),
+                        widened(lambda a, b: ks3.rbgs3d_plain(st, a, b,
+                                                              **kw)),
+                        lambda: (at_offset(u.to(ud), 1), f.to(fd)), errs,
+                        exact=True)
         del u, f
     for shape in F_PAIR_SHAPES + ((N3,) * 3,):
         st = stencil3d.make_stencil3d(Grid3D(*shape))
@@ -3428,7 +3482,8 @@ def word_pair_checks(ks3, kx3, field, widened, errs, dev):
                             st, a, b, out_dtype=tout)),
                         widened(lambda a, b: kx3.residual_restrict3d_plain(
                             st, a, b, out_dtype=tout)),
-                        lambda: (at(u.to(tin), off), at(f.to(tin), 1 - off)),
+                        lambda: (at_offset(u.to(tin), off),
+                                 at_offset(f.to(tin), 1 - off)),
                         errs, exact=True)
         del u, f
     torch.cuda.empty_cache()
@@ -3815,13 +3870,9 @@ def kernel_phase_var_bf16(mg, card, dev):
         n, st, nc = lev.grid.nx, lev.stencil, lev.grid.coarsen().nx
         u, f = field((n, n)), field((n, n), 1e3)
         for out in (bf, torch.float32):
-            compare("residual_restrict_var_bf16", f"jump {n}->{nc} bf16->"
-                    f"{str(out)[6:]}", widened(
-                        lambda a, b: kx.residual_restrict_var(
-                            st, a, b, out_dtype=out)), widened(
-                        lambda a, b: kx.residual_restrict_plain(
-                            st, a, b, out_dtype=out)),
-                    lambda: (u, f), errs, exact=True)
+            i_offset_checks(kx, st, u, f, f"jump {n}->{nc} bf16->"
+                            f"{str(out)[6:]}", errs, out=out,
+                            name="residual_restrict_var_bf16")
         u32, f32 = u.float(), f.float()
         bf_ms = dev_ms[("residual_restrict_var_bf16", n)] = \
             device_ms_per_call(lambda: kx.residual_restrict_var(st, u, f), 20,
@@ -3840,24 +3891,18 @@ def kernel_phase_var_bf16(mg, card, dev):
     st, n, nc = mixed[k].stencil, mixed[k].grid.nx, mixed[k + 1].grid.nx
     u, f = field((n, n), dtype=torch.float32), field(
         (n, n), 1e3, torch.float32)
-    compare("residual_restrict_var_bf16", f"jump mixed {n}->{nc} fp32->bf16",
-            widened(lambda a, b: kx.residual_restrict_var(st, a, b,
-                                                          out_dtype=bf)),
-            widened(lambda a, b: kx.residual_restrict_plain(st, a, b,
-                                                            out_dtype=bf)),
-            lambda: (u, f), errs, exact=True)
+    i_offset_checks(kx, st, u, f, f"jump mixed {n}->{nc} fp32->bf16", errs,
+                    out=bf, name="residual_restrict_var_bf16")
     rl = mg.build_hierarchy(robin.grid, robin.spec, policy=mg.policy("bf16"),
                             device=dev)
     sides = robin.spec.dirichlet_sides
-    for lev in rl[:2]:
+    for k, lev in enumerate(rl[:-1]):  # I on every Robin level
         n, st, nc = lev.grid.nx, lev.stencil, lev.grid.coarsen().nx
         u, f = field((n, n), ring=True), field((n, n), 50.0, ring=True)
-        compare("residual_restrict_var_bf16", f"robin {n}->{nc} bf16",
-                widened(lambda a, b: kx.residual_restrict_var(
-                    st, a, b, sides=sides)),
-                widened(lambda a, b: kx.residual_restrict_plain(
-                    st, a, b, sides=sides)), lambda: (u, f), errs,
-                exact=True)
+        i_offset_checks(kx, st, u, f, f"robin {n}->{nc} bf16", errs,
+                        sides=sides, name="residual_restrict_var_bf16")
+        if k >= 2:
+            continue
         ec = field((nc, nc), ring=True)
         compare("prolong_correct_bf16", f"robin sides {nc}->{n} bf16",
                 widened(lambda a, b: kx.prolong_correct(a, b, sides=sides)),
@@ -3956,12 +4001,6 @@ def bf16_row_checks(mg, ks, ksv, field, widened, errs, dev):
 
     bf = torch.bfloat16
 
-    def at(t, offset):  # t in a view at element `offset` of its storage
-        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
-        v = buf[offset:].view(t.shape)
-        v.copy_(t)
-        return v
-
     for shape in BF16_ROW_SHAPES:
         g = mg.Grid(*shape)
         X, Y = g.coordinates()
@@ -3972,7 +4011,7 @@ def bf16_row_checks(mg, ks, ksv, field, widened, errs, dev):
             shape, sp.c)
         for ou, of, op in BF16_ROW_OFFSETS:
             st = stencil.Stencil(*(
-                at(x.to(bf), k % 2 if op == "alt" else op)
+                at_offset(x.to(bf), k % 2 if op == "alt" else op)
                 for k, x in enumerate(st32.coefs)))
             for method, sweeps, omega in (("rbgs", 2, 1.0),
                                           ("jacobi", 2, 0.8),
@@ -3984,7 +4023,8 @@ def bf16_row_checks(mg, ks, ksv, field, widened, errs, dev):
                                                                 **kw)),
                         widened(lambda a, b: ksv.multisweep_plain(st, a, b,
                                                                   **kw)),
-                        lambda: (at(u, ou), at(f, of)), errs, exact=True)
+                        lambda: (at_offset(u, ou), at_offset(f, of)), errs,
+                        exact=True)
             for sweeps in (2, 5):
                 kw = dict(sweeps=sweeps, omega=1.0)
                 for label, plain in (
@@ -3996,7 +4036,8 @@ def bf16_row_checks(mg, ks, ksv, field, widened, errs, dev):
                             f"offset {ou}, f at {of}{label}",
                             widened(lambda a, b: ks.multisweep(
                                 sp, a, b, layout="parity", **kw)),
-                            widened(plain), lambda: (at(u, ou), at(fp, of)),
+                            widened(plain),
+                            lambda: (at_offset(u, ou), at_offset(fp, of)),
                             errs, exact=True)
         del u, f, fp
     torch.cuda.empty_cache()
@@ -4892,9 +4933,10 @@ def solve_device_ms(run, reps: int = 3) -> float:
 def _ab_2d(mg, ks, dev, gen, out):
     """--against: A's host and device time per call, K's, L's and D's device
     time, and the main-path solve; H's and L's device time per 2-sweep call
-    on bf16 and fp32 storage at 1025^2, 513^2 and 257^2, and the wall and
-    device ms of phase 33's two 8-cycle 'bf16' solves (the jump problem;
-    Poisson with the parity layout)."""
+    and I's per call (to the next level) on bf16 and fp32 storage at
+    1025^2, 513^2 and 257^2; the wall and device ms of the fp32 jump solve
+    and of phase 33's two 8-cycle 'bf16' solves (the jump problem; Poisson
+    with the parity layout)."""
     import torch
 
     prob = mg.poisson_mms_sinsin(N)
@@ -4967,7 +5009,7 @@ def _ab_2d(mg, ks, dev, gen, out):
     del levels2, un, fn
 
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
-        import smooth_var as ksv
+        import smooth_var as ksv, transfer as kx
     jump = mg.jump_coefficient_problem(N_VAR, 1e3)
     for label, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         hj = mg.build_hierarchy(jump.grid, jump.spec, a=jump.a,
@@ -4986,7 +5028,17 @@ def _ab_2d(mg, ks, dev, gen, out):
                 reps=20)
             out[f"L{n}_{label}_device_ms_per_call"] = device_ms_per_call(
                 lambda: ks.multisweep_parity(lp.stencil, uh, fl), reps=20)
+            # I from this level to the next (fc in the next level's dtype)
+            out[f"I{n}_{label}_device_ms_per_call"] = device_ms_per_call(
+                lambda: kx.residual_restrict_var(lj.stencil, uh, fh,
+                                                 out_dtype=dt), reps=20)
         del hj, hp
+    # the fp32 jump solve (I's 90 launches among the rest)
+    run = lambda: mg.solve_poisson(  # noqa: E731
+        jump, precision="fp32", cfg=cfg, device=dev)
+    run()  # warm-up
+    out["solve_jump_fp32_ms"] = best_ms(run, reps=5)
+    out["solve_jump_fp32_device_ms"] = solve_device_ms(run)
     cfg8 = cfg.replace(max_iterations=BF16_VAR_CYCLES)
     saved = ks.PARITY_DEFAULT
     try:

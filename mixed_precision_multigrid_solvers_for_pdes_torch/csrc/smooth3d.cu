@@ -439,20 +439,28 @@ cudaError_t launch_wave(const TU* u, const TF* f, TO* out, int nx, int ny,
 
 // The storage of one launch: the input u, f and the output, as the
 // wrapper's passes need them (bit 0: u is bf16, bit 1: f, bit 2: out), as
-// kernel A encodes it (smooth.cu).
+// kernel A encodes it (smooth.cu). u and f are each fp32 or bf16, as the
+// Pallas kernel casts each on its own (smooth3d.py:217): a call on a bf16
+// u runs its passes before the last on fp32, so an fp32 f over a bf16 u
+// takes codes 5 (one launch), 1 (the first of several) and 4 (the last),
+// and a bf16 f over an fp32 u takes code 2 in every launch.
 enum Storage : int {
-  kFp32 = 0,       // an fp32 level
-  kBf16 = 7,       // a bf16 level's call in one launch
-  kBf16First = 3,  // the first launch of a longer bf16 call: out fp32
-  kBf16Mid = 2,    // a launch between: u and out fp32
-  kBf16Last = 6,   // the last: u fp32, out bf16
+  kFp32 = 0,          // an fp32 level
+  kBf16 = 7,          // a bf16 level's call in one launch
+  kBf16First = 3,     // the first launch of a longer bf16 call: out fp32
+  kBf16Mid = 2,       // u and out fp32, f bf16: between, or an fp32 u's call
+  kBf16Last = 6,      // the last: u fp32, out bf16
+  kBf16U = 5,         // a bf16 u over an fp32 f, in one launch
+  kBf16UFirst = 1,    // the first launch of such a call: out fp32
+  kFp32FLast = 4,     // its last: u and f fp32, out bf16
 };
 
 // One launch on typed storage: the one-block kernel for fields within
 // kOneBlockMaxBytes (any sweep count), else the wave kernel. A longer
 // call's launches before its last take kMaxWaveSweeps sweeps each
-// (plan_passes in ops/cuda_kernels/smooth3d.py), so kBf16First and
-// kBf16Mid compile the wave kernel for that count only (kAnySweeps false).
+// (plan_passes in ops/cuda_kernels/smooth3d.py), so the first launches
+// (kBf16First, kBf16UFirst) compile the wave kernel for that count only
+// (kAnySweeps false).
 template <class TU, class TF, class TO, bool kAnySweeps>
 cudaError_t rbgs3d_typed(const void* u, const void* f, void* out, int nx,
                          int ny, int nz, const Stencil7& st, float omega,
@@ -516,10 +524,19 @@ int mg_rbgs3d(const void* u, const void* f, void* out, int nx, int ny,
       return (int)rbgs3d_typed<bf16, bf16, float, false>(
           u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
     case kBf16Mid:
-      return (int)rbgs3d_typed<float, bf16, float, false>(
+      return (int)rbgs3d_typed<float, bf16, float, true>(
           u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
     case kBf16Last:
       return (int)rbgs3d_typed<float, bf16, bf16, true>(
+          u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
+    case kBf16U:
+      return (int)rbgs3d_typed<bf16, float, bf16, true>(
+          u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
+    case kBf16UFirst:
+      return (int)rbgs3d_typed<bf16, float, float, false>(
+          u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
+    case kFp32FLast:
+      return (int)rbgs3d_typed<float, float, bf16, true>(
           u, f, out, nx, ny, nz, st, omega, sweeps, c0, chunk, device, q);
     default:
       return (int)cudaErrorInvalidValue;

@@ -49,7 +49,8 @@ _SIGNATURES = {
     "mg_smooth_var_geometry": ([_I, _I, _IP], _I),
     "mg_residual_restrict": ([_P, _P, _P, _I, _I, _I] + [_F] * 5
                              + [_I, _I, _I, _P], _I),
-    "mg_residual_restrict_var": ([_P] * 8 + [_I] * 8 + [_P], _I),
+    "mg_residual_restrict_var": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "mg_residual_restrict_var_geometry": ([_IP], _I),
     "mg_prolong_correct": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "mg_tail_vcycle": ([_P, _P, _I, _IP, _IP, _FP, _I, _I, _F, _I, _I,
                         _I, _I, _I, _P], _I),
@@ -174,6 +175,12 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = library().lib.mg_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

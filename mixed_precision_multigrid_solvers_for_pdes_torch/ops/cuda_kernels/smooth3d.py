@@ -119,11 +119,6 @@ def check_geometry() -> None:
                 f"{tuple(got)}, this module plans with {geometry(sweeps)}")
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def check_scalar7(name: str, st) -> None:
     """Raise unless ``st`` is a constant-coefficient 7-point stencil that
     does not wrap: kernels E and F read seven scalars and take a box of
@@ -166,7 +161,7 @@ def rbgs3d(st: Stencil3D, u, f, *, sweeps: int = 2, omega: float = 1.0,
     if not passes:
         return u.clone()
     dev, stream = u.device.index, _build.stream_of(u)
-    chunk = chunk_planes(u.shape, _sm_count(dev))
+    chunk = chunk_planes(u.shape, _build.sm_count(dev))
     # passes before the last alternate between two fp32 scratch fields, so
     # a call on bf16 storage rounds once
     mids = [torch.empty(u.shape, dtype=torch.float32, device=u.device)

@@ -18,13 +18,20 @@ Pallas kernels take it (``BoundarySpec.dirichlet_sides``): a Dirichlet
 side's ring is fixed, a Neumann/Robin side's ring holds unknowns.
 
 On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
-launches its kernel or raises. ``residual_restrict.launches``,
-``residual_restrict_var.launches`` and ``prolong_correct.launches`` count
-kernel launches, and ``launches_bf16`` of B, I and C those with a bf16
-side.
+launches its kernel or raises. I's plan (a tile of its source's table,
+or the direct plan) is chosen per level from the level's size, its
+storage and the card's SM count (``var_plan``); ``check_var_geometry``
+holds this module's copy of the plans against the built library before
+the first launch, and the CPU tests hold it against the source.
+``residual_restrict.launches``, ``residual_restrict_var.launches`` and
+``prolong_correct.launches`` count kernel launches, and ``launches_bf16``
+of B, I and C those with a bf16 side.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -35,6 +42,16 @@ from . import _build
 
 DIRICHLET = (True, True, True, True)
 STORAGE = _build.STORAGE
+
+# csrc/transfer_var.cu's plans for I: kVarTiles, (coarse rows, coarse
+# columns, threads) of a block, kVarMinBlocksPerSm and
+# kVarDirectMinNodesPerSm (check_var_geometry holds them against the
+# library); plan len(VAR_TILES) is the direct plan, one thread per coarse
+# node.
+VAR_TILES = ((8, 16, 128), (4, 16, 128), (4, 8, 128))
+VAR_MIN_BLOCKS_PER_SM = 8
+VAR_DIRECT_MIN_NODES_PER_SM = 1024
+VAR_DIRECT = len(VAR_TILES)
 
 
 def coarse_shape(nxf: int, nyf: int):
@@ -113,6 +130,38 @@ def residual_restrict(st: Stencil, u, f, *, out_dtype=None):
 residual_restrict.launches = residual_restrict.launches_bf16 = 0
 
 
+def var_blocks(ncx: int, ncy: int, tile) -> int:
+    """Blocks of I's grid over a (ncx, ncy) coarse level with ``tile``."""
+    return -(-ncx // tile[0]) * -(-ncy // tile[1])
+
+
+def var_plan(ncx: int, ncy: int, sms: int, bf16_in: bool) -> int:
+    """I's plan for a (ncx, ncy) coarse level on a card of ``sms``
+    multiprocessors: VAR_DIRECT for bf16 fields whose coarse grid holds at
+    least VAR_DIRECT_MIN_NODES_PER_SM nodes per SM, else the index in
+    VAR_TILES of the largest tile whose grid gives each SM at least
+    VAR_MIN_BLOCKS_PER_SM blocks, else of the smallest."""
+    if bf16_in and ncx * ncy >= VAR_DIRECT_MIN_NODES_PER_SM * sms:
+        return VAR_DIRECT
+    for k, tile in enumerate(VAR_TILES):
+        if var_blocks(ncx, ncy, tile) >= VAR_MIN_BLOCKS_PER_SM * sms:
+            return k
+    return len(VAR_TILES) - 1
+
+
+@functools.cache
+def check_var_geometry() -> None:
+    """Raise unless the built kernel I reports this module's plans (once
+    per process)."""
+    got = (ctypes.c_int * (3 + 3 * len(VAR_TILES)))()
+    _build.launch("mg_residual_restrict_var_geometry", got)
+    want = (len(VAR_TILES), VAR_MIN_BLOCKS_PER_SM,
+            VAR_DIRECT_MIN_NODES_PER_SM, *(x for t in VAR_TILES for x in t))
+    if tuple(got) != want:
+        raise RuntimeError(f"residual_restrict_var: the kernel reports "
+                           f"{tuple(got)}, this module plans with {want}")
+
+
 def residual_restrict_var(st: Stencil, u, f, *, sides=DIRICHLET,
                           out_dtype=None):
     """I: fc = R_fw(f - A u) with the (nx, ny) coefficient planes of ``st``;
@@ -134,11 +183,15 @@ def residual_restrict_var(st: Stencil, u, f, *, sides=DIRICHLET,
     if any(x.dtype != u.dtype for x in st.coefs):
         raise ValueError(f"residual_restrict_var: the planes must have u's "
                          f"dtype {u.dtype}")
+    check_var_geometry()
+    dev = u.device.index
     fc = torch.empty((ncx, ncy), dtype=dtype, device=u.device)
     _build.launch("mg_residual_restrict_var", u.data_ptr(), f.data_ptr(),
                   *(x.data_ptr() for x in st.coefs), fc.data_ptr(),
                   *u.shape, ncx, ncy, side_bits(sides), _build.bf16(u),
-                  _build.bf16(fc), u.device.index, _build.stream_of(u))
+                  _build.bf16(fc),
+                  var_plan(ncx, ncy, _build.sm_count(dev), _build.bf16(u)),
+                  dev, _build.stream_of(u))
     residual_restrict_var.launches += 1
     if torch.bfloat16 in (u.dtype, dtype):
         residual_restrict_var.launches_bf16 += 1

@@ -49,6 +49,7 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
 )
 from mixed_precision_multigrid_solvers_for_pdes_torch.core import bc
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
+    _build,
     smooth as ksmooth,
     smooth3d as ksmooth3d,
     smooth_planes as ksmooth_planes,
@@ -464,14 +465,18 @@ def test_prolong_correct3d_bf16_matches_twin(dev, shape, types):
     _exact(got, ktransfer3d.prolong_correct3d_plain(ec, u.clone()))
 
 
-def _bf16_at(t, offset):
-    """``t`` as bf16, in a view at element ``offset`` of a larger storage:
-    at an odd offset the field starts in the upper half of a 4-byte word."""
-    buf = torch.empty(t.numel() + offset, dtype=torch.bfloat16,
-                      device=t.device)
+def _at_offset(t, offset, dtype):
+    """``t`` as ``dtype`` in a view at element ``offset`` of a larger
+    storage: at an odd offset a bf16 field starts in the upper half of a
+    4-byte word."""
+    buf = torch.empty(t.numel() + offset, dtype=dtype, device=t.device)
     v = buf[offset:].view(t.shape)
     v.copy_(t)
     return v
+
+
+def _bf16_at(t, offset):
+    return _at_offset(t, offset, torch.bfloat16)
 
 
 @pytest.mark.parametrize("sweeps,omega,reverse", [(2, 1.0, False),
@@ -512,6 +517,29 @@ def test_rbgs3d_fp32_u_bf16_f_equals_twin(dev, shape, offset):
     got = ksmooth3d.rbgs3d(st, u, f, sweeps=2, omega=1.3)
     assert got.dtype == torch.float32
     _exact(got, ksmooth3d.rbgs3d_plain(st, u.clone(), f, sweeps=2,
+                                       omega=1.3))
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 3])
+@pytest.mark.parametrize("types", [("bf16", "fp32"), ("fp32", "bf16")])
+@pytest.mark.parametrize("shape", [(9, 10, 11), (37, 66, 70)])
+def test_rbgs3d_mixed_u_f_storage_every_sweep_count(dev, shape, types,
+                                                    sweeps):
+    """E takes a bf16 u over an fp32 f and an fp32 u over a bf16 f at every
+    sweep count, on a one-block field and a wave-sized one (storages 5, 1
+    and 4; 2 at 1 and 3 sweeps), and equals its twin bit for bit."""
+    g, st = _stencil3d(shape, "skew")
+    assert ksmooth3d.one_block(shape) == (shape == (9, 10, 11))
+    cast = {"bf16": lambda t: _bf16_at(t, 1), "fp32": lambda t: t}
+    u = cast[types[0]](_field(shape, 45, dev, ring=True))
+    f = cast[types[1]](_field(shape, 46, dev, st.c))
+    u0 = u.clone()
+    before = ksmooth3d.rbgs3d.launches_bf16
+    got = ksmooth3d.rbgs3d(st, u, f, sweeps=sweeps, omega=1.3)
+    assert ksmooth3d.rbgs3d.launches_bf16 - before == len(
+        ksmooth3d.plan_passes(shape, sweeps))
+    assert got.dtype == u.dtype and torch.equal(u, u0)
+    _exact(got, ksmooth3d.rbgs3d_plain(st, u0.clone(), f, sweeps=sweeps,
                                        omega=1.3))
 
 
@@ -663,6 +691,66 @@ def test_residual_restrict_var_and_prolong_sides_match_twins(dev, n,
     _exact(got_u, ktransfer.prolong_correct_plain(ec, u.clone(), sides=sides))
     fixed = ~bc.unknown_mask(n, n, spec, device=dev)
     assert torch.equal(got_u[fixed], u[fixed])
+
+
+# I's plans (transfer.var_plan: a tile of VAR_TILES per level, the direct
+# plan for bf16 at 1025 -> 513); the tiles divide none of these coarse grids
+# but 1025's; u at ``offset``, f at the other parity, the planes alternating
+@pytest.mark.parametrize("side_set", list(SIDE_SETS))
+@pytest.mark.parametrize("n", [5, 9, 17, 65, (37, 69), 257, 1025])
+def test_residual_restrict_var_every_pairing_and_offset(dev, n, side_set):
+    """I in all four in/out storage pairings, on views at storage offsets 0
+    and 1, equals its twin bit for bit."""
+    spec = SIDE_SETS[side_set]
+    g, st = _var_stencil(n, "jump", dev, spec)
+    sides = spec.dirichlet_sides
+    u = _field(g.shape, 36, dev, ring=True)
+    f = _field(g.shape, 37, dev, 50.0, ring=True)
+    for tin in (torch.float32, torch.bfloat16):
+        for out in (torch.float32, torch.bfloat16):
+            for offset in (0, 1):
+                stv = stencil.Stencil(*(_at_offset(x, (k + offset) % 2, tin)
+                                        for k, x in enumerate(st.coefs)))
+                uv, fv = _at_offset(u, offset, tin), _at_offset(f, 1 - offset,
+                                                                tin)
+                before = ktransfer.residual_restrict_var.launches
+                got = ktransfer.residual_restrict_var(stv, uv, fv,
+                                                      sides=sides,
+                                                      out_dtype=out)
+                assert ktransfer.residual_restrict_var.launches == before + 1
+                assert got.dtype == out
+                _exact(got, ktransfer.residual_restrict_plain(
+                    stv, uv, fv, sides=sides, out_dtype=out))
+
+
+@pytest.mark.parametrize("side_set", ["dirichlet", "west_north_neumann"])
+@pytest.mark.parametrize("shape", [(37, 69), (65, 65)])
+def test_residual_restrict_var_every_plan_equals_twin(dev, shape, side_set):
+    """Each of I's plans, launched directly (every tile of VAR_TILES and the
+    direct plan), in all four storage pairings, equals the twin bit for
+    bit."""
+    spec = SIDE_SETS[side_set]
+    g, st = _var_stencil(shape, "jump", dev, spec)
+    sides = spec.dirichlet_sides
+    u = _field(g.shape, 38, dev, ring=True)
+    f = _field(g.shape, 39, dev, 50.0, ring=True)
+    nc = ktransfer.coarse_shape(*shape)
+    for tin in (torch.float32, torch.bfloat16):
+        stv = stencil.Stencil(*(x.to(tin) for x in st.coefs))
+        uv, fv = u.to(tin), f.to(tin)
+        for out in (torch.float32, torch.bfloat16):
+            want = ktransfer.residual_restrict_plain(stv, uv, fv, sides=sides,
+                                                     out_dtype=out)
+            for plan in range(ktransfer.VAR_DIRECT + 1):
+                fc = torch.empty(nc, dtype=out, device=dev)
+                _build.launch("mg_residual_restrict_var", uv.data_ptr(),
+                              fv.data_ptr(),
+                              *(x.data_ptr() for x in stv.coefs),
+                              fc.data_ptr(), *shape, *nc,
+                              ktransfer.side_bits(sides), _build.bf16(uv),
+                              _build.bf16(fc), plan, dev.index,
+                              _build.stream_of(uv))
+                _exact(fc, want)
 
 
 # J's cluster plan: from 129^2 and (129, 65) two split levels, from 65^2 and
