@@ -74,7 +74,8 @@ The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
      and the c = 4 parity probe (513^2, 1025^2) against their twins, bit for
      bit, and L against A; read K's device time and launches per 2-sweep
      call at 1025^2 and 513^2 planes (one launch each) and the probe's
-     device time per launch at 513^2 and 1025^2 with its share of bound;
+     device time per 2-sweep call (one launch) in every mode at 513^2 and
+     1025^2 with its share of the call's bound, and roll - none;
      time A, K and L per 2-sweep call at 1025^2 in turns; the copy (also
      exact at 8192^2) against torch.mul in turns at 1025^2 and 8192^2,
      bandwidth and device time per launch (torch.profiler) in every turn;
@@ -84,7 +85,9 @@ The parity paths (after phase 5): the parity-plane solve plane_ir_solve at
      outer steps, u equal to the direct layout's bit for bit; time it and
      profile one solve (device ops per solve);
  17. run the microbenchmark (benchmarking/kernel_microbench.run at 513^2 and
-     1025^2) from launch counts reset to zero: the probe and copy launch;
+     1025^2) from launch counts reset to zero: the probe and copy launch,
+     the probe once per call; its us per call in every mode beside the
+     call's bound;
  18. solve plane_ir_solve at 1025^2 with backend='auto', from launch counts
      reset to zero: the JAX reference's 4 outer steps, l2 within 2% of
      3.92e-7, K made exactly its planned launches (16: one per 2-sweep
@@ -121,7 +124,9 @@ reset to zero and held to the JAX reference's count and l2 error:
      and fp32 into bf16) and C between 1025^2 and 513^2, and D from 129^2
      on an all-bf16 and on a mixed tail, on bf16 data from the seed,
      against their twins bit for bit, with device ms per call on bf16
-     beside fp32; solve_poisson(precision='mixed') on both backends (5 +- 1
+     beside fp32; A on a bf16 u over an fp32 f and an fp32 u over a bf16 f
+     (1025^2, 257^2, (9, 61); RB-GS, reversed, Jacobi, SOR; 1-5 sweeps)
+     against its twin bit for bit; solve_poisson(precision='mixed') on both backends (5 +- 1
      steps on the plain path, 5 +- 2 on the kernels, where A-C run only on
      the fp32 levels above the tail and D once per V-cycle),
      precision='adaptive' (15 +- 2, one switch to 'ir'),
@@ -220,7 +225,9 @@ explicit distribution (after phase 31):
      the mixed hierarchy's fp32 -> bf16 crossing, Robin sides, with C), J
      (from 129^2 on a bf16 tail and on the mixed tail, an fp32 entry over
      bf16 levels) and L (1025^2, 513^2, 257^2; 1, 2, 3, 5 sweeps; equal to
-     A) against their twins bit for bit; CUDA-event ms of kernel and twin,
+     A) against their twins bit for bit; H and L on both mixed u/f storages
+     (1025^2, 257^2, (9, 61); 1-5 sweeps) bit for bit; CUDA-event ms of
+     kernel and twin,
      device ms per call on bf16 beside fp32;
  33. solve_poisson(precision='mixed' | 'bf16') and adaptive_solve(start=
      BF16) on the varcoef, jump and Robin problems at 1025^2, each from
@@ -335,6 +342,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1680,17 +1688,26 @@ def kernel_phase_parity(levels, card, dev):
             times[(f"probe_{mode}", n)] = (
                 time_ms(lambda: kb.probe(u, f, mode=mode)),
                 time_ms(lambda: kb.probe_plain(u, f, mode=mode)))
-        # a probe launch is one colour update over the whole field: it reads
-        # u and f and writes u once, 12 bytes per node
-        probe_ms = device_ms(lambda: kb.probe(u, f, mode="roll"),
-                             "probe_color", reps=20)
-        dev_ms[("probe_launch", n)] = probe_ms
-        dev_ms[("probe_roll", n)] = device_ms_per_call(
-            lambda: kb.probe(u, f, mode="roll"), reps=20)
+        # a 2-sweep probe call is one launch (kernel A's scheme) that must
+        # read u and f and write u once, 12 bytes per node; 'none' is A's
+        # loads, stores and barriers with no neighbour reads
         bound_ms = 12 * n * n / HBM_BYTES_PER_S * 1e3
-        print(f"M probe (roll) {n}^2: device {probe_ms:.4f} ms per launch, "
-              f"bound {bound_ms:.5f} ms (12 bytes per node at 3.35 TB/s), "
-              f"{bound_ms / probe_ms:.1%} of it [{card}]")
+        for mode in kb.MODES:
+            before = kb.probe.launches
+            kb.probe(u, f, mode=mode)
+            per_call = kb.probe.launches - before
+            if per_call != 1:
+                fail(f"the probe ({mode}) made {per_call} launches in a "
+                     f"2-sweep call at {n}^2, its plan is 1")
+            ms = dev_ms[(f"probe_{mode}", n)] = device_ms_per_call(
+                lambda: kb.probe(u, f, mode=mode), reps=20, kernel="probe")
+            print(f"M probe ({mode}) {n}^2 2-sweep call: device {ms:.5f} ms "
+                  f"per call, {per_call} launch, bound {bound_ms:.5f} ms (12 "
+                  f"bytes per node at 3.35 TB/s), {bound_ms / ms:.1%} of it "
+                  f"[{card}]")
+        reads = dev_ms[("probe_roll", n)] - dev_ms[("probe_none", n)]
+        print(f"M probe {n}^2: roll - none {reads:.5f} ms per 2-sweep call "
+              f"(the neighbour reads and the halo's loads) [{card}]")
         compare("copy", f"{n}^2", kb.copy2x, kb.copy2x_plain, lambda: (u,),
                 errs, exact=True)
         times[("copy", n)] = (time_ms(lambda: kb.copy2x(u)),
@@ -1805,20 +1822,35 @@ def parity_main_path(mg, levels, prob, cfg, f, u_direct, card, dev):
 
 def microbench_path(card):
     """Phase 17: the microbenchmark, from launch counts reset to zero;
-    returns the probe's and the copy's launches."""
+    returns the probe's and the copy's launches. The probe's calls: one
+    launch each (2 sweeps), CUDA-event us per call beside the call's bound
+    (12 bytes per node)."""
     from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking \
         import kernel_microbench as kb
 
+    sweeps, reps = 2, 20
     kb.probe.launches = kb.copy2x.launches = 0
-    rows = kb.run(sizes=(513, 1025), sweeps=2, reps=20)
+    rows = kb.run(sizes=(513, 1025), sweeps=sweeps, reps=reps)
     launches = {"probe": kb.probe.launches, "copy": kb.copy2x.launches}
     for n, row in rows.items():
         print(f"microbench {n}^2 (us per sweep; copy us per call) "
               + ", ".join(f"{k} {v:.3f}" for k, v in row.items())
               + f" [{card}]")
+        bound_us = 12 * n * n / HBM_BYTES_PER_S * 1e6
+        print(f"microbench {n}^2 probe per {sweeps}-sweep call (events, "
+              f"host included): " + ", ".join(
+                  f"{m} {row[f'probe_{m}'] * sweeps:.3f} us "
+                  f"({bound_us / (row[f'probe_{m}'] * sweeps):.1%} of "
+                  f"{bound_us:.3f})" for m in kb.MODES) + f" [{card}]")
     print(f"microbench launches {launches}")
     if min(launches.values()) <= 0:
         fail(f"the microbenchmark did not launch kernel M: {launches}")
+    # run() calls each probe mode reps + 1 times at each size, one launch a
+    # call
+    plan = 2 * len(kb.MODES) * (reps + 1)
+    if launches["probe"] != plan:
+        fail(f"the probe made {launches['probe']} launches in the "
+             f"microbenchmark, one per call is {plan}")
     return launches
 
 
@@ -2185,6 +2217,7 @@ def kernel_phase_bf16(mg, card, dev):
     call (torch.profiler) on bf16 beside the same call on fp32."""
     import torch
 
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import stencil
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
         import smooth as ks, tail as kt, transfer as kx
 
@@ -2215,16 +2248,30 @@ def kernel_phase_bf16(mg, card, dev):
             lambda a, b: ks.multisweep_plain(st, a, b, **sm)),
             lambda: (u.clone(), f), errs, exact=True)
         u32, f32 = u.float(), f.float()
+        # with the kernel named, a trace that lost A's launches is taken
+        # again (one such trace read a quarter of the call)
         bf_ms = dev_ms[("smooth_multisweep_bf16", n)] = device_ms_per_call(
-            lambda: ks.multisweep(st, u, f, **sm), 20)
+            lambda: ks.multisweep(st, u, f, **sm), 20, "smooth_kernel")
         fp32_ms = device_ms_per_call(
-            lambda: ks.multisweep(lev32.stencil, u32, f32, **sm), 20)
+            lambda: ks.multisweep(lev32.stencil, u32, f32, **sm), 20,
+            "smooth_kernel")
         print(f"A {n}^2 2-sweep RB-GS call: device {bf_ms:.4f} ms per call "
               f"on bf16, {fp32_ms:.4f} on fp32 [{card}]")
         if n == N:
             times[("smooth_multisweep_bf16", n)] = (
                 time_ms(lambda: ks.multisweep(st, u, f, **sm)),
                 time_ms(lambda: ks.multisweep_plain(st, u.clone(), f, **sm)))
+    # u and f of two storages, at the 1025^2 and 257^2 levels and a field
+    # narrower than a tile
+    mixed_pairing_checks(
+        "smooth_multisweep_bf16",
+        [(lev.stencil, lev.grid.shape, lev.stencil.c)
+         for lev in (fp32[0], fp32[2])]
+        + [(stencil.make_stencil(mg.Grid(9, 61)), (9, 61), 1.0)],
+        lambda st, a, b, **kw: ks.multisweep(st, a, b, layout="direct",
+                                             **kw),
+        ks.multisweep_plain, ks.multisweep, field, widened, errs,
+        (("rbgs", 1.0), ("rbgs_rev", 1.0), ("jacobi", 0.8), ("sor", 1.3)))
     st, shape = bf16[-1].stencil, bf16[-1].grid.shape
     coarse = dict(method="rbgs", sweeps=32, omega=1.0)
     u, f = field(shape), field(shape, st.c)
@@ -2267,10 +2314,11 @@ def kernel_phase_bf16(mg, card, dev):
                  lambda: kx.residual_restrict(lev32.stencil, u32, f32)),
                 ("prolong_correct_bf16", lambda: kx.prolong_correct(ec, u),
                  lambda: kx.prolong_correct(ec32, u32))):
-            bf_ms = dev_ms[(name, n)] = device_ms_per_call(call, 20)
+            kernel = name[:-len("bf16")] + "kernel"
+            bf_ms = dev_ms[(name, n)] = device_ms_per_call(call, 20, kernel)
             print(f"{name} {n}<->{nc}: device {bf_ms:.4f} ms per call on "
-                  f"bf16, {device_ms_per_call(call32, 20):.4f} on fp32 "
-                  f"[{card}]")
+                  f"bf16, {device_ms_per_call(call32, 20, kernel):.4f} on "
+                  f"fp32 [{card}]")
 
     kw = dict(pre=2, post=2, omega=1.0, method="rbgs", coarse_sweeps=32,
               symmetric=False)
@@ -2309,6 +2357,39 @@ def kernel_phase_bf16(mg, card, dev):
         print(f"time {name} {n}^2: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
               f"ms")
     return errs, times, dev_ms
+
+
+def mixed_pairing_checks(name, levels, kernel, twin, wrapper, field,
+                         widened, errs, methods):
+    """A, L or H on a u and an f of two storages (a bf16 u over an fp32 f,
+    an fp32 u over a bf16 f) against its twin, bit for bit, at 1-5 sweeps
+    (5: two launches) on each of ``levels`` ((fp32 stencil, shape, f's
+    scale); H's planes in u's dtype): the output keeps u's dtype, one
+    launch per pass."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import smooth as ks
+
+    bf, fp = torch.bfloat16, torch.float32
+    for st32, shape, scale in levels:
+        for tu, tf in ((bf, fp), (fp, bf)):
+            st = st32 if st32.scalar else st32.astype(tu)
+            u, f = field(shape, dtype=tu), field(shape, scale, dtype=tf)
+            for method, omega in methods:
+                for sweeps in (1, 2, 3, 4, 5):
+                    kw = dict(method=method, sweeps=sweeps, omega=omega)
+                    before = wrapper.launches
+                    out = kernel(st, u.clone(), f, **kw)
+                    made = wrapper.launches - before
+                    if out.dtype != tu or made != len(ks.plan_passes(sweeps)):
+                        fail(f"{name} u {tu} f {tf} {kw}: {out.dtype} "
+                             f"output in {made} launches")
+                    compare(name, f"{shape[0]}x{shape[1]} u {str(tu)[6:]} "
+                            f"f {str(tf)[6:]} {kw}",
+                            widened(lambda a, b: kernel(st, a, b, **kw)),
+                            widened(lambda a, b: twin(st, a, b, **kw)),
+                            lambda: (u.clone(), f), errs, exact=True)
 
 
 def check_solve(label, res, steps, slack, l2_ref, switches=None):
@@ -3807,6 +3888,7 @@ def kernel_phase_var_bf16(mg, card, dev):
     per call on bf16 beside the same call on fp32."""
     import torch
 
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import stencil
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
         import smooth as ks, smooth_var as ksv, tail as kt, transfer as kx
 
@@ -3865,6 +3947,33 @@ def kernel_phase_var_bf16(mg, card, dev):
             widened(lambda a, b: ksv.multisweep_plain(st, a, b, sweeps=32)),
             lambda: (u.clone(), f), errs, exact=True)
     bf16_row_checks(mg, ks, ksv, field, widened, errs, dev)
+    # H and L on a u and an f of two storages: H on the jump levels (its
+    # planes in u's dtype), L on the Poisson ones, and a field narrower
+    # than a tile
+    g9 = mg.Grid(9, 61)
+    X, Y = g9.coordinates()
+    mixed_pairing_checks(
+        "smooth_var_bf16",
+        [(lev.stencil, lev.grid.shape, 1e3)
+         for lev in (hier["fp32"][0], hier["fp32"][2])]
+        + [(stencil.make_stencil(g9, a=np.where(X < 0.5, 1.0, 1e3) + Y,
+                                 device=dev), g9.shape, 1e3)],
+        ksv.multisweep_var, ksv.multisweep_plain, ksv.multisweep_var, field,
+        widened, errs,
+        (("rbgs", 1.0), ("rbgs_rev", 1.0), ("jacobi", 0.8), ("sor", 1.3)))
+    pois = mg.build_hierarchy(mg.Grid(N, N), device=dev)
+    mixed_pairing_checks(
+        "smooth_parity_bf16",
+        [(lev.stencil, lev.grid.shape, lev.stencil.c)
+         for lev in (pois[0], pois[2])]
+        + [(stencil.make_stencil(g9), g9.shape, 1.0)],
+        lambda st, a, b, **kw: ks.multisweep(st, a, b, layout="parity",
+                                             **kw),
+        lambda st, a, b, method, **kw: ks.multisweep_parity_plain(st, a, b,
+                                                                  **kw),
+        ks.multisweep_parity, field, widened, errs,
+        (("rbgs", 1.0), ("sor", 1.3)))
+    del pois
 
     for lev, lev32 in zip(hier["bf16"][:3], hier["fp32"][:3]):
         n, st, nc = lev.grid.nx, lev.stencil, lev.grid.coarsen().nx
@@ -4931,8 +5040,9 @@ def solve_device_ms(run, reps: int = 3) -> float:
 
 
 def _ab_2d(mg, ks, dev, gen, out):
-    """--against: A's host and device time per call, K's, L's and D's device
-    time, and the main-path solve; H's and L's device time per 2-sweep call
+    """--against: A's host and device time per call (on fp32 and bf16),
+    K's, L's and D's device time, the probe's per 2-sweep call in four
+    modes at 1025^2 and 513^2, and the main-path solve; H's and L's device time per 2-sweep call
     and I's per call (to the next level) on bf16 and fp32 storage at
     1025^2, 513^2 and 257^2; the wall and device ms of the fp32 jump solve
     and of phase 33's two 8-cycle 'bf16' solves (the jump problem; Poisson
@@ -4970,9 +5080,16 @@ def _ab_2d(mg, ks, dev, gen, out):
         un = torch.randn((n, n), generator=gen, device=dev)
         fn = stn.c * torch.randn((n, n), generator=gen, device=dev)
         out[f"A{n}_device_ms_per_call"] = device_ms_per_call(
-            lambda: ks.multisweep(stn, un, fn, layout="direct"), reps=20)
+            lambda: ks.multisweep(stn, un, fn, layout="direct"), reps=20,
+            kernel="smooth_kernel")
         out[f"L{n}_device_ms_per_call"] = device_ms_per_call(
-            lambda: ks.multisweep_parity(stn, un, fn), reps=20)
+            lambda: ks.multisweep_parity(stn, un, fn), reps=20,
+            kernel="parity_kernel")
+        # A on bf16 u and f, beside fp32
+        ub, fb = un.to(torch.bfloat16), fn.to(torch.bfloat16)
+        out[f"A{n}_bf16_device_ms_per_call"] = device_ms_per_call(
+            lambda: ks.multisweep(stn, ub, fb, layout="direct"), reps=20,
+            kernel="smooth_kernel")
         if n in (N, 513):   # K on the planes of the same field
             up, fp = pln.split_field(un), pln.split_field(fn)
             call = lambda: kp.multisweep_planes(  # noqa: E731
@@ -4983,6 +5100,20 @@ def _ab_2d(mg, ks, dev, gen, out):
                                               - before)
             out[f"K{n}_device_ms_per_call"] = device_ms_per_call(call,
                                                                  reps=20)
+    # the probe's 2-sweep call in every mode at 1025^2 and 513^2 (the parent
+    # launched once per colour update)
+    from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking \
+        import kernel_microbench as kb
+    for n in (N, 513):
+        up_, fp_ = kb.fields(n, dev, seed=n)
+        for mode in ("roll", "sub", "lane", "none"):
+            call = lambda: kb.probe(up_, fp_, mode=mode)  # noqa: E731
+            before = kb.probe.launches
+            call()
+            out[f"probe_{mode}_{n}_device_ms_per_call"] = device_ms_per_call(
+                call, reps=20, kernel="probe",
+                launches=kb.probe.launches - before)
+        del up_, fp_
     tail = [lev for lev in levels2 if lev.grid.nx <= 129]
     sts, shapes = [lev.stencil for lev in tail], [lev.grid.shape
                                                    for lev in tail]
@@ -5055,6 +5186,41 @@ def _ab_2d(mg, ks, dev, gen, out):
     torch.cuda.empty_cache()
 
 
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v output."""
+    out, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
+
+
+def a_registers(log: str) -> dict:
+    """Registers and spills of A's 2-sweep RB-GS kernel at each tile on
+    every storage it compiles (u, f, out: f fp32, B bf16), as
+    {"A_regs_<TX>x<TY>_<storage>": "<registers>r <stores>/<loads> B spill"}."""
+    out = {}
+    for name, (regs, st, ld) in ptxas_report(log).items():
+        m = re.search(r"smooth_kernelILi(\d+)ELi(\d+)ELi2ELb0E(\w*?)EEv",
+                      name)
+        if m:
+            types = re.sub(r"S\d*_|13__nv_bfloat16", "B", m.group(3))
+            out[f"A_regs_{m.group(1)}x{m.group(2)}_{types}"] = \
+                f"{regs}r {st}/{ld} B spill"
+    return dict(sorted(out.items()))
+
+
 def ab_set(tree: str, only_2d: bool = False) -> dict:
     """One measurement set of --against, on the package under ``tree``
     (with ``only_2d``, its 2D Poisson part alone)."""
@@ -5073,9 +5239,8 @@ def ab_set(tree: str, only_2d: bool = False) -> dict:
     if os.path.realpath(pkg_root) != os.path.realpath(tree):
         fail(f"--against: imported the package from {pkg_root}, not {tree}")
     dev = torch.device("cuda", 0)
-    _build.library()
+    out = a_registers(_build.library().log)
     gen = torch.Generator(device=dev).manual_seed(11)
-    out = {}
 
     if not only_2d:
         _ab_3d_and_copy(mg, kb, stencil3d, ks3, kx3, dev, gen, out)
@@ -5240,6 +5405,8 @@ def main(argv) -> int:
           f"{lib.build_seconds:.2f} s (first use {time.perf_counter() - t0:.2f}"
           f" s incl. load) -> {lib.path}")
     print(lib.log.strip())
+    print("A's 2-sweep RB-GS kernels (u, f, out: f fp32, B bf16): "
+          + json.dumps(a_registers(lib.log)))
 
     dev = torch.device("cuda", 0)
     prob = mg.poisson_mms_sinsin(N)

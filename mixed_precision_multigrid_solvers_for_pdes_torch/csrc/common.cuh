@@ -202,9 +202,10 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 }
 
 // One node into a shared fp32 window (kernels A, D, H, J and L): a 4-byte
-// cp.async from fp32 storage; from bf16 storage (A, D, H and J) a load
+// cp.async from fp32 storage; from bf16 storage (D, H and J) a load
 // widened to fp32 (cp.async copies 4, 8 or 16 bytes, so a 2-byte node
-// cannot go that way; L loads bf16 rows as words, load_windows below).
+// cannot go that way; A and L load bf16 rows as words, load_windows
+// below).
 // Either is visible to the block after cp_async_wait and a barrier.
 __device__ __forceinline__ void load_shared(float* dst, const float* src) {
   cp_async4(dst, src, true);
@@ -390,7 +391,7 @@ __device__ __forceinline__ void bf_chunk_issue(int g, int c, bool end,
   }
 }
 
-// 2D bf16 windows (kernel L): a block's window row li holds columns
+// 2D bf16 windows (kernels A and L): a block's window row li holds columns
 // wj0 .. wj0 + wy - 1 of field row wi0 + li, whose first element e =
 // (wi0 + li) * ny + wj0 sits at a byte address a + 2e (a: the tensor's,
 // storage offset included). ny is odd on every multigrid level and wj0 is

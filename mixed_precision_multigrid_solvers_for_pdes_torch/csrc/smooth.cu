@@ -23,12 +23,17 @@
 //   per Jacobi sweep. The loads are 4-byte cp.async (rows of unpadded
 //   levels are not 16-byte aligned), all in flight at once.
 // - Storage: u, f and out are each fp32 or bf16 (the storage flags of
-//   mg_smooth). The window is fp32 whatever the storage: bf16 nodes are
-//   loaded with 2-byte loads and widened (cp.async has no 2-byte copy), and
-//   the tile is rounded to bf16 once, where it is stored. A call of more
-//   sweeps than one launch takes keeps its passes before the last in fp32
-//   (the wrapper's scratch fields), so a bf16 call rounds once, as the
-//   Pallas kernel's one call does.
+//   mg_smooth), in every pairing of u and f the Pallas kernel takes: it
+//   casts each on its own (smooth.py:213, :224) and its output keeps u's
+//   dtype. The window is fp32 whatever the storage. A bf16 array's window
+//   rows come in as aligned 4-byte words (common.cuh load_windows, as
+//   kernel L's: two nodes a load, every load of a thread in flight before
+//   it widens any, with no division per node), widened into the same
+//   halves of the fp32 window; Jacobi's second buffer is copied from the
+//   widened window. The tile is rounded to bf16 once, where it is stored.
+//   A call of more sweeps than one launch takes keeps its passes before the
+//   last in fp32 (the wrapper's scratch fields), so a bf16 call rounds
+//   once, as the Pallas kernel's one call does.
 // - The tile's size is the level's (tile_of): the largest of kTiles whose
 //   grid holds at least kMinBlocks blocks, about one per SM, else the
 //   smallest. This geometry is in smooth_tiles.cuh, shared with K and L.
@@ -104,16 +109,41 @@ __global__ void __launch_bounds__(kThreads)
   const int wj0 = max(aj - halo, 0), wy = min(bj + halo, ny) - wj0;
   auto at = [&](int li, int lj) { return li * RS + (lj & 1) * HP + (lj >> 1); };
 
-  for (int t = threadIdx.x; t < wx * wy; t += kThreads) {
-    const int li = t / wy, lj = t - li * wy;
-    const long g = (long)(wi0 + li) * ny + (wj0 + lj);
-    const int s = at(li, lj);
-    load_shared(us + s, u + g);
-    if (kJacobi) load_shared(vs + s, u + g);
-    load_shared(fs + s, f + g);
+  // fp32 arrays node by node, as 4-byte cp.async
+  constexpr bool kBu = std::is_same_v<TU, bf16>;
+  constexpr bool kBf = std::is_same_v<TF, bf16>;
+  if constexpr (!kBu || !kBf) {
+    for (int t = threadIdx.x; t < wx * wy; t += kThreads) {
+      const int li = t / wy, lj = t - li * wy;
+      const long g = (long)(wi0 + li) * ny + (wj0 + lj);
+      const int s = at(li, lj);
+      if constexpr (!kBu) {
+        load_shared(us + s, u + g);
+        if (kJacobi) load_shared(vs + s, u + g);
+      }
+      if constexpr (!kBf) load_shared(fs + s, f + g);
+    }
+  }
+  // bf16 arrays as aligned 4-byte words (common.cuh load_windows), u's
+  // then f's (PL apart): window row li's columns 2m and 2m + 1 at
+  // li * RS + m and li * RS + HP + m, A's own halves
+  if constexpr (kBu || kBf) {
+    constexpr int K = kBu + kBf, WR = HP + 1;  // the widest row's words
+    constexpr int kPer = ((kTileX + 2 * halo) * WR + kThreads - 1) / kThreads;
+    const bf16* src[K];
+    src[K - 1] = reinterpret_cast<const bf16*>(f);
+    if constexpr (kBu) src[0] = reinterpret_cast<const bf16*>(u);
+    load_windows<K, kPer, WR, kThreads>(src, kBu ? us : fs, PL, wi0, wj0, wx,
+                                        wy, nx, ny, HP,
+                                        [&](int li) { return li * RS; });
   }
   cp_async_commit();
   cp_async_wait<0>();
+  if constexpr (kJacobi && kBu) {
+    // Jacobi's second buffer from the widened window
+    __syncthreads();
+    for (int t = threadIdx.x; t < PL; t += kThreads) vs[t] = us[t];
+  }
 
   const float* fin = us;
   const bool p2 = is_pow2(st.c);  // the same for every thread
@@ -209,20 +239,27 @@ cudaError_t launch(const TU* u, const TF* f, TO* out, int nx, int ny,
 }
 
 // The storage of one launch: the input u, f and the output, as the
-// wrapper's passes need them (bit 0: u is bf16, bit 1: f, bit 2: out).
+// wrapper's passes need them (bit 0: u is bf16, bit 1: f, bit 2: out). u
+// and f are each fp32 or bf16: a call on a bf16 u runs its passes before
+// the last on fp32, so an fp32 f over a bf16 u takes codes 5 (one launch),
+// 1 (the first of several) and 4 (the last), and a bf16 f over an fp32 u
+// takes code 2 in every launch (kernel E's codes, csrc/smooth3d.cu).
 enum Storage : int {
-  kFp32 = 0,       // an fp32 level
-  kBf16 = 7,       // a bf16 level's call in one launch
-  kBf16First = 3,  // the first launch of a longer bf16 call: out fp32
-  kBf16Mid = 2,    // a launch between: u and out fp32
-  kBf16Last = 6,   // the last: u fp32, out bf16
+  kFp32 = 0,        // an fp32 level
+  kBf16 = 7,        // a bf16 level's call in one launch
+  kBf16First = 3,   // the first launch of a longer bf16 call: out fp32
+  kBf16Mid = 2,     // u and out fp32, f bf16: between, or an fp32 u's call
+  kBf16Last = 6,    // the last: u fp32, out bf16
+  kBf16U = 5,       // a bf16 u over an fp32 f, in one launch
+  kBf16UFirst = 1,  // the first launch of such a call: out fp32
+  kFp32FLast = 4,   // its last: u and f fp32, out bf16
 };
 
-// Every sweep count is compiled for the storage of one-launch calls (fp32,
-// bf16). A longer bf16 call's launches before the last take kMaxSweeps
-// sweeps each (plan_passes in ops/cuda_kernels/smooth.py), so kBf16First
-// and kBf16Mid are compiled for that count only (kAnySweeps false) and
-// refuse any other.
+// A longer call's launches before the last take kMaxSweeps sweeps each
+// (plan_passes in ops/cuda_kernels/smooth.py), so the first launches of a
+// bf16 u (kBf16First, kBf16UFirst) are compiled for that count only
+// (kAnySweeps false) and refuse any other; every other storage is
+// compiled for every sweep count.
 template <class TU, class TF, class TO, bool kAnySweeps>
 cudaError_t smooth_typed(const void* u, const void* f, void* out, int nx,
                          int ny, const Stencil5& st, float omega, int sweeps,
@@ -280,10 +317,19 @@ int mg_smooth(const void* u, const void* f, void* out, int nx, int ny,
       return (int)smooth_typed<bf16, bf16, float, false>(
           u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
     case kBf16Mid:
-      return (int)smooth_typed<float, bf16, float, false>(
+      return (int)smooth_typed<float, bf16, float, true>(
           u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
     case kBf16Last:
       return (int)smooth_typed<float, bf16, bf16, true>(
+          u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
+    case kBf16U:
+      return (int)smooth_typed<bf16, float, bf16, true>(
+          u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
+    case kBf16UFirst:
+      return (int)smooth_typed<bf16, float, float, false>(
+          u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
+    case kFp32FLast:
+      return (int)smooth_typed<float, float, bf16, true>(
           u, f, out, nx, ny, st, omega, sweeps, jacobi, c0, device, t);
     default:
       return (int)cudaErrorInvalidValue;

@@ -32,7 +32,8 @@
 // - Each block loads a window of u and f: its tile plus a halo of 2 nodes
 //   per sweep, clamped to the field. fp32 nodes come in as 4-byte
 //   cp.async, all in flight at once. L's u, f and output are each fp32 or
-//   bf16 (the storage flags of mg_rbgs_parity, as kernel A's). A bf16
+//   bf16 (the storage flags of mg_rbgs_parity, as kernel A's), in every
+//   pairing of u and f; the output keeps u's dtype. A bf16
 //   array's window rows come in as aligned 4-byte words (common.cuh
 //   load_windows: two nodes a load, every load of a thread in flight
 //   before it widens any), widened into the same fp32 planes. The
@@ -275,8 +276,8 @@ cudaError_t launch(const TU* u, const TF* f, TO* out, int nx, int ny,
   return cudaGetLastError();
 }
 
-// kAnySweeps false: compiled for kMaxSweeps sweeps only (a longer bf16
-// call's launches before the last, as kernel A's).
+// kAnySweeps false: compiled for kMaxSweeps sweeps only (the first launch
+// of a longer call on a bf16 u, as kernel A's).
 template <bool kPlanes, class TU, class TF, class TO, bool kAnySweeps>
 int run(const void* u, const void* f, void* out, int nx, int ny, float c,
         float w, float e, float s, float n, float omega, int sweeps,
@@ -305,13 +306,16 @@ int run(const void* u, const void* f, void* out, int nx, int ny, float c,
 }
 
 // The storage of one of L's launches, as kernel A's (csrc/smooth.cu): bit 0
-// the input u is bf16, bit 1 f, bit 2 out.
+// the input u is bf16, bit 1 f, bit 2 out; u and f each fp32 or bf16.
 enum Storage : int {
-  kFp32 = 0,       // an fp32 level
-  kBf16 = 7,       // a bf16 level's call in one launch
-  kBf16First = 3,  // the first launch of a longer bf16 call: out fp32
-  kBf16Mid = 2,    // a launch between: u and out fp32
-  kBf16Last = 6,   // the last: u fp32, out bf16
+  kFp32 = 0,        // an fp32 level
+  kBf16 = 7,        // a bf16 level's call in one launch
+  kBf16First = 3,   // the first launch of a longer bf16 call: out fp32
+  kBf16Mid = 2,     // u and out fp32, f bf16: between, or an fp32 u's call
+  kBf16Last = 6,    // the last: u fp32, out bf16
+  kBf16U = 5,       // a bf16 u over an fp32 f, in one launch
+  kBf16UFirst = 1,  // the first launch of such a call: out fp32
+  kFp32FLast = 4,   // its last: u and f fp32, out bf16
 };
 
 }  // namespace
@@ -336,10 +340,19 @@ int mg_rbgs_parity(const void* u, const void* f, void* out, int nx, int ny,
       return run<false, bf16, bf16, float, false>(
           u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
     case kBf16Mid:
-      return run<false, float, bf16, float, false>(
+      return run<false, float, bf16, float, true>(
           u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
     case kBf16Last:
       return run<false, float, bf16, bf16, true>(
+          u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
+    case kBf16U:
+      return run<false, bf16, float, bf16, true>(
+          u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
+    case kBf16UFirst:
+      return run<false, bf16, float, float, false>(
+          u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
+    case kFp32FLast:
+      return run<false, float, float, bf16, true>(
           u, f, out, nx, ny, c, w, e, s, n, omega, sweeps, device, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -18,8 +18,9 @@
 //   sweeps nodes for Jacobi, clamped to the field. The loads are 4-byte
 //   cp.async (rows of unpadded levels are not 16-byte aligned), all in
 //   flight at once.
-// - Storage: u, f and the planes (one dtype, the level's) and out are each
-//   fp32 or bf16 (the storage flags of mg_smooth_var, as kernel A's). The
+// - Storage: u, f, the planes (the level's dtype) and out are each fp32 or
+//   bf16 (the storage flags of mg_smooth_var), f in either dtype whatever
+//   the level's, as the Pallas kernel casts each input on its own. The
 //   windows are fp32 whatever the storage: bf16 nodes are loaded with 2-byte
 //   loads and widened (cp.async has no 2-byte copy), and the tile is
 //   rounded to bf16 once, where it is stored. A call of more sweeps than
@@ -114,9 +115,10 @@ __host__ __forceinline__ int smem_bytes(int tx, int ty, int sweeps,
          (int)sizeof(float);
 }
 
-template <int kTileX, int kTileY, bool kJacobi, class TU, class TP, class TO>
+template <int kTileX, int kTileY, bool kJacobi, class TU, class TF, class TP,
+          class TO>
 __global__ void __launch_bounds__(kThreads)
-    smooth_var_kernel(const TU* __restrict__ u, const TP* __restrict__ f,
+    smooth_var_kernel(const TU* __restrict__ u, const TF* __restrict__ f,
                       PlanesOf<TP> p, TO* __restrict__ out, int nx, int ny,
                       float omega, int sweeps, int c0) {
   extern __shared__ float sm[];
@@ -228,12 +230,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kTileX, int kTileY, bool kJacobi, class TU, class TP, class TO>
-cudaError_t launch(const TU* u, const TP* f, const PlanesOf<TP>& p, TO* out,
+template <int kTileX, int kTileY, bool kJacobi, class TU, class TF, class TP,
+          class TO>
+cudaError_t launch(const TU* u, const TF* f, const PlanesOf<TP>& p, TO* out,
                    int nx, int ny, float omega, int sweeps, int c0,
                    int device, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const auto kernel = smooth_var_kernel<kTileX, kTileY, kJacobi, TU, TP, TO>;
+  const auto kernel =
+      smooth_var_kernel<kTileX, kTileY, kJacobi, TU, TF, TP, TO>;
   const cudaError_t err = allow_smem(
       kernel, smem_bytes(kTileX, kTileY, kMaxSweeps, kJacobi), device, done);
   if (err != cudaSuccess) return err;
@@ -244,8 +248,8 @@ cudaError_t launch(const TU* u, const TP* f, const PlanesOf<TP>& p, TO* out,
   return cudaGetLastError();
 }
 
-template <int k, class TU, class TP, class TO>
-cudaError_t launch_tile(const TU* u, const TP* f, const PlanesOf<TP>& p,
+template <int k, class TU, class TF, class TP, class TO>
+cudaError_t launch_tile(const TU* u, const TF* f, const PlanesOf<TP>& p,
                         TO* out, int nx, int ny, float omega, int sweeps,
                         bool jacobi, int c0, int device, cudaStream_t st) {
   constexpr Tile t = kTiles[k];
@@ -255,23 +259,32 @@ cudaError_t launch_tile(const TU* u, const TP* f, const PlanesOf<TP>& p,
                                           sweeps, c0, device, st);
 }
 
-// The storage of one launch, as kernel A's (csrc/smooth.cu): bit 0 the input
-// u is bf16, bit 1 f and the planes, bit 2 out.
+// The storage of one launch: bit 0 the input u is bf16, bit 1 f, bit 2 out
+// (kernel A's bits, csrc/smooth.cu), bit 3 the planes. The planes are in
+// the level's dtype, which is the call's u's (ops/dispatch.kernel_smooth_ok),
+// and f is fp32 or bf16 on its own, as the Pallas kernel casts each input
+// on its own (smooth.py:243). A call on a bf16 level runs its passes before
+// the last on fp32 u, so it takes bits 0 and 2 as A's passes do.
 enum Storage : int {
-  kFp32 = 0,       // an fp32 level
-  kBf16 = 7,       // a bf16 level's call in one launch
-  kBf16First = 3,  // the first launch of a longer bf16 call: out fp32
-  kBf16Mid = 2,    // a launch between: u and out fp32
-  kBf16Last = 6,   // the last: u fp32, out bf16
+  kFp32 = 0,          // an fp32 level
+  kFp32BfF = 2,       // an fp32 level with a bf16 f
+  kBf16 = 15,         // a bf16 level's call in one launch
+  kBf16First = 11,    // the first launch of a longer bf16 call: out fp32
+  kBf16Mid = 10,      // a launch between: u and out fp32
+  kBf16Last = 14,     // the last: u fp32, out bf16
+  kBf16U = 13,        // a bf16 level with an fp32 f, in one launch
+  kBf16UFirst = 9,    // the first launch of such a call: out fp32
+  kBf16UMid = 8,      // a launch between: u, f and out fp32
+  kBf16ULast = 12,    // the last: out bf16
 };
 
-template <class TU, class TP, class TO>
+template <class TU, class TF, class TP, class TO>
 cudaError_t smooth_var_typed(const void* u, const void* f,
                              const void* const* planes, void* out, int nx,
                              int ny, float omega, int sweeps, bool jacobi,
                              int c0, int device, cudaStream_t st) {
   const TU* tu = static_cast<const TU*>(u);
-  const TP* tf = static_cast<const TP*>(f);
+  const TF* tf = static_cast<const TF*>(f);
   TO* to = static_cast<TO*>(out);
   const PlanesOf<TP> p{static_cast<const TP*>(planes[0]),
                        static_cast<const TP*>(planes[1]),
@@ -299,8 +312,8 @@ extern "C" {
 // `sweeps` (1 .. kMaxSweeps) sweeps of u, written to out (every node of out
 // is written; u, f and the planes are only read, and out must not alias
 // them): weighted Jacobi when `jacobi`, else RB-GS/SOR, red first, black
-// first when `reverse`. `storage` says which of u, f with the planes, and
-// out are bf16 (Storage); the others are fp32.
+// first when `reverse`. `storage` says which of u, f, out and the planes
+// are bf16 (Storage); the others are fp32.
 int mg_smooth_var(const void* u, const void* f, const void* c, const void* w,
                   const void* e, const void* s, const void* n, void* out,
                   int nx, int ny, float omega, int sweeps, int jacobi,
@@ -315,19 +328,34 @@ int mg_smooth_var(const void* u, const void* f, const void* c, const void* w,
   const bool jac = jacobi != 0;
   switch (storage) {
     case kFp32:
-      return (int)smooth_var_typed<float, float, float>(
+      return (int)smooth_var_typed<float, float, float, float>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kFp32BfF:
+      return (int)smooth_var_typed<float, bf16, float, float>(
           u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
     case kBf16:
-      return (int)smooth_var_typed<bf16, bf16, bf16>(
+      return (int)smooth_var_typed<bf16, bf16, bf16, bf16>(
           u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
     case kBf16First:
-      return (int)smooth_var_typed<bf16, bf16, float>(
+      return (int)smooth_var_typed<bf16, bf16, bf16, float>(
           u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
     case kBf16Mid:
-      return (int)smooth_var_typed<float, bf16, float>(
+      return (int)smooth_var_typed<float, bf16, bf16, float>(
           u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
     case kBf16Last:
-      return (int)smooth_var_typed<float, bf16, bf16>(
+      return (int)smooth_var_typed<float, bf16, bf16, bf16>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kBf16U:
+      return (int)smooth_var_typed<bf16, float, bf16, bf16>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kBf16UFirst:
+      return (int)smooth_var_typed<bf16, float, bf16, float>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kBf16UMid:
+      return (int)smooth_var_typed<float, float, bf16, float>(
+          u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
+    case kBf16ULast:
+      return (int)smooth_var_typed<float, float, bf16, bf16>(
           u, f, planes, out, nx, ny, omega, sweeps, jac, c0, device, st);
     default:
       return (int)cudaErrorInvalidValue;

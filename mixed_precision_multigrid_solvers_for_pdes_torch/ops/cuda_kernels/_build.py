@@ -66,7 +66,7 @@ _SIGNATURES = {
     "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I] * 3 + [_P],
                        _I),
     "mg_planes_rbgs": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),
-    "mg_probe_color": ([_P] * 3 + [_I] * 4 + [_I, _P], _I),
+    "mg_probe": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "mg_copy2x": ([_P, _P, ctypes.c_long, _I, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }

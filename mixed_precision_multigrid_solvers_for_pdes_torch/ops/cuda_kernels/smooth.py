@@ -7,9 +7,11 @@ Kernel A replaces the Pallas ``multisweep`` and ``multisweep_strips`` of
 rectangles, on fp32 or bf16 storage: as the Pallas kernels (:207-228,
 :438-458), A loads bf16, sweeps in fp32 and stores bf16 once per call, so
 a call of several launches keeps its passes before the last in fp32 scratch
-fields. Kernel L replaces their ``layout="parity"`` body (``_parity_sweeps``
-:119, reached from :211 and :413): split into parity planes on chip, sweep,
-merge, on fp32 or bf16 storage, rounding as A does.
+fields. u and f are each fp32 or bf16, as the Pallas kernels cast each on
+its own (:213, :224, :578); the output keeps u's dtype. Kernel L replaces
+their ``layout="parity"`` body (``_parity_sweeps`` :119, reached from :211
+and :413): split into parity planes on chip, sweep, merge, on the same
+storages, rounding as A does.
 The source notes in ``csrc/smooth.cu`` and ``csrc/smooth_parity.cu`` give
 the designs and what bounds them.
 
@@ -109,6 +111,17 @@ def _pass_outputs(u, passes: int) -> list:
     return [mids[i % 2] for i in range(passes - 1)] + [torch.empty_like(u)]
 
 
+def pass_storages(u_dtype, f_dtype, n_passes: int) -> list:
+    """The storage flags of each launch of an ``n_passes``-launch call on a
+    u and an f of these dtypes (bit 0 the launch's input u is bf16, bit 1
+    f, bit 2 its output), as ``_pass_outputs`` gives them: the passes
+    before the last write fp32 scratch fields, the last a field of u's
+    dtype."""
+    bu, bf = u_dtype == torch.bfloat16, f_dtype == torch.bfloat16
+    return [int(bu and k == 0) | int(bf) << 1
+            | int(bu and k == n_passes - 1) << 2 for k in range(n_passes)]
+
+
 def launch_passes(entry: str, wrapper, u, f, nx: int, ny: int, coefs,
                   omega: float, sweeps: int, *flags, storage: bool = False):
     """Launch C entry ``entry`` (A's, K's or L's) once per pass of
@@ -117,18 +130,19 @@ def launch_passes(entry: str, wrapper, u, f, nx: int, ny: int, coefs,
     returns the last output, a new tensor (``u`` itself when there is no
     pass). The kernels write a separate output: neighbouring blocks load a
     block's nodes as their halo, so no kernel writes its input in place.
-    ``storage``: the entry takes A's and L's storage flags (bit 0 the
-    input u, bit 1 f, bit 2 the output is bf16)."""
+    ``storage``: the entry takes A's and L's storage flags
+    (``pass_storages``), each launch its own: a bf16 u's passes before the
+    last run on fp32 scratch fields, whatever f's dtype."""
     passes = plan_passes(sweeps)
     if not passes:
         return u
     check_geometry(nx, ny)
     dev, stream = u.device.index, _build.stream_of(u)
     outputs = _pass_outputs(u, len(passes))
+    codes = pass_storages(u.dtype, f.dtype, len(passes))
     src = u
-    for k, dst in zip(passes, outputs):
-        types = ((_build.bf16(src) | _build.bf16(f) << 1
-                  | _build.bf16(dst) << 2),) if storage else ()
+    for k, dst, code in zip(passes, outputs, codes):
+        types = (code,) if storage else ()
         _build.launch(entry, src.data_ptr(), f.data_ptr(), dst.data_ptr(),
                       nx, ny, *coefs, omega, k, *flags, *types, dev, stream)
         wrapper.launches += 1
@@ -155,11 +169,13 @@ def multisweep_plain(st: Stencil, u, f, *, method: str = "rbgs",
     """Plain twin of A and H: ``ops.smooth.smooth`` on the interior of an
     all-Dirichlet level, in place on u. On bf16 storage it rounds where A
     and H do: u, f and H's planes widened to fp32, every sweep in fp32, one
-    rounding back into u."""
+    rounding back into u. An f of another dtype than u's is widened to
+    u's, as the kernels widen it, exactly, into their fp32 windows."""
     if u.dtype == torch.bfloat16:
         wide = st if st.scalar else st.astype(torch.float32)
         return _build.round_once(multisweep_plain, u, wide, u, f,
                                  method=method, sweeps=sweeps, omega=omega)
+    f = f.to(u.dtype)
     unknown = bc.unknown_mask(*u.shape, device=u.device)
     return smooth_mod.smooth(st, u, f, unknown, method=method,
                              sweeps=sweeps, omega=omega)
@@ -170,10 +186,12 @@ def multisweep_parity_plain(st: Stencil, u, f, *, sweeps: int = 2,
     """Plain twin of L: split u and f into parity planes (the whole level is
     one window), run the parity body ``ops.planes.plane_sweeps``, merge back
     into u. On bf16 storage it rounds where L does: u and f widened to
-    fp32, every sweep in fp32, one rounding back into u."""
+    fp32, every sweep in fp32, one rounding back into u; an f of another
+    dtype than u's widened to u's."""
     if u.dtype == torch.bfloat16:
         return _build.round_once(multisweep_parity_plain, u, st, u, f,
                                  sweeps=sweeps, omega=omega)
+    f = f.to(u.dtype)
     up, fp = pln.split_field(u), pln.split_field(f)
     masks = pln.masks_for(*u.shape, *up.shape[1:], device=u.device)
     pln.plane_sweeps(st.coefs, up, fp, masks, sweeps=sweeps, omega=omega)
@@ -193,9 +211,9 @@ def multisweep_parity(st: Stencil, u, f, *, sweeps: int = 2,
     if u.device.type == "cpu":
         return multisweep_parity_plain(st, u, f, sweeps=sweeps, omega=omega)
     _build.check_cuda("multisweep_parity", u, f, dtypes=STORAGE)
-    if f.shape != u.shape or f.dtype != u.dtype:
-        raise ValueError(f"multisweep_parity: f {tuple(f.shape)} {f.dtype} "
-                         f"!= u {tuple(u.shape)} {u.dtype}")
+    if f.shape != u.shape:
+        raise ValueError(f"multisweep_parity: f {tuple(f.shape)} != u "
+                         f"{tuple(u.shape)}")
     return launch_passes("mg_rbgs_parity", multisweep_parity, u, f,
                          *u.shape, st.coefs, omega, sweeps, storage=True)
 
@@ -219,9 +237,9 @@ def multisweep(st: Stencil, u, f, *, method: str = "rbgs", sweeps: int = 2,
         return multisweep_plain(st, u, f, method=method, sweeps=sweeps,
                                 omega=omega)
     _build.check_cuda("multisweep", u, f, dtypes=STORAGE)
-    if f.shape != u.shape or f.dtype != u.dtype:
-        raise ValueError(f"multisweep: f {tuple(f.shape)} {f.dtype} != u "
-                         f"{tuple(u.shape)} {u.dtype}")
+    if f.shape != u.shape:
+        raise ValueError(f"multisweep: f {tuple(f.shape)} != u "
+                         f"{tuple(u.shape)}")
     return launch_passes("mg_smooth", multisweep, u, f, *u.shape, st.coefs,
                          omega, sweeps, int(method == "jacobi"),
                          int(method == "rbgs_rev"), storage=True)

@@ -5,10 +5,12 @@ Replaces the variable-coefficient branches of the Pallas ``multisweep`` and
 ``multisweep_strips`` of
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/pallas_kernels/smooth.py``
 (:290, :507) for tensor-leaf 5-point stencils on all-Dirichlet rectangles,
-on fp32 or bf16 storage (``STORAGE``: u, f and the planes in the level's
-dtype): as the Pallas kernel (:231-250), H widens what it loads, sweeps in
-fp32 and rounds once per call. The source note in ``csrc/smooth_var.cu``
-gives the design and what bounds it.
+on fp32 or bf16 storage (``STORAGE``: u and the planes in the level's
+dtype, f fp32 or bf16 on its own, as the Pallas kernel casts each input on
+its own, :243): as the Pallas kernel (:231-250), H widens what it loads,
+sweeps in fp32 and rounds once per call; the output keeps u's dtype. The
+source note in ``csrc/smooth_var.cu`` gives the design and what bounds
+it.
 
 On a CPU tensor ``multisweep_var`` runs the plain twin; on a CUDA tensor it
 launches the kernel or raises. The kernel runs up to ``MAX_SWEEPS`` sweeps
@@ -35,7 +37,8 @@ import torch
 
 from ..stencil import Stencil
 from . import _build
-from .smooth import RBGS, _pass_outputs, multisweep_plain
+from .smooth import RBGS, _pass_outputs, multisweep_plain, \
+    pass_storages as _a_storages
 
 STORAGE = _build.STORAGE
 
@@ -45,6 +48,15 @@ TILES = ((32, 64), (16, 64), (8, 64))
 MIN_BLOCKS = 128
 THREADS = 512
 MAX_SWEEPS = 4
+
+
+def pass_storages(u_dtype, f_dtype, n_passes: int) -> list:
+    """The storage flags of each launch of a call: kernel A's (bit 0 the
+    launch's input u is bf16, bit 1 f, bit 2 its output) and bit 3 the
+    planes, which are in the call's u's dtype."""
+    planes = int(u_dtype == torch.bfloat16) << 3
+    return [code | planes
+            for code in _a_storages(u_dtype, f_dtype, n_passes)]
 
 
 def tile(nx: int, ny: int) -> tuple:
@@ -105,10 +117,11 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
         return multisweep_plain(st, u, f, method=method, sweeps=sweeps,
                                 omega=omega)
     _build.check_cuda("multisweep_var", u, f, *st.coefs, dtypes=STORAGE)
-    if any(t.shape != u.shape or t.dtype != u.dtype
-           for t in (f, *st.coefs)):
-        raise ValueError(f"multisweep_var: f and the planes must have u's "
-                         f"shape {tuple(u.shape)} and dtype {u.dtype}")
+    if f.shape != u.shape or any(t.shape != u.shape or t.dtype != u.dtype
+                                 for t in st.coefs):
+        raise ValueError(f"multisweep_var: f must have u's shape "
+                         f"{tuple(u.shape)}, the planes its shape and dtype "
+                         f"{u.dtype}")
     nx, ny = u.shape
     check_geometry(nx, ny)
     passes = plan_passes(sweeps)
@@ -119,9 +132,8 @@ def multisweep_var(st: Stencil, u, f, *, method: str = "rbgs",
     # a separate output per launch: neighbouring blocks read this block's
     # nodes as their halo, so H cannot write its input in place
     src = u
-    for k, dst in zip(passes, _pass_outputs(u, len(passes))):
-        types = (_build.bf16(src) | _build.bf16(f) << 1
-                 | _build.bf16(dst) << 2)
+    for k, dst, types in zip(passes, _pass_outputs(u, len(passes)),
+                             pass_storages(u.dtype, f.dtype, len(passes))):
         _build.launch("mg_smooth_var", src.data_ptr(), f.data_ptr(), *planes,
                       dst.data_ptr(), nx, ny, omega, k,
                       int(method == "jacobi"), int(method == "rbgs_rev"),

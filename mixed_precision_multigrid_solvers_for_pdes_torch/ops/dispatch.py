@@ -40,7 +40,8 @@ Kernel A's wrapper picks the direct body (A) or the parity body (kernel L)
 by ``layout``, as the Pallas kernels do (``ops/cuda_kernels/smooth.py``).
 
 Storage dtypes, as the JAX package's gates take them (its ``ops/dispatch.py``
-:87, :236-240 and :316-320): A, H and L take an fp32 or a bf16 level; B,
+:87, :236-240 and :316-320): A, H and L take an fp32 or a bf16 u, with
+an fp32 or bf16 f of either dtype (H's planes in u's dtype); B,
 I and C take each of their two levels in fp32 or bf16 (a fine fp32 level
 over a coarse bf16 one restricts into bf16), on constant-coefficient,
 coefficient-plane and Neumann/Robin rectangles alike; D and J take a tail
@@ -110,16 +111,20 @@ def _fields_ok(lev, fields) -> bool:
     return all(x.dtype == lev.dtype for x in fields)
 
 
-def kernel_smooth_ok(u, lev, backend: str, method: str) -> bool:
+def kernel_smooth_ok(u, lev, backend: str, method: str, f=None) -> bool:
     """True when kernel A, H or L smooths ``u`` on ``lev``: a point
     smoother on a 5-point all-Dirichlet rectangle, fp32 or bf16 storage
-    (the JAX package's :87); H's planes in u's dtype."""
+    (the JAX package's :87, which looks at u alone); H's planes in u's
+    dtype. ``f``, where given, is fp32 or bf16 too, of u's dtype or not, as
+    the Pallas kernels cast u and f each on its own; any other f (fp64)
+    takes the plain path."""
     return (_kernels(backend)
             and (method in _SMOOTHERS or method == "rbgs_rev")
             and lev.domain is None
             and not isinstance(lev.stencil, Stencil9)
             and lev.spec.all_dirichlet
             and u.dtype in k_smooth.STORAGE
+            and (f is None or f.dtype in k_smooth.STORAGE)
             and (lev.stencil.scalar or u.dtype == lev.dtype))
 
 
@@ -129,7 +134,7 @@ def smooth(stencil, u, f, lev, *, method: str, sweeps: int, omega: float,
     new tensor from kernels A and L (which work out of place, ``u``
     untouched), ``u`` itself, updated in place, from kernel H and the plain
     path. Callers take the return value."""
-    if kernel_smooth_ok(u, lev, backend, method):
+    if kernel_smooth_ok(u, lev, backend, method, f):
         return smooth_kernel(stencil, u, f, method=method, sweeps=sweeps,
                              omega=omega)
     return smooth_mod.smooth(stencil, u, f, lev.unknown, method=method,

@@ -1,7 +1,7 @@
 """Grid norms with float64 accumulation.
 
-Counterpart of ``scaled_l2``, ``masked_scaled_l2``, ``h1_seminorm`` and
-``h1_seminorm3d`` in
+Counterpart of ``scaled_l2``, ``max_norm``, ``masked_scaled_l2``,
+``h1_seminorm`` and ``h1_seminorm3d`` in
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/norms.py`` and of the
 3D solvers' ``_norm3``: the sum is always taken in float64 whatever the
 field's dtype. The l2 norms take one spacing per axis (hx, hy in 2D; hx, hy,
@@ -21,6 +21,11 @@ def scaled_l2(r: torch.Tensor, *h: float) -> torch.Tensor:
     """sqrt(prod(h)*sum(r^2)), accumulated in float64."""
     r64 = r.to(torch.float64)
     return torch.sqrt(math.prod(h) * torch.sum(r64 * r64))
+
+
+def max_norm(r: torch.Tensor) -> torch.Tensor:
+    """max |r| over the field, in r's dtype."""
+    return torch.max(torch.abs(r))
 
 
 def masked_scaled_l2(r: torch.Tensor, mask: torch.Tensor,

@@ -1,7 +1,8 @@
 """Plain PyTorch smoothers: weighted Jacobi, red-black Gauss-Seidel, SOR,
 zebra line Gauss-Seidel (x, y and ADI) and Chebyshev.
 
-Counterpart of ``jacobi_sweep``, ``rb_color_update``, ``rbgs_sweep``,
+Counterpart of ``optimal_sor_omega``, ``optimal_jacobi_omega``,
+``jacobi_sweep``, ``rb_color_update``, ``rbgs_sweep``,
 ``_line_update``, ``line_sweep``, ``chebyshev_smooth`` and ``smooth`` in
 ``mixed_precision_multigrid_solvers_for_pdes_tpu/ops/smooth.py``. These are
 the plain twins that the smoothing kernels (``ops/cuda_kernels/smooth.py``
@@ -49,6 +50,12 @@ def optimal_sor_omega(nx: int, ny: int) -> float:
     """omega* = 2 / (1 + sin(pi h)) for the 5-point Laplacian."""
     h = 1.0 / (max(nx, ny) - 1)
     return 2.0 / (1.0 + math.sin(math.pi * h))
+
+
+def optimal_jacobi_omega() -> float:
+    """Damped-Jacobi smoothing optimum for the 2D 5-point Laplacian
+    (4/5)."""
+    return 0.8
 
 
 def _red(st: Stencil, u: torch.Tensor) -> torch.Tensor:

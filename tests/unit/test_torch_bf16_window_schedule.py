@@ -185,3 +185,104 @@ def test_bf16_loads_fit_shared_memory():
         for sweeps in range(1, L_MAX + 1):
             pr, pc = tx // 2 + 2 * sweeps, ty // 2 + 2 * sweeps
             assert 2 * 8 * pr * pc * 4 <= SMEM_PER_SM
+
+
+# ---------------------------------------------------------------------------
+# kernel A: the same words into A's window, which keeps each row's even and
+# odd columns in two halves of HP words (row li at li * RS, odd = HP)
+
+A_SRC = (CSRC / "smooth.cu").read_text()
+
+
+def a_halo(sweeps, method):
+    """halo_of in csrc/smooth.cu: 2 nodes a sweep for RB-GS, 1 for
+    Jacobi."""
+    return sweeps if method == "jacobi" else 2 * sweeps
+
+
+def a_window(fd, wi0, wx, wj0, wy, words, rs, pl):
+    """load_windows into A's flat window of ``pl`` floats (rows ``rs``
+    apart, halves rs / 2 apart): the uint32 patterns, SENTINEL where
+    nothing was written; every place is written at most once and lies in
+    the window."""
+    hp = rs // 2
+    out = np.full(pl, SENTINEL, np.uint32)
+    pq = (fd.ptr >> 1) & 1
+    edge = (wi0 * fd.ny + wj0 < 1
+            or (wi0 + wx - 1) * fd.ny + wj0 + 2 * words > fd.n)
+    for li in range(wx):
+        e = (wi0 + li) * fd.ny + wj0
+        sh = (pq + e + fd.wrong) & 1
+        for w in range(words):
+            x = e - sh + 2 * w
+            if not edge:
+                fd.reads += [x, x + 1]
+            v = fd.word(x)
+            r = ((v << 16 | v >> 16) & 0xFFFFFFFF) if sh else v
+            base = li * rs + w
+            if 2 * w < wy:                          # column 2w
+                assert out[base] == SENTINEL
+                out[base] = r << 16 & 0xFFFFFFFF
+            if 0 <= 2 * w + 1 - 2 * sh < wy:        # column 2w + 1 - 2sh
+                at = base + hp - sh
+                assert 0 <= at < pl and out[at] == SENTINEL
+                out[at] = r & 0xFFFF0000
+    return out
+
+
+def check_a_words(field, tile, sweeps, method, wrong=0):
+    """Every block's window of ``field`` through A's word loads, placed as
+    A places it: True when each equals the fp32 window at A's places
+    (``at(li, lj) = li * RS + (lj & 1) * HP + (lj >> 1)``) bit for bit,
+    every word is aligned and nothing is read outside the tensor."""
+    fd = Field(field, wrong)
+    halo = a_halo(sweeps, method)
+    rs = tile[1] + 2 * halo
+    pl = (tile[0] + 2 * halo) * rs
+    words = rs // 2 + 1  # WR = HP + 1
+    ok = True
+    for wi0, wx, wj0, wy in _blocks(fd.nx, fd.ny, tile, halo):
+        got = a_window(fd, wi0, wx, wj0, wy, words, rs, pl)
+        want = np.full(pl, SENTINEL, np.uint32)
+        for li in range(wx):
+            for lj in range(wy):
+                want[li * rs + (lj & 1) * (rs // 2) + (lj >> 1)] = \
+                    fd.ref[wi0 + li, wj0 + lj]
+        ok &= np.array_equal(got, want)
+    return ok and fd.ok()
+
+
+@pytest.mark.parametrize("offset", OFFSETS)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("tile,sweeps,method", [
+    ((4, 6), 1, "rbgs"), ((4, 6), 3, "jacobi"), ((64, 64), 2, "rbgs"),
+    ((32, 64), 4, "jacobi"), ((8, 64), 4, "rbgs")])
+def test_a_bf16_words_are_the_fp32_window(shape, offset, tile, sweeps,
+                                          method):
+    """A: each block's rows of u and f as words, widened into A's halves,
+    are the window the fp32 path's cp.async loads place, at A's tiles and
+    tiny ones, RB-GS and Jacobi halos, views at storage offsets and windows
+    clamped at both edges."""
+    field = bf16_field(shape, offset, 3 * sum(shape) + offset)
+    assert check_a_words(field, tile, sweeps, method)
+
+
+def test_a_bf16_words_fail_with_the_wrong_row_shift():
+    field = bf16_field((37, 71), 1, 7)
+    assert not check_a_words(field, (4, 6), 2, "rbgs", wrong=1)
+
+
+def test_a_bf16_loads_fit_shared_memory():
+    """A's source loads bf16 rows by load_windows with WR = HP + 1 words a
+    row into its own halves, and its windows (u, f and Jacobi's second
+    buffer, fp32) fit one block's shared memory at every tile and sweep
+    count."""
+    assert "constexpr int K = kBu + kBf, WR = HP + 1;" in A_SRC
+    assert "[&](int li) { return li * RS; }" in A_SRC
+    assert "return jacobi ? sweeps : 2 * sweeps;" in A_SRC
+    for tx, ty in _tiles(TILES_SRC):
+        for sweeps in range(1, L_MAX + 1):
+            for method, arrays in (("rbgs", 2), ("jacobi", 3)):
+                h = a_halo(sweeps, method)
+                assert arrays * (tx + 2 * h) * (ty + 2 * h) * 4 <= \
+                    SMEM_PER_SM

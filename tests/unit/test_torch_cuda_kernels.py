@@ -884,8 +884,24 @@ def test_probe_matches_twin(dev, n, mode):
     u, f = _field((n, n), 45, dev, ring=True), _field((n, n), 46, dev)
     before = kmicro.probe.launches
     got = kmicro.probe(u, f, mode=mode, sweeps=3)
-    assert kmicro.probe.launches - before == 6
+    assert kmicro.probe.launches - before == 1  # one launch per call
     _exact(got, kmicro.probe_plain(u, f, mode=mode, sweeps=3))
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("mode", kmicro.MODES)
+@pytest.mark.parametrize("shape", [(513, 513), (1000, 771)])
+def test_probe_every_sweep_count_matches_twin(dev, shape, mode, sweeps):
+    """The probe runs every sweep of a call of up to MAX_SWEEPS sweeps in
+    one launch (5 sweeps: two), out of place, equal to its twin bit for bit
+    with the wrapped reads of sub and lane at the ring."""
+    u, f = _field(shape, 55, dev, ring=True), _field(shape, 56, dev)
+    u_in = u.clone()
+    before = kmicro.probe.launches
+    got = kmicro.probe(u_in, f, mode=mode, sweeps=sweeps)
+    assert kmicro.probe.launches - before == len(ksmooth.plan_passes(sweeps))
+    assert torch.equal(u_in, u)
+    _exact(got, kmicro.probe_plain(u, f, mode=mode, sweeps=sweeps))
 
 
 @pytest.mark.parametrize("shape", [(1025, 1025), (5, 7), (3, 3),
@@ -1219,3 +1235,50 @@ def test_multisweep_parity_bf16_word_rows_equal_twin(dev, shape, offsets,
                                                 sweeps=sweeps, omega=omega))
     _exact(got, ksmooth.multisweep(st, u_in.clone(), f, sweeps=sweeps,
                                    omega=omega, layout="direct"))
+
+
+# ---------------------------------------------------------------------------
+# u and f in two storages: A, L and H take every pairing of fp32 and bf16, as
+# the Pallas kernels cast u and f each on its own; the output keeps u's dtype
+# and equals the twin (which widens f to fp32 exactly) bit for bit
+
+PAIRINGS = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+            (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("pairing", PAIRINGS,
+                         ids=lambda p: f"u_{str(p[0])[6:]}_f_{str(p[1])[6:]}")
+@pytest.mark.parametrize("shape", [(9, 61), (1025, 1025)])
+@pytest.mark.parametrize("kernel", ["A", "A_jacobi", "L", "H"])
+def test_every_storage_pairing_equals_twin(dev, kernel, shape, pairing,
+                                           sweeps):
+    """A one-block field and one that fills the card, 1-5 sweeps (5: two
+    launches, the first on the input storage, the second into u's)."""
+    tu, tf = pairing
+    if kernel == "H":
+        st = _var_stencil(shape, "jump", dev)[1].astype(tu)
+        scale, wrapper = 1e3, ksmooth_var.multisweep_var
+    else:
+        st = stencil.make_stencil(T.Grid(*shape))
+        scale = st.c
+        wrapper = (ksmooth.multisweep_parity if kernel == "L"
+                   else ksmooth.multisweep)
+    method = "jacobi" if kernel == "A_jacobi" else "rbgs"
+    omega = 0.8 if kernel == "A_jacobi" else 1.0
+    layout = {"L": dict(layout="parity"), "H": {}}.get(kernel,
+                                                       dict(layout="direct"))
+    u = _field(shape, 57, dev, ring=True).to(tu)
+    f = _field(shape, 58, dev, scale).to(tf)
+    u_in = u.clone()
+    before = wrapper.launches
+    call = (ksmooth_var.multisweep_var if kernel == "H"
+            else ksmooth.multisweep)
+    got = call(st, u_in, f, method=method, sweeps=sweeps, omega=omega,
+               **layout)
+    assert wrapper.launches - before == len(ksmooth.plan_passes(sweeps))
+    assert got.dtype == tu
+    if kernel != "H":
+        assert torch.equal(u_in, u)  # A and L work out of place
+    _exact(got, ksmooth.multisweep_plain(st, u.clone(), f, method=method,
+                                         sweeps=sweeps, omega=omega))

@@ -8,6 +8,8 @@ the Pallas kernels multiply by 1/c where the twins divide by c, restrict
 separably ([1 2 1] along x, then y) where the twins sum centre, edges and
 corners, and interpolate in two half-weight passes where the twins average
 four corners at once; the tail chains about a hundred such steps.
+The smoothers' u and f may be stored in two dtypes (fp32 and bf16): both
+sides widen each exactly, compute in fp32 and round once into u's dtype.
 """
 
 import numpy as np
@@ -37,6 +39,7 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (  # noqa: E402
 )
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (  # noqa: E402
     smooth as ksmooth,
+    smooth_var as ksmooth_var,
     tail as ktail,
     transfer as ktransfer,
 )
@@ -149,3 +152,60 @@ def test_tail_twin_matches_pallas(entry, symmetric):
                                   torch.from_numpy(f),
                                   shapes=[g.shape for g in grids], **kw)
     _assert_close(got, ref, grids[0])
+
+
+# u and f in two storages: (u, f)
+MIXED = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+_JDT = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
+
+
+def _pair(a, b, dtypes):
+    """numpy u and f as torch tensors of ``dtypes`` and as JAX arrays of
+    the same values in the JAX layout."""
+    g = Grid(*a.shape)
+    ts = [torch.from_numpy(x).to(dt) for x, dt in zip((a, b), dtypes)]
+    js = [jnp.asarray(interop.field_to_jax_layout(t.float(), g), _JDT[dt])
+          for t, dt in zip(ts, dtypes)]
+    return ts, js
+
+
+@pytest.mark.parametrize("dtypes", MIXED, ids=["bf16u_fp32f", "fp32u_bf16f"])
+@pytest.mark.parametrize("sweeps", [1, 2, 3])
+@pytest.mark.parametrize("layout", ["direct", "parity"])
+def test_mixed_storage_twins_match_pallas(dtypes, sweeps, layout):
+    """A's twin (direct) and L's (parity) on a u and an f of two storages:
+    the output keeps u's dtype, as the Pallas kernel's out_shape does."""
+    n = 33
+    g, st, jstc = _stencils(n)
+    (u, f), (ju, jf) = _pair(_field(g.shape, 70 + sweeps),
+                             _field(g.shape, 80 + sweeps, st.c), dtypes)
+    ref = psmooth.multisweep(jstc, ju, jf, nx=n, ny=n, method="rbgs",
+                             sweeps=sweeps, omega=1.0, layout=layout,
+                             interpret=True)
+    assert ref.dtype == _JDT[dtypes[0]]
+    twin = (ksmooth.multisweep_plain if layout == "direct"
+            else ksmooth.multisweep_parity_plain)
+    got = twin(st, u.clone(), f, sweeps=sweeps)
+    assert got.dtype == dtypes[0]
+    _assert_close(got.float(), np.asarray(ref, np.float32), g)
+
+
+@pytest.mark.parametrize("dtypes", MIXED, ids=["bf16u_fp32f", "fp32u_bf16f"])
+@pytest.mark.parametrize("sweeps", [1, 2, 3])
+def test_mixed_storage_var_twin_matches_pallas(dtypes, sweeps):
+    """H's twin on a u and an f of two storages, its planes in u's dtype
+    (the port's gate keeps them so), a = 1 + x + y."""
+    n = 33
+    g = Grid(n, n)
+    X, Y = g.coordinates()
+    st = stencil.make_stencil(g, a=1.0 + X + Y).astype(dtypes[0])
+    jstc = jst.Stencil(*(jnp.asarray(interop.field_to_jax_layout(
+        x.float(), g), _JDT[dtypes[0]]) for x in st.coefs))
+    (u, f), (ju, jf) = _pair(_field(g.shape, 90 + sweeps),
+                             _field(g.shape, 95 + sweeps, 1e3), dtypes)
+    ref = psmooth.multisweep(jstc, ju, jf, nx=n, ny=n, method="rbgs",
+                             sweeps=sweeps, omega=1.0, interpret=True)
+    assert ref.dtype == _JDT[dtypes[0]]
+    got = ksmooth_var.multisweep_var(st, u.clone(), f, sweeps=sweeps)
+    assert got.dtype == dtypes[0]
+    _assert_close(got.float(), np.asarray(ref, np.float32), g)

@@ -130,6 +130,30 @@ def test_norms_match_jax(n, dtype):
         rtol=1e-13)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+def test_max_norm_matches_jax(n, dtype):
+    """max |r| in r's dtype, the ring included (the JAX layout's padding
+    is zero, so it does not change the maximum)."""
+    np_dt, t_dt, _ = DTYPES[dtype]
+    g = Grid(n, n)
+    (r,) = _fields(n, np_dt, seed=3 * n, count=1)
+    r[0, 1] = -7.5  # the largest magnitude, negative, on the ring
+    got = norms.max_norm(torch.from_numpy(r))
+    ref = jnorms.max_norm(_jax(r, g))
+    assert got.dtype == t_dt and got.item() == float(ref) == 7.5
+    (r,) = _fields(n, np_dt, seed=3 * n + 1, count=1)
+    assert norms.max_norm(torch.from_numpy(r)).item() == float(
+        jnorms.max_norm(_jax(r, g)))
+
+
+def test_omega_helpers_match_jax():
+    assert smooth.optimal_jacobi_omega() == jsmooth.optimal_jacobi_omega()
+    for nx, ny in ((17, 17), (33, 65), (1025, 1025)):
+        assert smooth.optimal_sor_omega(nx, ny) == \
+            jsmooth.optimal_sor_omega(nx, ny)
+
+
 @pytest.mark.parametrize("method", ["jacobi", "rbgs", "rbgs_rev"])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", SIZES)
