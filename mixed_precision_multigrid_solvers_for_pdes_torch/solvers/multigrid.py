@@ -50,6 +50,7 @@ from ..core.precision import PrecisionPolicy, as_dtype
 from ..ops import dispatch, galerkin as galerkin_mod, norms, \
     smooth as smooth_mod, stencil as st_mod, transfer
 from ..ops.stencil import Stencil
+from ..utils.timing import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +261,7 @@ def _cycle(levels: Tuple[Level, ...], u, f, lvl: int, cfg: MultigridConfig,
     return _smooth(lev, u, f, cfg, cfg.post_sweeps, post=True)
 
 
+@spanned("mg.cycle")
 def mg_cycle(levels: Tuple[Level, ...], u, f,
              cfg: MultigridConfig = MultigridConfig(), constrain=None):
     """One multigrid cycle on the finest level; updates ``u`` in place where
@@ -275,6 +277,7 @@ def mg_cycle(levels: Tuple[Level, ...], u, f,
     return _cycle(levels, u, f, 0, cfg, cfg.cycle, constrain)
 
 
+@spanned("mg.fmg")
 def fmg(levels: Tuple[Level, ...], f, cfg: MultigridConfig = MultigridConfig(),
         cycles_per_level: int = 1, constrain=None):
     """Full multigrid start: restrict the right-hand side to every level
@@ -309,15 +312,27 @@ def outer_iterate(step: Callable[[], torch.Tensor], rnorm0: torch.Tensor,
     """Run ``step`` (one outer iteration, returning the new residual norm as
     a 0-d tensor) until the norm is at most ``tol_eff`` or
     ``max_iterations`` is reached. Reads one value back to the host per
-    iteration (plus one for the start) and returns the info dict."""
-    rnorm, tol, fn = torch.stack([rnorm0, tol_eff, fnorm]).tolist()
+    iteration (plus one for the start), each counted in
+    ``outer_iterate.readbacks``, and returns the info dict."""
+    with span("mg.readback"):
+        rnorm, tol, fn = torch.stack([rnorm0, tol_eff, fnorm]).tolist()
+    outer_iterate.readbacks += 1
     hist = [rnorm]
     while rnorm > tol and len(hist) <= max_iterations:
-        rnorm = step().item()
+        with span("mg.outer"):
+            norm = step()
+        with span("mg.readback"):
+            rnorm = norm.item()
+        outer_iterate.readbacks += 1
         hist.append(rnorm)
     it = len(hist) - 1
     return _unpack_info(np.array([it, rnorm, hist[0], fn, rnorm <= tol]
                                  + hist, dtype=np.float64))
+
+
+# the host's reads of a norm in outer_iterate, each a wait for the card;
+# never reset here (as the kernel wrappers' ``launches``)
+outer_iterate.readbacks = 0
 
 
 def _unpack_info(packed: np.ndarray) -> Dict[str, Any]:
@@ -353,6 +368,7 @@ def tolerance(cfg: MultigridConfig, scale: torch.Tensor) -> torch.Tensor:
     return torch.full((), cfg.tol, dtype=scale.dtype, device=scale.device)
 
 
+@spanned("mg.solve")
 def mg_solve(levels: Tuple[Level, ...], f, u0=None,
              cfg: MultigridConfig = MultigridConfig(), *,
              use_fmg: bool = False, constrain=None

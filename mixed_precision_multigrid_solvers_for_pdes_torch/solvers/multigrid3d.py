@@ -57,6 +57,7 @@ from ..ops import dispatch, galerkin as galerkin_mod, norms, \
 from ..ops.smooth import RBGS_METHODS
 from ..ops.smooth3d import smooth3d  # noqa: F401  (re-exported)
 from ..ops.stencil3d import Stencil3D
+from ..utils.timing import spanned
 from .multigrid import BlockHook, MultigridConfig, outer_iterate, \
     tolerance
 
@@ -210,6 +211,7 @@ def _cycle3(levels: Tuple[Level3D, ...], u, f, lvl: int,
                     reverse=cfg.symmetric and cfg.smoother in RBGS_METHODS)
 
 
+@spanned("mg.cycle")
 def mg_cycle3d(levels: Tuple[Level3D, ...], u, f,
                cfg: MultigridConfig = MultigridConfig(), constrain=None):
     """One multigrid cycle on the finest level; updates ``u`` in place where
@@ -226,6 +228,7 @@ def _norm3(r, g: Grid3D) -> torch.Tensor:
     return norms.scaled_l2(r, g.hx, g.hy, g.hz)
 
 
+@spanned("mg.solve")
 def mg_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
                cfg: MultigridConfig = MultigridConfig(), *, constrain=None
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -260,6 +263,7 @@ def mg_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
     return state["u"], info
 
 
+@spanned("mg.solve")
 def ir_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
                cfg: MultigridConfig = MultigridConfig(), *,
                inner_cycles: int = 2, max_outer: int = 100, constrain=None

@@ -30,10 +30,12 @@ import numpy as np
 
 from ..core.precision import Precision, PrecisionPolicy
 from ..ops import norms, stencil as st_mod
+from ..utils.timing import spanned
 from . import multigrid as mg_mod, multigrid3d as mg3
 from .multigrid import MultigridConfig, convergence_factor
 
 
+@spanned("mg.solve")
 def ir_solve(levels, f, u0=None, cfg: MultigridConfig = MultigridConfig(), *,
              inner_cycles: int = 1, max_outer: int = 100,
              use_fmg: bool = False, constrain=None

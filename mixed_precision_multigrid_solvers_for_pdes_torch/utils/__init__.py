@@ -24,5 +24,7 @@ from .timing import (  # noqa: F401
     PerformanceProfiler,
     Timer,
     benchmark_function,
+    set_tracing,
+    span,
     trace_profile,
 )

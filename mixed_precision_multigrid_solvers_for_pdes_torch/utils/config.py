@@ -22,7 +22,8 @@ from typing import Any, Dict, Optional
 from ..core.grid import Grid
 from ..core.precision import Precision, PrecisionPolicy
 from ..ops.dispatch import BACKENDS
-from ..solvers.multigrid import MultigridConfig
+# the module, not the name: solvers.multigrid imports utils.timing
+from ..solvers import multigrid as mg_mod
 
 
 @dataclasses.dataclass
@@ -111,8 +112,8 @@ class SolverConfig:
                 raise ValueError("max_levels unreasonably large")
             self._feasible_levels = feasible
 
-    def build(self) -> MultigridConfig:
-        return MultigridConfig(
+    def build(self) -> mg_mod.MultigridConfig:
+        return mg_mod.MultigridConfig(
             cycle=self.cycle, pre_sweeps=self.pre_sweeps,
             post_sweeps=self.post_sweeps, smoother=self.smoother,
             omega=self.omega, max_levels=self.max_levels,

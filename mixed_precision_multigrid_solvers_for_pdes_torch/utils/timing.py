@@ -8,12 +8,24 @@ ends by waiting for the card on every CUDA tensor the measured call
 returned, found anywhere in tuples, lists, dicts or a ``.u`` attribute, as
 ``jax.block_until_ready`` waits on every leaf of a pytree. The warm-up
 calls (the kernels' build at first use included) are not timed.
+
+The solve path's spans (``span``, ``spanned``) mark its layers in a
+``torch.profiler`` trace while tracing is on (``set_tracing``, or a
+``trace_profile`` block): ``mg.solve`` around each call of ``mg_solve``,
+``mg_solve3d``, ``ir_solve`` and ``ir_solve3d``; ``mg.outer`` around each
+outer step and ``mg.readback`` around each read of its norm in
+``solvers/multigrid.outer_iterate``; ``mg.cycle`` around each top-level
+``mg_cycle``/``mg_cycle3d``; ``mg.fmg`` around ``fmg``. Each is a
+``record_function``, so it shares the profiler's clock with the card's
+operations. Tracing is off by default, and then a span costs one test of a
+module flag.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from collections import defaultdict
 from typing import Any, Callable, Dict, Iterator, List
@@ -140,20 +152,57 @@ def benchmark_function(fn: Callable, *args, warmup: int = 1, runs: int = 5,
     }
 
 
+_tracing = False
+_OFF = contextlib.nullcontext()
+
+
+def set_tracing(on: bool) -> bool:
+    """Turn the solve path's spans on or off; returns the previous
+    setting."""
+    global _tracing
+    previous, _tracing = _tracing, bool(on)
+    return previous
+
+
+def span(name: str):
+    """A context manager that records ``name`` as a
+    ``torch.profiler.record_function`` while tracing is on, and does
+    nothing while it is off."""
+    if not _tracing:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
 @contextlib.contextmanager
 def trace_profile(path: str = "torch_trace.json"):
     """``torch.profiler`` trace of the block, host operations and, where a
     card is present, its kernels (the hand-written ones launched through
-    ctypes included); the Chrome trace is written to the file ``path``
-    (open it in Perfetto or chrome://tracing) when the block ends. Yields
-    the profiler, whose ``key_averages()`` sum the time by operation."""
+    ctypes included), with the solve path's ``mg.*`` spans on for the
+    block; the Chrome trace is written to the file ``path`` (open it in
+    Perfetto or chrome://tracing) when the block ends. Yields the profiler,
+    whose ``key_averages()`` sum the time by operation."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    previous = set_tracing(True)
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        set_tracing(previous)
     prof.export_chrome_trace(str(path))
