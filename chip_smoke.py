@@ -37,13 +37,17 @@ Phases, each of which must pass:
      257^3, and with the coarsest solve's 32 sweeps at 5^3 and 3^3), time
      both, read the device time per launch from torch.profiler (E at
      513^3, F and G at 513^3 and 257^3), and time G against the in-place
-     yardstick u.mul_(2.0) at 513^3 in turns;
+     yardstick u.mul_(2.0) at 513^3 in turns; then hold N's step and start
+     at 513^3 on card tensors, fp32 and bf16 level storage, against its
+     twin (u_out and r_lo bit for bit, the norms to 1e-13), and time N's
+     step and the twin's (CUDA events) and N's device time per launch;
   8. solve the 3D path at 257^3 and at 513^3 with backend='auto', the
      513^3 run from launch counts reset to zero, and check convergence, the
      outer-step count of the JAX reference, the l2 error against the closed
      form, that E made exactly the launches it plans for the solve's
-     smoothing calls (one per call, 170) and F and G one per transfer call
-     (80 each); print the peak device memory;
+     smoothing calls (one per call, 170), F and G one per transfer call
+     (80 each) and N one at the start and one per outer step (6); print
+     the peak device memory;
   9. solve it at 513^3 with backend='torch' and check that both paths agree;
  10. time both 3D paths over frequency-swept right-hand sides, print ms and
      DoF/s, and profile one kernel-path solve with torch.profiler;
@@ -202,7 +206,8 @@ precisions and the 3D operator, each run from launch counts reset to zero:
      launch on bf16 beside fp32 with the 2-byte bound;
  30. solve_poisson3d(precision='mixed') at 513^3: the twins' outer-step
      count (MIXED3D_TWINS), l2 within 2% of 1.1093e-6, E, F and G launches
-     (all, and bf16 apart) equal to the plan of the mixed levels, ms per
+     (all, and bf16 apart) equal to the plan of the mixed levels, N one at
+     the start and one per outer step, ms per
      solve, peak memory and a profile; precision='bf16' at 513^3 for
      BF16_3D_ITERS cycles: every level on E-G in bf16 as planned, the same
      solve with every kernel call replaced by its twin on the card equal
@@ -375,6 +380,7 @@ L2_3D_EXPECTED = {257: 4.4371e-6, 513: 1.1093e-6}
 # relative residual, which bounds their distance to the discrete solution
 # far below this
 PATH3D_ATOL = 1e-8
+REFINE_NORM_RTOL = 1e-13  # N's norms: its sums' order differs from torch.sum
 N3_REF = 257             # the largest size the JAX reference ran
 SIZES3 = (N3, N3_REF, 129, 5)   # where E, F and G meet their twins
 K3, K3_PLAIN, REPEATS3 = 4, 2, 3   # 3D right-hand sides and repeats
@@ -1246,6 +1252,76 @@ def kernel_phase3d(dev, card):
     for (name, n), ms in dev_ms.items():
         print(f"device time {name} {n}^3: {ms:.4f} ms per launch "
               "(torch.profiler)")
+    return errs, times, dev_ms
+
+
+def refine_phase3d(dev, card):
+    """Phase 7 (end): kernel N's step and start at 513^3 on card tensors,
+    fp32 and bf16 level storage, against its twin: u_out and r_lo bit for
+    bit, the two norms to REFINE_NORM_RTOL (N sums the squares in another
+    order than torch.sum); CUDA-event ms of N's step and of the twin's
+    (the plain step N replaced), and N's device time per launch."""
+    import torch
+
+    from mixed_precision_multigrid_solvers_for_pdes_torch import Grid3D
+    from mixed_precision_multigrid_solvers_for_pdes_torch.core import bc3d
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import stencil3d
+    from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
+        import refine3d as kr3
+
+    gen = torch.Generator(device=dev).manual_seed(2626)
+    shape = (N3,) * 3
+    g = Grid3D(*shape)
+    h = (g.hx, g.hy, g.hz)
+    errs, times, dev_ms = {}, {}, {}
+    for lo in (torch.float32, torch.bfloat16):
+        st = stencil3d.make_stencil3d(g, dtype=lo).astype(torch.float64)
+        u = torch.randn(shape, dtype=torch.float64, device=dev,
+                        generator=gen)
+        e = (1e-3 * torch.randn(shape, device=dev, generator=gen)).to(lo)
+        f = st.c * torch.randn(shape, dtype=torch.float64, device=dev,
+                               generator=gen)
+        out = torch.empty_like(u)
+        r_lo = torch.empty(shape, dtype=lo, device=dev)
+        scratch = kr3.new_scratch(shape, dev)
+        for mode in ("step", "start"):
+            ee = e if mode == "step" else None
+            got = kr3.refine_step3d(st, u, ee, f, h=h, out=out, r_lo=r_lo,
+                                    scratch=scratch)
+            ref = kr3.refine_step3d_plain(st, u, ee, f, h=h,
+                                          r_lo=torch.empty_like(r_lo))
+            torch.cuda.synchronize()
+            fields = [(got[1], ref[1])]
+            if mode == "step":
+                fields.append((got[0], ref[0]))
+            err = max((a.double() - b.double()).abs().max().item()
+                      for a, b in fields)
+            rel = [abs(a.item() - b.item()) / abs(b.item())
+                   for a, b in zip(got[2:], ref[2:]) if a is not None]
+            print(f"check refine_step3d {N3}^3 {str(lo)[6:]} {mode}: "
+                  f"max_abs_err {err:.3e} ("
+                  f"{'u_out, r_lo' if mode == 'step' else 'r_lo'}), norms "
+                  f"rel {['%.2e' % x for x in rel]}")
+            if err != 0.0 or max(rel) > REFINE_NORM_RTOL:
+                fail(f"refine_step3d {N3}^3 {lo} {mode}: not bit for bit "
+                     f"({err:.3e}) or norms beyond {REFINE_NORM_RTOL}")
+            errs["refine_step3d"] = max(errs.get("refine_step3d", 0.0), err)
+            del got, ref
+        if lo == torch.float32:
+            step = lambda: kr3.refine_step3d(  # noqa: E731
+                st, u, e, f, h=h, out=out, r_lo=r_lo, scratch=scratch)
+            unknown = bc3d.unknown_mask3d(*shape, device=dev)
+            twin = lambda: kr3.refine_step3d_plain(  # noqa: E731
+                st, u, e, f, h=h, out=out, r_lo=r_lo, unknown=unknown)
+            times[("refine_step3d", N3)] = (time_ms(step, reps=10),
+                                            time_ms(twin, reps=5))
+            dev_ms[("refine_step3d", N3)] = device_ms(step, "refine_step3d")
+            k_ms, p_ms = times[("refine_step3d", N3)]
+            print(f"time refine_step3d {N3}^3: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms; device {dev_ms[('refine_step3d', N3)]:.4f}"
+                  f" ms per launch (torch.profiler) [{card}]")
+        del st, u, e, f, out, r_lo, scratch
+        torch.cuda.empty_cache()
     return errs, times, dev_ms
 
 
@@ -3650,7 +3726,7 @@ def counted3d(run, ks3, kx3):
 def precision3d_path(mg, card, dev):
     """Phase 30: the 3D precisions on poisson3d_mms_sinsinsin: 'mixed' at
     513^3 (the twins' count, l2, E-G launches per plan with the bf16 ones
-    apart, ms per solve, busy share, peak memory), 'bf16' at 513^3 with
+    apart, N's 1 + outer steps, ms per solve, busy share, peak memory), 'bf16' at 513^3 with
     BF16_3D_ITERS cycles (every level on E-G in bf16; the kernel path equal
     to the twin path bit for bit, its l2 at most the plain path's) and
     'adaptive' at 257^3 (the JAX package's iterations, switches and l2);
@@ -3658,7 +3734,7 @@ def precision3d_path(mg, card, dev):
     import torch
 
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
-        import smooth3d as ks3, transfer3d as kx3
+        import refine3d as kr3, smooth3d as ks3, transfer3d as kx3
 
     start = time.perf_counter()
     bf = torch.bfloat16
@@ -3670,9 +3746,16 @@ def precision3d_path(mg, card, dev):
                                   device=dev)
 
     torch.cuda.reset_peak_memory_stats(dev)
+    n_before = kr3.refine_step3d.launches
     res, got, got3 = counted3d(mixed, ks3, kx3)
     peak = torch.cuda.max_memory_allocated(dev)
     check_solve3d(f"mixed {N3}^3 auto", res, MIXED3D_TWINS, MIXED3D_L2, N3)
+    n_launches = kr3.refine_step3d.launches - n_before
+    print(f"mixed {N3}^3: N launches {n_launches}, plan the start and "
+          f"{res.iterations} outer steps")
+    if n_launches != 1 + res.iterations:
+        fail(f"mixed {N3}^3: N made {n_launches} launches, its plan "
+             f"{1 + res.iterations}")
     levels = mg.build_hierarchy3d(prob.grid, policy=mg.policy("mixed"),
                                   device=dev, cfg=cfg)
     plan = cycle_plan3d(levels, cfg, res.iterations * IR_INNER_CYCLES, ks3)
@@ -4960,6 +5043,10 @@ def work(name):
                                  + 10 * sum(k * k for k in tail),
                                  vcycle_flops(tail)),
         "smooth_parity_bf16": (6 * n * n, 12 * 2 * (n - 2) ** 2),
+        # N's fp32 step: u_in, e, f in, u_out, r_lo out; 16 fp64 operations
+        # a node (the update, the residual, r^2 and its sum), which the
+        # bytes bound by far at either precision's peak
+        "refine_step3d": (32 * m ** 3, 16 * (m - 2) ** 3),
     }[name]
 
 
@@ -5393,8 +5480,8 @@ def main(argv) -> int:
         return 2
     import mixed_precision_multigrid_solvers_for_pdes_torch as mg
     from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels \
-        import _build, smooth as ks, smooth3d as ks3, tail as kt, \
-        transfer as kx, transfer3d as kx3
+        import _build, refine3d as kr3, smooth as ks, smooth3d as ks3, \
+        tail as kt, transfer as kx, transfer3d as kx3
 
     card = host_report()
     print(card)
@@ -5511,9 +5598,14 @@ def main(argv) -> int:
     errs.update(errs3)
     times.update(times3)
     dev_ms.update(dev_ms3)
+    errs3, times3, dev_ms3 = refine_phase3d(dev, card)
+    errs.update(errs3)
+    times.update(times3)
+    dev_ms.update(dev_ms3)
     wrappers3 = {"rbgs3d": ks3.rbgs3d,
                  "residual_restrict3d": kx3.residual_restrict3d,
-                 "prolong_correct3d": kx3.prolong_correct3d}
+                 "prolong_correct3d": kx3.prolong_correct3d,
+                 "refine_step3d": kr3.refine_step3d}
     solve3d(mg, N3_REF, "auto", dev)
     for w in wrappers3.values():
         w.launches = 0
@@ -5537,6 +5629,11 @@ def main(argv) -> int:
         if launches3[name] != cycles * transfers:
             fail(f"{name} made {launches3[name]} launches in the {N3}^3 "
                  f"solve, one per call is {cycles * transfers}")
+    print(f"N launches per {N3}^3 solve: {launches3['refine_step3d']} "
+          f"(its plan: the start and {res_k.iterations} outer steps)")
+    if launches3["refine_step3d"] != 1 + res_k.iterations:
+        fail(f"refine_step3d made {launches3['refine_step3d']} launches in "
+             f"the {N3}^3 solve, its plan {1 + res_k.iterations}")
     launches.update(launches3)
     res_p, peak_p = solve3d(mg, N3, "torch", dev)
     du = (res_k.u - res_p.u).abs().max().item()
@@ -5655,7 +5752,9 @@ def main(argv) -> int:
                                               "transfer.py:262"),
                "tail_vcycle_var_bf16": ("csrc/tail_var.cu", "tail.py:122"),
                "smooth_parity_bf16": ("csrc/smooth_parity.cu",
-                                      "smooth.py:119")}
+                                      "smooth.py:119"),
+               # N replaces no Pallas kernel: _ir3_jit leaves it to XLA
+               "refine_step3d": ("csrc/refine3d.cu", None)}
     main_n = {"smooth_multisweep": 1025, "residual_restrict": 1025,
               "prolong_correct": 1025, "tail_vcycle": 129,
               "smooth_var": N_VAR, "residual_restrict_var": N_VAR,
@@ -5667,7 +5766,8 @@ def main(argv) -> int:
               "rbgs3d_bf16": N3, "residual_restrict3d_bf16": N3,
               "prolong_correct3d_bf16": N3, "smooth_var_bf16": N_VAR,
               "residual_restrict_var_bf16": N_VAR,
-              "tail_vcycle_var_bf16": 129, "smooth_parity_bf16": N}
+              "tail_vcycle_var_bf16": 129, "smooth_parity_bf16": N,
+              "refine_step3d": N3}
     timed = {"probe": "probe_roll"}  # the record times the 5-point probe
     record = []
     for name, (src, rep) in sources.items():
@@ -5676,7 +5776,7 @@ def main(argv) -> int:
         ms = times[key][0]
         record.append({
             "name": name, "route": "cuda", "source": f"{PKG}/{src}",
-            "replaces": rep if rep.startswith("scripts/")
+            "replaces": rep if rep is None or rep.startswith("scripts/")
             else f"{TPU_PKG}/{rep}",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": times[key][1], "bound_ms": bound_ms,

@@ -5,4 +5,5 @@ on first launch (``_build.library``).
 """
 
 from . import (  # noqa: F401
-    smooth, smooth3d, smooth_planes, smooth_var, tail, transfer, transfer3d)
+    refine3d, smooth, smooth3d, smooth_planes, smooth_var, tail, transfer,
+    transfer3d)

@@ -38,6 +38,7 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_D = ctypes.c_double
 _IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
@@ -63,6 +64,8 @@ _SIGNATURES = {
     "mg_residual_restrict3d": ([_P, _P, _P] + [_I] * 5 + [_F] * 7
                                + [_I, _I, _I, _P], _I),
     "mg_prolong_correct3d": ([_P, _P] + [_I] * 5 + [_I, _I, _I, _P], _I),
+    "mg_refine3d_blocks": ([_I] * 4 + [_IP], _I),
+    "mg_refine_step3d": ([_P] * 7 + [_I] * 3 + [_D] * 8 + [_I, _I, _P], _I),
     "mg_rbgs_parity": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I] * 3 + [_P],
                        _I),
     "mg_planes_rbgs": ([_P] * 3 + [_I, _I] + [_F] * 6 + [_I, _I, _P], _I),

@@ -81,6 +81,14 @@ package's gates (:147, :175: a stencil whose c is not 0-d): the kernels
 read seven scalars. Weighted Jacobi and the line smoother stay on the
 plain path in 3D, as they did on the TPU. There is no 3D tail kernel: the
 JAX package never built one.
+
+The float64 outer step of ``ir_solve3d`` on an all-Dirichlet level 0
+(``refine_step3d``) takes kernel N, which replaces no Pallas kernel (the
+JAX package leaves that step to XLA), where ``refine3d_ok`` admits it: a
+constant-coefficient 7-point level 0 of fp32 or bf16, with contiguous
+fp64 fields on a card. Any other such level 0 takes N's plain twin; a
+solve under a sharding hook and any other spec keep the masked plain step
+(``ir_solve3d`` asks).
 """
 
 from __future__ import annotations
@@ -90,9 +98,10 @@ import torch
 from . import smooth as smooth_mod, smooth3d as smooth3d_mod
 from .stencil import Stencil9
 from .stencil3d import Stencil3D
-from .cuda_kernels import smooth as k_smooth, smooth3d as k_smooth3d, \
-    smooth_planes as k_planes, smooth_var as k_smooth_var, tail as k_tail, \
-    transfer as k_transfer, transfer3d as k_transfer3d
+from .cuda_kernels import refine3d as k_refine3d, smooth as k_smooth, \
+    smooth3d as k_smooth3d, smooth_planes as k_planes, \
+    smooth_var as k_smooth_var, tail as k_tail, transfer as k_transfer, \
+    transfer3d as k_transfer3d
 
 BACKENDS = ("auto", "torch")
 TAIL_MAX_ENTRY = 129
@@ -309,3 +318,40 @@ def prolong_correct3d(lev, nxt, ec, u):
     """Fused u += P ec on fine unknowns, in place (gate with
     transfer_fused3d_ok first)."""
     return k_transfer3d.prolong_correct3d(ec, u)
+
+
+def refine3d_ok(lev0, cfg, *fields) -> bool:
+    """True when kernel N runs ``ir_solve3d``'s float64 outer step on
+    ``lev0``: a constant-coefficient 7-point stencil on an all-Dirichlet
+    box, fp32 or bf16 level storage, and ``fields`` (the solve's f and u0)
+    contiguous fp64 tensors on a CUDA device. The caller also asks that no
+    sharding hook is given."""
+    return (_kernels(cfg.backend)
+            and _scalar7(lev0.stencil)
+            and lev0.spec.all_dirichlet
+            and lev0.dtype in k_refine3d.STORAGE
+            and all(x.is_cuda and x.dtype == torch.float64
+                    and x.is_contiguous() for x in fields))
+
+
+def refine_step3d(lev0, st_hi, u_in, e, f, *, kernel: bool, out=None,
+                  r_lo=None, scratch=None):
+    """The float64 step (``e`` given) or start (``e`` None) of
+    ``ir_solve3d`` on an all-Dirichlet level 0 with its float64 stencil
+    ``st_hi``: kernel N where ``kernel`` (refine3d_ok's answer for the
+    solve; ``scratch`` from ``refine3d_scratch``), else its plain twin,
+    which updates ``u_in`` in place when ``out`` is ``u_in``. Returns
+    ``(u, r_lo, rnorm, fnorm)`` (``cuda_kernels.refine3d``)."""
+    g = lev0.grid
+    h = (g.hx, g.hy, g.hz)
+    if kernel:
+        return k_refine3d.refine_step3d(st_hi, u_in, e, f, h=h, out=out,
+                                        r_lo=r_lo, scratch=scratch)
+    return k_refine3d.refine_step3d_plain(st_hi, u_in, e, f, h=h, out=out,
+                                          r_lo=r_lo, unknown=lev0.unknown)
+
+
+def refine3d_scratch(f):
+    """Kernel N's scratch for a solve of ``f``'s shape on its card (one per
+    solve: each launch leaves it ready for the next)."""
+    return k_refine3d.new_scratch(f.shape, f.device)

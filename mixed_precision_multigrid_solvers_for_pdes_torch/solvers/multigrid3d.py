@@ -28,6 +28,22 @@ finest holds the RAP operator of the level above (``ops/galerkin.py``), a
 ``Stencil27``, built in float64 down the chain and cast to each level's
 dtype; such levels take no kernel.
 
+``ir_solve3d``'s float64 outer step takes the hand-written kernel N
+(``ops/cuda_kernels/refine3d.py``; it replaces no Pallas kernel: the JAX
+package's ``_ir3_jit`` leaves the step to XLA) where ``dispatch.refine3d_ok``
+admits level 0: a constant-coefficient 7-point stencil on an all-Dirichlet
+box, fp32 or bf16 storage, contiguous fp64 ``f`` and ``u0`` on a card, and
+no hook. One launch forms the start's cast residual and both norms, and one
+a step adds the correction, forms the residual from the updated iterate and
+writes its cast for the next cycles and its norm; the fp64 residual is never
+stored. N works out of place, so the iterate ping-pongs between two fp64
+buffers (``u0`` is only read). Its norms are deterministic two-level sums
+(per block, then over the blocks in a fixed order). Any other
+all-Dirichlet level 0 with no hook (coefficient fields, ``Stencil27``, an
+fp64 level, the 'torch' backend, CPU tensors) takes N's plain twin, the
+same step in plain operations, the iterate updated in place; periodic,
+Neumann or Robin faces and a hook take the masked plain step.
+
 ``constrain=`` is a sharding hook, as in the JAX package: an array hook,
 (array, Level3D) -> array (``multigrid.whole``), applied to the coarse
 right-hand side and the prolonged correction of each cycle and to the
@@ -273,44 +289,55 @@ def ir_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
 
     Each outer step runs ``inner_cycles`` cycles on the residual cast to
     level 0's dtype, starting the correction from zero, and adds it on
-    unknowns (in place on an all-Dirichlet box, whose unknowns are the
-    interior). The stopping test reads the residual norm back once per
+    unknowns. The stopping test reads the residual norm back once per
     outer step; a periodic solution's duplicate nodes are synced at the
     end (the JAX package's ``_ir3_jit`` leaves them at the initial
     guess). ``make_constrainer3d``'s hook runs it on this rank's blocks,
     the float64 solution and residual kept there (as ``mg_solve3d``); an
-    array hook is applied to the float64 iterate too."""
+    array hook is applied to the float64 iterate too.
+
+    An all-Dirichlet level 0 with no hook runs each step through
+    ``dispatch.refine_step3d``. A constant-coefficient 7-point one in fp32
+    or bf16, with contiguous fp64 ``f`` and ``u0`` on a card
+    (``dispatch.refine3d_ok``), takes kernel N for the float64 work: one
+    launch at the start (the cast residual and both norms) and one a step
+    (the update, the residual from it, its cast and norm), the fp64
+    residual never stored. The iterate then ping-pongs between two fp64
+    buffers, ``u0`` only read; the result is the one written last. N's
+    norms are deterministic two-level sums (per block, then over the
+    blocks in a fixed order), so the history may differ from the plain
+    step's in the last bits, the iterate not. Any other such level 0 takes
+    N's plain twin, which updates one iterate in place. A hook or any
+    other spec takes the masked plain step."""
     hook = _block_hook(constrain)
     if hook is not None:
         return hook.ir_solve(levels, f, u0, cfg, inner_cycles=inner_cycles,
                              max_outer=max_outer, use_fmg=False)
     lev0 = levels[0]
-    g, unknown = lev0.grid, lev0.unknown
+    g = lev0.grid
     lo, f64 = lev0.dtype, torch.float64
     st_hi = lev0.stencil.astype(f64)
     f = f.to(device=lev0.device, dtype=f64)
     u = (torch.zeros(g.shape, dtype=f64, device=lev0.device) if u0 is None
-         else u0.to(device=lev0.device, dtype=f64, copy=True))
+         else u0.to(device=lev0.device, dtype=f64))
+    if constrain is None and lev0.spec.all_dirichlet:
+        return _ir_box3d(levels, st_hi, f, u, u is not u0, cfg,
+                         inner_cycles, max_outer)
+    if u is u0:
+        u = u.clone()  # the solve's own iterate, synced in place below
+    unknown = lev0.unknown
     fnorm = norms.masked_scaled_l2(f, unknown, g.hx, g.hy, g.hz)
     state = {"u": u, "r": st3.residual(st_hi, u, f, unknown)}
     rnorm0 = _norm3(state["r"], g)
     tol_eff = tolerance(cfg, torch.maximum(fnorm, rnorm0))
-    box = lev0.spec.all_dirichlet
 
     def step():
         e = lev0.zeros()
         r_lo = state["r"].to(lo)
         for _ in range(inner_cycles):
             e = mg_cycle3d(levels, e, r_lo, cfg, constrain)
-        if constrain is not None:
-            state["u"] = constrain(torch.where(
-                unknown, state["u"] + e.to(f64), state["u"]), lev0)
-        elif box:
-            # e is zero on the shell, so this is the masked update u += e
-            u[1:-1, 1:-1, 1:-1] += e[1:-1, 1:-1, 1:-1]
-        else:
-            state["u"] = torch.where(unknown, state["u"] + e.to(f64),
-                                     state["u"])
+        u = torch.where(unknown, state["u"] + e.to(f64), state["u"])
+        state["u"] = u if constrain is None else constrain(u, lev0)
         state["r"] = st3.residual(st_hi, state["u"], f, unknown)
         return _norm3(state["r"], g)
 
@@ -319,3 +346,43 @@ def ir_solve3d(levels: Tuple[Level3D, ...], f, u0=None,
         lev0.sync(state["u"])
     info["method"] = "iterative_refinement_3d"
     return state["u"], info
+
+
+def _ir_box3d(levels, st_hi, f, u0, owned, cfg, inner_cycles, max_outer):
+    """``ir_solve3d``'s outer loop on an all-Dirichlet level 0 with no hook:
+    each step through ``dispatch.refine_step3d``, on kernel N where
+    ``dispatch.refine3d_ok`` admits the solve, else on N's plain twin.
+    ``r_lo`` is rewritten in place for the next step's cycles. N works out
+    of place: the start reads ``u0``, and step k reads the buffer step
+    k - 1 wrote and writes the other of two fp64 buffers. The twin updates
+    one iterate in place, a copy of ``u0`` unless ``owned`` (``u0`` is this
+    solve's own tensor, which it may write and hand back)."""
+    lev0 = levels[0]
+    kernel = dispatch.refine3d_ok(lev0, cfg, f, u0)
+    if not (kernel or owned):
+        u0, owned = u0.clone(), True
+    scratch = dispatch.refine3d_scratch(f) if kernel else None
+    run = functools.partial(dispatch.refine_step3d, lev0, st_hi,
+                            kernel=kernel, scratch=scratch)
+    r_lo = torch.empty(lev0.grid.shape, dtype=lev0.dtype, device=lev0.device)
+    _, _, rnorm0, fnorm = run(u0, None, f, r_lo=r_lo)
+    tol_eff = tolerance(cfg, torch.maximum(fnorm, rnorm0))
+    bufs = [None, None] if kernel else [u0, u0]
+    state = {"u": u0, "k": 0}
+
+    def step():
+        e = lev0.zeros()
+        for _ in range(inner_cycles):
+            e = mg_cycle3d(levels, e, r_lo, cfg)
+        k = state["k"] % 2
+        if bufs[k] is None:
+            bufs[k] = torch.empty_like(f)
+        state["u"], _, rnorm, _ = run(state["u"], e, f, out=bufs[k],
+                                      r_lo=r_lo)
+        state["k"] += 1
+        return rnorm
+
+    info = outer_iterate(step, rnorm0, tol_eff, fnorm, max_outer)
+    info["method"] = "iterative_refinement_3d"
+    u = state["u"]
+    return (u if owned or u is not u0 else u.clone()), info

@@ -68,6 +68,7 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (  # noqa: E402
 )
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (  # noqa: E402
     _build,
+    refine3d as krefine3d,
     smooth3d as ksmooth3d,
     transfer3d as ktransfer3d,
 )
@@ -80,7 +81,7 @@ DTYPES = {"float32": (np.float32, torch.float32, 1e-6),
 PALLAS_TOL = 1e-5
 MAIN = dict(smoother="rbgs", omega=1.0, tol=1e-9)
 WRAPPERS = (ksmooth3d.rbgs3d, ktransfer3d.residual_restrict3d,
-            ktransfer3d.prolong_correct3d)
+            ktransfer3d.prolong_correct3d, krefine3d.refine_step3d)
 # l2 error of the 7-point solution of sin(pi x) sin(pi y) sin(pi z): the
 # discrete solution is (3 pi^2 / lambda_h) u_exact with lambda_h =
 # (12/h^2) sin^2(pi h / 2), so the error is |3 pi^2/lambda_h - 1| / sqrt(8)
@@ -405,7 +406,7 @@ def test_auto_backend_on_cpu_runs_the_twins():
     assert torch.equal(out["auto"].u, out["torch"].u)
     assert out["auto"].info["history"].tolist() == \
         out["torch"].info["history"].tolist()
-    assert [w.launches for w in WRAPPERS] == [0, 0, 0]
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
 def test_dispatch_gates_3d():

@@ -32,6 +32,11 @@ bit too. E, F and G do the same on bf16 storage (E rounds once per call
 however many launches it takes), and since their fp32 bodies equal their
 twins on any domain, the bf16 ones are held to them bit for bit on the
 skewed box.
+
+Kernel N, the float64 step of ``ir_solve3d``, rounds every operation in its
+twin's order, so its iterate and its cast residual are held to the twin bit
+for bit; its norms sum in another order (per block, then over the blocks)
+and are held to the twin's to 1e-13 relative.
 """
 
 import numpy as np
@@ -43,6 +48,7 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.benchmarking import (
     kernel_microbench as kmicro,
 )
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
+    dispatch,
     planes,
     stencil,
     stencil3d,
@@ -50,6 +56,7 @@ from mixed_precision_multigrid_solvers_for_pdes_torch.ops import (
 from mixed_precision_multigrid_solvers_for_pdes_torch.core import bc
 from mixed_precision_multigrid_solvers_for_pdes_torch.ops.cuda_kernels import (
     _build,
+    refine3d as krefine3d,
     smooth as ksmooth,
     smooth3d as ksmooth3d,
     smooth_planes as ksmooth_planes,
@@ -222,7 +229,6 @@ def test_tail_vcycle_equals_the_abc_recursion(dev, monkeypatch, method,
     """D from 129^2 against the same V-cycle through A, B and C launches
     (the tail gate shut, the coarsest sweeps on A): D uses A's updates and
     B's and C's device functions, so the two agree bit for bit."""
-    from mixed_precision_multigrid_solvers_for_pdes_torch.ops import dispatch
     from mixed_precision_multigrid_solvers_for_pdes_torch.solvers import \
         multigrid
     cfg = T.MultigridConfig(smoother=method, symmetric=symmetric,
@@ -1282,3 +1288,169 @@ def test_every_storage_pairing_equals_twin(dev, kernel, shape, pairing,
         assert torch.equal(u_in, u)  # A and L work out of place
     _exact(got, ksmooth.multisweep_plain(st, u.clone(), f, method=method,
                                          sweeps=sweeps, omega=omega))
+
+
+# ---------------------------------------------------------------------------
+# N: the float64 step of ir_solve3d
+
+# (33, 65, 17): N's 8 x 32 tiles and its x-chunks do not divide the interior
+SHAPES_REFINE3D = [(33, 33, 33), (65, 65, 65), (129, 129, 129),
+                   (513, 513, 513), (33, 65, 17)]
+# N's norms sum in another order than torch.sum (per block, then over the
+# blocks), so they equal the twin's to round-off of the sum, not bit for bit
+NORM_RTOL = 1e-13
+
+
+def _refine_inputs(shape, lo, dev, e_offset=0):
+    """The skewed box's fp64 stencil and spacings, u_in with a non-zero
+    shell, e in the level's dtype (non-zero on the shell too, which N must
+    not add), f."""
+    g, st = _stencil3d(shape, "skew")
+    gen = torch.Generator(dev).manual_seed(sum(shape))
+    u = torch.randn(shape, dtype=torch.float64, device=dev, generator=gen)
+    e = 1e-3 * torch.randn(shape, device=dev, generator=gen)
+    f = st.c * torch.randn(shape, dtype=torch.float64, device=dev,
+                           generator=gen)
+    return (st.astype(torch.float64), (g.hx, g.hy, g.hz), u,
+            _at_offset(e, e_offset, lo), f)
+
+
+def _norm_close(got, ref):
+    assert abs(got.item() - ref.item()) <= NORM_RTOL * abs(ref.item()), \
+        (got.item(), ref.item())
+
+
+@pytest.mark.parametrize("lo", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES_REFINE3D)
+def test_refine_step3d_matches_twin(dev, shape, lo):
+    """Step and start: u_out and r_lo bit for bit, the norms to 1e-13;
+    u_in untouched; one launch each."""
+    st, h, u, e, f = _refine_inputs(shape, lo, dev)
+    u_in = u.clone()
+    before = krefine3d.refine_step3d.launches
+    out = torch.full_like(u, float("nan"))
+    r_lo = torch.full(shape, float("nan"), dtype=lo, device=dev)
+    got = krefine3d.refine_step3d(st, u, e, f, h=h, out=out, r_lo=r_lo)
+    ref = krefine3d.refine_step3d_plain(st, u, e, f, h=h)
+    _exact(got[0], ref[0])
+    _exact(got[1], ref[1])
+    _norm_close(got[2], ref[2])
+    assert got[0] is out and got[1] is r_lo and got[3] is None
+    assert torch.equal(u, u_in)
+    r_lo.fill_(float("nan"))
+    got = krefine3d.refine_step3d(st, u, None, f, h=h, r_lo=r_lo)
+    ref = krefine3d.refine_step3d_plain(st, u, None, f, h=h,
+                                        r_lo=torch.empty_like(r_lo))
+    _exact(got[1], ref[1])
+    _norm_close(got[2], ref[2])
+    _norm_close(got[3], ref[3])
+    assert got[0] is u and torch.equal(u, u_in)
+    assert krefine3d.refine_step3d.launches == before + 2
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(37, 66, 70), (33, 34, 131)])
+def test_refine_step3d_bf16_words_equal_twin(dev, shape, offset):
+    """bf16 e read as the aligned words that hold it, at storage offsets 0
+    and 1 (rows start in either half of a word); reruns give the same
+    norm bits."""
+    st, h, u, e, f = _refine_inputs(shape, torch.bfloat16, dev, offset)
+    got = krefine3d.refine_step3d(st, u, e, f, h=h)
+    ref = krefine3d.refine_step3d_plain(st, u, e, f, h=h)
+    _exact(got[0], ref[0])
+    _exact(got[1], ref[1])
+    _norm_close(got[2], ref[2])
+    again = krefine3d.refine_step3d(st, u, e, f, h=h)
+    assert again[2].item() == got[2].item()
+
+
+@pytest.mark.parametrize("shape", [(33, 65, 17), (129, 129, 129)])
+def test_refine_step3d_one_scratch_serves_every_launch(dev, shape):
+    """A solve's one scratch, zeroed once: a start and three steps that
+    ping-pong between two buffers give the norm bits of launches on fresh
+    scratch each, and the iterate bit for bit."""
+    st, h, u, e, f = _refine_inputs(shape, torch.float32, dev)
+    scratch = krefine3d.new_scratch(shape, dev)
+    r_lo = torch.empty(shape, device=dev)
+    kept = krefine3d.refine_step3d(st, u, None, f, h=h, r_lo=r_lo,
+                                   scratch=scratch)
+    fresh = krefine3d.refine_step3d(st, u, None, f, h=h,
+                                    r_lo=torch.empty_like(r_lo))
+    assert [x.item() for x in kept[2:]] == [x.item() for x in fresh[2:]]
+    bufs, ref = [torch.empty_like(u), torch.empty_like(u)], u
+    for k in range(3):
+        kept = krefine3d.refine_step3d(st, u, e, f, h=h, out=bufs[k % 2],
+                                       r_lo=r_lo, scratch=scratch)
+        fresh = krefine3d.refine_step3d(st, ref, e, f, h=h)
+        _exact(kept[0], fresh[0])
+        assert kept[2].item() == fresh[2].item()
+        u, ref = kept[0], fresh[0]
+
+
+def test_refine_step3d_refuses_what_it_does_not_take(dev):
+    st, h, u, e, f = _refine_inputs((9, 9, 9), torch.float32, dev)
+    with pytest.raises(ValueError, match="alias"):
+        krefine3d.refine_step3d(st, u, e, f, h=h, out=u)
+    with pytest.raises(TypeError):
+        krefine3d.refine_step3d(st, u.float(), e, f, h=h)
+    with pytest.raises(TypeError):
+        krefine3d.refine_step3d(st, u, e.double(), f, h=h)
+    with pytest.raises(TypeError):
+        krefine3d.refine_step3d(st, u, e, f, h=h,
+                                r_lo=e.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        krefine3d.refine_step3d(st, u, e[:, :, :-1].contiguous(), f, h=h)
+    with pytest.raises(ValueError, match="scratch"):
+        krefine3d.refine_step3d(st, u, e, f, h=h, scratch=krefine3d
+                                .new_scratch((9, 129, 129), dev))
+
+
+def _refine_levels(n, dev):
+    prob = T.poisson3d_mms_sinsinsin(n)
+    cfg = T.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    levels = T.build_hierarchy3d(prob.grid, prob.spec, dtype="float32",
+                                 device=dev, cfg=cfg)
+    return (levels, prob.rhs(torch.float64, dev),
+            prob.initial_guess(torch.float64, dev), cfg)
+
+
+def test_ir_solve3d_takes_n(dev, monkeypatch):
+    """65^3: one launch of N at the start and one a step; the iterate
+    equals the plain step's (N closed) bit for bit and the count and
+    history equal backend 'torch''s, the history to 1e-12."""
+    levels, f, u0, cfg = _refine_levels(65, dev)
+    kept = u0.clone()
+    before = krefine3d.refine_step3d.launches
+    u_k, info_k = T.ir_solve3d(levels, f, u0, cfg, inner_cycles=2)
+    assert krefine3d.refine_step3d.launches - before == \
+        1 + info_k["iterations"]
+    assert info_k["converged"] and torch.equal(u0, kept)
+    u_t, info_t = T.ir_solve3d(levels, f, u0, cfg.replace(backend="torch"),
+                               inner_cycles=2)
+    assert info_k["iterations"] == info_t["iterations"]
+    np.testing.assert_allclose(info_k["history"], info_t["history"],
+                               rtol=1e-12, atol=0)
+    monkeypatch.setattr(dispatch, "refine3d_ok", lambda *a: False)
+    u_p, info_p = T.ir_solve3d(levels, f, u0, cfg, inner_cycles=2)
+    assert krefine3d.refine_step3d.launches - before == \
+        1 + info_k["iterations"]
+    assert torch.equal(u_k, u_p) and \
+        info_k["iterations"] == info_p["iterations"]
+    np.testing.assert_allclose(info_k["history"], info_p["history"],
+                               rtol=1e-12, atol=0)
+
+
+def test_solve_poisson3d_mixed_takes_n(dev):
+    """A 'mixed' 33^3 solve through N keeps its error bound: the 7-point
+    discretisation error of the closed form."""
+    prob = T.poisson3d_mms_sinsinsin(33)
+    cfg = T.MultigridConfig(smoother="rbgs", omega=1.0, tol=1e-9)
+    before = krefine3d.refine_step3d.launches
+    res = T.solve_poisson3d(prob, precision="mixed", cfg=cfg, device=dev)
+    assert res.converged
+    assert krefine3d.refine_step3d.launches - before == 1 + res.iterations
+    h = 1.0 / 32
+    lam_h = 12.0 / h**2 * np.sin(np.pi * h / 2) ** 2
+    np.testing.assert_allclose(res.errors["l2"],
+                               abs(3 * np.pi**2 / lam_h - 1) / np.sqrt(8),
+                               rtol=1e-4)
